@@ -1,0 +1,47 @@
+"""PyTorch + CUDA port of the path tracer in ``path_tracing__ray_tracer_tpu``.
+
+The same scene, camera, material and geometry API and the same scene
+compiler, as torch tensors on one device; the path tracer's bounce runs as a
+hand-written CUDA kernel (``csrc/path_bounce.cu``) on an NVIDIA GPU, and as
+its plain torch version on the CPU.  Imports neither JAX nor Triton, and
+builds no kernel until one is first launched.
+
+Quick start::
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(4 / 3)
+    renderer = pt.RendererFactory.create("cuda_path_raytracer")  # device="cuda"
+    img = renderer.render(scene, cam, pt.RenderSettings(512, 384, 64, 8))
+"""
+
+from .core import (  # noqa: F401
+    AABB,
+    Camera,
+    CameraParams,
+    HitRecord,
+    Hittable,
+    Material,
+    Plane,
+    Ray,
+    RenderSettings,
+    Scene,
+    Sphere,
+    Texture,
+    Triangle,
+    Vec3,
+    create_area_light,
+)
+from .compiler import (  # noqa: F401
+    CompiledScene,
+    compile_scene,
+    compiled_scene_from_numpy,
+    pack_camera,
+)
+from .models.base import BaseRenderer, NotPortedError, RendererFactory  # noqa: F401
+
+# importing a renderer module registers it with the factory
+from .models import path_tracer as _path_tracer  # noqa: F401,E402
+from .scene_builders.custom_scene_builder import CustomSceneBuilder  # noqa: F401,E402
+
+__version__ = "0.1.0"

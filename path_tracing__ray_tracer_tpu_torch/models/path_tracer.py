@@ -1,0 +1,200 @@
+"""Wavefront Monte-Carlo path tracer — port of the JAX package's
+``models/path_tracer.py`` (reference ``renderers/cuda_path_tracer.py``):
+global illumination with next-event estimation, Russian roulette, the
+stochastic three-event glass model and ACES tonemapping, with the
+reference's stylized-physics quirks (see the JAX module's docstring).
+
+Each bounce is one launch of the CUDA kernel ``ops/cuda/bounce.path_bounce``
+(its plain torch version on the CPU).  Between bounces plain torch ops
+resolve the base colour (atlas texel or material colour), apply the two
+multiply-adds, and regenerate finished lanes.  Randomness is the counter
+hash: a pure function of (seed, pixel, sample, depth, use).
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+
+from ..ops import rng
+from ..ops.camera import generate_rays
+from ..ops.cuda.bounce import (
+    T_MAX,
+    T_MIN,
+    pack_light_blob,
+    pack_mat_blob,
+    pack_scene_blob,
+    path_bounce,
+)
+from ..ops.texture import resolve_base_color
+from ..ops.tonemap import aces
+from ..ops.v3 import V3
+from .base import RendererFactory
+from .wavefront import WavefrontRenderer
+
+# jitter slots live at depth == max_depth (outside the bounce counter range)
+_U_JITX, _U_JITY = 0, 1
+
+# Scheduling knobs of _regen_chunk; none of them changes a pixel.  The host
+# reads the count of unfinished lanes once every _CHECK_EVERY bounces (one
+# device sync each); when at most half the lanes are still working, the
+# batch is compacted to those lanes.
+_CHECK_EVERY = 4
+_COMPACT_BELOW = 0.5
+
+
+def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
+                 n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
+                 jitter: str, shadow_tmax: str = "reference") -> None:
+    """Add ``n_samples`` radiance samples for the pixels
+    ``[pix0, pix0 + n_pix)`` into ``sums`` (a ``(3, ≥ pix0 + n_pix)`` tensor),
+    by *ray regeneration*: a pool of ``n_pix`` lanes in which a lane that
+    finishes a path (miss / RR kill / throughput cutoff / max depth) starts
+    its next (pixel, sample) item at once.
+
+    Lane ``i``'s ``s``-th item is pixel ``(i + s·STRIDE) mod n_pix``: the
+    golden-ratio stride spreads the slow pixels (glass) over all lanes.
+
+    What defines the result (equal to the JAX package's ``_regen_chunk``):
+    each item's path sum is the left fold of its per-bounce contributions;
+    each pixel adds its items onto ``sums`` in ascending sample order; the
+    jitter draws sit at depth ``max_depth``, slots 0 and 1.  Each lane
+    carries its item's running sum and parks it in ``acc[sample, pixel]``
+    when the item finishes, so the fold order holds whatever the lane
+    schedule, stride, compaction or chunk width.  Out-of-frame lanes clamp
+    to the last pixel but hash their unclamped index; the caller cuts them.
+    """
+    NS, N = int(n_samples), int(n_pix)
+    dev = sums.device
+    stride = (int(N * 0.6180339887) | 1) % N if NS > 1 else 0
+    total = width * height
+    blob, mat_blob, light_blob = blobs
+    shadow_light = shadow_tmax == "light"
+
+    def make_ray(lane_ids, s):
+        """Camera ray, RNG key and pixel slot of lane ``lane_ids``' item ``s``."""
+        p_local = (lane_ids + s * stride) % N
+        idx = pix0 + p_local
+        safe = torch.clamp(idx, max=total - 1)
+        x = (safe % width).to(torch.float32)
+        y = (safe // width).to(torch.float32)
+        key = rng.ray_key(seed, idx, sample_base + s)
+        if jitter == "center":
+            r1 = r2 = 0.5
+        else:
+            r1 = rng.uniform(key, max_depth, _U_JITX)
+            r2 = r1 if jitter == "diagonal" else rng.uniform(key, max_depth, _U_JITY)
+        o, d = generate_rays(cam12, (x + r1) / width, (y + r2) / height)
+        return o, d, key, p_local
+
+    lane = torch.arange(N, dtype=torch.int64, device=dev)
+    s = torch.zeros(N, dtype=torch.int64, device=dev)
+    o, d, key, ploc = make_ray(lane, s)
+    one = torch.ones(N, dtype=torch.float32, device=dev)
+    thr = V3(one, one, one)
+    psum = V3(*(torch.zeros_like(one) for _ in range(3)))  # the item's running path sum
+    depth = torch.zeros(N, dtype=torch.int32, device=dev)
+    # finished item sums by (sample, pixel slot); row NS catches the lanes
+    # that finish nothing in a bounce (each at its own slot: no duplicates)
+    acc = torch.zeros((3, (NS + 1) * N), dtype=torch.float32, device=dev)
+
+    it = 0
+    while True:
+        if it % _CHECK_EVERY == 0:
+            left = s < NS
+            n_left = int(left.sum())  # host sync
+            if n_left == 0:
+                break
+            if it > NS * max_depth:  # a lane needs at most NS·max_depth bounces
+                raise RuntimeError(f"path tracer: {n_left} lanes unfinished after {it} bounces")
+            if n_left <= _COMPACT_BELOW * lane.shape[0]:
+                sel = torch.nonzero(left)[:, 0]
+                o, d, thr, psum = o.take(sel), d.take(sel), thr.take(sel), psum.take(sel)
+                key, depth, s, ploc, lane = key[sel], depth[sel], s[sel], ploc[sel], lane[sel]
+        out = path_bounce(cs, blob, mat_blob, light_blob, o, d, thr, key, depth,
+                          t_min=T_MIN, t_max=T_MAX, shadow_light=shadow_light)
+        base = resolve_base_color(cs, out.mat_color, (out.tex_id >= 0.0).to(torch.float32),
+                                  out.tex_id.to(torch.int32), out.u, out.v)
+        active = s < NS
+        contrib = thr * out.w_sky + thr * (base * out.w_nee)
+        psum = V3.where(active, psum + contrib, psum)
+        live = active & out.hit & ~out.killed
+        thr_new = thr * out.rr_scale * (base * out.t_thr + V3(out.s_thr, out.s_thr, out.s_thr))
+        thr = V3.where(live, thr_new, thr)
+        live = live & (thr.max_component() >= 0.001)
+        ndepth = depth + 1
+        live = live & (ndepth < max_depth)
+        done = active & ~live
+
+        slot = torch.where(done, s * N + ploc, NS * N + lane)
+        acc[:, slot] = torch.stack(psum)
+        psum = V3(*(torch.where(done, 0.0, ch) for ch in psum))
+
+        s = s + done.to(torch.int64)
+        regen = done & (s < NS)
+        o_new, d_new, key_new, ploc_new = make_ray(lane, s)
+        o = V3.where(regen, o_new, V3.where(live, out.new_org, o))
+        d = V3.where(regen, d_new, V3.where(live, out.new_dir, d))
+        thr = V3(*(torch.where(regen, 1.0, ch) for ch in thr))
+        key = torch.where(regen, key_new, key)
+        ploc = torch.where(regen, ploc_new, ploc)
+        depth = torch.where(live, ndepth, 0)
+        it += 1
+
+    # re-bin: each pixel adds its items in ascending sample order
+    chunk = sums[:, pix0:pix0 + N]
+    for si in range(NS):
+        chunk += acc[:, si * N:(si + 1) * N]
+
+
+class PathTracer(WavefrontRenderer):
+    """The flagship renderer, ``cuda_path_raytracer`` (alias
+    ``tpu_path_raytracer``)."""
+
+    def __init__(self, sample_group: int = 128, jitter: str = "independent",
+                 shadow_tmax: str = "reference", **kw):
+        # sample_group: samples per chunk call; renders are group-invariant
+        # bit for bit (every pixel folds its samples in ascending order).
+        # shadow_tmax="light" bounds NEE occlusion at the sampled light
+        # instead of the reference's 1e6 quirk.
+        if shadow_tmax not in ("reference", "light"):
+            raise ValueError(f"shadow_tmax must be reference or light, not {shadow_tmax!r}")
+        super().__init__("cuda_path_raytracer", jitter=jitter, **kw)
+        self.sample_group = int(sample_group)
+        self.shadow_tmax = str(shadow_tmax)
+        self._blobs = {}
+
+    def get_capabilities(self) -> List[str]:
+        return [
+            "path_tracing", "global_illumination", "monte_carlo",
+            "next_event_estimation", "russian_roulette", "soft_shadows", "caustics",
+            "reflection", "refraction", "textures", "aces_tonemapping",
+            "cuda_acceleration",
+        ]
+
+    def _samples_per_group(self, spp: int) -> int:
+        return max(1, min(self.sample_group, spp))
+
+    def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, **kw):
+        key = id(cs)
+        if key not in self._blobs:
+            self._blobs[key] = (pack_scene_blob(cs), pack_mat_blob(cs), pack_light_blob(cs))
+        _regen_chunk(cs, self._blobs[key], cam12, sums, pix0, seed, sample_base,
+                     jitter=self.jitter, shadow_tmax=self.shadow_tmax, **kw)
+
+    def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):
+        spp = settings.samples_per_pixel if n_samples is None else n_samples
+        group = self._samples_per_group(settings.samples_per_pixel)
+        if spp % group != 0:
+            # keep groups uniform (the JAX package's rule)
+            group = next(g for g in range(min(group, spp), 0, -1) if spp % g == 0)
+            self.sample_group = group
+        return super().device_sums(scene, camera, settings, sample_offset=sample_offset,
+                                   n_samples=spp)
+
+    def _finalize_dev(self, sums, spp_total: int, settings):
+        return aces(sums / float(spp_total))
+
+
+RendererFactory.register("cuda_path_raytracer", PathTracer)
+RendererFactory.register_alias("tpu_path_raytracer", "cuda_path_raytracer")

@@ -1,0 +1,244 @@
+"""Scene intersection in plain torch ops: all rays against all primitives.
+
+Port of the brute-force formulation of the JAX package's ``ops/intersect.py``
+(its ``_closest_broadcast`` path): an ``(N, P)`` candidate matrix per
+primitive type, concatenated in plane → sphere → quad → triangle order and
+reduced with a first-occurrence ``argmin``, so ties resolve exactly like the
+reference's sequential strict-``<`` scan.  Winner attributes (normal, UV) are
+recomputed from the primitive tables after the reduction.
+
+These ops are the plain version that the CUDA bounce kernel
+(``ops/cuda/bounce.py``) is held against; the BVH branches of the JAX module
+are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .v3 import V3
+
+EPS = 1e-6
+_ALL = slice(None)
+
+
+class SceneHit(NamedTuple):
+    hit: torch.Tensor  # (N,) bool
+    t: torch.Tensor  # (N,) f32
+    point: V3  # (N,)
+    normal: V3  # (N,) — quads/triangles flipped toward the ray
+    u: torch.Tensor  # (N,)
+    v: torch.Tensor  # (N,)
+    prim: torch.Tensor  # (N,) int32 global primitive index, -1 on miss
+
+
+def _plane_candidate(cs, i, ro: V3, rd: V3, t_min, best_t):
+    """Finite-rectangle hit (``cuda_texture_renderer.py:445-521``): strict
+    ``t_min < t < best_t``, inclusive ``0 <= u_hit <= u_len`` bounds."""
+    n = cs.planes.normal.at_index(i)
+    anchor = cs.planes.anchor.at_index(i)
+    u_unit = cs.planes.u_unit.at_index(i)
+    v_unit = cs.planes.v_unit.at_index(i)
+    u_len = cs.planes.u_len[i]
+    v_len = cs.planes.v_len[i]
+
+    denom = rd.dot(n)
+    nonparallel = torch.abs(denom) > EPS
+    t = (anchor - ro).dot(n) / torch.where(nonparallel, denom, 1.0)
+    rel = ro + rd * t - anchor
+    u_hit = rel.dot(u_unit)
+    v_hit = rel.dot(v_unit)
+    valid = (
+        nonparallel & (t > t_min) & (t < best_t)
+        & (u_hit >= 0.0) & (u_hit <= u_len)
+        & (v_hit >= 0.0) & (v_hit <= v_len)
+    )
+    return valid, t
+
+
+def _sphere_candidate(cs, i, ro: V3, rd: V3, t_min, best_t):
+    """Quadratic two-root selection (``cuda_texture_renderer.py:548-570``):
+    near root if in range, else far root, both against the running best."""
+    center = cs.spheres.center.at_index(i)
+    radius = cs.spheres.radius[i]
+
+    oc = ro - center
+    a = rd.dot(rd)
+    b = oc.dot(rd)
+    c = oc.dot(oc) - radius * radius
+    disc = b * b - a * c
+    has_roots = disc > 0.0
+    sqrt_d = torch.sqrt(torch.clamp(disc, min=0.0))
+    t1 = (-b - sqrt_d) / a
+    t2 = (-b + sqrt_d) / a
+    t1_ok = (t1 > t_min) & (t1 < best_t)
+    t2_ok = (t2 > t_min) & (t2 < best_t)
+    t = torch.where(t1_ok, t1, t2)
+    chosen = torch.where(t1_ok, t1, torch.where(t2_ok, t2, -1.0))
+    valid = has_roots & (t1_ok | t2_ok) & (chosen > 0.0)
+    return valid, t
+
+
+def _quad_candidate(cs, i, ro: V3, rd: V3, t_min, best_t):
+    """Parallelogram quad: plane hit + two dual-basis dot products."""
+    n = cs.quads.normal.at_index(i)
+    origin = cs.quads.origin.at_index(i)
+    du = cs.quads.du.at_index(i)
+    dv = cs.quads.dv.at_index(i)
+
+    denom = rd.dot(n)
+    nonparallel = torch.abs(denom) > EPS
+    t = (origin - ro).dot(n) / torch.where(nonparallel, denom, 1.0)
+    rel = ro + rd * t - origin
+    a = rel.dot(du)
+    b = rel.dot(dv)
+    valid = (
+        nonparallel & (t > t_min) & (t < best_t)
+        & (a >= 0.0) & (a <= 1.0) & (b >= 0.0) & (b <= 1.0)
+    )
+    return valid, t
+
+
+def _triangle_candidate(cs, i, ro: V3, rd: V3, t_min, best_t):
+    """Möller–Trumbore (``cuda_texture_renderer.py:636-677``)."""
+    v0 = cs.triangles.v0.at_index(i)
+    e1 = cs.triangles.v1.at_index(i) - v0
+    e2 = cs.triangles.v2.at_index(i) - v0
+
+    h = rd.cross(e2)
+    det = e1.dot(h)
+    nonparallel = torch.abs(det) > EPS
+    inv_det = 1.0 / torch.where(nonparallel, det, 1.0)
+    s = ro - v0
+    u = inv_det * s.dot(h)
+    q = s.cross(e1)
+    v = inv_det * rd.dot(q)
+    t = inv_det * e2.dot(q)
+    valid = (
+        nonparallel & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+        & (t > t_min) & (t < best_t)
+    )
+    return valid, t
+
+
+_CANDIDATES = (_plane_candidate, _sphere_candidate, _quad_candidate, _triangle_candidate)
+
+
+def _lift(v: V3) -> V3:
+    """(N,) SoA vector → (N, 1), so arithmetic against (P,) tables broadcasts."""
+    return V3(v.x[:, None], v.y[:, None], v.z[:, None])
+
+
+def _bound(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(t_max, dtype=torch.float32, device=like.device).expand(n)
+
+
+def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max):
+    n = ro.x.shape[0]
+    ro1, rd1 = _lift(ro), _lift(rd)
+    bound = _bound(t_max, n, ro.x)
+    inf = torch.tensor(float("inf"), device=ro.x.device)
+    parts = []
+    for cand in _CANDIDATES:
+        valid, t = cand(cs, _ALL, ro1, rd1, t_min, bound[:, None])
+        parts.append(torch.where(valid, t, inf))
+    t_all = torch.cat(parts, dim=1)
+    best_idx = torch.argmin(t_all, dim=1)
+    best_t = torch.gather(t_all, 1, best_idx[:, None])[:, 0]
+    hit = torch.isfinite(best_t)
+    best_t = torch.where(hit, best_t, bound)
+    return torch.where(hit, best_idx.to(torch.int32), -1), best_t, hit
+
+
+def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
+    """Closest hit of every ray against the whole scene (``t_max`` scalar or (N,))."""
+    P, S, Q, T = cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles
+    best_idx, best_t, hit = _closest_broadcast(cs, ro, rd, t_min, t_max)
+    point = ro + rd * best_t
+
+    is_plane = hit & (best_idx < P)
+    is_sphere = hit & (best_idx >= P) & (best_idx < P + S)
+    is_quad = hit & (best_idx >= P + S) & (best_idx < P + S + Q)
+    is_tri = hit & (best_idx >= P + S + Q)
+
+    bi = best_idx.long()
+    pi = torch.clamp(bi, 0, P - 1)
+    si = torch.clamp(bi - P, 0, S - 1)
+    qi = torch.clamp(bi - P - S, 0, Q - 1)
+    ti = torch.clamp(bi - P - S - Q, 0, T - 1)
+
+    # plane attributes
+    pn = cs.planes.normal.take(pi)
+    rel = point - cs.planes.anchor.take(pi)
+    p_u = rel.dot(cs.planes.u_unit.take(pi)) / cs.planes.u_len[pi]
+    p_v = rel.dot(cs.planes.v_unit.take(pi)) / cs.planes.v_len[pi]
+
+    # sphere attributes (UV fixed at 0 — reference quirk 3)
+    s_rad = cs.spheres.radius[si]
+    sn = (point - cs.spheres.center.take(si)) * (1.0 / torch.where(s_rad > 0, s_rad, 1.0))
+
+    # quad attributes: dual-basis coordinates, normal flipped toward the ray
+    q_rel = point - cs.quads.origin.take(qi)
+    qa = q_rel.dot(cs.quads.du.take(qi))
+    qb = q_rel.dot(cs.quads.dv.take(qi))
+    qn_raw = cs.quads.normal.take(qi)
+    qn = V3.where(qn_raw.dot(rd) > 0.0, -qn_raw, qn_raw)
+    q_u = cs.quads.uv0[0][qi] + qa * cs.quads.uva[0][qi] + qb * cs.quads.uvb[0][qi]
+    q_v = cs.quads.uv0[1][qi] + qa * cs.quads.uva[1][qi] + qb * cs.quads.uvb[1][qi]
+
+    # triangle attributes: barycentrics recomputed from the winner's vertices
+    tv0 = cs.triangles.v0.take(ti)
+    e1 = cs.triangles.v1.take(ti) - tv0
+    e2 = cs.triangles.v2.take(ti) - tv0
+    h = rd.cross(e2)
+    det = e1.dot(h)
+    inv_det = 1.0 / torch.where(torch.abs(det) > EPS, det, 1.0)
+    s_vec = ro - tv0
+    bu = inv_det * s_vec.dot(h)
+    bv = inv_det * rd.dot(s_vec.cross(e1))
+    tn_raw = cs.triangles.normal.take(ti)
+    bw = 1.0 - bu - bv
+    tn = V3.where(tn_raw.dot(rd) > 0.0, -tn_raw, tn_raw)
+    if cs.tri_uv_used.shape[0]:
+        tri = cs.triangles
+        t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
+        t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
+    else:
+        # no textured triangle in the scene: nothing reads triangle uv
+        t_u = t_v = torch.zeros_like(bu)
+
+    normal = V3.where(is_plane, pn, V3.where(is_sphere, sn, V3.where(is_quad, qn, tn)))
+    u = torch.where(is_plane, p_u, torch.where(is_quad, q_u, torch.where(is_tri, t_u, 0.0)))
+    v = torch.where(is_plane, p_v, torch.where(is_quad, q_v, torch.where(is_tri, t_v, 0.0)))
+    # miss default normal matches the reference's (0, 1, 0)
+    zero, one = torch.zeros_like(u), torch.ones_like(u)
+    normal = V3.where(hit, normal, V3(zero, one, zero))
+    return SceneHit(hit=hit, t=best_t, point=point, normal=normal, u=u, v=v, prim=best_idx)
+
+
+def scene_hit_any(cs, ro: V3, rd: V3, t_min: float, t_max) -> torch.Tensor:
+    """Existence-only occlusion query for shadow rays with per-ray ``t_max``."""
+    n = ro.x.shape[0]
+    ro1, rd1 = _lift(ro), _lift(rd)
+    bound = _bound(t_max, n, ro.x)[:, None]
+    occluded = torch.zeros(n, dtype=torch.bool, device=ro.x.device)
+    for cand in _CANDIDATES:
+        valid, _ = cand(cs, _ALL, ro1, rd1, t_min, bound)
+        occluded = occluded | torch.any(valid, dim=1)
+    return occluded
+
+
+def resolve_material(cs, prim_idx: torch.Tensor):
+    """The winner's material record through the unique-material table
+    (``compiler`` builds it for ≤ 128 distinct materials), else straight from
+    the per-primitive table.  Plain indexing; miss lanes (``prim < 0``) read
+    primitive 0, as in the JAX package."""
+    idx = torch.clamp(prim_idx, min=0).long()
+    if cs.mat_table is None:
+        m = cs.materials
+    else:
+        m = cs.mat_table
+        idx = cs.mat_uid[idx].long()
+    return (m.color.take(idx), m.diffuse[idx], m.specular[idx], m.reflective[idx],
+            m.refractive[idx], m.ior[idx], m.has_tex[idx], m.tex_id[idx])

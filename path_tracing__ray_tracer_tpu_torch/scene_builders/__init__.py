@@ -1,0 +1,3 @@
+"""Scene construction (parity with the reference ``scene_builders/``)."""
+
+from .custom_scene_builder import CustomSceneBuilder  # noqa: F401

@@ -1,0 +1,106 @@
+"""The CUDA bounce kernel against its plain torch version, on an NVIDIA GPU.
+
+The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
+without a card.  The file imports no JAX (the GPU machine has none); run it
+there without the JAX-configuring ``conftest.py``:
+
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
+
+Bars as in ``chip_smoke.py``: hit and the winning primitive on ≥ 99.99% of
+lanes, ``killed`` on ≥ 99.9%, float fields within ``atol = rtol = 1e-4`` on
+lanes where both hit.
+"""
+import numpy as np
+import pytest
+import torch
+
+import path_tracing__ray_tracer_tpu_torch as pt
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
+from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+TOL = 1e-4
+FLOATS = ("w_sky", "w_nee", "rr_scale", "s_thr", "t_thr", "new_org", "new_dir", "u", "v",
+          "tex_id", "mat_color")
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    dev = torch.device("cuda")
+    cs = pt.compile_scene(pt.CustomSceneBuilder().build_scene(), device=dev)
+    blobs = (bounce.pack_scene_blob(cs), bounce.pack_mat_blob(cs), bounce.pack_light_blob(cs))
+    return dev, cs, blobs
+
+
+def _inputs(n, seed, dev):
+    """Half camera rays, half rays from inside the box; random throughput,
+    keys on both sides of the int32 sign bit, depths 0-5."""
+    g = np.random.default_rng(seed)
+    ro = g.uniform(-14, 14, (n, 3)).astype(np.float32)
+    rd = g.normal(size=(n, 3)).astype(np.float32)
+    ro[: n // 2] = [0, 0, 50]
+    rd[: n // 2, 2] = -np.abs(rd[: n // 2, 2]) - 2.0
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    thr = g.uniform(0.02, 1.5, (n, 3)).astype(np.float32)
+    key = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32).view(np.int32)
+    depth = (np.arange(n) % 6).astype(np.int32)
+    o, d, t = (V3(*(torch.from_numpy(a[:, i].copy()).to(dev) for i in range(3)))
+               for a in (ro, rd, thr))  # contiguous components, as the kernel takes
+    return o, d, t, torch.from_numpy(key).to(dev), torch.from_numpy(depth).to(dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadow_light", [False, True])
+@pytest.mark.parametrize("n", [131072, 4096 + 37])  # the bench chunk; a ragged tail
+def test_kernel_matches_plain(card, n, shadow_light):
+    dev, cs, blobs = card
+    o, d, thr, key, depth = _inputs(n, n, dev)
+    before = bounce.path_bounce.launches
+    got = bounce.path_bounce(cs, *blobs, o, d, thr, key, depth, shadow_light=shadow_light)
+    torch.cuda.synchronize()
+    assert bounce.path_bounce.launches == before + 1
+    want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=shadow_light)
+
+    same = (got.hit == want.hit) & (got.prim == want.prim)
+    assert float(same.float().mean()) >= 0.9999
+    assert float((got.killed == want.killed).float().mean()) >= 0.999
+    lanes = same & got.hit & (got.killed == want.killed)
+    for f in FLOATS:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, tuple):
+            a, b, m = torch.stack(list(a)), torch.stack(list(b)), lanes.expand(3, -1)
+        else:
+            m = lanes
+        torch.testing.assert_close(a[m], b[m], rtol=TOL, atol=TOL, msg=f)
+    assert 0.2 < float(got.hit.float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take(card):
+    dev, cs, blobs = card
+    o, d, thr, key, depth = _inputs(256, 5, dev)
+    before = bounce.path_bounce.launches
+    bad_inputs = [
+        (V3(o.x.double(), o.y, o.z), d, thr, key, depth),  # dtype
+        (o, d, thr, key.long(), depth),  # key must be int32 bits
+        (o, V3(d.x[:-1], d.y, d.z), thr, key, depth),  # shape
+        (o, d, thr, key, depth.cpu()),  # device
+        (V3(torch.zeros(256, 2, device=dev)[:, 0], o.y, o.z), d, thr, key, depth),  # strides
+    ]
+    for args in bad_inputs:
+        with pytest.raises(ValueError):
+            bounce.path_bounce(cs, *blobs, *args)
+    assert bounce.path_bounce.launches == before
+
+
+@pytest.mark.cuda
+def test_main_path_launches_the_kernel(card):
+    dev, _, _ = card
+    b = pt.CustomSceneBuilder()
+    r = pt.RendererFactory.create("cuda_path_raytracer", seed=1, device=dev)
+    before = bounce.path_bounce.launches
+    sums = r.render_sums(b.build_scene(), b.create_camera(1.0),
+                         pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    assert bounce.path_bounce.launches > before
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
