@@ -3,21 +3,38 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path (``path_tracing__ray_tracer_tpu_torch``, the
-Cornell path tracer behind ``RendererFactory.create("cuda_path_raytracer")``)
-once on the card, in phases; any failed phase raises and the script exits
-non-zero.  It imports no JAX.
+Drives each path of the port (``path_tracing__ray_tracer_tpu_torch``) once on
+the card, in phases; any failed phase raises and the script exits non-zero.
+It imports no JAX.
 
 1. environment: torch/CUDA/nvcc/Triton versions and ``nvidia-smi``'s card
    name and power limit; fails when ``torch.cuda.is_available()`` is false;
-2. build: compiles the bounce kernel from ``csrc/`` (timed);
-3. the kernel against its plain torch version on the card, at 131,072 rays:
-   camera rays at depth 0 and the state after three plain bounces, both
-   shadow bounds;
-4. timing of the kernel and the plain version (CUDA events, median);
-5. the golden render of ``tests/goldens/path.npy`` on the card;
-6. the main path at bench size: 1024², depth 8, one 128-sample group after a
-   warm-up group, with the kernel's launch count from that run.
+2. build: compiles every kernel library from ``csrc/``, one ``nvcc`` per
+   source, all at once (timed, with registers and spills);
+3. each kernel against its plain torch version on the card, at 131,072 rays:
+   K1 (path bounce) on camera rays at depth 0 and the state after three plain
+   bounces, both shadow bounds; K3a/K3b (closest / any hit) on the Whitted
+   frame's camera rays and one light-sample shadow ray per lane with its own
+   bound; K2 (Whitted bounce), both variants, on those camera rays and the
+   rays one plain bounce on.  Then at the shapes the paths launch: K2 on the
+   Whitted frame's first chunk (2,099,200 camera rays, both variants, and
+   the compacted second bounce), K3a/K3b on level 0 of the oracle frame's
+   first chunk (its camera rays, and the shadow rays of all 16 light
+   samples from every lane in one batch);
+4. timing of each kernel and its plain version at 131,072 rays (CUDA
+   events, median), and each kernel's bound (the least time the card could
+   take for the same work) from this run's inputs;
+5. the four golden renders of ``tests/goldens/`` on the card, each failing
+   if its kernel did not launch;
+6. the path tracer's main path at bench size: 1024², depth 8, one
+   128-sample group after a warm-up group (K1's launch count);
+7. the Whitted CLI default: ``cuda_texture_raytracer`` at 2000×1500, 25 spp,
+   depth 16, a warm-up render then a timed one, with its RMSE/255 against
+   ``reference_artifacts/output_RayTracer.png`` (K2's launch count); then
+   the torch profiler over the same frame: device operations per Whitted
+   bounce, device busy time and K2's share of it;
+8. the oracle ``cpu_raytracer`` at 320×240, 4 spp, depth 6 (K3a/K3b's
+   launch counts).
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -40,6 +57,18 @@ CHUNK_RAYS = 1 << 24
 TOL = 1e-4  # atol = rtol on float fields, lanes where both versions hit
 HIT_AGREE = 0.9999  # share of lanes with equal hit flag and winning primitive
 KILL_AGREE = 0.999  # share of lanes with equal Russian-roulette verdict
+OCC_AGREE = 0.9999  # share of shadow rays with equal occlusion verdict
+# the Whitted CLI default (reference README; the JAX package's bench.py)
+W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH, W_CHUNK = 2000, 1500, 25, 16, 1 << 21
+RMSE_LIMIT = 2.0  # /255, against reference_artifacts/output_RayTracer.png
+# the oracle frame (cut from the CLI's 2000x1500: the oracle is the reference's slow mode)
+O_WIDTH, O_HEIGHT, O_SPP, O_DEPTH = 320, 240, 4, 6
+# H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+# float operations (add, sub, mul, div, sqrt) of one primitive test of
+# csrc/sweep.cuh, by primitive type (plane, sphere, quad, triangle)
+TEST_FLOPS = (33, 28, 33, 45)
 
 
 def _run(cmd) -> str:
@@ -71,15 +100,19 @@ def phase_environment():
 
 
 def phase_build():
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import build, bounce, intersect, whitted
 
     t0 = time.perf_counter()
-    built = bounce.build()
+    libs = build.load_all()
     secs = time.perf_counter() - t0
-    print(f"[build] path_bounce: {secs:.2f} s total, nvcc {built.seconds:.2f} s -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
-            print(f"[build]   {line.strip()}")
+    for mod in (bounce, intersect, whitted):
+        mod.build()  # binds the argument types
+    print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
+    for name, built in libs.items():
+        print(f"[build] {name}: nvcc {built.seconds:.2f} s -> {built.path.name}")
+        for line in built.log.splitlines():
+            if any(k in line for k in ("Function properties", "registers", "spill", "rror")):
+                print(f"[build]   {line.strip()}")
     return secs
 
 
@@ -135,8 +168,6 @@ FLOAT_FIELDS = ("w_sky", "w_nee", "rr_scale", "s_thr", "t_thr", "new_org", "new_
 
 def compare(name, got, want):
     """The kernel's record against the plain version's; returns max |diff|."""
-    import torch
-
     n = got.hit.shape[0]
     same_hit = (got.hit == want.hit) & (got.prim == want.prim)
     hit_share = float(same_hit.float().mean())
@@ -144,21 +175,8 @@ def compare(name, got, want):
     lanes = same_hit & got.hit & (got.killed == want.killed)
     print(f"[check] {name}: hit+prim agree {hit_share:.6f} ({int((~same_hit).sum())} of {n} differ), "
           f"killed agree {kill_share:.6f}, hit lanes {int(lanes.sum())}")
-    worst, bad_total = 0.0, 0
-    for f in FLOAT_FIELDS:
-        a, b = getattr(got, f), getattr(want, f)
-        if isinstance(a, tuple):
-            a, b = torch.stack(list(a)), torch.stack(list(b))
-            m = lanes.expand_as(a)
-        else:
-            m = lanes
-        diff = (a - b).abs()[m]
-        bad = int((diff > TOL + TOL * b.abs()[m]).sum())
-        mx = float(diff.max()) if diff.numel() else 0.0
-        worst = max(worst, mx)
-        bad_total += bad
-        print(f"[check]   {f:10s} max |diff| {mx:.3e}  out of tolerance {bad}")
-    if hit_share < HIT_AGREE or kill_share < KILL_AGREE or bad_total:
+    worst = compare_fields(name, got, want, lanes, FLOAT_FIELDS)
+    if hit_share < HIT_AGREE or kill_share < KILL_AGREE:
         raise SystemExit(f"chip_smoke: kernel disagrees with its plain version on {name}")
     return worst
 
@@ -207,26 +225,53 @@ def phase_timing(cs, blobs, state):
     return ms, plain_ms
 
 
+GOLDENS = (  # tests/test_golden.py's configs, seed 42
+    ("path", "cuda_path_raytracer", (48, 36, 8, 4), ("path_bounce",)),
+    ("whitted_tex", "cuda_texture_raytracer", (48, 36, 4, 4), ("whitted_bounce",)),
+    ("whitted_basic", "cuda_raytracer", (48, 36, 4, 3), ("whitted_bounce",)),
+    ("oracle", "cpu_raytracer", (48, 36, 1, 3), ("closest_hit", "any_hit")),
+)
+
+
+def wrappers():
+    """Every kernel wrapper by kernel name; each counts its own launches."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, intersect, whitted
+
+    return {"path_bounce": bounce.path_bounce, "whitted_bounce": whitted.whitted_bounce,
+            "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit}
+
+
+def reset_counts():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def counts():
+    return {name: w.launches for name, w in wrappers().items()}
+
+
 def phase_golden(device):
     import numpy as np
 
     import path_tracing__ray_tracer_tpu_torch as pt
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import path_bounce
 
-    golden = np.load(ROOT / "tests" / "goldens" / "path.npy")
     b = pt.CustomSceneBuilder()
     scene, cam = b.build_scene(), b.create_camera(4.0 / 3.0)
-    before = path_bounce.launches
-    r = pt.RendererFactory.create("cuda_path_raytracer", seed=42, device=device)
-    img = np.asarray(r.render(scene, cam, pt.RenderSettings(48, 36, 8, 4)))
-    diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
-    share = float((diff > 2).mean())
-    print(f"[golden] 48x36 8 spp depth 4 seed 42: {share:.5f} of channels differ by >2/255 "
-          f"(max {int(diff.max())}), kernel launches {path_bounce.launches - before}")
-    if img.shape != golden.shape or share >= 0.01:
-        raise SystemExit("chip_smoke: golden render outside the golden tolerance")
-    if path_bounce.launches == before:
-        raise SystemExit("chip_smoke: the golden render did not launch the kernel")
+    for name, renderer, cfg, kernels in GOLDENS:
+        golden = np.load(ROOT / "tests" / "goldens" / f"{name}.npy")
+        reset_counts()
+        r = pt.RendererFactory.create(renderer, seed=42, device=device)
+        img = np.asarray(r.render(scene, cam, pt.RenderSettings(*cfg)))
+        launched = {k: counts()[k] for k in kernels}
+        diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
+        share = float((diff > 2).mean())
+        print(f"[golden] {name}: {renderer} {cfg[0]}x{cfg[1]} {cfg[2]} spp depth {cfg[3]} seed 42: "
+              f"{share:.5f} of channels differ by >2/255 (max {int(diff.max())}), "
+              f"kernel launches {launched}")
+        if img.shape != golden.shape or share >= 0.01:
+            raise SystemExit(f"chip_smoke: golden render {name} outside the golden tolerance")
+        if not all(launched.values()):
+            raise SystemExit(f"chip_smoke: the golden render {name} did not launch {kernels}")
 
 
 def phase_main_path(device):
@@ -246,12 +291,13 @@ def phase_main_path(device):
     r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    path_bounce.launches = 0
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.perf_counter()
     sums = r.render_sums(scene, cam, settings, sample_offset=GROUP_SPP, n_samples=GROUP_SPP)
     secs = time.perf_counter() - t0
     launches = path_bounce.launches
+    print(f"[main] launches in the timed group: {counts()}")
     peak = torch.cuda.max_memory_allocated() / 2**20
     mrays = WIDTH * HEIGHT * GROUP_SPP * DEPTH / secs / 1e6
     mean = sums.mean(axis=0) / GROUP_SPP
@@ -267,6 +313,451 @@ def phase_main_path(device):
     return launches, secs, mrays
 
 
+# ---- K2 / K3: the Whitted bounce and the standalone sweeps ---------------------
+def whitted_camera_rays(cs, camera, n, device):
+    """Camera rays of the Whitted CLI-default frame: every k-th pixel of the
+    2000x1500 frame, cell 0 of the 5x5 grid, diagonal jitter, seed 0."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
+    from path_tracing__ray_tracer_tpu_torch.ops import rng
+    from path_tracing__ray_tracer_tpu_torch.ops.camera import generate_rays
+
+    idx = torch.arange(n, dtype=torch.int64, device=device) * (W_WIDTH * W_HEIGHT // n)
+    r = rng.uniform(rng.ray_key(0, idx, 0), W_DEPTH, 0)
+    u = ((idx % W_WIDTH).to(torch.float32) + r / 5) / W_WIDTH
+    v = ((idx // W_WIDTH).to(torch.float32) + r / 5) / W_HEIGHT
+    return generate_rays(pack_camera(camera, device), u, v)
+
+
+def light_sample_rays(cs, o, d, light_of_lane):
+    """From each closest hit (plain sweep), one ray to light sample
+    ``light_of_lane`` with the Whitted bound ``dist - 1e-3``."""
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import scene_hit
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    h = scene_hit(cs, o, d, 1e-3, 1e6)
+    to_light = V3(*(c[light_of_lane] for c in cs.lights)) - h.point
+    dist = to_light.norm()
+    return h.point + h.normal * 1e-3, to_light.normalized(), dist - 1e-3
+
+
+def sweep_flops(cs, o, d, bound, first_only, lanes=None):
+    """Float operations of the primitive tests of one sweep per ray: every
+    primitive (closest hit), or those up to the first occluder in sweep
+    order (any hit), as this run's rays need them; rays outside the bool
+    mask ``lanes`` do not sweep."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import _ALL, _CANDIDATES, _bound, _lift
+
+    n = o.x.shape[0]
+    b = _bound(bound, n, o.x)[:, None]
+    valid = torch.cat([c(cs, _ALL, _lift(o), _lift(d), 1e-3, b)[0] for c in _CANDIDATES], 1)
+    k = valid.shape[1]
+    tested = torch.full((n,), k, dtype=torch.int64, device=o.x.device)
+    if first_only:
+        first = valid.to(torch.int32).argmax(1) + 1
+        tested = torch.where(valid.any(1), first, tested)
+    if lanes is not None:
+        tested = torch.where(lanes, tested, 0)
+    flops, start = 0.0, 0
+    for count, per_test in zip((cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles),
+                               TEST_FLOPS):
+        flops += float((tested - start).clamp(0, count).sum()) * per_test
+        start += count
+    return flops
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take: the larger of operations over the
+    FP32 peak and bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_fields(name, got, want, lanes, fields):
+    """Max |diff| over ``fields`` on ``lanes``; raises when out of tolerance."""
+    import torch
+
+    worst, bad_total, parts = 0.0, 0, []
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, tuple):
+            a, b, m = torch.stack(list(a)), torch.stack(list(b)), lanes.expand(3, -1)
+        else:
+            m = lanes
+        diff = (a - b).abs()[m]
+        bad = int((diff > TOL + TOL * b.abs()[m]).sum())
+        mx = float(diff.max()) if diff.numel() else 0.0
+        worst, bad_total = max(worst, mx), bad_total + bad
+        parts.append(f"{f} {mx:.3e} ({bad})")
+    print(f"[check]   max |diff| (out of tolerance): {', '.join(parts)}")
+    if bad_total:
+        raise SystemExit(f"chip_smoke: kernel disagrees with its plain version on {name}")
+    return worst
+
+
+def check_closest(label, got, want):
+    """K3a's record against the plain one: equal primitive on ≥ 99.99% of
+    lanes, floats within tolerance where it is equal; returns max |diff|."""
+    n = got.prim.shape[0]
+    same = got.prim == want.prim
+    share = float(same.float().mean())
+    print(f"[check] closest_hit, {label}: prim agree {share:.6f} "
+          f"({int((~same).sum())} of {n} differ), hit lanes {int((same & got.hit).sum())}")
+    worst = compare_fields(f"closest_hit, {label}", got, want, same, ("t", "normal", "u", "v"))
+    if share < HIT_AGREE:
+        raise SystemExit(f"chip_smoke: closest_hit disagrees with its plain version on {label}")
+    return worst
+
+
+def check_occlusion(label, occ, want, lanes):
+    """K3b's verdicts against the plain ones on the shadow rays in ``lanes``
+    (those whose verdict the caller reads); returns max |diff|."""
+    agree = float((occ == want)[lanes].float().mean())
+    print(f"[check] any_hit, {label}: occlusion agree {agree:.6f} on {int(lanes.sum())} of "
+          f"{occ.shape[0]} rays (all rays {float((occ == want).float().mean()):.6f}), "
+          f"occluded {float(occ[lanes].float().mean()):.4f}")
+    if agree < OCC_AGREE:
+        raise SystemExit(f"chip_smoke: any_hit disagrees with its plain version on {label}")
+    return float((occ[lanes].float() - want[lanes].float()).abs().max())
+
+
+def phase_intersect_check(cs, camera, device):
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import pack_scene_blob
+
+    blob = pack_scene_blob(cs)
+    o, d = whitted_camera_rays(cs, camera, N_RAYS, device)
+    worst_a = check_closest("Whitted camera rays", intersect.closest_hit(cs, blob, o, d, 1e-3, 1e6),
+                            intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6))
+    lane = torch.arange(N_RAYS, device=device)
+    so, sd, bound = light_sample_rays(cs, o, d, lane % cs.n_lights)
+    worst_b = check_occlusion(
+        "one light-sample shadow ray per lane (bound dist - 1e-3)",
+        intersect.any_hit(cs, blob, so, sd, 1e-3, bound),
+        intersect.any_hit_plain(cs, so, sd, 1e-3, bound), torch.ones_like(lane, dtype=torch.bool))
+    return (o, d), (so, sd, bound), worst_a, worst_b
+
+
+def phase_oracle_check(device):
+    """K3a and K3b against their plain versions on the launches of level 0
+    of the oracle frame's first chunk, as the renderer makes them (host
+    conventions): its camera rays with the bound 1e30, then the shadow rays
+    of all 16 light samples from every lane in one batch, each bounded at
+    its light's distance.  Occlusion is compared where level 0 hit: the
+    renderer discards the shading of a miss."""
+    import math
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
+    from path_tracing__ray_tracer_tpu_torch.models import whitted_oracle as wo
+    from path_tracing__ray_tracer_tpu_torch.models.whitted import grid_camera_rays
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(O_WIDTH / O_HEIGHT)
+    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=device)
+    cs = r.compiled(scene)
+    blob = r.blobs(cs)[0]
+    n_pix, group = r._plan(O_WIDTH, O_HEIGHT, O_SPP, O_DEPTH)
+    o, d = grid_camera_rays(pack_camera(cam, device), 0, n_pix, O_WIDTH, O_HEIGHT, r.seed, 0,
+                            group, math.isqrt(group), min(O_DEPTH, wo.ORACLE_MAX_DEPTH), r.jitter)
+    label = f"oracle level 0, first chunk ({o.x.shape[0]} rays, t_max {wo._T_FAR:g})"
+    want = intersect.closest_hit_plain(cs, o, d, wo._T_MIN, wo._T_FAR)
+    worst_a = check_closest(label, intersect.closest_hit(cs, blob, o, d, wo._T_MIN, wo._T_FAR),
+                            want)
+    so, sd, dist = wo.shadow_rays(cs, *wo.surface(o, d, want))
+    so, sd, dist = (V3(*(c.reshape(-1) for c in so)), V3(*(c.reshape(-1) for c in sd)),
+                    dist.reshape(-1))
+    worst_b = check_occlusion(
+        f"oracle level 0 shadow batch ({cs.n_lights} lights x {o.x.shape[0]} lanes, bound dist)",
+        intersect.any_hit(cs, blob, so, sd, wo._T_MIN, dist),
+        intersect.any_hit_plain(cs, so, sd, wo._T_MIN, dist),
+        want.hit.expand(cs.n_lights, -1).reshape(-1))
+    return worst_a, worst_b
+
+
+def advance_whitted_plain(cs, o, d, variant):
+    """The rays one plain Whitted bounce on: every hit lane's reflected or
+    refracted ray; miss lanes keep their ray."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda.whitted import whitted_bounce_plain
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    out = whitted_bounce_plain(cs, o, d, variant)
+    return (V3(*(c.contiguous() for c in V3.where(out.hit, out.new_org, o))),
+            V3(*(c.contiguous() for c in V3.where(out.hit, out.new_dir, d))))
+
+
+def check_whitted(label, cs, blobs, o, d, variant):
+    """K2 against its plain version on rays ``(o, d)``: hit+prim on ≥ 99.99%
+    of lanes, ``cont`` equal and floats within tolerance on the hit lanes;
+    returns ``(max |diff|, the plain record)``."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import whitted
+
+    got = whitted.whitted_bounce(cs, *blobs, o, d, variant)
+    want = whitted.whitted_bounce_plain(cs, o, d, variant)
+    same = (got.hit == want.hit) & (got.prim == want.prim)
+    share = float(same.float().mean())
+    lanes = same & got.hit
+    cont_ok = bool((got.cont[lanes] == want.cont[lanes]).all())
+    print(f"[check] whitted_bounce {label}: hit+prim agree {share:.6f} "
+          f"({int((~same).sum())} of {same.shape[0]} differ), hit lanes {int(lanes.sum())}, "
+          f"continuing {int(got.cont.sum())}, cont agree {cont_ok}")
+    worst = compare_fields(f"whitted_bounce {label}", got, want, lanes,
+                           ("a", "w", "mult", "new_org", "new_dir", "u", "v", "tex_id",
+                            "mat_color"))
+    if share < HIT_AGREE or not cont_ok:
+        raise SystemExit(f"chip_smoke: whitted_bounce disagrees on {label}")
+    return worst, want
+
+
+def phase_whitted_check(cs, blobs, camera_rays):
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import whitted
+
+    worst = 0.0
+    for vname, variant in (("basic", whitted.BASIC), ("texture", whitted.TEXTURE)):
+        states = {"camera rays, depth 0": camera_rays,
+                  "one plain bounce on, depth 1": advance_whitted_plain(cs, *camera_rays, variant)}
+        for label, (o, d) in states.items():
+            worst = max(worst, check_whitted(f"{vname}, {label}", cs, blobs, o, d, variant)[0])
+    return worst
+
+
+def phase_whitted_frame_check(device):
+    """K2 against its plain version on the launches of two chunks of the
+    Whitted CLI frame, as the renderer makes them: the first chunk (the
+    floor's rows) and the middle one (the spheres).  For each variant, all
+    the chunk's grid cells' camera rays, then every later bounce on the
+    lanes that continue, compacted, until none is left."""
+    import math
+
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
+    from path_tracing__ray_tracer_tpu_torch.models.whitted import grid_camera_rays
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import whitted
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(W_WIDTH / W_HEIGHT)
+    r = pt.RendererFactory.create("cuda_texture_raytracer", chunk_rays=W_CHUNK, seed=0,
+                                  device=device)
+    cs = r.compiled(scene)
+    blobs = r.blobs(cs)
+    n_pix, group = r._plan(W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH)
+    n_chunks = -(-W_WIDTH * W_HEIGHT // n_pix)
+    worst = 0.0
+    for chunk in (0, n_chunks // 2):
+        for vname, variant in (("basic", whitted.BASIC), ("texture", whitted.TEXTURE)):
+            o, d = grid_camera_rays(pack_camera(cam, device), chunk * n_pix, n_pix, W_WIDTH,
+                                    W_HEIGHT, r.seed, 0, group, math.isqrt(group), W_DEPTH,
+                                    r.jitter)
+            for bounce in range(1, W_DEPTH + 1):
+                err, rec = check_whitted(
+                    f"{vname}, Whitted frame chunk {chunk} of {n_chunks} ({n_pix} px x {group} "
+                    f"cells), bounce {bounce}", cs, blobs, o, d, variant)
+                worst = max(worst, err)
+                sel = torch.nonzero(rec.hit & rec.cont)[:, 0]
+                if sel.numel() == 0:
+                    break
+                o, d = rec.new_org.take(sel), rec.new_dir.take(sel)
+    return worst
+
+
+def phase_new_timing(cs, blobs, camera_rays, shadow):
+    """Kernel and plain times of K2, K3a and K3b, and the bounds of all four
+    kernels, at N = 131,072 from this run's inputs."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect, whitted
+
+    o, d = camera_rays
+    so, sd, bound = shadow
+    times = {
+        "whitted_bounce": (lambda: whitted.whitted_bounce(cs, *blobs, o, d, whitted.TEXTURE),
+                           lambda: whitted.whitted_bounce_plain(cs, o, d, whitted.TEXTURE)),
+        "closest_hit": (lambda: intersect.closest_hit(cs, blobs[0], o, d, 1e-3, 1e6),
+                        lambda: intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6)),
+        "any_hit": (lambda: intersect.any_hit(cs, blobs[0], so, sd, 1e-3, bound),
+                    lambda: intersect.any_hit_plain(cs, so, sd, 1e-3, bound)),
+    }
+    out = {}
+    for name, (kernel, plain) in times.items():
+        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
+        out[name] = (ms, plain_ms)
+        print(f"[time] {name} at N={N_RAYS}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
+              f"(median of 25, CUDA events)")
+    return out
+
+
+def kernel_bounds(cs, k1_state, camera_rays, shadow):
+    """``{name: (bound_ms, bound_by)}`` for K1, K2, K3a, K3b on the inputs
+    they were timed on: full closest sweeps, and shadow sweeps to their
+    first occluder only where the result can change the record (the
+    kernels' own ``care`` predicates); each input read once, each output
+    written once."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import rng
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
+    from path_tracing__ray_tracer_tpu_torch.ops.sampling import pick_light
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    n = N_RAYS
+    closest = {}
+    # K1: closest sweep + the NEE shadow sweep (bound t_max = 1e6, the reference
+    # quirk) on hit lanes facing the light with a diffuse material
+    o, d, _thr, key, depth = k1_state
+    h = scene_hit(cs, o, d, 1e-3, 1e6)
+    ldir, _dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
+    care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
+        resolve_material(cs, h.prim)[1] > 0)
+    k1 = sweep_flops(cs, o, d, 1e6, False) + sweep_flops(cs, h.point + h.normal * 1e-3, ldir,
+                                                         1e6, True, care)
+    closest["path_bounce"] = bound_ms(k1, n * (4 * 11 + 4 * 19 + 4))
+    # K2 (texture variant, as timed): closest sweep + one shadow sweep (bound
+    # dist - 1e-3) per light sample whose Lambert or Phong term is not zero
+    # whatever the occlusion (csrc/whitted_bounce.cu's `care`)
+    wo, wd = camera_rays
+    h = scene_hit(cs, wo, wd, 1e-3, 1e6)
+    _c, diffuse, specular, _r, _t, _i, _h, _x = resolve_material(cs, h.prim)
+    nrm = h.normal
+    k2 = sweep_flops(cs, wo, wd, 1e6, False)
+    for li in range(cs.n_lights):
+        tl = cs.lights.at_index(li) - h.point
+        dist = tl.norm()
+        near_ok = dist > 0.001
+        ld = tl * (1.0 / torch.where(near_ok, dist, 1.0))
+        dot_nl = nrm.dot(ld)
+        diff = torch.clamp(dot_nl, min=0.0)
+        refl = V3(2.0 * dot_nl * nrm.x - ld.x, 2.0 * dot_nl * nrm.y - ld.y,
+                  2.0 * dot_nl * nrm.z - ld.z)
+        dot_rv = torch.clamp(-refl.dot(wd), min=0.0)
+        spec_on = (specular > 0.01) & (diff > 0)
+        care = h.hit & near_ok & (((diff > 0) & (diffuse > 0)) | (spec_on & (dot_rv > 0)))
+        k2 += sweep_flops(cs, h.point + nrm * 1e-3, ld, dist - 1e-3, True, care)
+    closest["whitted_bounce"] = bound_ms(k2, n * (4 * 6 + 4 * 17 + 4))
+    closest["closest_hit"] = bound_ms(sweep_flops(cs, wo, wd, 1e6, False), n * (4 * 6 + 4 * 7))
+    so, sd, b = shadow
+    closest["any_hit"] = bound_ms(sweep_flops(cs, so, sd, b, True), n * (4 * 7 + 1))
+    for name, (ms, by) in closest.items():
+        print(f"[bound] {name}: {ms:.5f} ms ({by})")
+    return closest
+
+
+def phase_whitted_frame(device):
+    """The Whitted CLI default on the card, with its RMSE against the
+    reference's published render."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.utils.assets import reference_render_path
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(W_WIDTH / W_HEIGHT)
+    settings = pt.RenderSettings(W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH)
+    r = pt.RendererFactory.create("cuda_texture_raytracer", chunk_rays=W_CHUNK, seed=0,
+                                  device=device)
+    t0 = time.perf_counter()
+    r.render(scene, cam, settings)
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    img = np.asarray(r.render(scene, cam, settings))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    ref = np.asarray(Image.open(reference_render_path()).convert("RGB")).astype(np.float64)
+    rmse = float(np.sqrt(((img.astype(np.float64) - ref) ** 2).mean()))
+    mrays = W_WIDTH * W_HEIGHT * W_SPP * W_DEPTH / secs / 1e6
+    print(f"[whitted] {W_WIDTH}x{W_HEIGHT} {W_SPP} spp depth {W_DEPTH} seed 0 "
+          f"(chunk_rays {W_CHUNK}): warm-up {warm:.3f} s, timed {secs:.3f} s -> {mrays:.2f} "
+          f"Mrays/s (W*H*spp*depth/t); launches {launched}; peak device memory {peak:.0f} MiB; "
+          f"RMSE {rmse:.4f}/255 against output_RayTracer.png")
+    if img.shape != ref.shape or not rmse <= RMSE_LIMIT:
+        raise SystemExit(f"chip_smoke: Whitted frame RMSE {rmse} above {RMSE_LIMIT}/255")
+    if launched["whitted_bounce"] == 0:
+        raise SystemExit("chip_smoke: the Whitted frame never launched the Whitted kernel")
+    return launched["whitted_bounce"], secs, mrays, rmse
+
+
+def phase_whitted_profile(device, frame_secs):
+    """Device operations per Whitted bounce, the device's busy time and K2's
+    share of it, from the torch profiler over the device sums of the Whitted
+    CLI frame itself (``frame_secs``: the untraced render's time)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import whitted
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(W_WIDTH / W_HEIGHT)
+    r = pt.RendererFactory.create("cuda_texture_raytracer", chunk_rays=W_CHUNK, seed=0,
+                                  device=device)
+    settings = pt.RenderSettings(W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH)
+    r.device_sums(scene, cam, settings)
+    torch.cuda.synchronize()
+    before = whitted.whitted_bounce.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.device_sums(scene, cam, settings)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    bounces = whitted.whitted_bounce.launches - before
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        print("[whitted] profile: not measured (the profiler saw no device operation)")
+        return
+    by_name = collections.Counter()
+    for e in ops:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    k2 = sum(ms for name, ms in by_name.items() if "whitted_bounce" in name)
+    print(f"[whitted] profile of the {W_WIDTH}x{W_HEIGHT} {W_SPP} spp depth {W_DEPTH} frame's "
+          f"device sums: {len(ops)} device operations in {bounces} bounces -> "
+          f"{len(ops) / bounces:.1f} per bounce; device busy {busy:.3f} ms = "
+          f"{100 * busy / wall_ms:.1f}% of the {wall_ms:.3f} ms traced and "
+          f"{100 * busy / (1e3 * frame_secs):.1f}% of the untraced frame's {frame_secs:.3f} s; "
+          f"K2 {k2:.3f} ms ({100 * k2 / busy:.1f}% of busy)")
+    for name, ms in by_name.most_common(6):
+        print(f"[whitted]   {ms:9.3f} ms  {name[:90]}")
+
+
+def phase_oracle(device):
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(O_WIDTH / O_HEIGHT)
+    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=device)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, pt.RenderSettings(O_WIDTH, O_HEIGHT, O_SPP, O_DEPTH))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    mean = sums.mean(axis=0) / O_SPP
+    print(f"[oracle] cpu_raytracer {O_WIDTH}x{O_HEIGHT} {O_SPP} spp depth {O_DEPTH}: "
+          f"{secs:.3f} s; launches {launched}; mean radiance/sample {mean}")
+    if not np.isfinite(sums).all() or not (sums >= 0).all() or not 0.05 < float(mean.mean()) < 5:
+        raise SystemExit("chip_smoke: oracle sums are not finite, non-negative and plausible")
+    if not (launched["closest_hit"] and launched["any_hit"]):
+        raise SystemExit("chip_smoke: the oracle did not launch both intersection kernels")
+    return launched
+
+
 def main() -> int:
     phase_environment()
     import torch
@@ -277,20 +768,41 @@ def main() -> int:
     build_s = phase_build()
     b = pt.CustomSceneBuilder()
     cs = pt.compile_scene(b.build_scene(), device=device)
-    blobs, state, worst = phase_kernel_check(cs, b.create_camera(WIDTH / HEIGHT), device)
-    ms, plain_ms = phase_timing(cs, blobs, state)
+    blobs, state, k1_err = phase_kernel_check(cs, b.create_camera(WIDTH / HEIGHT), device)
+    k1_ms, k1_plain_ms = phase_timing(cs, blobs, state)
+    camera_rays, shadow, k3a_err, k3b_err = phase_intersect_check(
+        cs, b.create_camera(W_WIDTH / W_HEIGHT), device)
+    k2_err = phase_whitted_check(cs, blobs, camera_rays)
+    k2_err = max(k2_err, phase_whitted_frame_check(device))
+    o_err_a, o_err_b = phase_oracle_check(device)
+    k3a_err, k3b_err = max(k3a_err, o_err_a), max(k3b_err, o_err_b)
+    times = phase_new_timing(cs, blobs, camera_rays, shadow)
+    times["path_bounce"] = (k1_ms, k1_plain_ms)
+    bounds = kernel_bounds(cs, state, camera_rays, shadow)
     phase_golden(device)
-    launches, secs, mrays = phase_main_path(device)
+    k1_launches, secs, mrays = phase_main_path(device)
+    k2_launches, w_secs, w_mrays, rmse = phase_whitted_frame(device)
+    phase_whitted_profile(device, w_secs)
+    oracle = phase_oracle(device)
     torch.cuda.synchronize()
 
+    src = "path_tracing__ray_tracer_tpu_torch/csrc/"
+    tpu = "path_tracing__ray_tracer_tpu/ops/pallas/"
+    rows = (
+        ("path_bounce", "path_bounce.cu", "bounce_pallas.py:308", k1_launches, k1_err),
+        ("whitted_bounce", "whitted_bounce.cu", "whitted_pallas.py:39", k2_launches, k2_err),
+        ("closest_hit", "intersect.cu", "intersect_pallas.py:294", oracle["closest_hit"], k3a_err),
+        ("any_hit", "intersect.cu", "intersect_pallas.py:312", oracle["any_hit"], k3b_err),
+    )
     print(json.dumps({"kernels": [{
-        "name": "path_bounce", "route": "cuda",
-        "source": "path_tracing__ray_tracer_tpu_torch/csrc/path_bounce.cu",
-        "replaces": "path_tracing__ray_tracer_tpu/ops/pallas/bounce_pallas.py:308",
-        "launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-    }]}))
-    print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s "
-          f"({secs:.3f} s per 128-sample group at 1024x1024 depth 8) on:")
+        "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+        "launches": launches, "max_abs_err": err, "ms": times[name][0],
+        "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": None,
+    } for name, source, replaces, launches, err in rows]}))
+    print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
+          f"group at 1024x1024 depth 8); Whitted frame {w_secs:.3f} s ({w_mrays:.2f} Mrays/s, "
+          f"RMSE {rmse:.4f}/255) on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

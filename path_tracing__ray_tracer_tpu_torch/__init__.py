@@ -1,10 +1,13 @@
-"""PyTorch + CUDA port of the path tracer in ``path_tracing__ray_tracer_tpu``.
+"""PyTorch + CUDA port of the renderers in ``path_tracing__ray_tracer_tpu``.
 
 The same scene, camera, material and geometry API and the same scene
-compiler, as torch tensors on one device; the path tracer's bounce runs as a
-hand-written CUDA kernel (``csrc/path_bounce.cu``) on an NVIDIA GPU, and as
-its plain torch version on the CPU.  Imports neither JAX nor Triton, and
-builds no kernel until one is first launched.
+compiler, as torch tensors on one device, and the same four renderers: the
+path tracer (``cuda_path_raytracer``), the two Whitted ray tracers
+(``cuda_raytracer``, ``cuda_texture_raytracer``) and the CPU-parity oracle
+(``cpu_raytracer``).  Their kernels are hand-written CUDA
+(``csrc/path_bounce.cu``, ``csrc/whitted_bounce.cu``, ``csrc/intersect.cu``)
+on an NVIDIA GPU, and plain torch versions on the CPU.  Imports neither JAX
+nor Triton, and builds no kernel until one is first launched.
 
 Quick start::
 
@@ -38,10 +41,12 @@ from .compiler import (  # noqa: F401
     compiled_scene_from_numpy,
     pack_camera,
 )
-from .models.base import BaseRenderer, NotPortedError, RendererFactory  # noqa: F401
+from .models.base import BaseRenderer, RendererFactory  # noqa: F401
 
 # importing a renderer module registers it with the factory
 from .models import path_tracer as _path_tracer  # noqa: F401,E402
+from .models import whitted as _whitted  # noqa: F401,E402
+from .models import whitted_oracle as _whitted_oracle  # noqa: F401,E402
 from .scene_builders.custom_scene_builder import CustomSceneBuilder  # noqa: F401,E402
 
 __version__ = "0.1.0"

@@ -4,8 +4,7 @@ Every renderer implements ``render() -> PIL.Image`` plus
 ``get_capabilities()`` and registers itself under a string key at import
 time (reference ``renderers/base_renderer.py:7-51``).  The port registers the
 reference's ``cuda_*`` names as canonical and the JAX package's ``tpu_*``
-names as aliases.  A renderer that is not ported yet is registered as
-*pending*: asking for it raises and names the ROADMAP item that ports it.
+names as aliases.
 """
 from __future__ import annotations
 
@@ -46,16 +45,11 @@ class BaseRenderer(ABC):
         return f"<{type(self).__name__} {self.name!r}>"
 
 
-class NotPortedError(NotImplementedError):
-    """A renderer the JAX package has and the port does not have yet."""
-
-
 class RendererFactory:
     """String-keyed registry; renderer modules self-register when imported."""
 
     _renderers: Dict[str, Type[BaseRenderer]] = {}
     _aliases: Dict[str, str] = {}
-    _pending: Dict[str, str] = {}  # name -> ROADMAP item that ports it
 
     @classmethod
     def register(cls, name: str, renderer_class: Type[BaseRenderer]) -> None:
@@ -66,10 +60,6 @@ class RendererFactory:
         cls._aliases[alias] = target
 
     @classmethod
-    def register_pending(cls, name: str, roadmap_item: str) -> None:
-        cls._pending[name] = roadmap_item
-
-    @classmethod
     def resolve(cls, name: str) -> str:
         """Canonical renderer name for ``name`` (aliases followed once)."""
         return cls._aliases.get(name, name)
@@ -77,11 +67,6 @@ class RendererFactory:
     @classmethod
     def create(cls, name: str, **kwargs) -> BaseRenderer:
         canonical = cls.resolve(name)
-        if canonical in cls._pending:
-            raise NotPortedError(
-                f"renderer {name!r} is not ported to PyTorch yet; "
-                f"{cls._pending[canonical]} ports it"
-            )
         try:
             renderer_class = cls._renderers[canonical]
         except KeyError:
@@ -92,14 +77,3 @@ class RendererFactory:
     def list_available(cls) -> List[str]:
         """Every accepted name — canonical renderers first, then aliases."""
         return [*cls._renderers, *cls._aliases]
-
-
-# the JAX package's other renderers, with the ROADMAP.md item that ports each
-for _name, _item in (
-    ("cuda_raytracer", "ROADMAP.md Queue 1 item 7 (Whitted, kernel K2)"),
-    ("cuda_texture_raytracer", "ROADMAP.md Queue 1 item 7 (Whitted, kernel K2)"),
-    ("cpu_raytracer", "ROADMAP.md Queue 1 item 8 (the oracle)"),
-):
-    RendererFactory.register_pending(_name, _item)
-RendererFactory.register_alias("tpu_raytracer", "cuda_raytracer")
-RendererFactory.register_alias("tpu_texture_raytracer", "cuda_texture_raytracer")

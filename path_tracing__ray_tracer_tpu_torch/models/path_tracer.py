@@ -18,14 +18,7 @@ import torch
 
 from ..ops import rng
 from ..ops.camera import generate_rays
-from ..ops.cuda.bounce import (
-    T_MAX,
-    T_MIN,
-    pack_light_blob,
-    pack_mat_blob,
-    pack_scene_blob,
-    path_bounce,
-)
+from ..ops.cuda.bounce import T_MAX, T_MIN, path_bounce
 from ..ops.texture import resolve_base_color
 from ..ops.tonemap import aces
 from ..ops.v3 import V3
@@ -162,7 +155,6 @@ class PathTracer(WavefrontRenderer):
         super().__init__("cuda_path_raytracer", jitter=jitter, **kw)
         self.sample_group = int(sample_group)
         self.shadow_tmax = str(shadow_tmax)
-        self._blobs = {}
 
     def get_capabilities(self) -> List[str]:
         return [
@@ -176,10 +168,7 @@ class PathTracer(WavefrontRenderer):
         return max(1, min(self.sample_group, spp))
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, **kw):
-        key = id(cs)
-        if key not in self._blobs:
-            self._blobs[key] = (pack_scene_blob(cs), pack_mat_blob(cs), pack_light_blob(cs))
-        _regen_chunk(cs, self._blobs[key], cam12, sums, pix0, seed, sample_base,
+        _regen_chunk(cs, self.blobs(cs), cam12, sums, pix0, seed, sample_base,
                      jitter=self.jitter, shadow_tmax=self.shadow_tmax, **kw)
 
     def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):

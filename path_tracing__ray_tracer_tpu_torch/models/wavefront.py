@@ -22,6 +22,7 @@ import torch
 from ..compiler import CompiledScene, compile_scene, pack_camera, scene_summary
 from ..core.camera import Camera
 from ..core.scene import RenderSettings, Scene
+from ..ops.cuda.bounce import pack_light_blob, pack_mat_blob, pack_scene_blob
 from ..ops.tonemap import quantize_u8
 from ..ops.v3 import V3
 from ..utils.image import assemble_image
@@ -32,6 +33,23 @@ from .base import BaseRenderer
 # Lane-width cap of one chunk (the JAX package's measured knee; a scheduling
 # knob that never changes a pixel).
 _MAX_CHUNK_LANES = 131072
+
+
+def pixel_coords(pix0: int, n_pix: int, width: int, height: int, device):
+    """Flat pixel ids of a chunk → ``(idx, x, y)`` with ``y`` from the bottom
+    row.  Out-of-frame lanes clamp to the last pixel (the caller cuts them)
+    but keep their unclamped ``idx``, which the RNG hashes."""
+    idx = pix0 + torch.arange(n_pix, dtype=torch.int64, device=device)
+    safe = torch.clamp(idx, max=width * height - 1)
+    return idx, (safe % width).to(torch.float32), (safe // width).to(torch.float32)
+
+
+def chunk_pixels(n_pixels: int, group: int, chunk_rays: int) -> int:
+    """Pixels per chunk for a ``chunk_rays`` ray budget and ``group`` samples
+    per pixel: capped at the frame and at ``_MAX_CHUNK_LANES``, rounded up to
+    a multiple of 1024."""
+    n_pix = max(1024, min(n_pixels, max(1, chunk_rays // max(group, 1)), _MAX_CHUNK_LANES))
+    return int(math.ceil(n_pix / 1024) * 1024)
 
 
 class WavefrontRenderer(BaseRenderer):
@@ -56,6 +74,7 @@ class WavefrontRenderer(BaseRenderer):
         self.texture_budget = int(texture_budget)
         self.device = torch.device(device)
         self._scene_cache: Dict[Tuple, CompiledScene] = {}
+        self._blobs: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
 
     # -- scene compilation (cached) -----------------------------------------
     def compiled(self, scene: Scene) -> CompiledScene:
@@ -71,6 +90,13 @@ class WavefrontRenderer(BaseRenderer):
             self._scene_cache[key] = cs
             log_event("scene_compiled", renderer=self.name, **scene_summary(cs))
         return self._scene_cache[key]
+
+    def blobs(self, cs: CompiledScene):
+        """The kernels' packed tables of ``cs`` (primitives, materials,
+        lights), made once per compiled scene."""
+        if id(cs) not in self._blobs:
+            self._blobs[id(cs)] = (pack_scene_blob(cs), pack_mat_blob(cs), pack_light_blob(cs))
+        return self._blobs[id(cs)]
 
     # -- subclass contract ---------------------------------------------------
     def _samples_per_group(self, spp: int) -> int:
@@ -88,12 +114,11 @@ class WavefrontRenderer(BaseRenderer):
         raise NotImplementedError
 
     # -- chunk plan ----------------------------------------------------------
-    def _plan(self, w: int, h: int, spp: int) -> Tuple[int, int]:
-        """``(n_pix, group)``: lanes per chunk and samples per chunk call."""
+    def _plan(self, w: int, h: int, spp: int, max_depth: int) -> Tuple[int, int]:
+        """``(n_pix, group)``: lanes per chunk and samples per chunk call
+        (``max_depth`` lets a renderer bound its memory by depth)."""
         group = self._samples_per_group(spp)
-        n_pix = max(1024, min(w * h, max(1, self.chunk_rays // max(group, 1)),
-                              _MAX_CHUNK_LANES))
-        return int(math.ceil(n_pix / 1024) * 1024), group
+        return chunk_pixels(w * h, group, self.chunk_rays), group
 
     # -- rendering ------------------------------------------------------------
     def device_sums(self, scene: Scene, camera: Camera, settings: RenderSettings,
@@ -105,7 +130,7 @@ class WavefrontRenderer(BaseRenderer):
         w, h, spp = settings.width, settings.height, settings.samples_per_pixel
         if n_samples is None:
             n_samples = spp
-        n_pix, group = self._plan(w, h, spp)
+        n_pix, group = self._plan(w, h, spp, settings.max_depth)
         pix0_list = list(range(0, w * h, n_pix))
         log_event(
             "render_start", renderer=self.name, width=w, height=h, spp=n_samples,

@@ -215,20 +215,36 @@ def build():
     """Compile (once per source hash) and load ``csrc/path_bounce.cu``."""
     from . import build as _build
 
-    built = _build.load("path_bounce", ["path_bounce.cu"], ["sweep.cuh"])
+    built = _build.load("path_bounce")
     fn = built.lib.ptrt_path_bounce
     fn.argtypes = _ARGTYPES
     fn.restype = ctypes.c_int
     return built
 
 
-def _check(name, t, dtype, n, device):
+def _check(name, t, dtype, n, device, who="path_bounce"):
+    """Raise unless ``t`` is a contiguous ``(n,)`` ``dtype`` tensor on ``device``."""
     if not isinstance(t, torch.Tensor):
-        raise TypeError(f"path_bounce: {name} must be a tensor, got {type(t).__name__}")
+        raise TypeError(f"{who}: {name} must be a tensor, got {type(t).__name__}")
     if t.device != device or t.dtype != dtype or tuple(t.shape) != (n,) or not t.is_contiguous():
         raise ValueError(
-            f"path_bounce: {name} must be a contiguous ({n},) {dtype} tensor on {device}; "
+            f"{who}: {name} must be a contiguous ({n},) {dtype} tensor on {device}; "
             f"got {tuple(t.shape)} {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
+
+
+def _check_tables(who, cs, blob, mat_blob, light_blob, device):
+    """Raise unless the packed tables are those of ``cs`` on ``device`` and
+    fit the kernels' shared memory; returns ``(layout, n_mats, n_lights)``."""
+    layout = blob_layout(cs)
+    n_mats, n_lights = int(cs.materials.diffuse.shape[0]), cs.n_lights
+    for name, t, size in (("blob", blob, layout.size), ("mat_blob", mat_blob, _MAT_FIELDS * n_mats),
+                          ("light_blob", light_blob, 3 * n_lights)):
+        _check(name, t, torch.float32, size, device, who)
+    smem = 4 * (layout.size + _MAT_FIELDS * n_mats + 3 * n_lights)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"{who}: scene tables need {smem} B of shared memory, "
+                         f"more than the kernel's {_SMEM_LIMIT} B")
+    return layout, n_mats, n_lights
 
 
 def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, thr: V3, key, depth,
@@ -237,15 +253,7 @@ def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, thr: V3, key, depth,
     n = int(o.x.shape[0])
     if isinstance(depth, int):
         depth = torch.full((n,), depth, dtype=torch.int32, device=device)
-    layout = blob_layout(cs)
-    n_mats, n_lights = int(cs.materials.diffuse.shape[0]), cs.n_lights
-    for name, t, size in (("blob", blob, layout.size), ("mat_blob", mat_blob, _MAT_FIELDS * n_mats),
-                          ("light_blob", light_blob, 3 * n_lights)):
-        _check(name, t, torch.float32, size, device)
-    smem = 4 * (layout.size + _MAT_FIELDS * n_mats + 3 * n_lights)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"path_bounce: scene tables need {smem} B of shared memory, "
-                         f"more than the kernel's {_SMEM_LIMIT} B")
+    layout, n_mats, n_lights = _check_tables("path_bounce", cs, blob, mat_blob, light_blob, device)
     rays = (*o, *d, *thr)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tx", "ty", "tz"), rays):
         _check(name, t, torch.float32, n, device)

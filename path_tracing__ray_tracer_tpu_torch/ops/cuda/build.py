@@ -6,6 +6,10 @@ changed source rebuilds and an unchanged one loads at once.  The sources
 expose plain ``extern "C"`` launchers; nothing includes PyTorch's headers, so
 a build takes seconds.
 
+Each kernel library is named in :data:`KERNELS` with its sources and the
+headers they include.  :func:`load_all` starts one ``nvcc`` per missing
+library at once and waits for all of them.
+
 Nothing here runs at import time: the package imports on machines with
 neither ``nvcc`` nor a GPU.
 """
@@ -19,7 +23,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, NamedTuple, Sequence
+from typing import Dict, NamedTuple, Sequence, Tuple
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -32,10 +36,18 @@ NVCC_FLAGS = (
 )
 
 
+# library name -> (sources, headers), all under csrc/
+KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
+    "path_bounce": (("path_bounce.cu",), ("sweep.cuh",)),
+    "intersect": (("intersect.cu",), ("sweep.cuh",)),
+    "whitted_bounce": (("whitted_bounce.cu",), ("sweep.cuh",)),
+}
+
+
 class Built(NamedTuple):
     lib: ctypes.CDLL
     path: Path
-    seconds: float  # 0.0 when an earlier build was reused
+    seconds: float  # wall time of this build's nvcc; 0.0 when an earlier build was reused
     log: str  # nvcc/ptxas output of this build ("" when reused)
 
 
@@ -53,30 +65,50 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def load(name: str, sources: Sequence[str], headers: Sequence[str] = ()) -> Built:
-    """Compile ``sources`` (file names under ``csrc/``) into ``lib<name>`` and
-    load it; one build per content hash, one load per process."""
-    if name in _LOADED:
-        return _LOADED[name]
+def _library_path(name: str) -> Path:
+    sources, headers = KERNELS[name]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (*sources, *headers):
         digest.update(f.encode())
         digest.update((CSRC / f).read_bytes())
-    path = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    seconds, log = 0.0, ""
-    if not path.exists():
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def load_all(names: Sequence[str] = tuple(KERNELS)) -> Dict[str, Built]:
+    """Compile the libraries ``names`` that have no build for their current
+    sources, all ``nvcc`` processes at once, and load each one; one build per
+    content hash, one load per process."""
+    todo = [n for n in names if n not in _LOADED]
+    running = {}
+    for name in todo:
+        path = _library_path(name)
+        if path.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in sources)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in KERNELS[name][0])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path, time.perf_counter())
+    logs, failed = {}, []
+    for name, (proc, tmp, path, t0) in running.items():
+        out, _ = proc.communicate()
+        logs[name] = (time.perf_counter() - t0, out)
         if proc.returncode != 0:
             os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {name}:\n{log}")
-        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
-    built = Built(ctypes.CDLL(str(path)), path, seconds, log)
-    _LOADED[name] = built
-    return built
+            failed.append(f"nvcc failed ({proc.returncode}) for {name}:\n{out}")
+        else:
+            os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    for name in todo:
+        path = _library_path(name)
+        seconds, log = logs.get(name, (0.0, ""))
+        _LOADED[name] = Built(ctypes.CDLL(str(path)), path, seconds, log)
+    return {n: _LOADED[n] for n in names}
+
+
+def load(name: str) -> Built:
+    """Compile (once per source hash) and load the library ``name`` of
+    :data:`KERNELS`."""
+    return load_all((name,))[name]

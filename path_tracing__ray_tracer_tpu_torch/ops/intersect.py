@@ -152,7 +152,11 @@ def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max):
 
 
 def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
-    """Closest hit of every ray against the whole scene (``t_max`` scalar or (N,))."""
+    """Closest hit of every ray against the whole scene (``t_max`` scalar or (N,)).
+
+    Triangle UVs are always interpolated, as the CUDA kernels and the JAX
+    package's Pallas sweep emit them (its XLA formulation leaves them 0 when
+    no textured triangle reads them)."""
     P, S, Q, T = cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles
     best_idx, best_t, hit = _closest_broadcast(cs, ro, rd, t_min, t_max)
     point = ro + rd * best_t
@@ -200,13 +204,9 @@ def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     tn_raw = cs.triangles.normal.take(ti)
     bw = 1.0 - bu - bv
     tn = V3.where(tn_raw.dot(rd) > 0.0, -tn_raw, tn_raw)
-    if cs.tri_uv_used.shape[0]:
-        tri = cs.triangles
-        t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
-        t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
-    else:
-        # no textured triangle in the scene: nothing reads triangle uv
-        t_u = t_v = torch.zeros_like(bu)
+    tri = cs.triangles
+    t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
+    t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
 
     normal = V3.where(is_plane, pn, V3.where(is_sphere, sn, V3.where(is_quad, qn, tn)))
     u = torch.where(is_plane, p_u, torch.where(is_quad, q_u, torch.where(is_tri, t_u, 0.0)))

@@ -52,6 +52,14 @@ def texture_path(name: str) -> str:
     return os.path.join(texture_dir(), name)
 
 
+def reference_render_path() -> str | None:
+    """The reference's published 2000×1500 render (``output_RayTracer.png``),
+    the RMSE comparison target: the copy vendored under
+    ``reference_artifacts/`` (see ``textures/PROVENANCE.md``), or None."""
+    p = Path(__file__).resolve().parents[2] / "reference_artifacts" / "output_RayTracer.png"
+    return str(p) if p.is_file() else None
+
+
 def _generate_stand_ins() -> str:
     from PIL import Image
 

@@ -31,6 +31,7 @@ from path_tracing__ray_tracer_tpu.ops.pallas.intersect_pallas import pack_scene_
 from path_tracing__ray_tracer_tpu.ops.v3 import V3 as JV3
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
 FLOATS = ("w_nee", "rr_scale", "s_thr", "t_thr", "new_org", "new_dir", "u", "v", "tex_id",

@@ -19,6 +19,7 @@ from path_tracing__ray_tracer_tpu_torch.compiler import (
     compiled_scene_from_numpy,
     pack_camera,
 )
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _tiny(pkg):

@@ -1,4 +1,6 @@
-"""The CUDA bounce kernel against its plain torch version, on an NVIDIA GPU.
+"""The CUDA kernels against their plain torch versions, on an NVIDIA GPU:
+the path-tracer bounce (K1), the Whitted bounce (K2) and the standalone
+closest-hit / any-hit sweeps (K3a, K3b).
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -7,15 +9,15 @@ there without the JAX-configuring ``conftest.py``:
     python -m pytest tests/test_torch_cuda.py -m cuda --noconftest -q
 
 Bars as in ``chip_smoke.py``: hit and the winning primitive on ≥ 99.99% of
-lanes, ``killed`` on ≥ 99.9%, float fields within ``atol = rtol = 1e-4`` on
-lanes where both hit.
+lanes, ``killed`` on ≥ 99.9%, occlusion on ≥ 99.99%, float fields within
+``atol = rtol = 1e-4`` on lanes where both hit.
 """
 import numpy as np
 import pytest
 import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, intersect, whitted
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -103,4 +105,72 @@ def test_main_path_launches_the_kernel(card):
     sums = r.render_sums(b.build_scene(), b.create_camera(1.0),
                          pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
     assert bounce.path_bounce.launches > before
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+
+
+def _assert_floats_close(got, want, lanes, fields):
+    for f in fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, tuple):
+            a, b, m = torch.stack(list(a)), torch.stack(list(b)), lanes.expand(3, -1)
+        else:
+            m = lanes
+        torch.testing.assert_close(a[m], b[m], rtol=TOL, atol=TOL, msg=f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["basic", "texture"])
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_whitted_kernel_matches_plain(card, n, variant):
+    dev, cs, blobs = card
+    var = whitted.BASIC if variant == "basic" else whitted.TEXTURE
+    o, d, _, _, _ = _inputs(n, n + 1, dev)
+    before = whitted.whitted_bounce.launches
+    got = whitted.whitted_bounce(cs, *blobs, o, d, var)
+    torch.cuda.synchronize()
+    assert whitted.whitted_bounce.launches == before + 1
+    want = whitted.whitted_bounce_plain(cs, o, d, var)
+    same = (got.hit == want.hit) & (got.prim == want.prim)
+    assert float(same.float().mean()) >= 0.9999
+    lanes = same & got.hit
+    assert bool((got.cont[lanes] == want.cont[lanes]).all())
+    _assert_floats_close(got, want, lanes, ("a", "w", "mult", "new_org", "new_dir", "u", "v",
+                                            "tex_id", "mat_color"))
+    assert 0.2 < float(got.hit.float().mean()) < 1.0 and bool(got.cont.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_intersect_kernels_match_plain(card, n):
+    dev, cs, blobs = card
+    o, d, _, _, _ = _inputs(n, n + 2, dev)
+    before = (intersect.closest_hit.launches, intersect.any_hit.launches)
+    got = intersect.closest_hit(cs, blobs[0], o, d, 1e-3, 1e6)
+    t_max = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n), device=dev) * 60
+    occ = intersect.any_hit(cs, blobs[0], o, d, 1e-3, t_max)
+    torch.cuda.synchronize()
+    assert (intersect.closest_hit.launches, intersect.any_hit.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6)
+    same = got.prim == want.prim
+    assert float(same.float().mean()) >= 0.9999
+    _assert_floats_close(got, want, same, ("t", "normal", "u", "v"))
+    want_occ = intersect.any_hit_plain(cs, o, d, 1e-3, t_max)
+    assert float((occ == want_occ).float().mean()) >= 0.9999
+    assert 0.1 < float(occ.float().mean()) < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,counter", [
+    ("cuda_texture_raytracer", lambda: whitted.whitted_bounce.launches),
+    ("cuda_raytracer", lambda: whitted.whitted_bounce.launches),
+    ("cpu_raytracer", lambda: intersect.closest_hit.launches + intersect.any_hit.launches),
+])
+def test_renderers_launch_their_kernels(card, name, counter):
+    b = pt.CustomSceneBuilder()
+    r = pt.RendererFactory.create(name, seed=1)
+    before = counter()
+    sums = r.render_sums(b.build_scene(), b.create_camera(1.0),
+                         pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    assert counter() > before
     assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()

@@ -29,6 +29,7 @@ from path_tracing__ray_tracer_tpu_torch.ops import texture as ttex
 from path_tracing__ray_tracer_tpu_torch.ops import tonemap as ttone
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import refract as trefract
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.fixture(scope="module")

@@ -26,6 +26,7 @@ import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu.models.path_tracer import _path_chunk
 from path_tracing__ray_tracer_tpu_torch.models.path_tracer import PathTracer, _regen_chunk
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GOLDEN = Path(__file__).parent / "goldens" / "path.npy"
 
@@ -76,7 +77,7 @@ def test_chunk_size_invariance(cornell):
     big = pt.RendererFactory.create("cuda_path_raytracer", seed=2, chunk_rays=1 << 20, device="cpu")
     small = pt.RendererFactory.create("cuda_path_raytracer", seed=2, chunk_rays=1 << 12,
                                       device="cpu")
-    assert big._plan(40, 30, 4)[0] != small._plan(40, 30, 4)[0]
+    assert big._plan(40, 30, 4, 5)[0] != small._plan(40, 30, 4, 5)[0]
     np.testing.assert_array_equal(big.render_array(scene, cam, s), small.render_array(scene, cam, s))
 
 
@@ -120,9 +121,14 @@ def test_factory_names_and_pending_renderers():
     assert type(r) is type(alias) is PathTracer
     assert r.get_name() == alias.get_name() == "cuda_path_raytracer"
     assert pt.RendererFactory.create("cuda_path_raytracer").device.type == "cuda"
-    for name in ("cuda_texture_raytracer", "tpu_raytracer", "cpu_raytracer"):
-        with pytest.raises(pt.NotPortedError, match="ROADMAP"):
-            pt.RendererFactory.create(name)
+    # every renderer of the JAX package is ported: none is pending
+    assert sorted(pt.RendererFactory.list_available()) == sorted(
+        jp.RendererFactory.list_available())
+    for name in ("cuda_raytracer", "cuda_texture_raytracer", "cpu_raytracer", "tpu_raytracer",
+                 "tpu_texture_raytracer"):
+        made = pt.RendererFactory.create(name)
+        assert made.device.type == "cuda"
+        assert made.get_name() == pt.RendererFactory.resolve(name)
     with pytest.raises(ValueError):
         pt.RendererFactory.create("no_such_renderer")
 
@@ -130,6 +136,9 @@ def test_factory_names_and_pending_renderers():
 def test_package_imports_without_jax():
     code = ("import sys, path_tracing__ray_tracer_tpu_torch as pt; "
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.intersect; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.whitted; "
+            "import path_tracing__ray_tracer_tpu_torch.models.whitted_oracle; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
