@@ -34,7 +34,20 @@ It imports no JAX.
    the torch profiler over the same frame: device operations per Whitted
    bounce, device busy time and K2's share of it;
 8. the oracle ``cpu_raytracer`` at 320×240, 4 spp, depth 6 (K3a/K3b's
-   launch counts).
+   launch counts);
+9. the BVH mesh scene of BASELINE.json config 5 (``MeshSceneBuilder(3, 3)``,
+   11,520 triangles): K4a (scene closest hit) against its plain version on
+   131,072 rays over the 1920×1080 frame and on the frame's first chunk;
+   K4b (scene any hit) on one light-sample shadow ray per lane with a care
+   mask; K5 (BVH path bounce) on the first chunk at depth 0 and three plain
+   bounces on, both shadow bounds; their times and bounds at 131,072 rays;
+10. the mesh main path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
+   ``shadow_tmax="light"``, one ``MESH_SPP``-sample group after a warm-up on
+   a small frame (K5's and K4b's launch counts), then a profile of a
+   2-sample frame: device operations per bounce, busy time, K5's and K4b's
+   shares;
+11. the mesh Whitted frame: ``cuda_texture_raytracer`` at 480×270, 4 spp,
+   depth 16 (K4a's and K4b's launch counts).
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -69,6 +82,15 @@ PEAK_BYTES = 3.35e12
 # float operations (add, sub, mul, div, sqrt) of one primitive test of
 # csrc/sweep.cuh, by primitive type (plane, sphere, quad, triangle)
 TEST_FLOPS = (33, 28, 33, 45)
+# float operations (sub, mul, min, max, compare) of one slab test of
+# csrc/bvh_walk.cuh
+BOX_FLOPS = 25
+# BASELINE.json config 5 (benchmarks.py:87-90): the mesh path at full width;
+# spp cut from 512 to one of its 128-sample groups (about half a minute on an
+# H100; 256 would take about a minute)
+M_WIDTH, M_HEIGHT, M_DEPTH, MESH_SPP = 1920, 1080, 12, 128
+# the mesh Whitted frame (small: its bounces run the plain Whitted glue)
+MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH = 480, 270, 4, 16
 
 
 def _run(cmd) -> str:
@@ -100,12 +122,13 @@ def phase_environment():
 
 
 def phase_build():
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import build, bounce, intersect, whitted
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
+        bounce, bounce_bvh, build, bvh, intersect, whitted)
 
     t0 = time.perf_counter()
     libs = build.load_all()
     secs = time.perf_counter() - t0
-    for mod in (bounce, intersect, whitted):
+    for mod in (bounce, intersect, whitted, bvh, bounce_bvh):
         mod.build()  # binds the argument types
     print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
     for name, built in libs.items():
@@ -116,9 +139,11 @@ def phase_build():
     return secs
 
 
-def camera_state(cs, camera, n, device):
-    """Bench-camera rays at depth 0: every 8th pixel of the 1024² frame,
-    independent jitter, seed 0, sample 0 (the path tracer's own ray)."""
+def camera_state(cs, camera, n, device, width=WIDTH, height=HEIGHT, depth=DEPTH, stride=None):
+    """Path-tracer camera rays at depth 0: every ``stride``-th pixel (by
+    default spread over the frame; 1 is the frame's first chunk), independent
+    jitter, seed 0, sample 0 (the path tracer's own ray).  By default the
+    bench frame: 1024², depth 8, every 8th pixel."""
     import torch
 
     from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
@@ -126,12 +151,12 @@ def camera_state(cs, camera, n, device):
     from path_tracing__ray_tracer_tpu_torch.ops.camera import generate_rays
     from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
-    idx = torch.arange(n, dtype=torch.int64, device=device) * (WIDTH * HEIGHT // n)
+    idx = torch.arange(n, dtype=torch.int64, device=device) * (stride or width * height // n)
     key = rng.ray_key(0, idx, 0)
-    x = (idx % WIDTH).to(torch.float32)
-    y = (idx // WIDTH).to(torch.float32)
-    u = (x + rng.uniform(key, DEPTH, 0)) / WIDTH
-    v = (y + rng.uniform(key, DEPTH, 1)) / HEIGHT
+    x = (idx % width).to(torch.float32)
+    y = (idx // width).to(torch.float32)
+    u = (x + rng.uniform(key, depth, 0)) / width
+    v = (y + rng.uniform(key, depth, 1)) / height
     o, d = generate_rays(pack_camera(camera, device), u, v)
     one = torch.ones(n, dtype=torch.float32, device=device)
     return o, d, V3(one, one, one), key, torch.zeros(n, dtype=torch.int32, device=device)
@@ -235,10 +260,12 @@ GOLDENS = (  # tests/test_golden.py's configs, seed 42
 
 def wrappers():
     """Every kernel wrapper by kernel name; each counts its own launches."""
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, intersect, whitted
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh, intersect, whitted
 
     return {"path_bounce": bounce.path_bounce, "whitted_bounce": whitted.whitted_bounce,
-            "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit}
+            "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit,
+            "scene_closest": bvh.scene_closest, "scene_any": bvh.scene_any,
+            "path_bounce_bvh": bounce_bvh.path_bounce_bvh}
 
 
 def reset_counts():
@@ -342,18 +369,20 @@ def light_sample_rays(cs, o, d, light_of_lane):
     return h.point + h.normal * 1e-3, to_light.normalized(), dist - 1e-3
 
 
-def sweep_flops(cs, o, d, bound, first_only, lanes=None):
+def sweep_flops(cs, o, d, bound, first_only, lanes=None, kinds=4):
     """Float operations of the primitive tests of one sweep per ray: every
     primitive (closest hit), or those up to the first occluder in sweep
     order (any hit), as this run's rays need them; rays outside the bool
-    mask ``lanes`` do not sweep."""
+    mask ``lanes`` do not sweep.  ``kinds=3`` leaves the triangles out (the
+    BVH kernels' plane/sphere/quad sweep)."""
     import torch
 
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import _ALL, _CANDIDATES, _bound, _lift
 
     n = o.x.shape[0]
     b = _bound(bound, n, o.x)[:, None]
-    valid = torch.cat([c(cs, _ALL, _lift(o), _lift(d), 1e-3, b)[0] for c in _CANDIDATES], 1)
+    valid = torch.cat([c(cs, _ALL, _lift(o), _lift(d), 1e-3, b)[0]
+                       for c in _CANDIDATES[:kinds]], 1)
     k = valid.shape[1]
     tested = torch.full((n,), k, dtype=torch.int64, device=o.x.device)
     if first_only:
@@ -362,7 +391,7 @@ def sweep_flops(cs, o, d, bound, first_only, lanes=None):
     if lanes is not None:
         tested = torch.where(lanes, tested, 0)
     flops, start = 0.0, 0
-    for count, per_test in zip((cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles),
+    for count, per_test in zip((cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles)[:kinds],
                                TEST_FLOPS):
         flops += float((tested - start).clamp(0, count).sum()) * per_test
         start += count
@@ -380,7 +409,7 @@ def compare_fields(name, got, want, lanes, fields):
     """Max |diff| over ``fields`` on ``lanes``; raises when out of tolerance."""
     import torch
 
-    worst, bad_total, parts = 0.0, 0, []
+    worst, worst_f, bad_total = 0.0, fields[0], 0
     for f in fields:
         a, b = getattr(got, f), getattr(want, f)
         if isinstance(a, tuple):
@@ -388,40 +417,43 @@ def compare_fields(name, got, want, lanes, fields):
         else:
             m = lanes
         diff = (a - b).abs()[m]
-        bad = int((diff > TOL + TOL * b.abs()[m]).sum())
+        bad_total += int((diff > TOL + TOL * b.abs()[m]).sum())
         mx = float(diff.max()) if diff.numel() else 0.0
-        worst, bad_total = max(worst, mx), bad_total + bad
-        parts.append(f"{f} {mx:.3e} ({bad})")
-    print(f"[check]   max |diff| (out of tolerance): {', '.join(parts)}")
+        if mx > worst:
+            worst, worst_f = mx, f
+    print(f"[check]   max |diff| {worst:.3e} ({worst_f}) over {', '.join(fields)}; "
+          f"{bad_total} out of tolerance")
     if bad_total:
         raise SystemExit(f"chip_smoke: kernel disagrees with its plain version on {name}")
     return worst
 
 
-def check_closest(label, got, want):
-    """K3a's record against the plain one: equal primitive on ≥ 99.99% of
-    lanes, floats within tolerance where it is equal; returns max |diff|."""
+def check_closest(label, got, want, name="closest_hit"):
+    """K3a's (or K4a's) record against the plain one: equal primitive on
+    ≥ 99.99% of lanes, floats within tolerance where it is equal; returns
+    max |diff|."""
     n = got.prim.shape[0]
     same = got.prim == want.prim
     share = float(same.float().mean())
-    print(f"[check] closest_hit, {label}: prim agree {share:.6f} "
+    print(f"[check] {name}, {label}: prim agree {share:.6f} "
           f"({int((~same).sum())} of {n} differ), hit lanes {int((same & got.hit).sum())}")
-    worst = compare_fields(f"closest_hit, {label}", got, want, same, ("t", "normal", "u", "v"))
+    worst = compare_fields(f"{name}, {label}", got, want, same, ("t", "normal", "u", "v"))
     if share < HIT_AGREE:
-        raise SystemExit(f"chip_smoke: closest_hit disagrees with its plain version on {label}")
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version on {label}")
     return worst
 
 
-def check_occlusion(label, occ, want, lanes):
-    """K3b's verdicts against the plain ones on the shadow rays in ``lanes``
-    (those whose verdict the caller reads); returns max |diff|."""
+def check_occlusion(label, occ, want, lanes, name="any_hit"):
+    """K3b's (or K4b's) verdicts against the plain ones on the shadow rays
+    in ``lanes`` (those whose verdict the caller reads); returns max |diff|."""
     agree = float((occ == want)[lanes].float().mean())
-    print(f"[check] any_hit, {label}: occlusion agree {agree:.6f} on {int(lanes.sum())} of "
+    print(f"[check] {name}, {label}: occlusion agree {agree:.6f} on {int(lanes.sum())} of "
           f"{occ.shape[0]} rays (all rays {float((occ == want).float().mean()):.6f}), "
           f"occluded {float(occ[lanes].float().mean()):.4f}")
     if agree < OCC_AGREE:
-        raise SystemExit(f"chip_smoke: any_hit disagrees with its plain version on {label}")
-    return float((occ[lanes].float() - want[lanes].float()).abs().max())
+        raise SystemExit(f"chip_smoke: {name} disagrees with its plain version on {label}")
+    diff = (occ[lanes].float() - want[lanes].float()).abs()
+    return float(diff.max()) if diff.numel() else 0.0
 
 
 def phase_intersect_check(cs, camera, device):
@@ -758,6 +790,224 @@ def phase_oracle(device):
     return launched
 
 
+# ---- K4a / K4b / K5: the BVH mesh scene (BASELINE.json config 5) ----------------
+def mesh_scene(device):
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    scene, cam = b.build_scene(), b.create_camera(M_WIDTH / M_HEIGHT)
+    return scene, cam, pt.compile_scene(scene, device=device, use_bvh=True)
+
+
+def mesh_shadow(cs, o, d, key, depth):
+    """The NEE shadow ray of each lane's plain closest hit, as K5 makes it
+    (``shadow_tmax="light"``): origin, direction and bound, −1 where the
+    answer is not needed (missed, light below the horizon, no diffuse)."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import rng
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        resolve_material, scene_hit_bvh_plain)
+    from path_tracing__ray_tracer_tpu_torch.ops.sampling import pick_light
+
+    h = scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)
+    ldir, dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
+    care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
+        resolve_material(cs, h.prim)[1] > 0)
+    return h.point + h.normal * 1e-3, ldir, torch.where(care, dist - 1e-3, -1.0)
+
+
+def phase_mesh_check(device):
+    """K4a, K4b and K5 against their plain versions on the mesh scene; K5's
+    plain version is ``path_bounce_plain``, whose intersections launch K4a
+    and K4b on the card (checked first)."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        scene_hit_any_bvh_plain, scene_hit_bvh_plain)
+
+    _scene, cam, cs = mesh_scene(device)
+    print(f"[mesh] config-5 scene: {cs.n_triangles} triangles, BVH {cs.bvh.n_nodes} nodes, "
+          f"BVH4 {cs.bvh.nodes4.shape[0] // 32} nodes, depth {cs.bvh.depth4}")
+    tables = bounce_bvh.pack_bvh_tables(cs)
+    spread = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    chunk = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH, stride=1)
+    k4a = k4b = k5 = 0.0
+    for label, (o, d, _t, key, depth) in (("131,072 rays over the 1920x1080 frame", spread),
+                                          ("the frame's first chunk", chunk)):
+        k4a = max(k4a, check_closest(label, bvh.scene_closest(cs, o, d, 1e-3, 1e6),
+                                     scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6), "scene_closest"))
+        so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+        k4b = max(k4b, check_occlusion(f"{label}, one light-sample shadow ray per lane",
+                                       bvh.scene_any(cs, so, sd, 1e-3, lim),
+                                       scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim), lim > 0,
+                                       "scene_any"))
+    states = {"first chunk, depth 0": chunk,
+              "first chunk, 3 plain bounces on, depth 3-5": advance_plain(cs, chunk, 3)}
+    for label, (o, d, thr, key, depth) in states.items():
+        for shadow_light in (False, True):
+            got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
+                                             shadow_light=shadow_light)
+            want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=shadow_light)
+            k5 = max(k5, compare(f"path_bounce_bvh, {label}, shadow_light={shadow_light}", got,
+                                 want))
+    return cs, tables, spread, (k4a, k4b, k5)
+
+
+def phase_mesh_timing(cs, tables, state):
+    """Kernel and plain times of K4a, K4b and K5 at N = 131,072 (K5: the
+    wrapper, its K5 launch and the K4b launch answering its shadow rays),
+    and their bounds from the same inputs: bytes, each input read once and
+    each output written once; operations, the plane/sphere/quad sweeps plus
+    the box and triangle tests the plain skip-link walk counts."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        scene_hit_any_bvh_plain, scene_hit_bvh_plain)
+
+    o, d, thr, key, depth = state
+    so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+    calls = {
+        "scene_closest": (lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
+                          lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)),
+        "scene_any": (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim),
+                      lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim)),
+        "path_bounce_bvh": (
+            lambda: bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
+                                               shadow_light=True),
+            lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=True)),
+    }
+    times = {}
+    for name, (kernel, plain) in calls.items():
+        times[name] = (cuda_ms(kernel), cuda_ms(plain))
+        print(f"[time] {name} at N={N_RAYS}: kernel {times[name][0]:.4f} ms, plain torch "
+              f"{times[name][1]:.4f} ms (median of 25, CUDA events)")
+    closest, shadow = {}, {}
+    scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, counts=closest)
+    scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, counts=shadow)
+    care = lim > 0
+    ops_a = (sweep_flops(cs, o, d, 1e6, False, kinds=3) + BOX_FLOPS * closest["boxes"]
+             + TEST_FLOPS[3] * closest["tri_tests"])
+    ops_b = (sweep_flops(cs, so, sd, lim, True, care, kinds=3) + BOX_FLOPS * shadow["boxes"]
+             + TEST_FLOPS[3] * shadow["tri_tests"])
+    n = N_RAYS
+    bounds = {"scene_closest": bound_ms(ops_a, n * (4 * 6 + 4 * 7)),
+              "scene_any": bound_ms(ops_b, n * (4 * 7 + 1)),
+              "path_bounce_bvh": bound_ms(ops_a + ops_b, n * (4 * 11 + 4 * 19 + 4))}
+    print(f"[bound] mesh walks at N={N_RAYS}: closest {closest['boxes']} box and "
+          f"{closest['tri_tests']} triangle tests, shadow {shadow['boxes']} and "
+          f"{shadow['tri_tests']} ({int(care.sum())} rays need an answer); " + "; ".join(
+              f"{k} {v[0]:.5f} ms ({v[1]})" for k, v in bounds.items()))
+    return times, bounds
+
+
+def phase_mesh_main(device):
+    """The mesh path at full width (config 5, spp cut to one group)."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    scene, cam = b.build_scene(), b.create_camera(M_WIDTH / M_HEIGHT)
+    r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=MESH_SPP,
+                                  chunk_rays=CHUNK_RAYS, shadow_tmax="light", seed=0,
+                                  compile_overrides={"use_bvh": True}, device=device)
+    t0 = time.perf_counter()
+    r.render_sums(scene, cam, pt.RenderSettings(256, 144, 4, M_DEPTH))
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_SPP, M_DEPTH))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    mrays = M_WIDTH * M_HEIGHT * MESH_SPP * M_DEPTH / secs / 1e6
+    mean = sums.mean(axis=0) / MESH_SPP
+    print(f"[mesh] path {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH} shadow_tmax=light, one {MESH_SPP}-"
+          f"sample group: warm-up (256x144, 4 spp) {warm:.3f} s, timed {secs:.3f} s -> "
+          f"{mrays:.2f} Mrays/s (W*H*spp*depth/t); launches K5 {launched['path_bounce_bvh']}, "
+          f"K4b {launched['scene_any']}, K1 {launched['path_bounce']}; peak device memory "
+          f"{peak:.0f} MiB; mean radiance/sample {mean}")
+    if sums.shape != (M_WIDTH * M_HEIGHT, 3) or not np.isfinite(sums).all() or (sums < 0).any():
+        raise SystemExit("chip_smoke: mesh-path sums are not finite and non-negative")
+    if not 0.01 < float(mean.mean()) < 20.0:
+        raise SystemExit(f"chip_smoke: implausible mesh mean radiance {mean}")
+    if not (launched["path_bounce_bvh"] and launched["scene_any"]):
+        raise SystemExit("chip_smoke: the mesh path never launched K5 and K4b")
+    return launched, secs, mrays, r, scene, cam
+
+
+def phase_mesh_profile(r, scene, cam):
+    """Device operations per mesh bounce, device busy time and the shares
+    of K5 and K4b, from the torch profiler over a 2-sample mesh frame."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh
+
+    settings = pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH)
+    r.sample_group = 2
+    t0 = time.perf_counter()
+    r.device_sums(scene, cam, settings)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    before = bounce_bvh.path_bounce_bvh.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        r.device_sums(scene, cam, settings)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    bounces = bounce_bvh.path_bounce_bvh.launches - before
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not ops:
+        print("[mesh] profile: not measured (the profiler saw no device operation)")
+        return
+    by_name = collections.Counter()
+    for e in ops:
+        by_name[e.name] += e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values())
+    k5 = sum(ms for name, ms in by_name.items() if "path_bounce_bvh" in name)
+    k4b = sum(ms for name, ms in by_name.items() if "bvh_any" in name)
+    print(f"[mesh] profile of a {M_WIDTH}x{M_HEIGHT} 2-spp depth {M_DEPTH} frame (untraced "
+          f"{untraced:.3f} s): {len(ops)} device ops in {bounces} bounces -> "
+          f"{len(ops) / max(bounces, 1):.1f} per bounce; device busy {busy:.3f} ms = "
+          f"{100 * busy / (1e3 * untraced):.1f}% of the untraced frame; K5 {k5:.3f} ms "
+          f"({100 * k5 / busy:.1f}% of busy), K4b {k4b:.3f} ms ({100 * k4b / busy:.1f}%)")
+    for name, ms in by_name.most_common(4):
+        print(f"[mesh]   {ms:9.3f} ms  {name[:90]}")
+
+
+def phase_mesh_whitted(device):
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    scene, cam = b.build_scene(), b.create_camera(MW_WIDTH / MW_HEIGHT)
+    r = pt.RendererFactory.create("cuda_texture_raytracer", seed=0, device=device)
+    r.compiled(scene)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, pt.RenderSettings(MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    mean = sums.mean(axis=0) / MW_SPP
+    print(f"[mesh] Whitted {MW_WIDTH}x{MW_HEIGHT} {MW_SPP} spp depth {MW_DEPTH}: {secs:.3f} s; "
+          f"launches K4a {launched['scene_closest']}, K4b {launched['scene_any']}, "
+          f"K2 {launched['whitted_bounce']}; mean radiance/sample {mean}")
+    if not np.isfinite(sums).all() or (sums < 0).any() or not float(mean.mean()) > 0.01:
+        raise SystemExit("chip_smoke: mesh Whitted sums are not finite, non-negative, plausible")
+    if not (launched["scene_closest"] and launched["scene_any"]):
+        raise SystemExit("chip_smoke: the mesh Whitted frame did not launch K4a and K4b")
+    return launched
+
+
 def main() -> int:
     phase_environment()
     import torch
@@ -784,6 +1034,13 @@ def main() -> int:
     k2_launches, w_secs, w_mrays, rmse = phase_whitted_frame(device)
     phase_whitted_profile(device, w_secs)
     oracle = phase_oracle(device)
+    mcs, tables, mstate, (k4a_err, k4b_err, k5_err) = phase_mesh_check(device)
+    mtimes, mbounds = phase_mesh_timing(mcs, tables, mstate)
+    times.update(mtimes)
+    bounds.update(mbounds)
+    mesh_launched, m_secs, m_mrays, mr, mscene, mcam = phase_mesh_main(device)
+    phase_mesh_profile(mr, mscene, mcam)
+    mw_launched = phase_mesh_whitted(device)
     torch.cuda.synchronize()
 
     src = "path_tracing__ray_tracer_tpu_torch/csrc/"
@@ -793,6 +1050,11 @@ def main() -> int:
         ("whitted_bounce", "whitted_bounce.cu", "whitted_pallas.py:39", k2_launches, k2_err),
         ("closest_hit", "intersect.cu", "intersect_pallas.py:294", oracle["closest_hit"], k3a_err),
         ("any_hit", "intersect.cu", "intersect_pallas.py:312", oracle["any_hit"], k3b_err),
+        ("scene_closest", "bvh_scene.cu", "bvh_pallas.py:1164", mw_launched["scene_closest"],
+         k4a_err),
+        ("scene_any", "bvh_scene.cu", "bvh_pallas.py:1351", mesh_launched["scene_any"], k4b_err),
+        ("path_bounce_bvh", "path_bounce_bvh.cu", "bounce_bvh_pallas.py:128",
+         mesh_launched["path_bounce_bvh"], k5_err),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
@@ -802,7 +1064,8 @@ def main() -> int:
     } for name, source, replaces, launches, err in rows]}))
     print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
           f"group at 1024x1024 depth 8); Whitted frame {w_secs:.3f} s ({w_mrays:.2f} Mrays/s, "
-          f"RMSE {rmse:.4f}/255) on:")
+          f"RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s ({m_secs:.3f} s per "
+          f"{MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH}) on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

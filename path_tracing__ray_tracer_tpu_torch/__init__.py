@@ -4,10 +4,12 @@ The same scene, camera, material and geometry API and the same scene
 compiler, as torch tensors on one device, and the same four renderers: the
 path tracer (``cuda_path_raytracer``), the two Whitted ray tracers
 (``cuda_raytracer``, ``cuda_texture_raytracer``) and the CPU-parity oracle
-(``cpu_raytracer``).  Their kernels are hand-written CUDA
-(``csrc/path_bounce.cu``, ``csrc/whitted_bounce.cu``, ``csrc/intersect.cu``)
-on an NVIDIA GPU, and plain torch versions on the CPU.  Imports neither JAX
-nor Triton, and builds no kernel until one is first launched.
+(``cpu_raytracer``).  Scenes above 256 triangles (``MeshSceneBuilder``) get
+a flat BVH.  The kernels are hand-written CUDA (``csrc/path_bounce.cu``,
+``csrc/whitted_bounce.cu``, ``csrc/intersect.cu``, and for BVH scenes
+``csrc/bvh_scene.cu`` and ``csrc/path_bounce_bvh.cu``) on an NVIDIA GPU, and
+plain torch versions on the CPU.  Imports neither JAX nor Triton, and builds
+no kernel until one is first launched.
 
 Quick start::
 
@@ -48,5 +50,6 @@ from .models import path_tracer as _path_tracer  # noqa: F401,E402
 from .models import whitted as _whitted  # noqa: F401,E402
 from .models import whitted_oracle as _whitted_oracle  # noqa: F401,E402
 from .scene_builders.custom_scene_builder import CustomSceneBuilder  # noqa: F401,E402
+from .scene_builders.mesh_scene_builder import MeshSceneBuilder  # noqa: F401,E402
 
 __version__ = "0.1.0"

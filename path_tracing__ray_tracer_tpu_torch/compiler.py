@@ -13,7 +13,10 @@ same wire format as the JAX package, field for field:
   ``[offset, width, height]`` table, path-sorted for stable ids
   (``cuda_texture_renderer.py:798-813``);
 * the unique-material table ``mat_table`` with the per-primitive index
-  ``mat_uid``.
+  ``mat_uid``;
+* above ``BVH_THRESHOLD`` triangles (or with ``use_bvh=True``), the flat BVH
+  over the triangles (``ops/bvh.FlatBVH``), its slot records carrying each
+  triangle's unique-material id when the scene has a ``mat_table``.
 
 GPU-parity mode reproduces the reference wire-format quirks: planes and
 triangles never carry refraction (``cuda_texture_renderer.py:519-520,701-702``)
@@ -104,7 +107,7 @@ class CompiledScene(NamedTuple):
     tex_width: torch.Tensor
     tex_height: torch.Tensor
     device: torch.device  # every tensor above and below lives here
-    bvh: object = None  # always None: BVH scenes are not ported yet
+    bvh: object = None  # Optional[ops.bvh.FlatBVH] over the triangles (big scenes)
     # the JAX package's optional mip atlas (deferred-texture mode); never built
     mip_atlas: Optional[torch.Tensor] = None
     mip_offset: Optional[torch.Tensor] = None
@@ -144,12 +147,10 @@ class CompiledScene(NamedTuple):
         return int(self.tex_offset.shape[0])
 
 
-# triangle count above which the JAX package builds its flat BVH
+# triangle count above which the scene gets a flat BVH
 BVH_THRESHOLD = 256
 # largest unique-material table the JAX package compresses (its select_table)
 SELECT_LIMIT = 128
-_BVH_TODO = ("BVH scenes are not ported yet: ROADMAP.md Queue 1 item 9 (BVH, "
-             "then kernels K4/K5) brings them; use the JAX package meanwhile")
 
 
 def _pad_to(n: int) -> int:
@@ -266,6 +267,7 @@ def compile_scene(
     gpu_parity: bool = True,
     texture_budget: int = 0,
     device="cuda",
+    use_bvh: Optional[bool] = None,
 ) -> CompiledScene:
     """Lower a host ``Scene`` to the device SoA form on ``device``.
 
@@ -274,18 +276,15 @@ def compile_scene(
     ``v = normal × u``.  ``gpu_parity`` reproduces the wire-format quirks of
     the reference GPU flatteners (see module doc).  ``texture_budget`` caps
     each texture's max dimension (box-filter downsample); 0 keeps the
-    reference-exact full resolution.
-
-    Raises ``NotImplementedError`` for a scene that needs a BVH (more than
-    ``BVH_THRESHOLD`` triangles after the quad merge).
+    reference-exact full resolution.  ``use_bvh`` forces the flat BVH on
+    (``True``) or off (``False``); by default a scene gets one above
+    ``BVH_THRESHOLD`` triangles after the quad merge.
     """
     device = torch.device(device)
     planes = [o for o in scene.objects if isinstance(o, Plane)]
     spheres = [o for o in scene.objects if isinstance(o, Sphere)]
     tris = [o for o in scene.objects if isinstance(o, Triangle)]
     quad_recs, tris = _merge_quads(tris)
-    if len(tris) > BVH_THRESHOLD:
-        raise NotImplementedError(_BVH_TODO)
 
     texture_paths = collect_texture_paths(scene)
     tex_ids = {p: i for i, p in enumerate(texture_paths)}
@@ -431,7 +430,7 @@ def compile_scene(
     def flag(on: bool):
         return torch.zeros((1 if on else 0,), dtype=torch.int8, device=device)
 
-    return CompiledScene(
+    cs = CompiledScene(
         planes=planes_soa,
         spheres=spheres_soa,
         quads=quads_soa,
@@ -451,6 +450,29 @@ def compile_scene(
         mat_uid=mat_uid,
         mat_table=mat_table,
     )
+    if use_bvh is None:
+        use_bvh = len(tris) > BVH_THRESHOLD
+    if use_bvh and tris:
+        cs = _with_bvh(cs, tris, uid if mat_uid is not None else None, p_pad + s_pad + q_pad)
+    return cs
+
+
+def _with_bvh(cs: CompiledScene, tris: List[Triangle], uid, tri_base: int) -> CompiledScene:
+    """``cs`` with the flat BVH over ``tris``: triangle AABBs, the stored
+    normals in the slot records, and each triangle's unique-material id
+    (``uid`` of the global primitive order) packed into its slot gid while
+    the counts fit the f32-exact packing range."""
+    from .ops import bvh as bvh_mod
+    from .ops.cuda.bounce import pack_ps_blob
+
+    v0, v1, v2, nrm = (np.stack([getattr(t, f).to_np() for t in tris])
+                       for f in ("v0", "v1", "v2", "normal"))
+    tri_uid = None
+    if uid is not None and len(tris) <= bvh_mod.GID_UID_SHIFT:
+        tri_uid = uid[tri_base: tri_base + len(tris)].astype(np.int32)
+    arrs = bvh_mod.build_bvh(np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2))
+    flat = bvh_mod.to_device(arrs, v0, v1, v2, nrm, uid=tri_uid, device=cs.device)
+    return cs._replace(bvh=flat._replace(ps_blob=pack_ps_blob(cs)))
 
 
 def _build_atlas(texture_paths: List[str], texture_budget: int = 0):
@@ -541,10 +563,31 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     """The port's ``CompiledScene`` on ``device`` from a JAX ``CompiledScene``
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
-    carried over unchanged."""
-    if tree.bvh is not None or tree.mip_atlas is not None:
-        raise NotImplementedError(_BVH_TODO)
+    carried over unchanged; a flat BVH brings its node arrays, its BVH4
+    node records and its slot records.  The mip atlas (the JAX package's
+    ``mip_budget``) is not ported and raises."""
+    if tree.mip_atlas is not None:
+        raise NotImplementedError("the mip atlas (mip_budget) is not ported")
     device = torch.device(device)
     fields = {f: _from_numpy(getattr(tree, f), device)
-              for f in CompiledScene._fields if f != "device"}
-    return CompiledScene(device=device, **fields)
+              for f in CompiledScene._fields if f not in ("device", "bvh")}
+    cs = CompiledScene(device=device, **fields)
+    if tree.bvh is None:
+        return cs
+    from .ops import bvh as bvh_mod
+    from .ops.cuda.bounce import pack_ps_blob
+
+    b = tree.bvh
+    arrs = {k: np.asarray(getattr(b, k)) for k in ("lo", "hi", "skip", "is_leaf", "slots")}
+    if b.quad_blob is not None:
+        nodes4, depth4 = np.asarray(b.quad_blob), int(b.quad_depth_token.shape[0])
+    else:
+        nodes4, depth4 = bvh_mod._root_leaf_node4(arrs), 1
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)  # a copy: JAX's arrays are read-only
+
+    flat = bvh_mod.FlatBVH(**{k: t(a) for k, a in arrs.items()}, nodes4=t(nodes4[0]),
+                           slot_rec=t(np.asarray(b.slot_blob)[0]), depth4=depth4,
+                           uid_packed=b.uid_token is not None)
+    return cs._replace(bvh=flat._replace(ps_blob=pack_ps_blob(cs)))

@@ -1,0 +1,130 @@
+// Whole-scene intersection of a BVH scene, one ray per thread: the closest
+// hit with its attributes (K4a) and the occlusion test with a per-ray bound
+// (K4b).
+//
+// Replaces the JAX package's ops/pallas/bvh_pallas.py::
+// _bvh4_scene_closest_kernel (entered there through bvh_scene_closest_pallas)
+// and ::_bvh4_scene_any_kernel (bvh_scene_any_pallas).  Both first sweep the
+// planes, spheres and quads (sweep.cuh, from shared memory); that result
+// seeds the triangle walk of bvh_walk.cuh, so triangles behind a nearer
+// plane/sphere/quad are never tested.
+//
+// What bounds them: latency.  Per ray K4a reads 24 B and writes 28 B, K4b
+// reads 28 B and writes 1 B, against a walk of tens of node records and
+// leaves of 16 slot records (52 B each), read from device memory through
+// the read-only cache by threads that each follow their own path.  The
+// design keeps it simple: one thread per ray, its stack in local memory,
+// the tree and slot records as packed, and only the few non-triangle
+// primitives staged in shared memory.
+//
+// K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss), u, v
+// (the plane/sphere/quad winner's surface UV, a triangle winner's raw
+// barycentrics), the shading normal (triangles flipped toward the ray;
+// zeros on a miss).  K4b: one byte per ray, 1 when occluded in
+// (t_min, limit[i]); lanes with limit <= 0 (no answer needed) report 1.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bvh_walk.cuh"
+#include "sweep.cuh"
+
+namespace ptrt {
+
+constexpr int kBvhThreads = 128;
+
+__device__ __forceinline__ void stage_ps(float* smem, const float* __restrict__ ps_g, int size) {
+  for (int k = threadIdx.x; k < size; k += blockDim.x) smem[k] = ps_g[k];
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kBvhThreads)
+bvh_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
+                   const float* __restrict__ ps_g, int P, int S, int Q,
+                   const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+                   const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+                   const float* __restrict__ dy_in, const float* __restrict__ dz_in, int n,
+                   float t_min, float t_max, float* __restrict__ t_out,
+                   int* __restrict__ prim_out, float* __restrict__ u_out,
+                   float* __restrict__ v_out, float* __restrict__ nx_out,
+                   float* __restrict__ ny_out, float* __restrict__ nz_out) {
+  extern __shared__ float smem[];
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  stage_ps(smem, ps_g, L.tb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;  // ragged tail
+  Ray r;
+  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
+  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
+  const int off = P + S + Q;
+  Hit h = closest_hit(smem, L, r, t_min, t_max);
+  walk_closest(nodes, n_nodes, slots, r, t_min, off, h);
+  if (h.prim >= off) {  // slot normals are stored unflipped
+    const float sgn = h.nx * r.dx + h.ny * r.dy + h.nz * r.dz > 0.0f ? -1.0f : 1.0f;
+    h.nx = h.nx * sgn; h.ny = h.ny * sgn; h.nz = h.nz * sgn;
+  }
+  t_out[i] = h.t;
+  prim_out[i] = decode_prim(h.prim, off);
+  u_out[i] = h.u;
+  v_out[i] = h.v;
+  nx_out[i] = h.nx;
+  ny_out[i] = h.ny;
+  nz_out[i] = h.nz;
+}
+
+__global__ void __launch_bounds__(kBvhThreads)
+bvh_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
+               const float* __restrict__ ps_g, int P, int S, int Q,
+               const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+               const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+               const float* __restrict__ dy_in, const float* __restrict__ dz_in,
+               const float* __restrict__ limit_in, int n, float t_min,
+               uint8_t* __restrict__ occ_out) {
+  extern __shared__ float smem[];
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  stage_ps(smem, ps_g, L.tb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
+  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
+  const float limit = limit_in[i];
+  occ_out[i] = (limit <= 0.0f || any_hit(smem, L, r, t_min, limit) ||
+                walk_any(nodes, n_nodes, slots, r, t_min, limit)) ? 1 : 0;
+}
+
+inline size_t ps_bytes(int P, int S, int Q) {
+  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
+}
+
+inline int blocks_for(int n) { return (n + kBvhThreads - 1) / kBvhThreads; }
+
+}  // namespace ptrt
+
+// Both launch on `stream`, allocate nothing and do not synchronise.  Each
+// returns the launch's cudaError_t (0 when the launch was accepted).
+extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* slots,
+                                const float* ps, int P, int S, int Q, const float* ox,
+                                const float* oy, const float* oz, const float* dx,
+                                const float* dy, const float* dz, int n, float t_min,
+                                float t_max, float* t, int* prim, float* u, float* v, float* nx,
+                                float* ny, float* nz, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::bvh_closest_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
+                             (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy,
+                                                     oz, dx, dy, dz, n, t_min, t_max, t, prim, u,
+                                                     v, nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slots, const float* ps,
+                            int P, int S, int Q, const float* ox, const float* oy,
+                            const float* oz, const float* dx, const float* dy, const float* dz,
+                            const float* limit, int n, float t_min, uint8_t* occluded,
+                            void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::bvh_any_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
+                         (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy, oz,
+                                                 dx, dy, dz, limit, n, t_min, occluded);
+  return (int)cudaGetLastError();
+}

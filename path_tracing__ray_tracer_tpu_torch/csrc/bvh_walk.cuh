@@ -1,0 +1,181 @@
+// Per-thread BVH4 walks over the triangles, closest hit and occlusion.
+//
+// Replaces the walk bodies of the JAX package's ops/pallas/bvh_pallas.py,
+// _bvh4_walk and _bvh4_any_walk (with _quad_pop_common, _quad_push_order,
+// _leaf_tris and _slab), which the TPU kernels _bvh4_scene_closest_kernel,
+// _bvh4_scene_any_kernel (K4a, K4b) and bounce_bvh_pallas.py's
+// _path_bounce_bvh_kernel (K5) share.  On the TPU a block of 1,024 rays walks
+// the tree together from SMEM, steered by block-wide any-bits and a
+// coherence sort; here each thread walks its own ray with its own stack over
+// the records in device memory (read through the read-only cache), so no
+// sort is needed and no lane tests a box only its neighbours hit.
+//
+// Kept exactly, per lane: the slab test and the Möller–Trumbore test of
+// ops/bvh.py (strict `<` against the running best, t > t_min, the 1e-12 and
+// 1e-6 guards); at each pop the four child boxes are tested against the best
+// at pop time, the leaf children are tested in child order, and the inner
+// children are pushed far to near by the node's three split codes.  Near and
+// far come from the lane's own direction (the TPU kernel takes the sign
+// majority of its block).  So a lane's winner equals the plain skip-link
+// walk's, except between triangles at exactly equal t, which the two visit
+// orders may break differently.
+//
+// Records (ops/bvh.py): node record, 32 floats: child c's box lo at 6c, hi
+// at 6c + 3; child metas at 24 + c (leaf: its first slot >= 0; inner:
+// -(1 + node index); empty: -1 with a never-hit box); split codes at 28-30.
+// Slot record, 13 floats: v0, e1, e2, gid (-1 padding; uid << 17 | tri
+// when packed), the stored unit normal.
+#pragma once
+
+#include "sweep.cuh"
+
+namespace ptrt {
+
+constexpr int kNode4F = 32;
+constexpr int kSlotF = 13;
+constexpr int kLeafSize = 16;
+// deepest BVH4 the walk takes: the stack never holds more than 3 * depth - 2
+// nodes (ops/cuda/bvh.py checks the depth before it launches)
+constexpr int kMaxDepth4 = 32;
+constexpr int kStackCap = 3 * kMaxDepth4;
+constexpr int kGidUidBits = 17;
+constexpr int kGidTriMask = (1 << kGidUidBits) - 1;
+
+__device__ __forceinline__ float inv_dir(float d) {
+  return 1.0f / (fabsf(d) > 1e-12f ? d : 1e-12f);
+}
+
+struct WalkRay {
+  Ray r;
+  float ivx, ivy, ivz;
+};
+
+__device__ __forceinline__ WalkRay walk_ray(const Ray& r) {
+  return WalkRay{r, inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
+}
+
+__device__ __forceinline__ bool slab(const float* __restrict__ b, const WalkRay& w, float t_min,
+                                     float far) {
+  float a = (b[0] - w.r.ox) * w.ivx, c = (b[3] - w.r.ox) * w.ivx;
+  const float tx0 = fminf(a, c), tx1 = fmaxf(a, c);
+  a = (b[1] - w.r.oy) * w.ivy;
+  c = (b[4] - w.r.oy) * w.ivy;
+  const float ty0 = fminf(a, c), ty1 = fmaxf(a, c);
+  a = (b[2] - w.r.oz) * w.ivz;
+  c = (b[5] - w.r.oz) * w.ivz;
+  const float tz0 = fminf(a, c), tz1 = fmaxf(a, c);
+  const float enter = fmaxf(fmaxf(tx0, ty0), fmaxf(tz0, t_min));
+  const float exit = fminf(fminf(tx1, ty1), fminf(tz1, far));
+  return enter <= exit;
+}
+
+// does the child whose split code is `code` put its left half nearer?
+__device__ __forceinline__ bool near_first(float code, const Ray& r) {
+  const int k = (int)code;
+  const int axis = k & 3;
+  const float d = axis == 0 ? r.dx : (axis == 1 ? r.dy : r.dz);
+  return (d > 0.0f) != (k >= 4);
+}
+
+// Push the hit inner children of node record `b`, the farthest first.
+__device__ __forceinline__ void push_children(const float* __restrict__ b, const bool* hit,
+                                              const float* meta, const Ray& r, int* stack,
+                                              int& sp) {
+  const bool p0n = near_first(b[28], r);  // the left pair is the near one
+  const bool c0n = near_first(b[29], r);  // child 0 is the near one of the left pair
+  const bool c2n = near_first(b[30], r);  // child 2 is the near one of the right pair
+  const int l_near = c0n ? 0 : 1, l_far = c0n ? 1 : 0;
+  const int r_near = c2n ? 2 : 3, r_far = c2n ? 3 : 2;
+  const int order[4] = {p0n ? r_far : l_far, p0n ? r_near : l_near, p0n ? l_far : r_far,
+                        p0n ? l_near : r_near};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int c = order[j];
+    if (hit[c] && meta[c] < 0.0f) stack[sp++] = (int)(-meta[c]) - 1;
+  }
+}
+
+// Closest hit below h.t among the triangles; h carries the seed (the
+// plane/sphere/quad winner) in and the winner out: t, prim = gid +
+// gid_offset (gid still packed), the raw barycentrics as u, v and the
+// stored (unflipped) normal.
+__device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
+                                             const float* __restrict__ slots, const Ray& r,
+                                             float t_min, int gid_offset, Hit& h) {
+  const WalkRay w = walk_ray(r);
+  int stack[kStackCap];
+  int sp = 0;
+  stack[sp++] = 0;
+  for (int step = 0; sp > 0 && step < n_nodes + 2; ++step) {
+    const float* b = nodes + (size_t)stack[--sp] * kNode4F;
+    bool hit[4];
+    float meta[4];
+    const float far = h.t;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      hit[c] = slab(b + 6 * c, w, t_min, far);
+      meta[c] = b[24 + c];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!(hit[c] && meta[c] >= 0.0f)) continue;
+      const float* s = slots + (size_t)meta[c] * kSlotF;
+      for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
+        float tt, bu, bv;
+        if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, h.t,
+                            tt, bu, bv) &&
+            s[9] >= 0.0f) {
+          h.t = tt;
+          h.prim = (int)s[9] + gid_offset;
+          h.u = bu;
+          h.v = bv;
+          h.nx = s[10];
+          h.ny = s[11];
+          h.nz = s[12];
+        }
+      }
+    }
+    push_children(b, hit, meta, r, stack, sp);
+  }
+}
+
+// Is any triangle hit in (t_min, limit)?  Stops at the first one.
+__device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_nodes,
+                                         const float* __restrict__ slots, const Ray& r,
+                                         float t_min, float limit) {
+  const WalkRay w = walk_ray(r);
+  int stack[kStackCap];
+  int sp = 0;
+  stack[sp++] = 0;
+  for (int step = 0; sp > 0 && step < n_nodes + 2; ++step) {
+    const float* b = nodes + (size_t)stack[--sp] * kNode4F;
+    bool hit[4];
+    float meta[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      hit[c] = slab(b + 6 * c, w, t_min, limit);
+      meta[c] = b[24 + c];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (!(hit[c] && meta[c] >= 0.0f)) continue;
+      const float* s = slots + (size_t)meta[c] * kSlotF;
+      for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
+        float tt, bu, bv;
+        if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min,
+                            limit, tt, bu, bv) &&
+            s[9] >= 0.0f)
+          return true;
+      }
+    }
+    push_children(b, hit, meta, r, stack, sp);
+  }
+  return false;
+}
+
+// A triangle winner's global id without its packed uid; other ids unchanged.
+__device__ __forceinline__ int decode_prim(int prim, int gid_offset) {
+  return prim >= gid_offset ? ((prim - gid_offset) & kGidTriMask) + gid_offset : prim;
+}
+
+}  // namespace ptrt

@@ -106,12 +106,13 @@ __device__ __forceinline__ bool quad_test(const float* f, int n, int i, const Ra
   return ok && tt > t_min && tt < best && a >= 0.0f && a <= 1.0f && b >= 0.0f && b <= 1.0f;
 }
 
-__device__ __forceinline__ bool tri_test(const float* f, int n, int i, const Ray& r,
-                                         float t_min, float best, float& tt, float& bu,
-                                         float& bv) {
-  const float v0x = f[0 * n + i], v0y = f[1 * n + i], v0z = f[2 * n + i];
-  const float e1x = f[3 * n + i], e1y = f[4 * n + i], e1z = f[5 * n + i];
-  const float e2x = f[6 * n + i], e2y = f[7 * n + i], e2z = f[8 * n + i];
+// Möller–Trumbore of one triangle given by v0, e1 = v1 - v0 and e2 = v2 - v0
+// (the tables and the BVH slot records store those): writes t and the
+// barycentrics, returns whether it hits in (t_min, best).
+__device__ __forceinline__ bool moller_trumbore(float v0x, float v0y, float v0z, float e1x,
+                                                float e1y, float e1z, float e2x, float e2y,
+                                                float e2z, const Ray& r, float t_min, float best,
+                                                float& tt, float& bu, float& bv) {
   const float hx = r.dy * e2z - r.dz * e2y;
   const float hy = r.dz * e2x - r.dx * e2z;
   const float hz = r.dx * e2y - r.dy * e2x;
@@ -127,6 +128,14 @@ __device__ __forceinline__ bool tri_test(const float* f, int n, int i, const Ray
   tt = inv_det * (e2x * qx + e2y * qy + e2z * qz);
   return ok && bu >= 0.0f && bu <= 1.0f && bv >= 0.0f && bu + bv <= 1.0f && tt > t_min &&
          tt < best;
+}
+
+__device__ __forceinline__ bool tri_test(const float* f, int n, int i, const Ray& r,
+                                         float t_min, float best, float& tt, float& bu,
+                                         float& bv) {
+  return moller_trumbore(f[0 * n + i], f[1 * n + i], f[2 * n + i], f[3 * n + i], f[4 * n + i],
+                         f[5 * n + i], f[6 * n + i], f[7 * n + i], f[8 * n + i], r, t_min, best,
+                         tt, bu, bv);
 }
 
 // ---- closest hit with the winner's shading normal and UV ------------------

@@ -5,7 +5,11 @@ stochastic three-event glass model and ACES tonemapping, with the
 reference's stylized-physics quirks (see the JAX module's docstring).
 
 Each bounce is one launch of the CUDA kernel ``ops/cuda/bounce.path_bounce``
-(its plain torch version on the CPU).  Between bounces plain torch ops
+(K1) or, on a BVH scene, of ``ops/cuda/bounce_bvh.path_bounce_bvh`` (K5 and
+its K4b shadow walk); a BVH scene that K5 does not take (textured
+triangles, no unique-material table) runs ``path_bounce_plain``, whose
+intersections launch K4a and K4b.  On the CPU each takes its plain torch
+version.  Between bounces plain torch ops
 resolve the base colour (atlas texel or material colour), apply the two
 multiply-adds, and regenerate finished lanes.  Randomness is the counter
 hash: a pure function of (seed, pixel, sample, depth, use).
@@ -18,7 +22,8 @@ import torch
 
 from ..ops import rng
 from ..ops.camera import generate_rays
-from ..ops.cuda.bounce import T_MAX, T_MIN, path_bounce
+from ..ops.cuda.bounce import T_MAX, T_MIN, path_bounce, path_bounce_plain
+from ..ops.cuda.bounce_bvh import path_bounce_bvh
 from ..ops.texture import resolve_base_color
 from ..ops.tonemap import aces
 from ..ops.v3 import V3
@@ -34,6 +39,21 @@ _U_JITX, _U_JITY = 0, 1
 # batch is compacted to those lanes.
 _CHECK_EVERY = 4
 _COMPACT_BELOW = 0.5
+
+
+def bounce_fn(cs, blobs):
+    """``bounce(o, d, thr, key, depth, shadow_light) -> BounceOut`` for
+    ``cs`` and its packed tables ``blobs`` (``WavefrontRenderer.blobs``):
+    K1 for a scene without a BVH, K5 for one that K5 takes, else the plain
+    bounce (the JAX package's ``_make_bounce_and_resolve``)."""
+    if cs.bvh is None:
+        return lambda o, d, thr, key, depth, shadow_light: path_bounce(
+            cs, *blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
+    if blobs is not None:
+        return lambda o, d, thr, key, depth, shadow_light: path_bounce_bvh(
+            cs, blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
+    return lambda o, d, thr, key, depth, shadow_light: path_bounce_plain(
+        cs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
 
 
 def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
@@ -61,7 +81,7 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
     dev = sums.device
     stride = (int(N * 0.6180339887) | 1) % N if NS > 1 else 0
     total = width * height
-    blob, mat_blob, light_blob = blobs
+    bounce = bounce_fn(cs, blobs)
     shadow_light = shadow_tmax == "light"
 
     def make_ray(lane_ids, s):
@@ -104,8 +124,7 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
                 sel = torch.nonzero(left)[:, 0]
                 o, d, thr, psum = o.take(sel), d.take(sel), thr.take(sel), psum.take(sel)
                 key, depth, s, ploc, lane = key[sel], depth[sel], s[sel], ploc[sel], lane[sel]
-        out = path_bounce(cs, blob, mat_blob, light_blob, o, d, thr, key, depth,
-                          t_min=T_MIN, t_max=T_MAX, shadow_light=shadow_light)
+        out = bounce(o, d, thr, key, depth, shadow_light)
         base = resolve_base_color(cs, out.mat_color, (out.tex_id >= 0.0).to(torch.float32),
                                   out.tex_id.to(torch.int32), out.u, out.v)
         active = s < NS

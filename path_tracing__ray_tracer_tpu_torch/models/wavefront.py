@@ -23,6 +23,7 @@ from ..compiler import CompiledScene, compile_scene, pack_camera, scene_summary
 from ..core.camera import Camera
 from ..core.scene import RenderSettings, Scene
 from ..ops.cuda.bounce import pack_light_blob, pack_mat_blob, pack_scene_blob
+from ..ops.cuda.bounce_bvh import bounce_bvh_ok, pack_bvh_tables
 from ..ops.tonemap import quantize_u8
 from ..ops.v3 import V3
 from ..utils.image import assemble_image
@@ -64,6 +65,7 @@ class WavefrontRenderer(BaseRenderer):
         jitter: str = "diagonal",  # 'diagonal' (reference quirk) | 'independent' | 'center'
         texture_budget: int = 0,  # 0 = reference-exact full-res atlas
         device="cuda",
+        compile_overrides: Optional[dict] = None,  # extra compile_scene kwargs (use_bvh)
     ):
         super().__init__(name)
         if jitter not in ("diagonal", "independent", "center"):
@@ -73,12 +75,14 @@ class WavefrontRenderer(BaseRenderer):
         self.jitter = jitter
         self.texture_budget = int(texture_budget)
         self.device = torch.device(device)
+        self.compile_overrides = dict(compile_overrides or {})
         self._scene_cache: Dict[Tuple, CompiledScene] = {}
-        self._blobs: Dict[int, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = {}
+        self._blobs: Dict[int, object] = {}  # blobs() by id of the compiled scene
 
     # -- scene compilation (cached) -----------------------------------------
     def compiled(self, scene: Scene) -> CompiledScene:
-        key = (id(scene), self.convention, self.gpu_parity, self.texture_budget, str(self.device))
+        key = (id(scene), self.convention, self.gpu_parity, self.texture_budget, str(self.device),
+               tuple(sorted(self.compile_overrides.items())))
         if key not in self._scene_cache:
             cs = compile_scene(
                 scene,
@@ -86,16 +90,23 @@ class WavefrontRenderer(BaseRenderer):
                 gpu_parity=self.gpu_parity,
                 texture_budget=self.texture_budget,
                 device=self.device,
+                **self.compile_overrides,
             )
             self._scene_cache[key] = cs
             log_event("scene_compiled", renderer=self.name, **scene_summary(cs))
         return self._scene_cache[key]
 
     def blobs(self, cs: CompiledScene):
-        """The kernels' packed tables of ``cs`` (primitives, materials,
-        lights), made once per compiled scene."""
+        """The kernels' packed tables of ``cs``, made once per compiled
+        scene: the primitives, materials and lights; for a BVH scene the
+        tables of ``ops/cuda/bounce_bvh`` (None when K5 does not take the
+        scene), whose triangles are in the BVH's slot records."""
         if id(cs) not in self._blobs:
-            self._blobs[id(cs)] = (pack_scene_blob(cs), pack_mat_blob(cs), pack_light_blob(cs))
+            if cs.bvh is None:
+                self._blobs[id(cs)] = (pack_scene_blob(cs), pack_mat_blob(cs),
+                                       pack_light_blob(cs))
+            else:
+                self._blobs[id(cs)] = pack_bvh_tables(cs) if bounce_bvh_ok(cs) else None
         return self._blobs[id(cs)]
 
     # -- subclass contract ---------------------------------------------------

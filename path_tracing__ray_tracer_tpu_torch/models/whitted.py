@@ -7,9 +7,12 @@
 Each bounce is one launch of the CUDA kernel ``ops/cuda/whitted.whitted_bounce``
 (its plain torch version on the CPU): closest hit, the 16 shadow sweeps and
 Lambert/Phong shading, the energy factor and the reflect/refract
-continuation.  Between bounces plain torch ops resolve the base colour and
-apply ``color += atten · (base · a + w)``; the carried attenuation is a
-scalar per ray (reference semantics).
+continuation.  A BVH scene takes the plain bounce ``whitted_bounce_plain``
+instead, whose ``scene_hit`` and ``scene_hit_any`` launch the BVH scene
+kernels K4a and K4b on the card (as the JAX package declines its SMEM sweep
+kernel for big scenes).  Between bounces plain torch ops resolve the base
+colour and apply ``color += atten · (base · a + w)``; the carried
+attenuation is a scalar per ray (reference semantics).
 
 Quirks kept (SURVEY.md §2): hard-coded 0.4 ambient, the two falloff
 variants, the shininess table, the ``max(0.1, 1−kr−kt)`` energy floor,
@@ -26,7 +29,7 @@ import torch
 
 from ..ops import rng
 from ..ops.camera import generate_rays
-from ..ops.cuda.whitted import BASIC, TEXTURE, WhittedVariant, whitted_bounce
+from ..ops.cuda.whitted import BASIC, TEXTURE, WhittedVariant, whitted_bounce, whitted_bounce_plain
 from ..ops.texture import resolve_base_color
 from ..ops.v3 import V3
 from .base import RendererFactory
@@ -51,7 +54,10 @@ def whitted_radiance(cs, blobs, org: V3, rd: V3, max_depth: int, variant: Whitte
     o, d = org, rd
     atten = torch.ones(n, dtype=torch.float32, device=org.x.device)
     for depth in range(max_depth):
-        out = whitted_bounce(cs, *blobs, o, d, variant)
+        if cs.bvh is None:
+            out = whitted_bounce(cs, *blobs, o, d, variant)
+        else:
+            out = whitted_bounce_plain(cs, o, d, variant)
         base = resolve_base_color(cs, out.mat_color, (out.tex_id >= 0.0).to(torch.float32),
                                   out.tex_id.to(torch.int32), out.u, out.v)
         contrib = (base * out.a + V3(out.w, out.w, out.w)) * atten

@@ -184,6 +184,9 @@ class CPUParityRayTracer(WavefrontRenderer):
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, *, n_pix, width, height,
                n_samples, max_depth):
+        if cs.bvh is not None:
+            raise NotImplementedError("cpu_raytracer on a BVH scene is not ported yet "
+                                      "(ROADMAP.md Queue 1 item 10)")
         depth = min(max_depth, ORACLE_MAX_DEPTH)
         o, d = grid_camera_rays(cam12, pix0, n_pix, width, height, seed, sample_base,
                                 n_samples, math.isqrt(n_samples), depth, self.jitter)

@@ -1,0 +1,465 @@
+"""Flat BVH over the triangles: host build, packed records, plain walks.
+
+Port of the JAX package's ``ops/bvh.py`` with the host-side packers of its
+``ops/pallas/bvh_pallas.py`` (copied as numpy, not imported):
+
+* **Build** (host): binned SAH over triangle centroids, deterministic,
+  nodes in DFS order with *skip links*; node ``i``'s first child is ``i+1``
+  and ``skip[i]`` jumps past its subtree.  Leaves hold ``LEAF_SIZE`` slots,
+  ``-1`` padded.  The C++ builder of ``native/`` gives the same arrays and
+  is taken first.
+* **Records** the CUDA walks read (``csrc/bvh_walk.cuh``): the BVH4 node
+  records of ``pack_blobs4`` (two BVH2 levels collapsed, near-first split
+  codes) and the leaf-ordered triangle slot records of ``pack_blobs`` (v0,
+  e1, e2, gid, stored normal), whose gid may carry the triangle's
+  unique-material id (``GID_UID_SHIFT``).
+* **Plain walks** ``traverse_closest`` / ``traverse_any``: the JAX skip-link
+  walks in torch ops, every lane with its own cursor, compacted to the
+  lanes still walking.  They serve the CPU and are what the kernels are
+  held against; they can count the box and triangle tests they make.
+
+The JAX package's SMEM budget and paged blobs are TPU limits and are not
+ported: on the GPU the tree and the slot records live in device memory at
+any size.
+"""
+from __future__ import annotations
+
+import sys
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .v3 import V3
+
+LEAF_SIZE = 16
+_SAH_BINS = 16
+_NODE_F = 8  # BVH2 node record: lo(3) hi(3) skip slot_base/split code
+_NODE4_F = 32  # BVH4 node record: 4 boxes, 4 metas, 3 split codes, 1 pad
+_SLOT_F = 13  # slot record: v0(3) e1(3) e2(3) gid n(3)
+# gid = uid · 2^17 + tri, exact in f32 below 2^24 (uid < 128, tri < 2^17)
+GID_UID_SHIFT = 1 << 17
+GID_TRI_MASK = GID_UID_SHIFT - 1
+
+
+class FlatBVH(NamedTuple):
+    lo: torch.Tensor  # (M, 3) f32 box min
+    hi: torch.Tensor  # (M, 3) f32 box max
+    skip: torch.Tensor  # (M,) int32: next node when this box is missed / leaf done
+    is_leaf: torch.Tensor  # (M,) bool
+    slots: torch.Tensor  # (M, LEAF_SIZE) int32 triangle ids, -1 padded
+    # the records the CUDA walks read, on the same device
+    nodes4: torch.Tensor  # (32·M4,) f32 BVH4 node records (pack_blobs4)
+    slot_rec: torch.Tensor  # (13·K,) f32 leaf-ordered triangle records (pack_blobs)
+    depth4: int  # BVH4 depth, root = 1: bounds the walk's stack
+    uid_packed: bool  # slot gids carry packed unique-material ids
+    # plane/sphere/quad blob (ops/cuda/bounce.pack_ps_blob) seeding the
+    # scene walks; the compiler sets it
+    ps_blob: Optional[torch.Tensor] = None
+
+    @property
+    def n_nodes(self) -> int:
+        return int(self.skip.shape[0])
+
+
+# ---- build ------------------------------------------------------------------------
+class _Node:
+    __slots__ = ("lo", "hi", "left", "right", "prims")
+
+    def __init__(self, lo, hi, left=None, right=None, prims=None):
+        self.lo, self.hi = lo, hi
+        self.left, self.right = left, right
+        self.prims = prims
+
+
+def _build_tree(tri_min, tri_max, centroids, idx, leaf_size) -> _Node:
+    lo = tri_min[idx].min(axis=0)
+    hi = tri_max[idx].max(axis=0)
+    if len(idx) <= leaf_size:
+        return _Node(lo, hi, prims=idx)
+
+    # split along the largest centroid extent only (as the C++ builder does)
+    c = centroids[idx]
+    axis = int(np.argmax(c.max(axis=0) - c.min(axis=0)))
+
+    def half_area(a, b):
+        d = np.maximum(b - a, 0.0)
+        return d[0] * d[1] + d[1] * d[2] + d[2] * d[0]
+
+    left_idx = right_idx = None
+    best_cost = np.inf
+    cmin, cmax = float(c[:, axis].min()), float(c[:, axis].max())
+    if cmax - cmin > 1e-12:
+        bins = np.minimum(((c[:, axis] - cmin) / (cmax - cmin) * _SAH_BINS).astype(np.int32),
+                          _SAH_BINS - 1)
+        for split in range(1, _SAH_BINS):
+            mask = bins < split
+            nl = int(mask.sum())
+            if nl == 0 or nl == len(idx):
+                continue
+            cost = half_area(tri_min[idx[mask]].min(axis=0), tri_max[idx[mask]].max(axis=0)) * nl \
+                + half_area(tri_min[idx[~mask]].min(axis=0),
+                            tri_max[idx[~mask]].max(axis=0)) * (len(idx) - nl)
+            if cost < best_cost:
+                best_cost = cost
+                left_idx, right_idx = idx[mask], idx[~mask]
+
+    if left_idx is None:  # degenerate spread → stable median split
+        order = np.argsort(c[:, axis], kind="stable")
+        half = len(idx) // 2
+        left_idx, right_idx = idx[order[:half]], idx[order[half:]]
+
+    return _Node(lo, hi, left=_build_tree(tri_min, tri_max, centroids, left_idx, leaf_size),
+                 right=_build_tree(tri_min, tri_max, centroids, right_idx, leaf_size))
+
+
+def build_bvh(tri_min: np.ndarray, tri_max: np.ndarray, leaf_size: int = LEAF_SIZE,
+              use_native: bool = True) -> dict:
+    """Binned-SAH BVH over triangle AABBs ``(T, 3)``: numpy ``lo``, ``hi``,
+    ``skip``, ``is_leaf``, ``slots``.  Takes the C++ builder of ``native/``
+    when ``use_native`` and it is available (same arrays), else this
+    module's numpy builder, after logging why."""
+    if use_native:
+        from ..native import NativeUnavailable, native_build_bvh
+
+        try:
+            return native_build_bvh(tri_min, tri_max, leaf_size)
+        except NativeUnavailable as e:
+            from ..utils.logging import log_event
+
+            log_event("bvh_native_declined", reason=str(e), triangles=int(tri_min.shape[0]))
+
+    t = tri_min.shape[0]
+    assert t > 0
+    centroids = ((tri_min + tri_max) * 0.5).astype(np.float64)
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 8 * t + 1000))
+    try:
+        root = _build_tree(tri_min.astype(np.float64), tri_max.astype(np.float64), centroids,
+                           np.arange(t, dtype=np.int32), leaf_size)
+        lo, hi, skip, is_leaf, slots = [], [], [], [], []
+
+        def flatten(node: _Node, skip_to: int):
+            """DFS emit; ``skip_to`` is where the walk resumes when this
+            subtree is done or missed (-1: patched once the right root is
+            known)."""
+            me = len(lo)
+            lo.append(node.lo)
+            hi.append(node.hi)
+            skip.append(skip_to)
+            row = np.full(leaf_size, -1, dtype=np.int32)
+            if node.prims is not None:
+                is_leaf.append(True)
+                row[: len(node.prims)] = node.prims
+                slots.append(row)
+                return
+            is_leaf.append(False)
+            slots.append(row)
+            flatten(node.left, skip_to=-1)
+            right_root = len(lo)
+            for j in range(me + 1, right_root):
+                if skip[j] == -1:
+                    skip[j] = right_root
+            flatten(node.right, skip_to=skip_to)
+
+        flatten(root, skip_to=-2)  # -2: the walk is finished
+    finally:
+        sys.setrecursionlimit(limit)
+    m = len(lo)
+    skip_np = np.asarray(skip, dtype=np.int32)
+    skip_np[skip_np < 0] = m
+    return {"lo": np.asarray(lo, dtype=np.float32), "hi": np.asarray(hi, dtype=np.float32),
+            "skip": skip_np, "is_leaf": np.asarray(is_leaf, dtype=bool),
+            "slots": np.stack(slots).astype(np.int32)}
+
+
+# ---- packed records ------------------------------------------------------------------
+def _pack_gid(tri: np.ndarray, uid) -> np.ndarray:
+    """Slot gid values: plain triangle ids, or uid-packed when ``uid``
+    (per-triangle unique-material ids) is given."""
+    if uid is None:
+        return tri.astype(np.float64)
+    uid = np.asarray(uid)
+    assert tri.size == 0 or (
+        int(tri.max(initial=0)) < GID_UID_SHIFT
+        and int(uid.max(initial=0)) * GID_UID_SHIFT + GID_TRI_MASK < (1 << 24)
+    ), "packed gid exceeds the f32-exact integer range"
+    return uid[tri].astype(np.float64) * GID_UID_SHIFT + tri.astype(np.float64)
+
+
+def _split_codes(lo, hi, skip, is_leaf) -> np.ndarray:
+    """Per-node split code ``axis + 4*flip`` (0..7) for inner nodes, 0 for
+    leaves: ``axis`` separates the child centroids most, ``flip`` says the
+    left child's centroid is the greater one."""
+    codes = np.zeros(len(skip), np.float32)
+    inner = np.where(~is_leaf)[0]
+    if len(inner):
+        left = inner + 1
+        right = skip[left]
+        diff = (lo[right] + hi[right]) * 0.5 - (lo[left] + hi[left]) * 0.5
+        axis = np.argmax(np.abs(diff), axis=1)
+        flip = diff[np.arange(len(inner)), axis] < 0.0
+        codes[inner] = axis + 4.0 * flip
+    return codes
+
+
+def pack_blobs(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+               nrm: np.ndarray = None, uid: np.ndarray = None):
+    """``(tree, slots, depth)``: the BVH2 node records ``(1, 8·M)``, the
+    leaf-ordered slot records ``(1, 13·K)`` (leaf ``j``'s triangles at slots
+    ``16j ..``; padding slots all zero with gid −1, which never hit) and the
+    tree's depth (root = 1).  ``nrm`` is the stored unit normal (default:
+    the normalized cross product); ``uid`` packs unique-material ids into
+    the gids."""
+    lo, hi, skip = arrs["lo"], arrs["hi"], arrs["skip"]
+    is_leaf, slots = arrs["is_leaf"], arrs["slots"]
+    m, leaf_size = slots.shape
+    e1 = v1 - v0
+    e2 = v2 - v0
+    if nrm is None:
+        nrm = np.cross(e1, e2)
+        nrm = nrm / np.maximum(np.linalg.norm(nrm, axis=1, keepdims=True), 1e-30)
+    nrm = np.asarray(nrm, np.float32)
+
+    tree = np.zeros((m, _NODE_F), np.float32)
+    tree[:, 0:3] = lo
+    tree[:, 3:6] = hi
+    tree[:, 6] = skip.astype(np.float32)
+    leaf_ids = np.where(is_leaf)[0]
+    slot_base = np.full(m, -1.0, np.float32)
+    slot_base[leaf_ids] = np.arange(len(leaf_ids), dtype=np.float32) * leaf_size
+    tree[:, 7] = slot_base
+    inner = np.where(~is_leaf)[0]
+    codes = _split_codes(lo, hi, skip, is_leaf)
+    if len(inner):
+        tree[inner, 7] = -(1.0 + codes[inner])
+
+    depth = 1
+    stack = [(0, 1)]
+    while stack:
+        node, d = stack.pop()
+        depth = max(depth, d)
+        if not is_leaf[node]:
+            stack.append((node + 1, d + 1))
+            stack.append((int(skip[node + 1]), d + 1))
+
+    rec = np.zeros((len(leaf_ids) * leaf_size, _SLOT_F), np.float32)
+    rec[:, 9] = -1.0
+    flat = slots[leaf_ids].reshape(-1)
+    tri = flat[flat >= 0]
+    rows = np.where(flat >= 0)[0]
+    rec[rows, 0:3] = v0[tri]
+    rec[rows, 3:6] = e1[tri]
+    rec[rows, 6:9] = e2[tri]
+    rec[rows, 9] = _pack_gid(tri, uid).astype(np.float32)
+    rec[rows, 10:13] = nrm[tri]
+    return tree.reshape(1, -1), rec.reshape(1, -1), depth
+
+
+def pack_blobs4(arrs: dict):
+    """``(nodes4 (1, 32·M4), depth4)``: the BVH2 collapsed into BVH4 nodes, or
+    ``(None, 0)`` when the root is a leaf.  Each node merges a BVH2 inner
+    node with its children: child slots 0-1 come from the left subtree, 2-3
+    from the right; a leaf child takes its pair's first slot beside an empty
+    (never-hit) one.  Record: 4 child boxes (lo, hi), 4 metas (leaf: its
+    slot base ≥ 0; inner: −(1 + BVH4 index)), the split codes of the
+    collapsed parent and of its left and right children, one pad."""
+    lo, hi, skip = arrs["lo"], arrs["hi"], arrs["skip"]
+    is_leaf, slots = arrs["is_leaf"], arrs["slots"]
+    m, leaf_size = slots.shape
+    if is_leaf[0]:
+        return None, 0
+    leaf_ids = np.where(is_leaf)[0]
+    slot_base = np.full(m, -1, np.int64)
+    slot_base[leaf_ids] = np.arange(len(leaf_ids), dtype=np.int64) * leaf_size
+    codes = _split_codes(lo, hi, skip, is_leaf)
+    records = []
+    max_depth = [1]
+
+    def build(i: int, d: int) -> int:
+        me = len(records)
+        records.append(None)
+        max_depth[0] = max(max_depth[0], d)
+        l, r = i + 1, int(skip[i + 1])
+        child_slots = []
+        for sub in (l, r):
+            if is_leaf[sub]:
+                child_slots.extend([(sub, True), None])
+            else:
+                a, b2 = sub + 1, int(skip[sub + 1])
+                child_slots.extend([(a, bool(is_leaf[a])), (b2, bool(is_leaf[b2]))])
+        rec = np.zeros(_NODE4_F, np.float32)
+        for c, s in enumerate(child_slots):
+            if s is None:
+                # a point box at +3e38 is never hit (an inverted box would be:
+                # the slab test orders each axis' two planes)
+                rec[6 * c: 6 * c + 6] = 3e38
+                rec[24 + c] = -1.0
+            else:
+                nid, lf = s
+                rec[6 * c: 6 * c + 3] = lo[nid]
+                rec[6 * c + 3: 6 * c + 6] = hi[nid]
+                rec[24 + c] = float(slot_base[nid]) if lf else -(1.0 + build(nid, d + 1))
+        rec[28] = codes[i]
+        rec[29] = 0.0 if is_leaf[l] else codes[l]
+        rec[30] = 0.0 if is_leaf[r] else codes[r]
+        records[me] = rec
+        return me
+
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 8 * m + 1000))
+    try:
+        build(0, 1)
+    finally:
+        sys.setrecursionlimit(limit)
+    return np.stack(records).astype(np.float32).reshape(1, -1), max_depth[0]
+
+
+def _root_leaf_node4(arrs: dict) -> np.ndarray:
+    """One BVH4 node whose only child is the root leaf (slot base 0), for a
+    tree that ``pack_blobs4`` cannot collapse."""
+    rec = np.full(_NODE4_F, 3e38, np.float32)
+    rec[0:3], rec[3:6] = arrs["lo"][0], arrs["hi"][0]
+    rec[24:28] = (0.0, -1.0, -1.0, -1.0)
+    rec[28:32] = 0.0
+    return rec[None, :]
+
+
+def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: np.ndarray,
+              uid: np.ndarray = None, device="cpu") -> FlatBVH:
+    """A ``build_bvh`` result and its triangles as a :class:`FlatBVH` on
+    ``device``.  ``nrm`` is the compiler's stored normal (``triangles.normal``),
+    so the kernels' normals equal the plain gathers'; ``uid`` packs each
+    triangle's unique-material id into its slot gid."""
+    v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
+    _tree, slot_np, _depth = pack_blobs(arrs, v0, v1, v2, nrm=nrm, uid=uid)
+    nodes4, depth4 = pack_blobs4(arrs)
+    if nodes4 is None:
+        nodes4, depth4 = _root_leaf_node4(arrs), 1
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    return FlatBVH(lo=t(arrs["lo"]), hi=t(arrs["hi"]), skip=t(arrs["skip"]),
+                   is_leaf=t(arrs["is_leaf"]), slots=t(arrs["slots"]), nodes4=t(nodes4[0]),
+                   slot_rec=t(slot_np[0]), depth4=int(depth4), uid_packed=uid is not None)
+
+
+# ---- plain walks -------------------------------------------------------------------
+def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max, any_hit: bool,
+          counts: Optional[dict]):
+    """The skip-link walk of every ray (``traverse_closest`` /
+    ``traverse_any``).  Each step tests one node box per walking lane and,
+    at a leaf whose box is hit, its ``LEAF_SIZE`` slots at once: the first
+    slot with the least ``t`` below the running best wins, as the JAX
+    walk's strict-``<`` slot loop decides."""
+    n = ro.x.shape[0]
+    m = bvh.n_nodes
+    dev = ro.x.device
+    best_t = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).clone()
+    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    v0 = torch.stack(tuple(tris.v0), -1)
+    e1 = torch.stack(tuple(tris.v1), -1) - v0
+    e2 = torch.stack(tuple(tris.v2), -1) - v0
+    inv = [1.0 / torch.where(torch.abs(c) > 1e-12, c, 1e-12) for c in rd]
+    # the walking lanes' state, compacted as lanes finish
+    ids = torch.arange(n, device=dev)
+    o, d = torch.stack(tuple(ro), -1), torch.stack(tuple(rd), -1)
+    iv = torch.stack(inv, -1)
+    lim = best_t.clone()
+    bt, bi = best_t.clone(), best_i.clone()
+    cursor = torch.zeros(n, dtype=torch.int64, device=dev)
+    boxes = torch.zeros((), dtype=torch.int64, device=dev)
+    tests = torch.zeros((), dtype=torch.int64, device=dev)
+    for _step in range(m + 1):  # a correct tree ends within m steps
+        if ids.numel() == 0:
+            break
+        lo, hi = bvh.lo[cursor], bvh.hi[cursor]
+        a, b = (lo - o) * iv, (hi - o) * iv
+        near, far = torch.minimum(a, b), torch.maximum(a, b)
+        enter = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                              torch.clamp(near[:, 2], min=t_min))
+        exit_ = torch.minimum(torch.minimum(far[:, 0], far[:, 1]),
+                              torch.minimum(far[:, 2], lim if any_hit else bt))
+        box_hit = enter <= exit_
+        leaf = bvh.is_leaf[cursor] & box_hit
+        boxes = boxes + ids.numel()
+        done = torch.zeros_like(box_hit)
+        rows = torch.nonzero(leaf)[:, 0]
+        if rows.numel():
+            slot = bvh.slots[cursor[rows]]  # (k, LEAF_SIZE)
+            valid = slot >= 0
+            ti = torch.clamp(slot, min=0).long()
+            tests = tests + valid.sum()
+            t, win = _leaf_test(v0[ti], e1[ti], e2[ti], o[rows, None, :], d[rows, None, :],
+                                t_min, (lim if any_hit else bt)[rows, None])
+            win = win & valid
+            if any_hit:
+                done[rows] = win.any(1)
+            else:
+                t = torch.where(win, t, torch.inf)
+                k = torch.argmin(t, dim=1)  # first occurrence of the least t
+                tk = torch.gather(t, 1, k[:, None])[:, 0]
+                take = torch.isfinite(tk)
+                bt[rows] = torch.where(take, tk, bt[rows])
+                gi = torch.gather(slot, 1, k[:, None])[:, 0]
+                bi[rows] = torch.where(take, gi, bi[rows])
+        nxt = torch.where(box_hit & ~bvh.is_leaf[cursor], cursor + 1, bvh.skip[cursor].long())
+        cursor = torch.where(done, m, nxt)
+        if any_hit:
+            found[ids[done]] = True
+        keep = cursor < m
+        if not any_hit:
+            fin = ids[~keep]
+            best_t[fin], best_i[fin] = bt[~keep], bi[~keep]
+        sel = torch.nonzero(keep)[:, 0]
+        ids, o, d, iv, lim, bt, bi, cursor = (x[sel] for x in (ids, o, d, iv, lim, bt, bi, cursor))
+    if not any_hit:  # lanes cut by the step cap (a corrupted tree) keep their best so far
+        best_t[ids], best_i[ids] = bt, bi
+    if counts is not None:
+        counts["boxes"] = counts.get("boxes", 0) + int(boxes)
+        counts["tri_tests"] = counts.get("tri_tests", 0) + int(tests)
+    return found if any_hit else (best_t, best_i)
+
+
+def _leaf_test(v0, e1, e2, o, d, t_min, bound):
+    """Möller–Trumbore of rays ``(k, 1, 3)`` against slots ``(k, L, 3)``:
+    ``(t, hit in (t_min, bound))``, the JAX walk's formulation and epsilons."""
+    def cross(a, b):
+        return torch.stack((a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                            a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                            a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]), -1)
+
+    def dot(a, b):
+        return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
+
+    h = cross(d, e2)
+    det = dot(e1, h)
+    ok = torch.abs(det) > 1e-6
+    inv_det = 1.0 / torch.where(ok, det, 1.0)
+    s = o - v0
+    u = inv_det * dot(s, h)
+    q = cross(s, e1)
+    v = inv_det * dot(d, q)
+    t = inv_det * dot(e2, q)
+    hit = ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min) & (t < bound)
+    return t, hit
+
+
+def traverse_closest(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
+                     tri_offset: int = 0, counts: Optional[dict] = None):
+    """Closest triangle hit by the skip-link walk: ``(best_t, best_idx)``
+    with the global id ``tri_offset + triangle`` or −1.  Strict ``<``
+    against the running best, so the winner equals a brute-force sweep's up
+    to ties on exactly equal ``t`` (visit order is SAH order).  ``counts``
+    (a dict) accumulates ``boxes`` and ``tri_tests``."""
+    best_t, best_i = _walk(bvh, tris, ro, rd, t_min, t_max, False, counts)
+    return best_t, torch.where(best_i >= 0, best_i + tri_offset, -1)
+
+
+def traverse_any(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
+                 counts: Optional[dict] = None) -> torch.Tensor:
+    """Is any triangle hit in ``(t_min, t_max)``?  A lane stops walking at
+    its first accepted hit."""
+    return _walk(bvh, tris, ro, rd, t_min, t_max, True, counts)

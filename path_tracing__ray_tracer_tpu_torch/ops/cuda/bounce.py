@@ -82,19 +82,29 @@ def blob_layout(cs) -> BlobLayout:
     return BlobLayout(P, S, Q, T, pb, sb, qb, tb, tb + 18 * T)  # v0 e1 e2 normal uv0-2
 
 
-def pack_scene_blob(cs) -> torch.Tensor:
-    """The primitive tables as one flat float32 blob, per-field contiguous:
-    field ``f`` of primitive ``i`` at ``base + f·count + i``."""
-    p, s, q, t = cs.planes, cs.spheres, cs.quads, cs.triangles
-    e1 = t.v1 - t.v0
-    e2 = t.v2 - t.v0
-    parts = [
+def _ps_parts(cs):
+    p, s, q = cs.planes, cs.spheres, cs.quads
+    return [
         *p.anchor, *p.normal, *p.u_unit, *p.v_unit, p.u_len, p.v_len,
         *s.center, s.radius,
         *q.origin, *q.normal, *q.du, *q.dv, *q.uv0, *q.uva, *q.uvb,
-        *t.v0, *e1, *e2, *t.normal, *t.uv0, *t.uv1, *t.uv2,
     ]
+
+
+def pack_scene_blob(cs) -> torch.Tensor:
+    """The primitive tables as one flat float32 blob, per-field contiguous:
+    field ``f`` of primitive ``i`` at ``base + f·count + i``."""
+    t = cs.triangles
+    e1 = t.v1 - t.v0
+    e2 = t.v2 - t.v0
+    parts = _ps_parts(cs) + [*t.v0, *e1, *e2, *t.normal, *t.uv0, *t.uv1, *t.uv2]
     return torch.cat(parts).contiguous()
+
+
+def pack_ps_blob(cs) -> torch.Tensor:
+    """The planes, spheres and quads only: the prefix of ``pack_scene_blob``
+    that the BVH kernels sweep (their triangles are in the slot records)."""
+    return torch.cat(_ps_parts(cs)).contiguous()
 
 
 def pack_mat_blob(cs) -> torch.Tensor:

@@ -7,9 +7,15 @@ reduced with a first-occurrence ``argmin``, so ties resolve exactly like the
 reference's sequential strict-``<`` scan.  Winner attributes (normal, UV) are
 recomputed from the primitive tables after the reduction.
 
-These ops are the plain version that the CUDA bounce kernel
-(``ops/cuda/bounce.py``) is held against; the BVH branches of the JAX module
-are not ported yet.
+These ops are the plain version that the CUDA bounce kernels
+(``ops/cuda/bounce.py``, ``ops/cuda/whitted.py``) are held against.
+
+A scene with a flat BVH (``cs.bvh``) takes the JAX module's BVH branches:
+the plane/sphere/quad broadcast with the triangles left out, the skip-link
+walk of ``ops/bvh.py`` over the triangles, and the JAX combine.  On a CUDA
+device ``scene_hit`` and ``scene_hit_any`` launch the BVH scene kernels
+instead (``ops/cuda/bvh.py``, K4a and K4b); ``scene_hit_bvh_plain`` and
+``scene_hit_any_bvh_plain`` are their plain versions.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .bvh import traverse_any, traverse_closest
 from .v3 import V3
 
 EPS = 1e-6
@@ -134,13 +141,13 @@ def _bound(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(t_max, dtype=torch.float32, device=like.device).expand(n)
 
 
-def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max):
+def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max, include_tris: bool = True):
     n = ro.x.shape[0]
     ro1, rd1 = _lift(ro), _lift(rd)
     bound = _bound(t_max, n, ro.x)
     inf = torch.tensor(float("inf"), device=ro.x.device)
     parts = []
-    for cand in _CANDIDATES:
+    for cand in _CANDIDATES if include_tris else _CANDIDATES[:3]:
         valid, t = cand(cs, _ALL, ro1, rd1, t_min, bound[:, None])
         parts.append(torch.where(valid, t, inf))
     t_all = torch.cat(parts, dim=1)
@@ -154,11 +161,42 @@ def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max):
 def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     """Closest hit of every ray against the whole scene (``t_max`` scalar or (N,)).
 
-    Triangle UVs are always interpolated, as the CUDA kernels and the JAX
-    package's Pallas sweep emit them (its XLA formulation leaves them 0 when
-    no textured triangle reads them)."""
-    P, S, Q, T = cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles
+    Without a BVH, triangle UVs are always interpolated, as the CUDA kernels
+    and the JAX package's Pallas sweep emit them (its XLA formulation leaves
+    them 0 when no textured triangle reads them).  With one, the BVH scene
+    kernel or :func:`scene_hit_bvh_plain` answers."""
+    if cs.bvh is not None:
+        from .cuda.bvh import scene_closest
+
+        return scene_closest(cs, ro, rd, t_min, t_max)
     best_idx, best_t, hit = _closest_broadcast(cs, ro, rd, t_min, t_max)
+    return _hit_record(cs, ro, rd, best_idx, best_t, hit, tri_uv=True)
+
+
+def scene_hit_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) -> SceneHit:
+    """The JAX BVH branch of ``scene_hit``: the plane/sphere/quad broadcast,
+    the skip-link walk over the triangles (``counts`` gathers its tests),
+    the JAX combine; triangle UVs stay 0 when no textured triangle reads
+    them."""
+    P, S, Q = cs.n_planes, cs.n_spheres, cs.n_quads
+    ps_idx, ps_t, ps_hit = _closest_broadcast(cs, ro, rd, t_min, t_max, include_tris=False)
+    tri_t, tri_idx = traverse_closest(cs.bvh, cs.triangles, ro, rd, t_min, t_max,
+                                      tri_offset=P + S + Q, counts=counts)
+    tri_hit = tri_idx >= 0
+    tri_wins = tri_hit & (~ps_hit | (tri_t < ps_t))
+    best_idx = torch.where(tri_wins, tri_idx, ps_idx)
+    best_t = torch.where(tri_wins, tri_t, ps_t)
+    return _hit_record(cs, ro, rd, best_idx, best_t, ps_hit | tri_hit, tri_uv=tri_uv_read(cs))
+
+
+def tri_uv_read(cs) -> bool:
+    """Does anything read triangle UVs (a textured triangle, or no flag)?"""
+    return cs.tri_uv_used is None or bool(cs.tri_uv_used.shape[0])
+
+
+def _hit_record(cs, ro: V3, rd: V3, best_idx, best_t, hit, tri_uv: bool) -> SceneHit:
+    """The winners' attributes, recomputed from the primitive tables."""
+    P, S, Q, T = cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles
     point = ro + rd * best_t
 
     is_plane = hit & (best_idx < P)
@@ -205,8 +243,11 @@ def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     bw = 1.0 - bu - bv
     tn = V3.where(tn_raw.dot(rd) > 0.0, -tn_raw, tn_raw)
     tri = cs.triangles
-    t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
-    t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
+    if tri_uv:
+        t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
+        t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
+    else:  # nothing reads triangle UVs
+        t_u = t_v = torch.zeros_like(bu)
 
     normal = V3.where(is_plane, pn, V3.where(is_sphere, sn, V3.where(is_quad, qn, tn)))
     u = torch.where(is_plane, p_u, torch.where(is_quad, q_u, torch.where(is_tri, t_u, 0.0)))
@@ -218,15 +259,34 @@ def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
 
 
 def scene_hit_any(cs, ro: V3, rd: V3, t_min: float, t_max) -> torch.Tensor:
-    """Existence-only occlusion query for shadow rays with per-ray ``t_max``."""
+    """Existence-only occlusion query for shadow rays with per-ray ``t_max``.
+
+    With a BVH the BVH scene kernel or :func:`scene_hit_any_bvh_plain`
+    answers; the kernel reports lanes with ``t_max <= 0`` (don't-care lanes)
+    as occluded, the plain version as not: callers mask them."""
+    if cs.bvh is not None:
+        from .cuda.bvh import scene_any
+
+        return scene_any(cs, ro, rd, t_min, t_max)
+    return _ps_any(cs, ro, rd, t_min, t_max, _CANDIDATES)
+
+
+def _ps_any(cs, ro: V3, rd: V3, t_min, t_max, candidates) -> torch.Tensor:
     n = ro.x.shape[0]
     ro1, rd1 = _lift(ro), _lift(rd)
     bound = _bound(t_max, n, ro.x)[:, None]
     occluded = torch.zeros(n, dtype=torch.bool, device=ro.x.device)
-    for cand in _CANDIDATES:
+    for cand in candidates:
         valid, _ = cand(cs, _ALL, ro1, rd1, t_min, bound)
         occluded = occluded | torch.any(valid, dim=1)
     return occluded
+
+
+def scene_hit_any_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None):
+    """The JAX BVH branch of ``scene_hit_any``: the plane/sphere/quad
+    broadcast, then the skip-link occlusion walk over the triangles."""
+    return _ps_any(cs, ro, rd, t_min, t_max, _CANDIDATES[:3]) | traverse_any(
+        cs.bvh, cs.triangles, ro, rd, t_min, t_max, counts=counts)
 
 
 def resolve_material(cs, prim_idx: torch.Tensor):

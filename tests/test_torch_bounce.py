@@ -7,7 +7,10 @@ depths 0-5 and both shadow bounds:
 * ``models/path_tracer._bounce_xla``, the XLA formulation (1024 rays);
 * ``ops/pallas/bounce_pallas.path_bounce_pallas``, the TPU kernel this port's
   CUDA kernel replaces, run in Pallas interpret mode as
-  ``test_pallas_interpret.py`` runs it (256 rays).
+  ``test_pallas_interpret.py`` runs it (256 rays), on ``conftest.py``'s
+  ``tiny_scene`` (a plane, a mirror and a glass sphere, a triangle, two
+  lights): interpret mode unrolls the kernel over the scene's primitives,
+  and on the 22-primitive Cornell box it took several times as long.
 
 Bars: ``hit`` and the winning primitive exact, ``killed`` equal on ≥ 99.9% of
 lanes, float fields within ``atol = rtol = 1e-4`` on hit lanes; on miss lanes
@@ -31,6 +34,7 @@ from path_tracing__ray_tracer_tpu.ops.pallas.intersect_pallas import pack_scene_
 from path_tracing__ray_tracer_tpu.ops.v3 import V3 as JV3
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+from test_torch_compiler import _tiny
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TOL = 1e-4
@@ -39,10 +43,18 @@ FLOATS = ("w_nee", "rr_scale", "s_thr", "t_thr", "new_org", "new_dir", "u", "v",
 MODES = {"reference": False, "light": True}
 
 
+def _carried(jcs):
+    return jcs, pt.compiled_scene_from_numpy(jax.tree.map(np.asarray, jcs), device="cpu")
+
+
 @pytest.fixture(scope="module")
 def scenes():
-    jcs = jp.compile_scene(jp.CustomSceneBuilder().build_scene())
-    return jcs, pt.compiled_scene_from_numpy(jax.tree.map(np.asarray, jcs), device="cpu")
+    return _carried(jp.compile_scene(jp.CustomSceneBuilder().build_scene()))
+
+
+@pytest.fixture(scope="module")
+def tiny_scenes():
+    return _carried(jp.compile_scene(_tiny(jp)))
 
 
 def _inputs(n, seed):
@@ -58,6 +70,19 @@ def _inputs(n, seed):
     thr = g.uniform(0.02, 1.5, (n, 3)).astype(np.float32)
     key = g.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
     depth = (np.arange(n) % 6).astype(np.int32)
+    return ro, rd, thr, key, depth
+
+
+def _tiny_inputs(n, seed):
+    """``_inputs``' throughput, keys and depths with rays for the tiny scene:
+    three in four from above it toward its floor and spheres, the rest in
+    random directions."""
+    ro, rd, thr, key, depth = _inputs(n, seed)
+    g = np.random.default_rng(seed + 1)
+    k = 3 * n // 4
+    ro[:k] = g.uniform([-3, 0, -1], [3, 3, 6], (k, 3))
+    aim = g.uniform([-4, -2, -8], [4, 0.5, -2], (k, 3)) - ro[:k]
+    rd[:k] = aim / np.linalg.norm(aim, axis=1, keepdims=True)
     return ro, rd, thr, key, depth
 
 
@@ -114,9 +139,9 @@ def interpreted_pallas(monkeypatch):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_plain_bounce_matches_pallas_kernel(scenes, mode, interpreted_pallas):
-    jcs, tcs = scenes
-    ro, rd, thr, key, depth = _inputs(256, 2)
+def test_plain_bounce_matches_pallas_kernel(tiny_scenes, mode, interpreted_pallas):
+    jcs, tcs = tiny_scenes
+    ro, rd, thr, key, depth = _tiny_inputs(256, 2)
     got = _port(tcs, ro, rd, thr, key, depth, MODES[mode])
     jro, jrd = JV3.from_array(ro), JV3.from_array(rd)
     want = jbp.path_bounce_pallas(

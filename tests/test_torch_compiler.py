@@ -121,11 +121,18 @@ def test_compiled_scene_from_numpy_equals_port_compile(scene):
 
 
 def test_bvh_scene_raises_naming_roadmap():
+    """A scene over ``BVH_THRESHOLD`` triangles compiles with a BVH; the
+    oracle, not ported for BVH scenes yet, raises naming the ROADMAP item."""
     V = pt.Vec3
     scene = pt.Scene()
     mat = pt.Material(V(0.5, 0.5, 0.5), diffuse=1.0)
     for i in range(BVH_THRESHOLD + 1):  # disjoint triangles: no quad merges
         x = 3.0 * i
         scene.add_object(pt.Triangle(V(x, 0, 0), V(x + 1, 0, 0), V(x, 1, 0), material=mat))
+    cs = compile_scene(scene, device="cpu")
+    assert cs.bvh is not None and cs.n_triangles == BVH_THRESHOLD + 1
+    assert compile_scene(scene, device="cpu", use_bvh=False).bvh is None
+    cam = pt.Camera(V(400, 0.5, 30), V(400, 0.5, 0), V(0, 1, 0), 40.0, 1.0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compile_scene(scene, device="cpu")
+        pt.RendererFactory.create("cpu_raytracer", device="cpu").render(
+            scene, cam, pt.RenderSettings(4, 4, 1, 1))

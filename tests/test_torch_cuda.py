@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain torch versions, on an NVIDIA GPU:
-the path-tracer bounce (K1), the Whitted bounce (K2) and the standalone
-closest-hit / any-hit sweeps (K3a, K3b).
+the path-tracer bounce (K1), the Whitted bounce (K2), the standalone
+closest-hit / any-hit sweeps (K3a, K3b) and, on a BVH mesh scene, the
+scene walks (K4a, K4b) and the BVH path bounce (K5).
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -17,7 +18,8 @@ import pytest
 import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, intersect, whitted
+from path_tracing__ray_tracer_tpu_torch.ops import intersect as plain
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh, intersect, whitted
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -173,4 +175,70 @@ def test_renderers_launch_their_kernels(card, name, counter):
     sums = r.render_sums(b.build_scene(), b.create_camera(1.0),
                          pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
     assert counter() > before
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+
+
+@pytest.fixture(scope="module")
+def mesh_card(card):
+    dev = card[0]
+    cs = pt.compile_scene(pt.MeshSceneBuilder(grid=3, subdivisions=3).build_scene(), device=dev)
+    return dev, cs, bounce_bvh.pack_bvh_tables(cs)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_bvh_scene_kernels_match_plain(mesh_card, n):
+    dev, cs, _ = mesh_card
+    o, d, _, _, _ = _inputs(n, n + 3, dev)
+    before = (bvh.scene_closest.launches, bvh.scene_any.launches)
+    got = bvh.scene_closest(cs, o, d, 1e-3, 1e6)
+    limit = torch.where(torch.arange(n, device=dev) % 7 == 0, -1.0,
+                        torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n),
+                                   device=dev) * 60)
+    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert (bvh.scene_closest.launches, bvh.scene_any.launches) == (before[0] + 1, before[1] + 1)
+    want = plain.scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)
+    same = got.prim == want.prim
+    assert float(same.float().mean()) >= 0.9999 and 0.2 < float(got.hit.float().mean()) < 1.0
+    _assert_floats_close(got, want, same & got.hit, ("t", "normal", "u", "v"))
+    care = limit > 0
+    want_occ = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit)
+    assert float((occ == want_occ)[care].float().mean()) >= 0.9999
+    assert bool(occ[~care].all()) and 0.05 < float(occ[care].float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shadow_light", [False, True])
+def test_bvh_bounce_kernel_matches_plain(mesh_card, shadow_light):
+    dev, cs, tables = mesh_card
+    o, d, thr, key, depth = _inputs(131072, 11, dev)
+    before = (bounce_bvh.path_bounce_bvh.launches, bvh.scene_any.launches)
+    got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth, shadow_light=shadow_light)
+    torch.cuda.synchronize()
+    assert (bounce_bvh.path_bounce_bvh.launches, bvh.scene_any.launches) == (
+        before[0] + 1, before[1] + 1)
+    # the plain bounce's scene_hit / scene_hit_any launch K4a / K4b on the card,
+    # which the test above holds against their plain versions
+    want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=shadow_light)
+    same = (got.hit == want.hit) & (got.prim == want.prim)
+    assert float(same.float().mean()) >= 0.9999
+    assert float((got.killed == want.killed).float().mean()) >= 0.999
+    lanes = same & got.hit & (got.killed == want.killed)
+    _assert_floats_close(got, want, lanes, FLOATS)
+    assert bool((got.w_nee[lanes] > 0).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,counters", [
+    ("cuda_path_raytracer", lambda: (bounce_bvh.path_bounce_bvh.launches, bvh.scene_any.launches)),
+    ("cuda_texture_raytracer", lambda: (bvh.scene_closest.launches, bvh.scene_any.launches)),
+])
+def test_mesh_renderers_launch_their_kernels(mesh_card, name, counters):
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    r = pt.RendererFactory.create(name, seed=1)
+    before = counters()
+    sums = r.render_sums(b.build_scene(), b.create_camera(1.0),
+                         pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    assert all(a > b for a, b in zip(counters(), before))
     assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()

@@ -69,7 +69,7 @@ def _np(v):
 
 def test_shade_local_matches_jax(scenes):
     jcs, tcs = scenes
-    ro, rd = _rays(384, 31)
+    ro, rd = _rays(256, 31)
     jo_, jd = JV3.from_array(ro), JV3.from_array(rd)
     hit = jint.scene_hit(jcs, jo_, jd, 1e-3, 1e30)
     mats = jint.resolve_material(jcs, hit.prim)

@@ -139,6 +139,10 @@ def test_package_imports_without_jax():
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.intersect; "
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.whitted; "
             "import path_tracing__ray_tracer_tpu_torch.models.whitted_oracle; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce_bvh; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.bvh; "
+            "import path_tracing__ray_tracer_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]; "
             "assert not bad, bad; print('ok')")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
