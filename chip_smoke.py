@@ -47,7 +47,27 @@ It imports no JAX.
    2-sample frame: device operations per bounce, busy time, K5's and K4b's
    shares;
 11. the mesh Whitted frame: ``cuda_texture_raytracer`` at 480×270, 4 spp,
-   depth 16 (K4a's and K4b's launch counts).
+   depth 16 (K4a's and K4b's launch counts);
+12. the paged BVH of config 6 (``MeshSceneBuilder(5, 4)``, 128,000
+   triangles, the CLI's ``--scene mesh_big``): the layout, then on 131,072
+   camera rays over the 1920×1080 frame and on the first chunk three plain
+   bounces on, K6 closest (K6a + K6c) against the plain paged walk and
+   against K4a over the whole tree, K6's pending masks against the page
+   roots each lane enters, K6 occlusion (K6b + K6d) on the light-sample
+   shadow rays against the plain walk and K4b, and the per-ray-bound
+   closest hit (K4c) and the whole-tree occlusion walk (K4d) against their
+   plain versions; then the times and bounds
+   of K6a-d and K4c/K4d, and of K6, K4a/K4b and K5 + K4b on the same rays;
+13. config 6's path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
+   ``shadow_tmax="light"``, one ``B_SPP``-sample group after a warm-up frame
+   (K6a-d's launch counts; K5 must stay idle), then a profile of a 2-sample
+   frame: device operations per bounce, busy time, K6a-d's shares;
+14. the 512,000-triangle scene (``MeshSceneBuilder(5, 5)``): its set-up, its
+   pages (more than 32, so both pending words are used), K6 closest and
+   occlusion against K4a/K4b over the whole tree, and K4a against the plain
+   walk on a slice of the rays;
+15. the oracle on BVH scenes: the mesh oracle golden of ``tests/goldens/``
+   and a config-5 frame (K4a's and K4b's launch counts).
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -91,6 +111,16 @@ BOX_FLOPS = 25
 M_WIDTH, M_HEIGHT, M_DEPTH, MESH_SPP = 1920, 1080, 12, 128
 # the mesh Whitted frame (small: its bounces run the plain Whitted glue)
 MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH = 480, 270, 4, 16
+# config 6 (benchmarks.py:91-99, the CLI's --scene mesh_big): 25 icospheres of
+# 5,120 triangles at the config-5 frame; spp cut from 512 to one B_SPP group
+B_GRID, B_SUB, B_SPP = 5, 4, 16
+# the 512K scene of experiments/measure_512k.py: 25 icospheres at 5 subdivisions
+K512_SUB = 5
+PLAIN_REPS = 3  # the plain paged walks take seconds per call at 131,072 rays
+# the oracle on BVH scenes: the golden of tests/test_torch_oracle.py, then a
+# config-5 frame
+MO_GOLDEN = (40, 30, 1, 3)
+MO_WIDTH, MO_HEIGHT, MO_SPP, MO_DEPTH = 160, 120, 4, 6
 
 
 def _run(cmd) -> str:
@@ -123,20 +153,40 @@ def phase_environment():
 
 def phase_build():
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, build, bvh, intersect, whitted)
+        bounce, bounce_bvh, build, bvh, bvh_paged, intersect, whitted)
 
     t0 = time.perf_counter()
     libs = build.load_all()
     secs = time.perf_counter() - t0
-    for mod in (bounce, intersect, whitted, bvh, bounce_bvh):
+    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged):
         mod.build()  # binds the argument types
     print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
     for name, built in libs.items():
-        print(f"[build] {name}: nvcc {built.seconds:.2f} s -> {built.path.name}")
-        for line in built.log.splitlines():
-            if any(k in line for k in ("Function properties", "registers", "spill", "rror")):
-                print(f"[build]   {line.strip()}")
+        print(f"[build] {name}: nvcc {built.seconds:.2f} s; {ptxas_summary(built.log)}")
     return secs
+
+
+def ptxas_summary(log: str) -> str:
+    """``kernel regs/stack/spill`` for each kernel of ``nvcc -Xptxas -v``'s
+    log, and any error line."""
+    import re
+
+    out, kernel = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for _ZN4ptrt(\d+)", line)
+        if m:
+            start = m.end()
+            kernel = line[start:start + int(m.group(1))]
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
+        if m and kernel:
+            stack, spill = m.groups()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append(f"{kernel} {m.group(1)} regs/{stack} B stack/{spill} B spill")
+            kernel = None
+        if "rror" in line:
+            out.append(line.strip())
+    return "; ".join(out)
 
 
 def camera_state(cs, camera, n, device, width=WIDTH, height=HEIGHT, depth=DEPTH, stride=None):
@@ -222,11 +272,12 @@ def phase_kernel_check(cs, camera, device):
     return blobs, start, worst
 
 
-def cuda_ms(fn, reps=25):
-    """Median milliseconds of one call (CUDA events, after two warm-up calls)."""
+def cuda_ms(fn, reps=25, warm=2):
+    """Median milliseconds of one call (CUDA events, after ``warm`` warm-up
+    calls)."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warm):
         fn()
     times = []
     for _ in range(reps):
@@ -260,12 +311,16 @@ GOLDENS = (  # tests/test_golden.py's configs, seed 42
 
 def wrappers():
     """Every kernel wrapper by kernel name; each counts its own launches."""
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh, intersect, whitted
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
+        bounce, bounce_bvh, bvh, bvh_paged, intersect, whitted)
 
     return {"path_bounce": bounce.path_bounce, "whitted_bounce": whitted.whitted_bounce,
             "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit,
             "scene_closest": bvh.scene_closest, "scene_any": bvh.scene_any,
-            "path_bounce_bvh": bounce_bvh.path_bounce_bvh}
+            "path_bounce_bvh": bounce_bvh.path_bounce_bvh,
+            "paged_top_closest": bvh_paged.paged_top_closest,
+            "paged_top_any": bvh_paged.paged_top_any, "pages_closest": bvh_paged.pages_closest,
+            "pages_any": bvh_paged.pages_any}
 
 
 def reset_counts():
@@ -398,14 +453,14 @@ def sweep_flops(cs, o, d, bound, first_only, lanes=None, kinds=4):
     return flops
 
 
-def bound_ms(flops, nbytes):
+def bound_ms(flops, n_bytes):
     """The least time the card could take: the larger of operations over the
     FP32 peak and bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / PEAK_FLOPS, n_bytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare_fields(name, got, want, lanes, fields):
+def compare_fields(name, got, want, lanes, fields, verbose=True):
     """Max |diff| over ``fields`` on ``lanes``; raises when out of tolerance."""
     import torch
 
@@ -421,8 +476,9 @@ def compare_fields(name, got, want, lanes, fields):
         mx = float(diff.max()) if diff.numel() else 0.0
         if mx > worst:
             worst, worst_f = mx, f
-    print(f"[check]   max |diff| {worst:.3e} ({worst_f}) over {', '.join(fields)}; "
-          f"{bad_total} out of tolerance")
+    if verbose:
+        print(f"[check]   max |diff| {worst:.3e} ({worst_f}) over {', '.join(fields)}; "
+              f"{bad_total} out of tolerance")
     if bad_total:
         raise SystemExit(f"chip_smoke: kernel disagrees with its plain version on {name}")
     return worst
@@ -799,10 +855,11 @@ def mesh_scene(device):
     return scene, cam, pt.compile_scene(scene, device=device, use_bvh=True)
 
 
-def mesh_shadow(cs, o, d, key, depth):
-    """The NEE shadow ray of each lane's plain closest hit, as K5 makes it
-    (``shadow_tmax="light"``): origin, direction and bound, −1 where the
-    answer is not needed (missed, light below the horizon, no diffuse)."""
+def mesh_shadow(cs, o, d, key, depth, h=None):
+    """The NEE shadow ray of each lane's closest hit ``h`` (by default the
+    plain one), as K5 makes it (``shadow_tmax="light"``): origin, direction
+    and bound, −1 where the answer is not needed (missed, light below the
+    horizon, no diffuse)."""
     import torch
 
     from path_tracing__ray_tracer_tpu_torch.ops import rng
@@ -810,7 +867,8 @@ def mesh_shadow(cs, o, d, key, depth):
         resolve_material, scene_hit_bvh_plain)
     from path_tracing__ray_tracer_tpu_torch.ops.sampling import pick_light
 
-    h = scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)
+    if h is None:
+        h = scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)
     ldir, dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
     care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
         resolve_material(cs, h.prim)[1] > 0)
@@ -938,47 +996,55 @@ def phase_mesh_main(device):
     return launched, secs, mrays, r, scene, cam
 
 
-def phase_mesh_profile(r, scene, cam):
-    """Device operations per mesh bounce, device busy time and the shares
-    of K5 and K4b, from the torch profiler over a 2-sample mesh frame."""
+def profile_frame(tag, r, scene, cam, settings, counter, kernels, top=4):
+    """Device operations per bounce, the device's busy share of the untraced
+    frame and each kernel's share of the busy time, from the torch profiler
+    over ``r.device_sums`` of one frame.  ``counter()`` counts the frame's
+    bounces; ``kernels`` maps a label to a substring of a kernel's name."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    import path_tracing__ray_tracer_tpu_torch as pt
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh
-
-    settings = pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH)
-    r.sample_group = 2
     t0 = time.perf_counter()
     r.device_sums(scene, cam, settings)
     torch.cuda.synchronize()
     untraced = time.perf_counter() - t0
-    before = bounce_bvh.path_bounce_bvh.launches
+    before = counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
         r.device_sums(scene, cam, settings)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    bounces = bounce_bvh.path_bounce_bvh.launches - before
+    bounces = counter() - before
     ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not ops:
-        print("[mesh] profile: not measured (the profiler saw no device operation)")
+        print(f"{tag} profile: not measured (the profiler saw no device operation)")
         return
     by_name = collections.Counter()
     for e in ops:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    k5 = sum(ms for name, ms in by_name.items() if "path_bounce_bvh" in name)
-    k4b = sum(ms for name, ms in by_name.items() if "bvh_any" in name)
-    print(f"[mesh] profile of a {M_WIDTH}x{M_HEIGHT} 2-spp depth {M_DEPTH} frame (untraced "
-          f"{untraced:.3f} s): {len(ops)} device ops in {bounces} bounces -> "
-          f"{len(ops) / max(bounces, 1):.1f} per bounce; device busy {busy:.3f} ms = "
-          f"{100 * busy / (1e3 * untraced):.1f}% of the untraced frame; K5 {k5:.3f} ms "
-          f"({100 * k5 / busy:.1f}% of busy), K4b {k4b:.3f} ms ({100 * k4b / busy:.1f}%)")
-    for name, ms in by_name.most_common(4):
-        print(f"[mesh]   {ms:9.3f} ms  {name[:90]}")
+    shares = ", ".join(
+        f"{k} {sum(ms for n, ms in by_name.items() if sub in n):.3f} ms "
+        f"({100 * sum(ms for n, ms in by_name.items() if sub in n) / busy:.1f}%)"
+        for k, sub in kernels.items())
+    print(f"{tag} profile of a {settings.width}x{settings.height} {settings.samples_per_pixel}-spp "
+          f"depth {settings.max_depth} frame (untraced {untraced:.3f} s): {len(ops)} device ops in "
+          f"{bounces} bounces -> {len(ops) / max(bounces, 1):.1f} per bounce; device busy "
+          f"{busy:.3f} ms = {100 * busy / (1e3 * untraced):.1f}% of the untraced frame; {shares}")
+    for name, ms in by_name.most_common(top):
+        print(f"{tag}   {ms:9.3f} ms  {name[:90]}")
+
+
+def phase_mesh_profile(r, scene, cam):
+    """Device operations per mesh bounce, device busy time and the shares
+    of K5 and K4b, from the torch profiler over a 2-sample mesh frame."""
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh
+
+    r.sample_group = 2
+    profile_frame("[mesh]", r, scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH),
+                  lambda: bounce_bvh.path_bounce_bvh.launches,
+                  {"K5": "path_bounce_bvh", "K4b": "bvh_any"})
 
 
 def phase_mesh_whitted(device):
@@ -1006,6 +1072,315 @@ def phase_mesh_whitted(device):
     if not (launched["scene_closest"] and launched["scene_any"]):
         raise SystemExit("chip_smoke: the mesh Whitted frame did not launch K4a and K4b")
     return launched
+
+
+# ---- K6a-d / K4c / K4d: the paged BVH of config 6 and the 512K scene -----------
+def one_level(cs):
+    """``cs`` without its paged layout: the one-level records that K4a, K4b
+    and K5 walk."""
+    return cs._replace(bvh=cs.bvh._replace(paged=None))
+
+
+def big_scene(device, subdivisions):
+    """A ``MeshSceneBuilder(B_GRID, subdivisions)`` scene compiled on the
+    card, and the compile's seconds (SAH build, records, ``pack_paged``)."""
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.MeshSceneBuilder(grid=B_GRID, subdivisions=subdivisions)
+    scene, cam = b.build_scene(), b.create_camera(M_WIDTH / M_HEIGHT)
+    t0 = time.perf_counter()
+    cs = pt.compile_scene(scene, device=device, use_bvh=True)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    pg = cs.bvh.paged
+    if pg is None:
+        raise SystemExit(f"chip_smoke: the {cs.n_triangles}-triangle scene did not page")
+    print(f"[big] {cs.n_triangles} triangles: compile {secs:.2f} s; {pg.n_pages} pages of "
+          f"{pg.page_tree.shape[1]} + {pg.page_slot.shape[1]} floats, BVH4 depth <= "
+          f"{pg.page_depth}; top tree {pg.top_tree.shape[0] // 32} nodes, depth {pg.top_depth}, "
+          f"{pg.top_slot.shape[0] // 208} leaves; one-level BVH4 depth {cs.bvh.depth4}")
+    return scene, cam, cs, secs
+
+
+def check_hits(label, got, want):
+    """One line: equal primitive on >= 99.99% of lanes, floats within
+    tolerance where equal; returns max |diff|."""
+    same = got.prim == want.prim
+    share = float(same.float().mean())
+    worst = compare_fields(label, got, want, same, ("t", "normal", "u", "v"), verbose=False)
+    print(f"[big]   {label}: prim agree {share:.6f} ({int((~same).sum())} differ), "
+          f"max |diff| {worst:.2e}")
+    if share < HIT_AGREE:
+        raise SystemExit(f"chip_smoke: {label} disagree")
+    return worst
+
+
+def check_occ(label, occ, want, lanes):
+    agree = float((occ == want)[lanes].float().mean())
+    print(f"[big]   {label}: occlusion agree {agree:.6f} on {int(lanes.sum())} rays, occluded "
+          f"{float(occ[lanes].float().mean()):.4f}")
+    if agree < OCC_AGREE:
+        raise SystemExit(f"chip_smoke: {label} disagree")
+    return float((occ[lanes].float() - want[lanes].float()).abs().max())
+
+
+def check_pend(label, cs, o, d, t):
+    """K6a's pending words hold every page whose root box the lane enters
+    at its final ``t``, on every lane."""
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh_paged
+
+    _best, plo, phi = bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6)
+    pend = tbvh.pend_mask(plo, phi)
+    missing = int(((tbvh.page_root_mask(cs.bvh.paged, o, d, 1e-3, t) & ~pend) != 0).sum())
+    pages = [int((((pend >> p) & 1) != 0).sum()) for p in range(cs.bvh.paged.n_pages)]
+    print(f"[big]   {label}: pend masks cover the entered pages on "
+          f"{o.x.shape[0] - missing} of {o.x.shape[0]} lanes; lanes pending per page "
+          f"min {min(pages)} max {max(pages)}; pages per lane {sum(pages) / o.x.shape[0]:.2f}")
+    if missing:
+        raise SystemExit(f"chip_smoke: K6a's pending masks miss entered pages ({label})")
+
+
+def phase_big_check(device):
+    """Config 6's paged tree: K6 and K4c against their plain versions and the
+    one-level K4a/K4b, the pending-mask property, then times and bounds."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        ClosestRecord, scene_hit_any_paged_plain, scene_hit_bvh_plain, scene_hit_paged_plain)
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    scene, cam, cs, _secs = big_scene(device, B_SUB)
+    flat = one_level(cs)
+    spread = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    chunk = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH, stride=1)
+    err = {"closest": 0.0, "any": 0.0, "k4c": 0.0}
+    rays = {}
+    for label, (o, d, _t, key, depth) in (("spread", spread),
+                                          ("bounced", advance_plain(cs, chunk, 3))):
+        got = bvh.scene_closest(cs, o, d, 1e-3, 1e6)  # K6a + K6c
+        err["closest"] = max(err["closest"], check_hits(
+            f"K6 closest vs plain paged walk, {label}", got, scene_hit_paged_plain(
+                cs, o, d, 1e-3, 1e6)), check_hits(
+            f"K6 closest vs K4a whole tree, {label}", got, bvh.scene_closest(flat, o, d, 1e-3,
+                                                                            1e6)))
+        check_pend(label, cs, o, d, got.t)
+        so, sd, lim = mesh_shadow(cs, o, d, key, depth, got)
+        occ = bvh.scene_any(cs, so, sd, 1e-3, lim)  # K6b + K6d
+        err["any"] = max(err["any"], check_occ(
+            f"K6 any vs plain paged walk, {label} shadow rays", occ,
+            scene_hit_any_paged_plain(cs, so, sd, 1e-3, lim), lim > 0), check_occ(
+            f"K6 any vs K4b whole tree, {label} shadow rays", occ,
+            bvh.scene_any(flat, so, sd, 1e-3, lim), lim > 0))
+        unfound = torch.zeros_like(lim, dtype=torch.bool)
+        err["any"] = max(err["any"], check_occ(
+            f"K4d (whole tree) vs plain, {label} shadow rays",
+            bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
+            bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound), torch.ones_like(unfound)))
+        err["k4c"] = max(err["k4c"], check_hits(
+            f"K4c (per-ray bound) vs plain, {label} shadow rays",
+            bvh.scene_closest(cs, so, sd, 1e-3, lim), scene_hit_bvh_plain(cs, so, sd, 1e-3, lim)))
+        rays[label] = (o, d, so, sd, lim)
+
+    # times and bounds on the spread rays and their shadow rays
+    o, d, so, sd, lim = rays["spread"]
+    best, plo, phi = bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6)
+    found, alo, ahi = bvh_paged.paged_top_any(cs, so, sd, 1e-3, lim)
+    n = N_RAYS
+    zero = torch.zeros(n, device=device)
+    seed = ClosestRecord(lim, torch.full((n,), -1, dtype=torch.int32, device=device), zero, zero,
+                         V3(zero, zero, zero))
+    unfound = torch.zeros(n, dtype=torch.bool, device=device)
+    calls = {
+        "paged_top_closest": (lambda: bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6),
+                              lambda: bvh_paged.paged_top_closest_plain(cs, o, d, 1e-3, 1e6)),
+        "pages_closest": (lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, best, plo, phi),
+                          lambda: bvh_paged.pages_closest_plain(cs, o, d, 1e-3, best, plo, phi)),
+        "paged_top_any": (lambda: bvh_paged.paged_top_any(cs, so, sd, 1e-3, lim),
+                          lambda: bvh_paged.paged_top_any_plain(cs, so, sd, 1e-3, lim)),
+        "pages_any": (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, found, alo, ahi),
+                      lambda: bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, found, alo, ahi)),
+        "K4c": (lambda: bvh_paged.pages_closest(cs, so, sd, 1e-3, seed),
+                lambda: bvh_paged.pages_closest_plain(cs, so, sd, 1e-3, seed)),
+        "K4d": (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
+                lambda: bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound)),
+    }
+    times = {name: (cuda_ms(k), cuda_ms(p, PLAIN_REPS, 1)) for name, (k, p) in calls.items()}
+    routes = {
+        "K6 closest": lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
+        "K4a whole tree": lambda: bvh.scene_closest(flat, o, d, 1e-3, 1e6),
+        "K6 any": lambda: bvh.scene_any(cs, so, sd, 1e-3, lim),
+        "K4b whole tree": lambda: bvh.scene_any(flat, so, sd, 1e-3, lim),
+    }
+    c_o, c_d, c_thr, c_key, c_depth = chunk
+    tables = bounce_bvh.pack_bvh_tables(flat)
+    routes["K5 + K4b, first chunk"] = lambda: bounce_bvh.path_bounce_bvh(
+        flat, tables, c_o, c_d, c_thr, c_key, c_depth, shadow_light=True)
+    routes["plain bounce (K6), first chunk"] = lambda: bounce.path_bounce_plain(
+        cs, c_o, c_d, c_thr, c_key, c_depth, shadow_light=True)
+    route_ms = {name: cuda_ms(fn) for name, fn in routes.items()}
+    print("[big] times at N=131072 (kernel / plain ms; median of 25 / of 3): " + "; ".join(
+        f"{k} {a:.4f} / {b:.2f}" for k, (a, b) in times.items()))
+    print("[big] routes (ms, median of 25): " + "; ".join(
+        f"{k} {v:.4f}" for k, v in route_ms.items()))
+
+    # bounds: the tests the plain walks count on the same rays; the bytes of
+    # the lane records each lane must read and write (as K4a/K4b's, no tree
+    # record: which records a lane reaches is not measured).  A lane reads its
+    # ray only where the answer depends on it: K6c/K4c where a page is pending
+    # or the bound is positive, K6b/K6d/K4d where the lane is not already found
+    # and has a page to walk (K6d) or a positive limit
+    top_c, page_c, top_a, page_a, k4c_c, k4d_c = ({} for _ in range(6))
+    bvh_paged.paged_top_closest_plain(cs, o, d, 1e-3, 1e6, counts=top_c)
+    bvh_paged.pages_closest_plain(cs, o, d, 1e-3, best, plo, phi, counts=page_c)
+    bvh_paged.paged_top_any_plain(cs, so, sd, 1e-3, lim, counts=top_a)
+    bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, found, alo, ahi, counts=page_a)
+    bvh_paged.pages_closest_plain(cs, so, sd, 1e-3, seed, counts=k4c_c)
+    bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound, counts=k4d_c)
+    def walk_ops(c):
+        return BOX_FLOPS * c.get("boxes", 0) + TEST_FLOPS[3] * c.get("tri_tests", 0)
+
+    care = int((lim > 0).sum())
+    pend = int(((plo != 0) | (phi != 0)).sum())
+    unf = int((~found).sum())
+    walks = int((~found & ((alo != 0) | (ahi != 0))).sum())
+    bounds = {  # ray 24 B, limit 4, closest record 28, masks 8, found 1
+        "paged_top_closest": bound_ms(sweep_flops(cs, o, d, 1e6, False, kinds=3)
+                                      + walk_ops(top_c), n * (24 + 28 + 8)),
+        "pages_closest": bound_ms(walk_ops(page_c), n * (8 + 28 + 28) + pend * 24),
+        "paged_top_any": bound_ms(sweep_flops(cs, so, sd, lim, True, lim > 0, kinds=3)
+                                  + walk_ops(top_a), n * (4 + 1 + 8) + care * 24),
+        "pages_any": bound_ms(walk_ops(page_a), n * (1 + 1) + unf * 8 + walks * (24 + 4)),
+        "K4c": bound_ms(walk_ops(k4c_c), n * (28 + 28) + care * 24),
+        "K4d": bound_ms(walk_ops(k4d_c), n * (1 + 1 + 4) + care * 24),
+    }
+    print("[big] bounds (ms): " + "; ".join(f"{k} {v[0]:.5f} ({v[1]})" for k, v in bounds.items())
+          + f"; lanes: {pend} pending (K6c), {unf} unfound and {walks} with pages (K6d), {care} "
+          f"with limit > 0; tests counted: top {top_c}, pages {page_c}, top any {top_a}, pages "
+          f"any {page_a}")
+    return scene, cam, times, bounds, err, route_ms
+
+
+def phase_big_main(device, scene, cam):
+    """Config 6's path at full width (spp cut to one B_SPP-sample group),
+    then the profile of a 2-sample frame."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh_paged
+
+    r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=B_SPP,
+                                  chunk_rays=CHUNK_RAYS, shadow_tmax="light", seed=0,
+                                  compile_overrides={"use_bvh": True}, device=device)
+    t0 = time.perf_counter()
+    r.render_sums(scene, cam, pt.RenderSettings(256, 144, 2, M_DEPTH))  # + the scene compile
+    warm = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, B_SPP, M_DEPTH))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    mrays = M_WIDTH * M_HEIGHT * B_SPP * M_DEPTH / secs / 1e6
+    mean = sums.mean(axis=0) / B_SPP
+    k6 = {k: launched[k] for k in ("paged_top_closest", "pages_closest", "paged_top_any",
+                                   "pages_any")}
+    print(f"[big] config-6 path {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH} shadow_tmax=light, one "
+          f"{B_SPP}-sample group: warm-up (compile + 256x144, 2 spp) {warm:.3f} s, timed "
+          f"{secs:.3f} s -> {mrays:.2f} Mrays/s (W*H*spp*depth/t); launches {k6}, K5 "
+          f"{launched['path_bounce_bvh']}; peak device memory {peak:.0f} MiB; mean "
+          f"radiance/sample {mean}")
+    if sums.shape != (M_WIDTH * M_HEIGHT, 3) or not np.isfinite(sums).all() or (sums < 0).any():
+        raise SystemExit("chip_smoke: config-6 sums are not finite and non-negative")
+    if not 0.01 < float(mean.mean()) < 20.0:
+        raise SystemExit(f"chip_smoke: implausible config-6 mean radiance {mean}")
+    if not all(k6.values()) or launched["path_bounce_bvh"]:
+        raise SystemExit("chip_smoke: config 6's path must launch K6a-d and not K5")
+    r.sample_group = 2
+    profile_frame("[big]", r, scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH),
+                  lambda: bvh_paged.paged_top_closest.launches,
+                  {"K6a": "paged_top_closest", "K6c": "pages_closest", "K6b": "paged_top_any",
+                   "K6d": "pages_any"}, top=3)
+    return k6, secs, mrays
+
+
+def phase_512k_check(device):
+    """The 512,000-triangle scene: set-up, more than 32 pages, K6 against the
+    one-level K4a/K4b on camera rays over the frame and their shadow rays,
+    K4a against the plain walk on a slice."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import scene_hit_bvh_plain
+
+    t0 = time.perf_counter()
+    _scene, cam, cs, compile_s = big_scene(device, K512_SUB)
+    if cs.bvh.paged.n_pages <= 32:
+        raise SystemExit("chip_smoke: the 512K scene must page into more than 32 pages")
+    flat = one_level(cs)
+    o, d, _t, key, depth = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    got = bvh.scene_closest(cs, o, d, 1e-3, 1e6)
+    want = bvh.scene_closest(flat, o, d, 1e-3, 1e6)
+    err = check_hits("512K: K6 closest vs K4a whole tree", got, want)
+    check_pend("512K", cs, o, d, got.t)
+    so, sd, lim = mesh_shadow(cs, o, d, key, depth, got)
+    err = max(err, check_occ("512K: K6 any vs K4b whole tree", bvh.scene_any(cs, so, sd, 1e-3, lim),
+                             bvh.scene_any(flat, so, sd, 1e-3, lim), lim > 0))
+    idx = torch.arange(min(16384, o.x.shape[0]), device=device)
+    ok, dk = o.take(idx), d.take(idx)
+    t1 = time.perf_counter()
+    plain = scene_hit_bvh_plain(cs, ok, dk, 1e-3, 1e6)
+    plain_s = time.perf_counter() - t1
+    check_hits(f"512K: K4a vs plain walk on {idx.numel()} rays ({plain_s:.2f} s)",
+               bvh.scene_closest(flat, ok, dk, 1e-3, 1e6), plain)
+    ms = {"K6 closest": cuda_ms(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6), 5),
+          "K4a": cuda_ms(lambda: bvh.scene_closest(flat, o, d, 1e-3, 1e6), 5),
+          "K6 any": cuda_ms(lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), 5),
+          "K4b": cuda_ms(lambda: bvh.scene_any(flat, so, sd, 1e-3, lim), 5)}
+    print(f"[big] 512K: set-up {time.perf_counter() - t0:.2f} s (compile {compile_s:.2f} s); "
+          "ms at N=131072 (median of 5): " + "; ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    return err
+
+
+def phase_mesh_oracle(device):
+    """``cpu_raytracer`` on BVH scenes: the mesh oracle golden (made by the
+    JAX oracle) and a config-5 frame, which must launch K4a and K4b."""
+    import numpy as np
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    golden = np.load(ROOT / "tests" / "goldens" / "torch_mesh_oracle.npy")
+    r = pt.RendererFactory.create("cpu_raytracer", seed=42, device=device)
+    img = np.asarray(r.render(b.build_scene(), b.create_camera(4.0 / 3.0),
+                              pt.RenderSettings(*MO_GOLDEN)))
+    diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
+    share = float((diff > 2).mean())
+    b5 = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=device)
+    scene = b5.build_scene()
+    r.compiled(scene)
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, b5.create_camera(MO_WIDTH / MO_HEIGHT),
+                         pt.RenderSettings(MO_WIDTH, MO_HEIGHT, MO_SPP, MO_DEPTH))
+    secs = time.perf_counter() - t0
+    launched = counts()
+    print(f"[oracle] mesh golden {MO_GOLDEN}: {share:.5f} of channels differ by >2/255 (max "
+          f"{int(diff.max())}); config-5 {MO_WIDTH}x{MO_HEIGHT} {MO_SPP} spp depth {MO_DEPTH}: "
+          f"{secs:.3f} s, launches K4a {launched['scene_closest']}, K4b {launched['scene_any']}")
+    if img.shape != golden.shape or share >= 0.01:
+        raise SystemExit("chip_smoke: the mesh oracle is outside the golden tolerance")
+    if not np.isfinite(sums).all() or (sums < 0).any() or not float(sums.mean()) > 0:
+        raise SystemExit("chip_smoke: the mesh oracle's sums are not finite and positive")
+    if not (launched["scene_closest"] and launched["scene_any"]):
+        raise SystemExit("chip_smoke: the mesh oracle did not launch K4a and K4b")
 
 
 def main() -> int:
@@ -1041,6 +1416,14 @@ def main() -> int:
     mesh_launched, m_secs, m_mrays, mr, mscene, mcam = phase_mesh_main(device)
     phase_mesh_profile(mr, mscene, mcam)
     mw_launched = phase_mesh_whitted(device)
+    bscene, bcam, btimes, bbounds, berr, _routes = phase_big_check(device)
+    times.update(btimes)
+    bounds.update(bbounds)
+    k6_launched, b_secs, b_mrays = phase_big_main(device, bscene, bcam)
+    del bscene, bcam
+    torch.cuda.empty_cache()
+    k512_err = phase_512k_check(device)
+    phase_mesh_oracle(device)
     torch.cuda.synchronize()
 
     src = "path_tracing__ray_tracer_tpu_torch/csrc/"
@@ -1055,6 +1438,14 @@ def main() -> int:
         ("scene_any", "bvh_scene.cu", "bvh_pallas.py:1351", mesh_launched["scene_any"], k4b_err),
         ("path_bounce_bvh", "path_bounce_bvh.cu", "bounce_bvh_pallas.py:128",
          mesh_launched["path_bounce_bvh"], k5_err),
+        ("paged_top_closest", "bvh_paged.cu", "bvh_paged_pallas.py:512",
+         k6_launched["paged_top_closest"], max(berr["closest"], k512_err)),
+        ("paged_top_any", "bvh_paged.cu", "bvh_paged_pallas.py:547", k6_launched["paged_top_any"],
+         berr["any"]),
+        ("pages_closest", "bvh_paged.cu", "bvh_paged_pallas.py:576", k6_launched["pages_closest"],
+         max(berr["closest"], berr["k4c"], k512_err)),
+        ("pages_any", "bvh_paged.cu", "bvh_paged_pallas.py:605", k6_launched["pages_any"],
+         berr["any"]),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
@@ -1065,7 +1456,8 @@ def main() -> int:
     print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
           f"group at 1024x1024 depth 8); Whitted frame {w_secs:.3f} s ({w_mrays:.2f} Mrays/s, "
           f"RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s ({m_secs:.3f} s per "
-          f"{MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH}) on:")
+          f"{MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH}); config-6 path "
+          f"{b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample group) on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

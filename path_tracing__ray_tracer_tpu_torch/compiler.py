@@ -461,7 +461,8 @@ def _with_bvh(cs: CompiledScene, tris: List[Triangle], uid, tri_base: int) -> Co
     """``cs`` with the flat BVH over ``tris``: triangle AABBs, the stored
     normals in the slot records, and each triangle's unique-material id
     (``uid`` of the global primitive order) packed into its slot gid while
-    the counts fit the f32-exact packing range."""
+    the counts fit the f32-exact packing range; a big tree also gets its
+    paged layout (``ops/bvh.to_device``)."""
     from .ops import bvh as bvh_mod
     from .ops.cuda.bounce import pack_ps_blob
 
@@ -564,8 +565,9 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
     carried over unchanged; a flat BVH brings its node arrays, its BVH4
-    node records and its slot records.  The mip atlas (the JAX package's
-    ``mip_budget``) is not ported and raises."""
+    node records and its slot records, and a paged tree its paged layout.
+    The mip atlas (the JAX package's ``mip_budget``) is not ported and
+    raises."""
     if tree.mip_atlas is not None:
         raise NotImplementedError("the mip atlas (mip_budget) is not ported")
     device = torch.device(device)
@@ -587,7 +589,18 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)  # a copy: JAX's arrays are read-only
 
+    paged = None
+    if b.paged is not None:
+        pg = b.paged
+        top_tree = np.asarray(pg.top_tree)[0]
+        n_pages = int(np.asarray(pg.page_tree).shape[0])
+        paged = bvh_mod.PagedBlobs(
+            top_tree=t(top_tree), top_slot=t(np.asarray(pg.top_slot)[0]),
+            page_tree=t(pg.page_tree), page_slot=t(pg.page_slot),
+            top_depth=int(pg.top_depth_token.shape[0]),
+            page_depth=int(pg.page_depth_token.shape[0]), page_lo=t(pg.page_lo),
+            page_hi=t(pg.page_hi), page_root=t(bvh_mod.page_roots(arrs, top_tree, n_pages)))
     flat = bvh_mod.FlatBVH(**{k: t(a) for k, a in arrs.items()}, nodes4=t(nodes4[0]),
                            slot_rec=t(np.asarray(b.slot_blob)[0]), depth4=depth4,
-                           uid_packed=b.uid_token is not None)
+                           uid_packed=b.uid_token is not None, paged=paged)
     return cs._replace(bvh=flat._replace(ps_blob=pack_ps_blob(cs)))

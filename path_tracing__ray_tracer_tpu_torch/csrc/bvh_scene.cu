@@ -17,7 +17,8 @@
 // the tree and slot records as packed, and only the few non-triangle
 // primitives staged in shared memory.
 //
-// K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss), u, v
+// K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss; the
+// uid bits of a packed gid stripped by gid_mask), u, v
 // (the plane/sphere/quad winner's surface UV, a triangle winner's raw
 // barycentrics), the shading normal (triangles flipped toward the ray;
 // zeros on a miss).  K4b: one byte per ray, 1 when occluded in
@@ -44,7 +45,7 @@ bvh_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __
                    const float* __restrict__ ox_in, const float* __restrict__ oy_in,
                    const float* __restrict__ oz_in, const float* __restrict__ dx_in,
                    const float* __restrict__ dy_in, const float* __restrict__ dz_in, int n,
-                   float t_min, float t_max, float* __restrict__ t_out,
+                   int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
                    int* __restrict__ prim_out, float* __restrict__ u_out,
                    float* __restrict__ v_out, float* __restrict__ nx_out,
                    float* __restrict__ ny_out, float* __restrict__ nz_out) {
@@ -59,12 +60,9 @@ bvh_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __
   const int off = P + S + Q;
   Hit h = closest_hit(smem, L, r, t_min, t_max);
   walk_closest(nodes, n_nodes, slots, r, t_min, off, h);
-  if (h.prim >= off) {  // slot normals are stored unflipped
-    const float sgn = h.nx * r.dx + h.ny * r.dy + h.nz * r.dz > 0.0f ? -1.0f : 1.0f;
-    h.nx = h.nx * sgn; h.ny = h.ny * sgn; h.nz = h.nz * sgn;
-  }
+  finish_hit(h, r, off, gid_mask);  // slot normals are stored unflipped
   t_out[i] = h.t;
-  prim_out[i] = decode_prim(h.prim, off);
+  prim_out[i] = h.prim;
   u_out[i] = h.u;
   v_out[i] = h.v;
   nx_out[i] = h.nx;
@@ -106,14 +104,14 @@ inline int blocks_for(int n) { return (n + kBvhThreads - 1) / kBvhThreads; }
 extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* slots,
                                 const float* ps, int P, int S, int Q, const float* ox,
                                 const float* oy, const float* oz, const float* dx,
-                                const float* dy, const float* dz, int n, float t_min,
-                                float t_max, float* t, int* prim, float* u, float* v, float* nx,
-                                float* ny, float* nz, void* stream) {
+                                const float* dy, const float* dz, int n, int gid_mask,
+                                float t_min, float t_max, float* t, int* prim, float* u, float* v,
+                                float* nx, float* ny, float* nz, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   ptrt::bvh_closest_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
                              (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy,
-                                                     oz, dx, dy, dz, n, t_min, t_max, t, prim, u,
-                                                     v, nx, ny, nz);
+                                                     oz, dx, dy, dz, n, gid_mask, t_min, t_max, t,
+                                                     prim, u, v, nx, ny, nz);
   return (int)cudaGetLastError();
 }
 

@@ -25,6 +25,14 @@
 // -(1 + node index); empty: -1 with a never-hit box); split codes at 28-30.
 // Slot record, 13 floats: v0, e1, e2, gid (-1 padding; uid << 17 | tri
 // when packed), the stored unit normal.
+//
+// The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
+// bvh_paged_pallas.py) adds a fourth kind of child: a page, meta
+// -(1 + PAGE_META_BASE + page).  The walks instantiated with kPaged = true
+// never push a page: a lane whose slab test enters its box sets the page's
+// bit in its two-word pending mask, as _paged_top_walk does.  Both walks take
+// the lane's best so far in and out, so the same body walks the top tree and
+// then each pending page (bvh_paged.cu).
 #pragma once
 
 #include "sweep.cuh"
@@ -39,6 +47,9 @@ constexpr int kLeafSize = 16;
 constexpr int kMaxDepth4 = 32;
 constexpr int kStackCap = 3 * kMaxDepth4;
 constexpr int kGidUidBits = 17;
+// a child meta at or below kPageMeta0 names page -(meta) - 1 - kPageMetaBase
+constexpr int kPageMetaBase = 1 << 20;
+constexpr float kPageMeta0 = -(float)(1 + kPageMetaBase);
 constexpr int kGidTriMask = (1 << kGidUidBits) - 1;
 
 __device__ __forceinline__ float inv_dir(float d) {
@@ -77,7 +88,26 @@ __device__ __forceinline__ bool near_first(float code, const Ray& r) {
   return (d > 0.0f) != (k >= 4);
 }
 
-// Push the hit inner children of node record `b`, the farthest first.
+// A lane's pending pages: bit p of (lo, hi) as one 64-bit mask.
+struct Pend {
+  unsigned lo, hi;
+};
+
+// Set the pending bits of the page children of node record `b` that the lane
+// entered (the slab tests at pop time, as the JAX top walk takes them).
+__device__ __forceinline__ void pend_pages(const bool* hit, const float* meta, Pend& pend) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (!(hit[c] && meta[c] <= kPageMeta0)) continue;
+    const int pg = (int)(-meta[c]) - 1 - kPageMetaBase;
+    if (pg < 32) pend.lo |= 1u << pg;
+    else pend.hi |= 1u << (pg - 32);
+  }
+}
+
+// Push the hit inner children of node record `b`, the farthest first (never
+// a page of a paged top tree).
+template <bool kPaged>
 __device__ __forceinline__ void push_children(const float* __restrict__ b, const bool* hit,
                                               const float* meta, const Ray& r, int* stack,
                                               int& sp) {
@@ -91,17 +121,21 @@ __device__ __forceinline__ void push_children(const float* __restrict__ b, const
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c = order[j];
-    if (hit[c] && meta[c] < 0.0f) stack[sp++] = (int)(-meta[c]) - 1;
+    if (hit[c] && meta[c] < 0.0f && (!kPaged || meta[c] > kPageMeta0))
+      stack[sp++] = (int)(-meta[c]) - 1;
   }
 }
 
-// Closest hit below h.t among the triangles; h carries the seed (the
-// plane/sphere/quad winner) in and the winner out: t, prim = gid +
-// gid_offset (gid still packed), the raw barycentrics as u, v and the
-// stored (unflipped) normal.
-__device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
-                                             const float* __restrict__ slots, const Ray& r,
-                                             float t_min, int gid_offset, Hit& h) {
+// Closest hit below h.t among the triangles; h carries the best so far in
+// (the plane/sphere/quad winner, or an earlier page's) and the winner out:
+// t, prim = gid + gid_offset (gid still packed), the raw barycentrics as u, v
+// and the stored (unflipped) normal.  kPaged: a top tree, whose page
+// children set bits of `pend` instead of being walked.
+template <bool kPaged>
+__device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
+                                               const float* __restrict__ slots, const Ray& r,
+                                               float t_min, int gid_offset, Hit& h,
+                                               Pend* pend) {
   const WalkRay w = walk_ray(r);
   int stack[kStackCap];
   int sp = 0;
@@ -135,14 +169,23 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, in
         }
       }
     }
-    push_children(b, hit, meta, r, stack, sp);
+    if constexpr (kPaged) pend_pages(hit, meta, *pend);
+    push_children<kPaged>(b, hit, meta, r, stack, sp);
   }
 }
 
-// Is any triangle hit in (t_min, limit)?  Stops at the first one.
-__device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_nodes,
-                                         const float* __restrict__ slots, const Ray& r,
-                                         float t_min, float limit) {
+__device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
+                                             const float* __restrict__ slots, const Ray& r,
+                                             float t_min, int gid_offset, Hit& h) {
+  walk_closest_t<false>(nodes, n_nodes, slots, r, t_min, gid_offset, h, nullptr);
+}
+
+// Is any triangle hit in (t_min, limit)?  Stops at the first one; the page
+// bits set before it stay set.
+template <bool kPaged>
+__device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int n_nodes,
+                                           const float* __restrict__ slots, const Ray& r,
+                                           float t_min, float limit, Pend* pend) {
   const WalkRay w = walk_ray(r);
   int stack[kStackCap];
   int sp = 0;
@@ -168,14 +211,34 @@ __device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_
           return true;
       }
     }
-    push_children(b, hit, meta, r, stack, sp);
+    if constexpr (kPaged) pend_pages(hit, meta, *pend);
+    push_children<kPaged>(b, hit, meta, r, stack, sp);
   }
   return false;
 }
 
+__device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_nodes,
+                                         const float* __restrict__ slots, const Ray& r,
+                                         float t_min, float limit) {
+  return walk_any_t<false>(nodes, n_nodes, slots, r, t_min, limit, nullptr);
+}
+
 // A triangle winner's global id without its packed uid; other ids unchanged.
-__device__ __forceinline__ int decode_prim(int prim, int gid_offset) {
-  return prim >= gid_offset ? ((prim - gid_offset) & kGidTriMask) + gid_offset : prim;
+// gid_mask: kGidTriMask when the slot gids carry uids, else -1 (every bit: a
+// plain id may exceed 17 bits).
+__device__ __forceinline__ int decode_prim(int prim, int gid_offset,
+                                           int gid_mask = kGidTriMask) {
+  return prim >= gid_offset ? ((prim - gid_offset) & gid_mask) + gid_offset : prim;
+}
+
+// The record the scene walks emit: a triangle winner's id decoded and its
+// stored normal flipped toward the ray.  Both steps are idempotent, so a
+// finished record may be carried into a further walk and finished again.
+__device__ __forceinline__ void finish_hit(Hit& h, const Ray& r, int gid_offset, int gid_mask) {
+  h.prim = decode_prim(h.prim, gid_offset, gid_mask);
+  if (h.prim >= gid_offset && h.nx * r.dx + h.ny * r.dy + h.nz * r.dz > 0.0f) {
+    h.nx = -h.nx; h.ny = -h.ny; h.nz = -h.nz;
+  }
 }
 
 }  // namespace ptrt

@@ -8,8 +8,11 @@ Each bounce is one launch of the CUDA kernel ``ops/cuda/bounce.path_bounce``
 (K1) or, on a BVH scene, of ``ops/cuda/bounce_bvh.path_bounce_bvh`` (K5 and
 its K4b shadow walk); a BVH scene that K5 does not take (textured
 triangles, no unique-material table) runs ``path_bounce_plain``, whose
-intersections launch K4a and K4b.  On the CPU each takes its plain torch
-version.  Between bounces plain torch ops
+intersections launch K4a and K4b.  A paged BVH (a big scene, such as
+``--scene mesh_big``'s 128,000 triangles) also runs ``path_bounce_plain``,
+as the JAX package's ``bounce_bvh_ok`` sends it there: its closest hit and
+shadow rays launch the two-level walk (K6a + K6c, K6b + K6d).  On the CPU
+each takes its plain torch version.  Between bounces plain torch ops
 resolve the base colour (atlas texel or material colour), apply the two
 multiply-adds, and regenerate finished lanes.  Randomness is the counter
 hash: a pure function of (seed, pixel, sample, depth, use).
@@ -44,12 +47,13 @@ _COMPACT_BELOW = 0.5
 def bounce_fn(cs, blobs):
     """``bounce(o, d, thr, key, depth, shadow_light) -> BounceOut`` for
     ``cs`` and its packed tables ``blobs`` (``WavefrontRenderer.blobs``):
-    K1 for a scene without a BVH, K5 for one that K5 takes, else the plain
-    bounce (the JAX package's ``_make_bounce_and_resolve``)."""
+    K1 for a scene without a BVH, K5 for one that K5 takes and that is not
+    paged, else the plain bounce (the JAX package's
+    ``_make_bounce_and_resolve``)."""
     if cs.bvh is None:
         return lambda o, d, thr, key, depth, shadow_light: path_bounce(
             cs, *blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
-    if blobs is not None:
+    if blobs is not None and cs.bvh.paged is None:
         return lambda o, d, thr, key, depth, shadow_light: path_bounce_bvh(
             cs, blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
     return lambda o, d, thr, key, depth, shadow_light: path_bounce_plain(

@@ -24,7 +24,10 @@ The JAX package lays the fork tree out as a heap of constant-width segments
 level's nodes are only the lanes that forked into them, so empty nodes cost
 nothing.  Every level is one closest-hit launch (``ops/cuda/intersect``,
 K3a) and one any-hit launch for the shadow rays of all its nodes and all
-light samples (K3b); the per-lane values are those of the heap.
+light samples (K3b); the per-lane values are those of the heap.  On a BVH
+scene the two queries are ``ops/intersect.scene_hit`` and
+``scene_hit_any``, as in the JAX oracle: the BVH scene walks K4a and K4b,
+or the two-level walk K6 on a paged tree.
 """
 from __future__ import annotations
 
@@ -34,7 +37,7 @@ from typing import List
 import torch
 
 from ..ops.cuda.intersect import any_hit, closest_hit
-from ..ops.intersect import resolve_material
+from ..ops.intersect import resolve_material, scene_hit, scene_hit_any
 from ..ops.texture import resolve_base_color
 from ..ops.v3 import V3, refract
 from ..utils.logging import log_event
@@ -69,6 +72,21 @@ def shadow_rays(cs, point: V3, normal: V3):
     return origin, to_light_raw.normalized(), to_light_raw.norm()
 
 
+def _closest(cs, blob, o: V3, d: V3):
+    """The closest hit of a level: K3a, or the BVH scene walk."""
+    if cs.bvh is not None:
+        return scene_hit(cs, o, d, _T_MIN, _T_FAR)
+    return closest_hit(cs, blob, o, d, _T_MIN, _T_FAR)
+
+
+def _occluded(cs, blob, o: V3, d: V3, dist):
+    """Occlusion of shadow rays in ``(_T_MIN, dist)``: K3b, or the BVH
+    scene walk."""
+    if cs.bvh is not None:
+        return scene_hit_any(cs, o, d, _T_MIN, dist)
+    return any_hit(cs, blob, o, d, _T_MIN, dist)
+
+
 def _shade_local(cs, blob, point: V3, normal: V3, base: V3, diffuse, specular,
                  ray_origin: V3) -> V3:
     """Ambient plus, per light sample, Lambert + Phong where unoccluded.
@@ -79,9 +97,8 @@ def _shade_local(cs, blob, point: V3, normal: V3, base: V3, diffuse, specular,
         return local
     inv_n = 1.0 / n_lights
     shadow_org, ldir, dist = shadow_rays(cs, point, normal)
-    occluded = any_hit(cs, blob, V3(*(c.reshape(-1) for c in shadow_org)),
-                       V3(*(c.reshape(-1) for c in ldir)), _T_MIN,
-                       dist.reshape(-1)).reshape(dist.shape)
+    occluded = _occluded(cs, blob, V3(*(c.reshape(-1) for c in shadow_org)),
+                         V3(*(c.reshape(-1) for c in ldir)), dist.reshape(-1)).reshape(dist.shape)
 
     diff = torch.clamp(normal.dot(ldir), min=0.0)
     lambert = base * cs.light_color * (diffuse * diff * inv_n)
@@ -109,7 +126,7 @@ def _trace(cs, blob, org: V3, rd: V3, max_depth: int) -> V3:
     levels = []
     o, d = org, rd
     for level in range(max_depth + 1):
-        rec = closest_hit(cs, blob, o, d, _T_MIN, _T_FAR)
+        rec = _closest(cs, blob, o, d)
         hit = rec.hit
         point, normal = surface(o, d, rec)
         (mcolor, diffuse, specular, reflective, refractive, ior, has_tex, tex_id) = (
@@ -168,7 +185,7 @@ class CPUParityRayTracer(WavefrontRenderer):
 
     def get_capabilities(self) -> List[str]:
         return ["ray_tracing", "shadows", "reflection", "refraction", "area_lights",
-                "anti_aliasing"]
+                "anti_aliasing", "bvh_acceleration"]
 
     def _samples_per_group(self, spp: int) -> int:
         return max(1, math.isqrt(spp) ** 2)
@@ -184,13 +201,11 @@ class CPUParityRayTracer(WavefrontRenderer):
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, *, n_pix, width, height,
                n_samples, max_depth):
-        if cs.bvh is not None:
-            raise NotImplementedError("cpu_raytracer on a BVH scene is not ported yet "
-                                      "(ROADMAP.md Queue 1 item 10)")
         depth = min(max_depth, ORACLE_MAX_DEPTH)
         o, d = grid_camera_rays(cam12, pix0, n_pix, width, height, seed, sample_base,
                                 n_samples, math.isqrt(n_samples), depth, self.jitter)
-        fold_cells(sums, pix0, n_pix, _trace(cs, self.blobs(cs)[0], o, d, depth))
+        blob = None if cs.bvh is not None else self.blobs(cs)[0]  # K3's scene blob
+        fold_cells(sums, pix0, n_pix, _trace(cs, blob, o, d, depth))
 
     def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):
         # one indivisible grid group, as the Whitted renderers

@@ -13,14 +13,24 @@ Port of the JAX package's ``ops/bvh.py`` with the host-side packers of its
   codes) and the leaf-ordered triangle slot records of ``pack_blobs`` (v0,
   e1, e2, gid, stored normal), whose gid may carry the triangle's
   unique-material id (``GID_UID_SHIFT``).
+* **Paged layout** (host, ``pack_paged``, a numpy copy of the JAX
+  package's ``ops/pallas/bvh_paged_pallas.py``): a tree whose one-level
+  records exceed ``ONE_LEVEL_LIMIT`` floats is cut into at most
+  ``PAGES_MAX`` subtree pages of about ``PAGE_BUDGET_FLOATS`` floats, each
+  with its own BVH4 and slot records, under a top tree whose page children
+  carry the meta ``-(1 + PAGE_META_BASE + page)``.  ``ONE_LEVEL_LIMIT`` is
+  the JAX package's route decision (its ``SMEM_BLOB_LIMIT``, a TPU SMEM
+  budget), not a limit of the GPU: it is kept so that the same scenes take
+  the same kernels in both packages.  The one-level records stay beside the
+  pages.
 * **Plain walks** ``traverse_closest`` / ``traverse_any``: the JAX skip-link
   walks in torch ops, every lane with its own cursor, compacted to the
-  lanes still walking.  They serve the CPU and are what the kernels are
-  held against; they can count the box and triangle tests they make.
-
-The JAX package's SMEM budget and paged blobs are TPU limits and are not
-ported: on the GPU the tree and the slot records live in device memory at
-any size.
+  lanes still walking.  ``paged_top`` and ``pages`` are the same walk over a
+  paged tree: the top walk treats a page root as a leaf that sets the
+  lane's pending bit, and each page is walked, in increasing index, from its
+  root to the end of its subtree with the lane's carried best.  They serve
+  the CPU and are what the kernels are held against; they can count the box
+  and triangle tests they make.
 """
 from __future__ import annotations
 
@@ -41,6 +51,20 @@ _SLOT_F = 13  # slot record: v0(3) e1(3) e2(3) gid n(3)
 GID_UID_SHIFT = 1 << 17
 GID_TRI_MASK = GID_UID_SHIFT - 1
 
+# The paged layout (the JAX package's constants; module globals, so tests can
+# shrink them).  A tree whose one-level BVH4 + slot records exceed
+# ONE_LEVEL_LIMIT floats is paged: the JAX package's SMEM_BLOB_LIMIT, its
+# route decision, kept so that both packages page the same scenes.
+ONE_LEVEL_LIMIT = 240_000
+# page children are metas -(1 + PAGE_META_BASE + page)
+PAGE_META_BASE = 1 << 20
+# per-page budget (BVH4 + slot record floats), escalated toward
+# PAGE_BUDGET_CEIL when the cut would need more than PAGES_MAX pages
+PAGE_BUDGET_FLOATS = 200_000
+PAGE_BUDGET_CEIL = 235_000
+# the pending mask holds two 32-bit words
+PAGES_MAX = 64
+
 
 class FlatBVH(NamedTuple):
     lo: torch.Tensor  # (M, 3) f32 box min
@@ -56,10 +80,30 @@ class FlatBVH(NamedTuple):
     # plane/sphere/quad blob (ops/cuda/bounce.pack_ps_blob) seeding the
     # scene walks; the compiler sets it
     ps_blob: Optional[torch.Tensor] = None
+    paged: Optional["PagedBlobs"] = None  # the two-level layout of a big tree
 
     @property
     def n_nodes(self) -> int:
         return int(self.skip.shape[0])
+
+
+class PagedBlobs(NamedTuple):
+    """The two-level layout on the scene's device (the JAX package's
+    ``PagedBlobs``; its depth tokens are ints here)."""
+
+    top_tree: torch.Tensor  # (32·M4top,) f32 BVH4 records of the top tree
+    top_slot: torch.Tensor  # (13·K,) f32 slot records of the leaves above the cut
+    page_tree: torch.Tensor  # (n_pages, TC) f32 each page's BVH4 records, zero padded
+    page_slot: torch.Tensor  # (n_pages, SC) f32 each page's slot records, gid −1 padded
+    top_depth: int  # BVH4 depth of the top tree (root = 1)
+    page_depth: int  # the deepest page's BVH4 depth
+    page_lo: torch.Tensor  # (n_pages, 3) f32 page root boxes
+    page_hi: torch.Tensor  # (n_pages, 3) f32
+    page_root: torch.Tensor  # (n_pages,) int64 BVH2 node of each page root (plain walks)
+
+    @property
+    def n_pages(self) -> int:
+        return int(self.page_tree.shape[0])
 
 
 # ---- build ------------------------------------------------------------------------
@@ -325,51 +369,274 @@ def _root_leaf_node4(arrs: dict) -> np.ndarray:
     return rec[None, :]
 
 
+def _tensor(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def pack_paged(arrs: dict, v0, v1, v2, nrm=None, uid=None, budget_floats: int = None,
+               device="cpu") -> Optional[PagedBlobs]:
+    """Cut a ``build_bvh`` tree into a top tree and subtree pages (the JAX
+    package's ``pack_paged``, array for array), or ``None`` when paging does
+    not apply: the root is a leaf, the whole tree fits one page, or the cut
+    needs more than ``PAGES_MAX`` pages even at ``PAGE_BUDGET_CEIL``.
+
+    The cut: walking down from the root, the first inner node whose subtree
+    records (``32·BVH4 nodes + 13·16·leaves`` floats) fit the budget becomes
+    a page; leaves above the cut stay in the top tree."""
+    if budget_floats is None:
+        budget_floats = PAGE_BUDGET_FLOATS  # module global: patchable in tests
+    lo, hi, skip = arrs["lo"], arrs["hi"], arrs["skip"]
+    is_leaf, slots = arrs["is_leaf"], arrs["slots"]
+    m, leaf_size = slots.shape
+    if is_leaf[0]:
+        return None
+
+    # BVH4 records per subtree: children of i are i+1 and skip[i+1], so a
+    # reverse scan of the DFS order is post-order
+    b4 = np.zeros(m, np.int64)
+    leaf_pre = np.concatenate([[0], np.cumsum(is_leaf.astype(np.int64))])
+
+    def children(i):
+        return i + 1, int(skip[i + 1])
+
+    for i in range(m - 1, -1, -1):
+        if is_leaf[i]:
+            continue
+        cnt = 1
+        for sub in children(i):
+            if not is_leaf[sub]:
+                for g in children(sub):
+                    if not is_leaf[g]:
+                        cnt += b4[g]
+        b4[i] = cnt
+
+    def sub_end(i) -> int:  # the subtree of i is [i, sub_end(i)) in DFS order
+        return m if i == 0 else int(skip[i])
+
+    def cost(i) -> int:
+        n_leaves = int(leaf_pre[sub_end(i)] - leaf_pre[i])
+        return _NODE4_F * int(b4[i]) + _SLOT_F * leaf_size * n_leaves
+
+    if cost(0) <= budget_floats:
+        return None  # one page is the one-level walk
+
+    cut = np.zeros(m, bool)
+    pages = []
+    stack = [0]
+    while stack:
+        i = stack.pop()
+        if is_leaf[i]:
+            continue  # stays a top leaf
+        if cost(i) <= budget_floats:
+            cut[i] = True
+            pages.append(i)
+            continue
+        left, right = children(i)
+        stack.append(right)
+        stack.append(left)
+    if len(pages) > PAGES_MAX and budget_floats < PAGE_BUDGET_CEIL:
+        return pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid,
+                          budget_floats=min(2 * budget_floats, PAGE_BUDGET_CEIL), device=device)
+    if not 2 <= len(pages) <= PAGES_MAX:
+        return None
+    pages.sort()  # DFS order: pages are visited lowest index first
+    page_index = {nid: k for k, nid in enumerate(pages)}
+    codes = _split_codes(lo, hi, skip, is_leaf)
+
+    # the top tree: pack_blobs4's emitter with leaf | page | inner children
+    records, top_leaves, top_base, max_depth = [], [], {}, [1]
+
+    def leaf_base(nid) -> float:
+        if nid not in top_base:
+            top_base[nid] = len(top_leaves) * leaf_size
+            top_leaves.append(nid)
+        return float(top_base[nid])
+
+    def build_top(i: int, d: int) -> int:
+        me = len(records)
+        records.append(None)
+        max_depth[0] = max(max_depth[0], d)
+        left, right = children(i)
+        child_slots = []
+        for sub in (left, right):
+            if is_leaf[sub] or cut[sub]:
+                child_slots.extend([sub, None])
+            else:
+                child_slots.extend(children(sub))
+        rec = np.zeros(_NODE4_F, np.float32)
+        for c, nid in enumerate(child_slots):
+            if nid is None:
+                rec[6 * c: 6 * c + 6] = 3e38  # never hit
+                rec[24 + c] = -1.0
+                continue
+            rec[6 * c: 6 * c + 3] = lo[nid]
+            rec[6 * c + 3: 6 * c + 6] = hi[nid]
+            if is_leaf[nid]:
+                rec[24 + c] = leaf_base(nid)
+            elif cut[nid]:
+                rec[24 + c] = -(1.0 + PAGE_META_BASE + page_index[nid])
+            else:
+                rec[24 + c] = -(1.0 + build_top(nid, d + 1))
+        rec[28] = codes[i]
+        rec[29] = 0.0 if (is_leaf[left] or cut[left]) else codes[left]
+        rec[30] = 0.0 if (is_leaf[right] or cut[right]) else codes[right]
+        records[me] = rec
+        return me
+
+    limit = sys.getrecursionlimit()
+    sys.setrecursionlimit(max(limit, 8 * m + 1000))
+    try:
+        build_top(0, 1)
+    finally:
+        sys.setrecursionlimit(limit)
+    top_tree = np.stack(records).astype(np.float32).reshape(-1)
+
+    # the top leaves' slot records (pack_blobs' layout)
+    v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
+    e1, e2 = v1 - v0, v2 - v0
+    if nrm is None:
+        n_ = np.cross(e1, e2)
+        nrm_eff = n_ / np.maximum(np.linalg.norm(n_, axis=1, keepdims=True), 1e-30)
+    else:
+        nrm_eff = np.asarray(nrm, np.float32)
+    rec = np.zeros((max(1, len(top_leaves)) * leaf_size, _SLOT_F), np.float32)
+    rec[:, 9] = -1.0
+    for k, nid in enumerate(top_leaves):
+        row = slots[nid]
+        valid = row >= 0
+        tri = row[valid]
+        rows = k * leaf_size + np.where(valid)[0]
+        rec[rows, 0:3] = v0[tri]
+        rec[rows, 3:6] = e1[tri]
+        rec[rows, 6:9] = e2[tri]
+        rec[rows, 9] = _pack_gid(tri, uid).astype(np.float32)
+        rec[rows, 10:13] = nrm_eff[tri]
+    top_slot = rec.reshape(-1)
+
+    # each page: the one-level packers on its subtree slice
+    page_trees, page_slots, pdepth = [], [], 1
+    for r_node in pages:
+        e = sub_end(r_node)
+        sub = {"lo": lo[r_node:e], "hi": hi[r_node:e],
+               "skip": np.clip(skip[r_node:e] - r_node, 0, e - r_node).astype(skip.dtype),
+               "is_leaf": is_leaf[r_node:e], "slots": slots[r_node:e]}
+        _t, s_np, _d = pack_blobs(sub, v0, v1, v2, nrm=nrm, uid=uid)
+        q_np, d4 = pack_blobs4(sub)
+        page_trees.append(q_np[0])
+        page_slots.append(s_np[0])
+        pdepth = max(pdepth, d4)
+
+    def pad1024(c):  # the JAX package's page widths
+        return -(-c // 1024) * 1024
+
+    tc = pad1024(max(a.shape[0] for a in page_trees))
+    sc = pad1024(max(a.shape[0] for a in page_slots))
+    page_tree = np.zeros((len(pages), tc), np.float32)
+    page_slot = np.zeros((len(pages), sc), np.float32)
+    page_slot[:, 9::_SLOT_F] = -1.0  # padding: empty slot records
+    for k, (a, b) in enumerate(zip(page_trees, page_slots)):
+        page_tree[k, : a.shape[0]] = a
+        page_slot[k, : b.shape[0]] = b
+    return PagedBlobs(
+        top_tree=_tensor(top_tree, device), top_slot=_tensor(top_slot, device),
+        page_tree=_tensor(page_tree, device), page_slot=_tensor(page_slot, device),
+        top_depth=int(max_depth[0]), page_depth=int(pdepth),
+        page_lo=_tensor(lo[pages].astype(np.float32), device),
+        page_hi=_tensor(hi[pages].astype(np.float32), device),
+        page_root=_tensor(np.asarray(pages, np.int64), device))
+
+
+def page_roots(arrs: dict, top_tree: np.ndarray, n_pages: int) -> np.ndarray:
+    """The BVH2 node of each page of a top tree (``pack_paged``'s layout),
+    read back by replaying its emitter: the record of BVH2 node ``i`` takes
+    its child slots from ``i``'s children, one slot (and an empty one) for a
+    leaf or a page, the two children of any other inner child."""
+    skip, is_leaf = arrs["skip"], arrs["is_leaf"]
+    rec = np.asarray(top_tree, np.float32).reshape(-1, _NODE4_F)
+    roots = np.full(n_pages, -1, np.int64)
+    stack = [(0, 0)]  # (top record, its BVH2 node)
+    while stack:
+        r, i = stack.pop()
+        nids = []
+        for sub in (i + 1, int(skip[i + 1])):
+            # a page keeps its pair's second slot empty (meta −1)
+            if is_leaf[sub] or rec[r, 24 + len(nids) + 1] == -1.0:
+                nids.extend([sub, None])
+            else:
+                nids.extend([sub + 1, int(skip[sub + 1])])
+        for c, nid in enumerate(nids):
+            meta = float(rec[r, 24 + c])
+            if nid is None or meta >= 0.0:
+                continue
+            if meta <= -(1.0 + PAGE_META_BASE):
+                roots[int(-meta) - 1 - PAGE_META_BASE] = nid
+            else:
+                stack.append((int(-meta) - 1, nid))
+    return roots
+
+
 def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: np.ndarray,
               uid: np.ndarray = None, device="cpu") -> FlatBVH:
     """A ``build_bvh`` result and its triangles as a :class:`FlatBVH` on
     ``device``.  ``nrm`` is the compiler's stored normal (``triangles.normal``),
     so the kernels' normals equal the plain gathers'; ``uid`` packs each
-    triangle's unique-material id into its slot gid."""
+    triangle's unique-material id into its slot gid.  A tree whose one-level
+    records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout."""
     v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
     _tree, slot_np, _depth = pack_blobs(arrs, v0, v1, v2, nrm=nrm, uid=uid)
     nodes4, depth4 = pack_blobs4(arrs)
     if nodes4 is None:
         nodes4, depth4 = _root_leaf_node4(arrs), 1
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
-
-    return FlatBVH(lo=t(arrs["lo"]), hi=t(arrs["hi"]), skip=t(arrs["skip"]),
-                   is_leaf=t(arrs["is_leaf"]), slots=t(arrs["slots"]), nodes4=t(nodes4[0]),
-                   slot_rec=t(slot_np[0]), depth4=int(depth4), uid_packed=uid is not None)
+    paged = None
+    if nodes4.size + slot_np.size > ONE_LEVEL_LIMIT:
+        paged = pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, device=device)
+    return FlatBVH(lo=_tensor(arrs["lo"], device), hi=_tensor(arrs["hi"], device),
+                   skip=_tensor(arrs["skip"], device), is_leaf=_tensor(arrs["is_leaf"], device),
+                   slots=_tensor(arrs["slots"], device), nodes4=_tensor(nodes4[0], device),
+                   slot_rec=_tensor(slot_np[0], device), depth4=int(depth4),
+                   uid_packed=uid is not None, paged=paged)
 
 
 # ---- plain walks -------------------------------------------------------------------
-def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max, any_hit: bool,
-          counts: Optional[dict]):
+def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool,
+          counts: Optional[dict], best_i=None, tri_offset: int = 0, lanes=None, start: int = 0,
+          end: Optional[int] = None, page_of=None):
     """The skip-link walk of every ray (``traverse_closest`` /
     ``traverse_any``).  Each step tests one node box per walking lane and,
     at a leaf whose box is hit, its ``LEAF_SIZE`` slots at once: the first
     slot with the least ``t`` below the running best wins, as the JAX
-    walk's strict-``<`` slot loop decides."""
+    walk's strict-``<`` slot loop decides.
+
+    ``bound`` is the running best's seed (closest; ``best_i`` carries its
+    winner, −1 by default) or the fixed limit (any), scalar or per ray.  A
+    winning triangle's id is ``tri_offset + triangle``.  Only ``lanes`` (an
+    index tensor; default all) walk, over the nodes ``[start, end)`` (a
+    subtree in DFS order; default the whole tree).  ``page_of`` (per node: its
+    page, −1 off the cut) makes it the paged top walk: a page root whose box
+    the lane enters sets the lane's pending bit and is skipped.
+
+    Returns ``(best_t, best_i)`` or the found mask, then, with ``page_of``,
+    the pending words ``(plo, phi)`` (int32)."""
     n = ro.x.shape[0]
     m = bvh.n_nodes
+    stop = m if end is None else end
     dev = ro.x.device
-    best_t = torch.as_tensor(t_max, dtype=torch.float32, device=dev).expand(n).clone()
-    best_i = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    best_t = torch.as_tensor(bound, dtype=torch.float32, device=dev).expand(n).clone()
+    best_i = (torch.full((n,), -1, dtype=torch.int32, device=dev) if best_i is None
+              else best_i.to(torch.int32).clone())
     found = torch.zeros(n, dtype=torch.bool, device=dev)
+    pend = torch.zeros(n, dtype=torch.int64, device=dev)
     v0 = torch.stack(tuple(tris.v0), -1)
     e1 = torch.stack(tuple(tris.v1), -1) - v0
     e2 = torch.stack(tuple(tris.v2), -1) - v0
-    inv = [1.0 / torch.where(torch.abs(c) > 1e-12, c, 1e-12) for c in rd]
     # the walking lanes' state, compacted as lanes finish
-    ids = torch.arange(n, device=dev)
-    o, d = torch.stack(tuple(ro), -1), torch.stack(tuple(rd), -1)
-    iv = torch.stack(inv, -1)
-    lim = best_t.clone()
-    bt, bi = best_t.clone(), best_i.clone()
-    cursor = torch.zeros(n, dtype=torch.int64, device=dev)
+    ids = torch.arange(n, device=dev) if lanes is None else lanes
+    o = torch.stack(tuple(ro), -1)[ids]
+    d = torch.stack(tuple(rd), -1)[ids]
+    iv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12)
+    lim = best_t[ids]
+    bt, bi, pd = best_t[ids], best_i[ids], pend[ids]
+    cursor = torch.full((ids.numel(),), start, dtype=torch.int64, device=dev)
     boxes = torch.zeros((), dtype=torch.int64, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
     for _step in range(m + 1):  # a correct tree ends within m steps
@@ -403,24 +670,39 @@ def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max, any_hit: bool
                 tk = torch.gather(t, 1, k[:, None])[:, 0]
                 take = torch.isfinite(tk)
                 bt[rows] = torch.where(take, tk, bt[rows])
-                gi = torch.gather(slot, 1, k[:, None])[:, 0]
+                gi = torch.gather(slot, 1, k[:, None])[:, 0] + tri_offset
                 bi[rows] = torch.where(take, gi, bi[rows])
-        nxt = torch.where(box_hit & ~bvh.is_leaf[cursor], cursor + 1, bvh.skip[cursor].long())
-        cursor = torch.where(done, m, nxt)
+        descend = box_hit & ~bvh.is_leaf[cursor]
+        if page_of is not None:  # a page root: pend it, never descend
+            pg = page_of[cursor]
+            at_page = descend & (pg >= 0)
+            pd = pd | torch.where(at_page, torch.ones_like(pd) << pg.clamp(min=0), 0)
+            descend = descend & ~at_page
+        nxt = torch.where(descend, cursor + 1, bvh.skip[cursor].long())
+        cursor = torch.where(done, stop, nxt)
         if any_hit:
             found[ids[done]] = True
-        keep = cursor < m
-        if not any_hit:
-            fin = ids[~keep]
-            best_t[fin], best_i[fin] = bt[~keep], bi[~keep]
+        keep = cursor < stop
+        fin = ids[~keep]
+        best_t[fin], best_i[fin], pend[fin] = bt[~keep], bi[~keep], pd[~keep]
         sel = torch.nonzero(keep)[:, 0]
-        ids, o, d, iv, lim, bt, bi, cursor = (x[sel] for x in (ids, o, d, iv, lim, bt, bi, cursor))
-    if not any_hit:  # lanes cut by the step cap (a corrupted tree) keep their best so far
-        best_t[ids], best_i[ids] = bt, bi
+        ids, o, d, iv, lim, bt, bi, pd, cursor = (
+            x[sel] for x in (ids, o, d, iv, lim, bt, bi, pd, cursor))
+    # lanes cut by the step cap (a corrupted tree) keep their state so far
+    best_t[ids], best_i[ids], pend[ids] = bt, bi, pd
     if counts is not None:
         counts["boxes"] = counts.get("boxes", 0) + int(boxes)
         counts["tri_tests"] = counts.get("tri_tests", 0) + int(tests)
-    return found if any_hit else (best_t, best_i)
+    out = (found,) if any_hit else (best_t, best_i)
+    if page_of is not None:
+        out = out + (_word(pend & 0xFFFFFFFF), _word(pend >> 32))
+    return out[0] if len(out) == 1 else out
+
+
+def _word(x: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 ``x`` as an int32 bit pattern."""
+    x = x & 0xFFFFFFFF
+    return ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
 
 
 def _leaf_test(v0, e1, e2, o, d, t_min, bound):
@@ -448,14 +730,15 @@ def _leaf_test(v0, e1, e2, o, d, t_min, bound):
 
 
 def traverse_closest(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
-                     tri_offset: int = 0, counts: Optional[dict] = None):
+                     tri_offset: int = 0, counts: Optional[dict] = None, best_i=None):
     """Closest triangle hit by the skip-link walk: ``(best_t, best_idx)``
     with the global id ``tri_offset + triangle`` or −1.  Strict ``<``
     against the running best, so the winner equals a brute-force sweep's up
     to ties on exactly equal ``t`` (visit order is SAH order).  ``counts``
-    (a dict) accumulates ``boxes`` and ``tri_tests``."""
-    best_t, best_i = _walk(bvh, tris, ro, rd, t_min, t_max, False, counts)
-    return best_t, torch.where(best_i >= 0, best_i + tri_offset, -1)
+    (a dict) accumulates ``boxes`` and ``tri_tests``.  ``t_max`` and
+    ``best_i`` may carry a best so far in (−1: none)."""
+    return _walk(bvh, tris, ro, rd, t_min, t_max, False, counts, best_i=best_i,
+                 tri_offset=tri_offset)
 
 
 def traverse_any(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
@@ -463,3 +746,79 @@ def traverse_any(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
     """Is any triangle hit in ``(t_min, t_max)``?  A lane stops walking at
     its first accepted hit."""
     return _walk(bvh, tris, ro, rd, t_min, t_max, True, counts)
+
+
+def _page_of(bvh: FlatBVH) -> torch.Tensor:
+    pg = bvh.paged
+    page_of = torch.full((bvh.n_nodes,), -1, dtype=torch.int64, device=bvh.skip.device)
+    page_of[pg.page_root] = torch.arange(pg.n_pages, device=page_of.device)
+    return page_of
+
+
+def pend_mask(plo: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
+    """The two pending words as one int64 mask, bit ``p`` for page ``p``."""
+    return (phi.long() << 32) | (plo.long() & 0xFFFFFFFF)
+
+
+def page_root_mask(pg: PagedBlobs, ro: V3, rd: V3, t_min: float, far) -> torch.Tensor:
+    """The JAX package's ``_page_root_slab`` for every page: an int64 mask
+    whose bit ``p`` says the ray enters page ``p``'s root box in
+    ``(t_min, far)`` (the kernels' slab formula, on the same box floats)."""
+    iv = [1.0 / torch.where(torch.abs(c) > 1e-12, c, 1e-12) for c in rd]
+    mask = torch.zeros(ro.x.shape[0], dtype=torch.int64, device=ro.x.device)
+    for p in range(pg.n_pages):
+        a = [(pg.page_lo[p, k] - ro[k]) * iv[k] for k in range(3)]
+        b = [(pg.page_hi[p, k] - ro[k]) * iv[k] for k in range(3)]
+        near = [torch.minimum(x, y) for x, y in zip(a, b)]
+        far_ = [torch.maximum(x, y) for x, y in zip(a, b)]
+        enter = torch.maximum(torch.maximum(near[0], near[1]), torch.clamp(near[2], min=t_min))
+        exit_ = torch.minimum(torch.minimum(far_[0], far_[1]), torch.minimum(far_[2], far))
+        mask = mask | ((enter <= exit_).long() << p)
+    return mask
+
+
+def paged_top(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool = False,
+              best_i=None, found=None, tri_offset: int = 0, counts: Optional[dict] = None):
+    """The plain top walk of a paged tree (K6a / K6b): the skip-link walk,
+    where a page root whose box the lane enters at its running best sets the
+    lane's bit in ``(plo, phi)`` and the lane jumps past the page.  Closest:
+    ``bound``/``best_i`` carry the best so far; returns ``(best_t, best_i,
+    plo, phi)``.  Any: ``bound`` is the limit and lanes already ``found`` do
+    not walk; returns ``(found, plo, phi)``."""
+    if not any_hit:
+        return _walk(bvh, tris, ro, rd, t_min, bound, False, counts, best_i=best_i,
+                     tri_offset=tri_offset, page_of=_page_of(bvh))
+    walked, plo, phi = _walk(bvh, tris, ro, rd, t_min, bound, True, counts,
+                             lanes=torch.nonzero(~found)[:, 0], page_of=_page_of(bvh))
+    return found | walked, plo, phi
+
+
+def pages(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, plo, phi,
+          any_hit: bool = False, best_i=None, found=None, tri_offset: int = 0,
+          counts: Optional[dict] = None):
+    """The plain page walk (K6c / K6d): for page ``p`` in increasing order,
+    each lane whose bit ``p`` is set walks the page's subtree
+    ``[root, skip[root])`` from its carried best; the walk's first step, the
+    root's box against that best, is ``_page_root_slab``'s cull.  Closest
+    returns ``(best_t, best_i)``; any returns ``found`` (a found lane walks
+    no further)."""
+    pg = bvh.paged
+    pend = pend_mask(plo, phi)
+    best_t = torch.as_tensor(bound, dtype=torch.float32, device=ro.x.device).expand(
+        ro.x.shape[0])
+    for p, root in enumerate(pg.page_root.tolist()):
+        want = ((pend >> p) & 1).bool()
+        if any_hit:
+            want = want & ~found
+        lanes = torch.nonzero(want)[:, 0]
+        if lanes.numel() == 0:
+            continue
+        end = int(bvh.skip[root])
+        if any_hit:
+            found = found | _walk(bvh, tris, ro, rd, t_min, best_t, True, counts, lanes=lanes,
+                                  start=root, end=end)
+        else:
+            best_t, best_i = _walk(bvh, tris, ro, rd, t_min, best_t, False, counts,
+                                   best_i=best_i, tri_offset=tri_offset, lanes=lanes,
+                                   start=root, end=end)
+    return found if any_hit else (best_t, best_i)

@@ -43,6 +43,7 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "whitted_bounce": (("whitted_bounce.cu",), ("sweep.cuh",)),
     "bvh_scene": (("bvh_scene.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "path_bounce_bvh": (("path_bounce_bvh.cu",), ("sweep.cuh", "bvh_walk.cuh", "path_shade.cuh")),
+    "bvh_paged": (("bvh_paged.cu",), ("sweep.cuh", "bvh_walk.cuh")),
 }
 
 

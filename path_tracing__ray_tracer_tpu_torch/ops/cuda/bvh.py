@@ -14,10 +14,18 @@ plain versions ``ops/intersect.scene_hit_bvh_plain`` and
   kernel emits t, prim, the shading normal and, for a triangle winner, its
   raw barycentrics, from which this wrapper interpolates the triangle's UVs
   where a textured triangle reads them (else 0), as the JAX package's
-  ``_fused_scene_hit`` does.
+  ``_fused_scene_hit`` does.  A per-ray bound takes the JAX package's
+  per-ray branch instead: the plane/sphere/quad broadcast, the triangle-only
+  walk K4c (``ops/cuda/bvh_paged.pages_closest`` over the whole tree) seeded
+  with the bound, and the strict-``<`` combine.
 * :func:`scene_any` returns a bool occlusion mask for a per-ray (or scalar)
   bound; the kernel reports lanes whose bound is ≤ 0 as occluded (their
   answer is not needed; the plain version says not occluded).
+
+A scene with a paged tree (``cs.bvh.paged``) takes the two-level walk K6 of
+``ops/cuda/bvh_paged.py`` for a scalar bound and for occlusion, as the JAX
+package does; its plain versions are ``scene_hit_paged_plain`` and
+``scene_hit_any_paged_plain``.
 """
 from __future__ import annotations
 
@@ -25,10 +33,16 @@ import ctypes
 
 import torch
 
+from ..bvh import GID_TRI_MASK
 from ..intersect import (
+    ClosestRecord,
     SceneHit,
+    _closest_broadcast,
+    _hit_record,
     scene_hit_any_bvh_plain,
+    scene_hit_any_paged_plain,
     scene_hit_bvh_plain,
+    scene_hit_paged_plain,
     tri_uv_read,
 )
 from ..v3 import V3
@@ -44,7 +58,7 @@ def build():
 
     built = _build.load("bvh_scene")
     head = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
-    built.lib.ptrt_bvh_closest.argtypes = head + [_I, _F, _F] + [_P] * 7 + [_P]
+    built.lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
     built.lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P]
     built.lib.ptrt_bvh_closest.restype = built.lib.ptrt_bvh_any.restype = ctypes.c_int
     return built
@@ -66,6 +80,12 @@ def tree_args(who, cs, device):
     _check("ps_blob", bvh.ps_blob, torch.float32, 14 * P + 4 * S + 18 * Q, device, who)
     return (bvh.nodes4.data_ptr(), n_nodes, bvh.slot_rec.data_ptr(), bvh.ps_blob.data_ptr(),
             P, S, Q)
+
+
+def gid_mask(cs) -> int:
+    """The kernels' mask of a slot gid's triangle bits: the low 17 when the
+    gids carry unique-material ids, else every bit."""
+    return GID_TRI_MASK if cs.bvh.uid_packed else -1
 
 
 def _rays(who, ro: V3, rd: V3):
@@ -102,48 +122,85 @@ def _fused_hit(cs, ro: V3, rd: V3, t, prim, u, v, normal: V3) -> SceneHit:
 
 
 def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
-    """Closest hit of every ray in ``(t_min, t_max)`` on a BVH scene (K4a).
-
-    Rays on a CUDA device go to the kernel, which takes a scalar ``t_max``
-    only; rays on the CPU take ``scene_hit_bvh_plain``."""
+    """Closest hit of every ray in ``(t_min, t_max)`` on a BVH scene: K4a, or
+    K6 on a paged tree, for a scalar ``t_max``; the per-ray branch (K4c) for
+    a tensor one.  Rays on the CPU take the plain versions."""
     dev = ro.x.device
+    per_ray = isinstance(t_max, torch.Tensor)
+    paged = cs.bvh is not None and cs.bvh.paged is not None and not per_ray
     if dev.type == "cpu":
+        if paged:
+            return scene_hit_paged_plain(cs, ro, rd, t_min, t_max)
         return scene_hit_bvh_plain(cs, ro, rd, t_min, t_max)
     if dev.type != "cuda":
         raise ValueError(f"scene_closest: no kernel for device {dev}")
+    from . import bvh_paged
+
+    if paged:
+        return bvh_paged.scene_closest_paged(cs, ro, rd, t_min, t_max)
+    if per_ray:
+        return _per_ray_closest(cs, ro, rd, t_min, t_max)
     who = "scene_closest"
-    if isinstance(t_max, torch.Tensor):
-        raise TypeError(f"{who}: the kernel takes a scalar t_max")
     tree = tree_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
     err = build().lib.ptrt_bvh_closest(
-        *tree, *(r.data_ptr() for r in rays), n, float(t_min), float(t_max), t.data_ptr(),
-        prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+        *tree, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
+        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(),
+        nz.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
     scene_closest.launches += 1
     return _fused_hit(cs, ro, rd, t, prim, u, v, V3(nx, ny, nz))
 
 
-def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
-    """Bool mask: is anything hit in ``(t_min, limit)`` on a BVH scene (K4b)?
-    ``limit`` is per ray, or a scalar that is broadcast.
+def _per_ray_closest(cs, ro: V3, rd: V3, t_min: float, t_max: torch.Tensor) -> SceneHit:
+    """The JAX ``scene_hit``'s per-ray-bound BVH branch on the card: the
+    plane/sphere/quad broadcast, the triangle walk K4c seeded with the
+    bound (raw barycentrics and stored normal out), the strict-``<``
+    combine."""
+    from . import bvh_paged
 
-    Rays on a CUDA device go to the kernel; rays on the CPU take
-    ``scene_hit_any_bvh_plain``."""
+    n = ro.x.shape[0]
+    bound = t_max.to(torch.float32).expand(n).contiguous()
+    ps_idx, ps_t, ps_hit = _closest_broadcast(cs, ro, rd, t_min, bound, include_tris=False)
+    zero = torch.zeros_like(bound)
+    seed = ClosestRecord(bound, torch.full((n,), -1, dtype=torch.int32, device=bound.device),
+                         zero, zero, V3(zero, zero, zero))
+    tri = bvh_paged.pages_closest(cs, ro, rd, t_min, seed)
+    tri_hit = tri.prim >= 0
+    tri_wins = tri_hit & (~ps_hit | (tri.t < ps_t))
+    return _hit_record(cs, ro, rd, torch.where(tri_wins, tri.prim, ps_idx),
+                       torch.where(tri_wins, tri.t, ps_t), ps_hit | tri_hit,
+                       tri_uv=tri_uv_read(cs), tri_attrs=(tri.u, tri.v, tri.normal))
+
+
+def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
+    """Bool mask: is anything hit in ``(t_min, limit)`` on a BVH scene (K4b,
+    or K6 on a paged tree)?  ``limit`` is per ray, or a scalar that is
+    broadcast.
+
+    Rays on a CUDA device go to the kernels; rays on the CPU take
+    ``scene_hit_any_bvh_plain`` or ``scene_hit_any_paged_plain``."""
     dev = ro.x.device
+    paged = cs.bvh is not None and cs.bvh.paged is not None
     if dev.type == "cpu":
+        if paged:
+            return scene_hit_any_paged_plain(cs, ro, rd, t_min, limit)
         return scene_hit_any_bvh_plain(cs, ro, rd, t_min, limit)
     if dev.type != "cuda":
         raise ValueError(f"scene_any: no kernel for device {dev}")
     who = "scene_any"
-    tree = tree_args(who, cs, dev)
-    n, rays = _rays(who, ro, rd)
+    n = int(ro.x.shape[0])
     if not isinstance(limit, torch.Tensor):
         limit = torch.full((n,), float(limit), dtype=torch.float32, device=dev)
+    if paged:
+        from . import bvh_paged
+
+        return bvh_paged.scene_any_paged(cs, ro, rd, t_min, limit)
+    tree = tree_args(who, cs, dev)
+    n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     err = build().lib.ptrt_bvh_any(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(), n,

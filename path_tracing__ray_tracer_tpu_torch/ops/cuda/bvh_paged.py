@@ -1,0 +1,316 @@
+"""The two-level (paged) BVH walk: the CUDA kernels ``csrc/bvh_paged.cu``
+(K6a-d, and K4c/K4d, the same page walks over the whole one-level tree) and
+their plain torch versions.
+
+The kernels replace the JAX package's
+``ops/pallas/bvh_paged_pallas.py::_paged_top_closest_kernel`` (K6a),
+``::_paged_top_any_kernel`` (K6b), ``::_page_closest_kernel`` (K6c) and
+``::_page_any_kernel`` (K6d), and ``ops/pallas/bvh_pallas.py``'s
+triangle-only BVH4 walks ``_bvh4_closest_attrs_kernel`` /
+``_bvh4_closest_kernel`` (K4c) and ``_bvh4_any_kernel`` (K4d).  Each wrapper
+launches its kernel on a CUDA tensor (or raises) and takes its plain version
+(``*_plain``, the walks of ``ops/bvh.py``) on a CPU tensor; each counts its
+launches.
+
+* :func:`paged_top_closest` (K6a): the plane/sphere/quad sweep seeds the top
+  walk; returns the :class:`~..intersect.ClosestRecord` so far and the
+  pending-page words ``(plo, phi)``.
+* :func:`paged_top_any` (K6b): occlusion by the planes/spheres/quads and the
+  top tree; returns ``(found, plo, phi)``.
+* :func:`pages_closest` (K6c): the record carried through each pending page
+  in increasing index.  Without ``plo``/``phi`` the whole one-level tree is
+  one page that every lane walks (K4c).
+* :func:`pages_any` (K6d): the found mask carried through each pending page;
+  without ``plo``/``phi`` the whole tree (K4d).
+* :func:`scene_closest_paged` / :func:`scene_any_paged`: the paged route of
+  ``scene_hit`` / ``scene_hit_any``, two launches per query.
+
+``ops/cuda/bvh.py`` sends a paged scene here.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..bvh import paged_top, pages, traverse_any, traverse_closest
+from ..intersect import (
+    _CANDIDATES,
+    ClosestRecord,
+    SceneHit,
+    _closest_broadcast,
+    _ps_any,
+    closest_record,
+)
+from ..v3 import V3
+from .bounce import _check
+from .bvh import MAX_DEPTH4, _fused_hit, _raise_on, _rays, gid_mask
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+
+
+def build():
+    """Compile (once per source hash) and load ``csrc/bvh_paged.cu``."""
+    from . import build as _build
+
+    built = _build.load("bvh_paged")
+    lib = built.lib
+    top = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
+    lib.ptrt_paged_top_closest.argtypes = top + [_I, _I, _F, _F] + [_P] * 9 + [_P]
+    lib.ptrt_paged_top_any.argtypes = top + [_P, _I, _F, _P, _P, _P, _P]
+    lib.ptrt_pages_closest.argtypes = ([_P, _L, _P, _L, _P, _P, _I, _I, _I] + [_P] * 6 + [_P, _P]
+                                       + [_P] * 7 + [_I, _F] + [_P] * 7 + [_P])
+    lib.ptrt_pages_any.argtypes = ([_P, _L, _P, _L, _I] + [_P] * 6 + [_P, _P, _P, _P, _I, _F, _P]
+                                   + [_P])
+    for fn in (lib.ptrt_paged_top_closest, lib.ptrt_paged_top_any, lib.ptrt_pages_closest,
+               lib.ptrt_pages_any):
+        fn.restype = ctypes.c_int
+    return built
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _paged(who, cs):
+    bvh = cs.bvh
+    if bvh is None or bvh.paged is None:
+        raise ValueError(f"{who}: the scene has no paged BVH")
+    pg = bvh.paged
+    deepest = max(pg.top_depth, pg.page_depth)
+    if deepest > MAX_DEPTH4:
+        raise ValueError(f"{who}: the paged BVH4 is {deepest} deep; the kernel's stack takes at "
+                         f"most {MAX_DEPTH4}")
+    return pg
+
+
+def _top_args(who, cs, device):
+    """The top walk's launch arguments ``(top, n_top, top_slot, ps, P, S, Q)``."""
+    pg = _paged(who, cs)
+    P, S, Q = cs.n_planes, cs.n_spheres, cs.n_quads
+    n_top = pg.top_tree.shape[0] // 32
+    _check("top_tree", pg.top_tree, torch.float32, 32 * n_top, device, who)
+    _check("top_slot", pg.top_slot, torch.float32, pg.top_slot.shape[0], device, who)
+    _check("ps_blob", cs.bvh.ps_blob, torch.float32, 14 * P + 4 * S + 18 * Q, device, who)
+    return (pg.top_tree.data_ptr(), n_top, pg.top_slot.data_ptr(), cs.bvh.ps_blob.data_ptr(),
+            P, S, Q)
+
+
+def _check_2d(who, name, t, rows, device):
+    if (not isinstance(t, torch.Tensor) or t.device != device or t.dtype != torch.float32
+            or t.dim() != 2 or t.shape[0] != rows or not t.is_contiguous()):
+        raise ValueError(f"{who}: {name} must be a contiguous ({rows}, ·) float32 tensor on "
+                         f"{device}")
+
+
+def _page_args(who, cs, device, whole: bool):
+    """The page walk's records ``(tree, tc, slots, sc, lo, hi, n_pages)``:
+    the pages of ``cs.bvh.paged``, or the one-level tree as one page."""
+    bvh = cs.bvh
+    if whole:
+        if bvh is None:
+            raise ValueError(f"{who}: the scene has no BVH")
+        if bvh.depth4 > MAX_DEPTH4:
+            raise ValueError(f"{who}: the BVH4 is {bvh.depth4} deep; the kernel's stack takes "
+                             f"at most {MAX_DEPTH4}")
+        _check("nodes4", bvh.nodes4, torch.float32, bvh.nodes4.shape[0], device, who)
+        _check("slot_rec", bvh.slot_rec, torch.float32, bvh.slot_rec.shape[0], device, who)
+        lo, hi = bvh.lo[:1], bvh.hi[:1]  # the root box
+        tree, slots, tc, sc, n_pages = (bvh.nodes4, bvh.slot_rec, bvh.nodes4.shape[0],
+                                        bvh.slot_rec.shape[0], 1)
+    else:
+        pg = _paged(who, cs)
+        n_pages = pg.n_pages
+        _check_2d(who, "page_tree", pg.page_tree, n_pages, device)
+        _check_2d(who, "page_slot", pg.page_slot, n_pages, device)
+        tree, slots, tc, sc = pg.page_tree, pg.page_slot, pg.page_tree.shape[1], pg.page_slot.shape[1]
+        lo, hi = pg.page_lo, pg.page_hi
+    for name, t in (("page_lo", lo), ("page_hi", hi)):
+        if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (n_pages, 3) \
+                or not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be a contiguous ({n_pages}, 3) float32 tensor "
+                             f"on {device}")
+    return tree.data_ptr(), tc, slots.data_ptr(), sc, lo.data_ptr(), hi.data_ptr(), n_pages
+
+
+def _masks(who, plo, phi, n, device):
+    if plo is None and phi is None:
+        return None, None
+    _check("plo", plo, torch.int32, n, device, who)
+    _check("phi", phi, torch.int32, n, device, who)
+    return plo.data_ptr(), phi.data_ptr()
+
+
+def _on(who, dev):
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: no kernel for device {dev}")
+    return dev.type == "cuda"
+
+
+def _offset(cs) -> int:
+    return cs.n_planes + cs.n_spheres + cs.n_quads
+
+
+# ---- plain versions -------------------------------------------------------------
+def paged_top_closest_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None):
+    """K6a's plain version: the plane/sphere/quad broadcast seeds the plain
+    top walk (``ops/bvh.paged_top``)."""
+    ps_idx, ps_t, _ = _closest_broadcast(cs, ro, rd, t_min, t_max, include_tris=False)
+    t, prim, plo, phi = paged_top(cs.bvh, cs.triangles, ro, rd, t_min, ps_t, best_i=ps_idx,
+                                  tri_offset=_offset(cs), counts=counts)
+    return closest_record(cs, ro, rd, prim, t), plo, phi
+
+
+def paged_top_any_plain(cs, ro: V3, rd: V3, t_min: float, limit, counts=None):
+    """K6b's plain version (lanes with ``limit <= 0`` are not found)."""
+    found = _ps_any(cs, ro, rd, t_min, limit, _CANDIDATES[:3])
+    return paged_top(cs.bvh, cs.triangles, ro, rd, t_min, limit, any_hit=True, found=found,
+                     counts=counts)
+
+
+def pages_closest_plain(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord, plo=None,
+                        phi=None, counts=None) -> ClosestRecord:
+    """K6c's plain version (``ops/bvh.pages``); without ``plo``/``phi``,
+    K4c's: the skip-link walk of the whole tree from ``best``."""
+    if plo is None:
+        t, prim = traverse_closest(cs.bvh, cs.triangles, ro, rd, t_min, best.t,
+                                   tri_offset=_offset(cs), counts=counts, best_i=best.prim)
+    else:
+        t, prim = pages(cs.bvh, cs.triangles, ro, rd, t_min, best.t, plo, phi, best_i=best.prim,
+                        tri_offset=_offset(cs), counts=counts)
+    return closest_record(cs, ro, rd, prim, t)
+
+
+def pages_any_plain(cs, ro: V3, rd: V3, t_min: float, limit, found, plo=None, phi=None,
+                    counts=None) -> torch.Tensor:
+    """K6d's plain version; without ``plo``/``phi``, K4d's."""
+    if plo is None:
+        return found | traverse_any(cs.bvh, cs.triangles, ro, rd, t_min,
+                                    torch.where(found, -1.0, limit), counts=counts)
+    return pages(cs.bvh, cs.triangles, ro, rd, t_min, limit, plo, phi, any_hit=True, found=found,
+                 counts=counts)
+
+
+# ---- K6a / K6b: the top walk ----------------------------------------------------
+def paged_top_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float):
+    """``(ClosestRecord, plo, phi)``: the plane/sphere/quad winner below the
+    scalar ``t_max`` seeds the top tree's walk; the words hold each lane's
+    pending pages (K6a)."""
+    who = "paged_top_closest"
+    dev = ro.x.device
+    if not _on(who, dev):
+        return paged_top_closest_plain(cs, ro, rd, t_min, t_max)
+    if isinstance(t_max, torch.Tensor):
+        raise TypeError(f"{who}: the kernel takes a scalar t_max")
+    top = _top_args(who, cs, dev)
+    n, rays = _rays(who, ro, rd)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    ints = torch.empty((3, n), dtype=torch.int32, device=dev)
+    t, u, v, nx, ny, nz = out
+    prim, plo, phi = ints
+    err = build().lib.ptrt_paged_top_closest(
+        *top, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
+        t.data_ptr(),
+        prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+        plo.data_ptr(), phi.data_ptr(), _stream(dev))
+    _raise_on(who, err)
+    paged_top_closest.launches += 1
+    return ClosestRecord(t, prim, u, v, V3(nx, ny, nz)), plo, phi
+
+
+def paged_top_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor):
+    """``(found, plo, phi)``: occlusion in ``(t_min, limit)`` (per ray) by
+    the planes/spheres/quads and the top tree, and the pending pages of the
+    lanes still unoccluded (K6b).  The kernel reports lanes with
+    ``limit <= 0`` as found; the plain version as not found."""
+    who = "paged_top_any"
+    dev = ro.x.device
+    if not _on(who, dev):
+        return paged_top_any_plain(cs, ro, rd, t_min, limit)
+    top = _top_args(who, cs, dev)
+    n, rays = _rays(who, ro, rd)
+    _check("limit", limit, torch.float32, n, dev, who)
+    found = torch.empty((n,), dtype=torch.bool, device=dev)
+    words = torch.empty((2, n), dtype=torch.int32, device=dev)
+    plo, phi = words
+    err = build().lib.ptrt_paged_top_any(*top, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
+                                         float(t_min), found.data_ptr(), plo.data_ptr(),
+                                         phi.data_ptr(), _stream(dev))
+    _raise_on(who, err)
+    paged_top_any.launches += 1
+    return found, plo, phi
+
+
+# ---- K6c / K6d (K4c / K4d): the page walks --------------------------------------
+def pages_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord, plo=None,
+                  phi=None) -> ClosestRecord:
+    """The record ``best`` carried through each lane's pending pages, in
+    increasing index, each culled first by its root box at the carried
+    ``t`` (K6c).  Without ``plo``/``phi``: through the whole one-level tree
+    (K4c), ``best.t`` the per-ray bound."""
+    who = "pages_closest"
+    dev = ro.x.device
+    whole = plo is None
+    if not _on(who, dev):
+        return pages_closest_plain(cs, ro, rd, t_min, best, plo, phi)
+    tree = _page_args(who, cs, dev, whole)
+    n, rays = _rays(who, ro, rd)
+    masks = _masks(who, plo, phi, n, dev)
+    carried = (best.t, best.prim, best.u, best.v, *best.normal)
+    for name, x in zip(("t", "prim", "u", "v", "nx", "ny", "nz"), carried):
+        _check(name, x, torch.int32 if name == "prim" else torch.float32, n, dev, who)
+    out = torch.empty((6, n), dtype=torch.float32, device=dev)
+    prim = torch.empty((n,), dtype=torch.int32, device=dev)
+    t, u, v, nx, ny, nz = out
+    err = build().lib.ptrt_pages_closest(
+        *tree, _offset(cs), gid_mask(cs), *(r.data_ptr() for r in rays), *masks,
+        *(x.data_ptr() for x in carried), n, float(t_min), t.data_ptr(), prim.data_ptr(),
+        u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), _stream(dev))
+    _raise_on(who, err)
+    pages_closest.launches += 1
+    return ClosestRecord(t, prim, u, v, V3(nx, ny, nz))
+
+
+def pages_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, found: torch.Tensor,
+              plo=None, phi=None) -> torch.Tensor:
+    """The found mask carried through each unoccluded lane's pending pages,
+    up to the first hit in ``(t_min, limit)`` (K6d).  Without
+    ``plo``/``phi``: through the whole one-level tree (K4d)."""
+    who = "pages_any"
+    dev = ro.x.device
+    if not _on(who, dev):
+        return pages_any_plain(cs, ro, rd, t_min, limit, found, plo, phi)
+    tree = _page_args(who, cs, dev, plo is None)
+    tree = tree[:4] + tree[6:]  # the occlusion walk takes no root boxes
+    n, rays = _rays(who, ro, rd)
+    masks = _masks(who, plo, phi, n, dev)
+    _check("limit", limit, torch.float32, n, dev, who)
+    _check("found", found, torch.bool, n, dev, who)
+    out = torch.empty((n,), dtype=torch.bool, device=dev)
+    err = build().lib.ptrt_pages_any(*tree, *(r.data_ptr() for r in rays), *masks,
+                                     limit.data_ptr(), found.data_ptr(), n, float(t_min),
+                                     out.data_ptr(), _stream(dev))
+    _raise_on(who, err)
+    pages_any.launches += 1
+    return out
+
+
+# ---- the paged route of scene_hit / scene_hit_any -------------------------------
+def scene_closest_paged(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
+    """The closest hit on a paged scene: K6a, then K6c, as the ``SceneHit``
+    of the JAX package's ``_fused_scene_hit``."""
+    best, plo, phi = paged_top_closest(cs, ro, rd, t_min, t_max)
+    rec = pages_closest(cs, ro, rd, t_min, best, plo, phi)
+    return _fused_hit(cs, ro, rd, rec.t, rec.prim, rec.u, rec.v, rec.normal)
+
+
+def scene_any_paged(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
+    """Occlusion on a paged scene: K6b, then K6d."""
+    found, plo, phi = paged_top_any(cs, ro, rd, t_min, limit)
+    return pages_any(cs, ro, rd, t_min, limit, found, plo, phi)
+
+
+paged_top_closest.launches = 0  # kernel launches; the plain versions do not count
+paged_top_any.launches = 0
+pages_closest.launches = 0
+pages_any.launches = 0

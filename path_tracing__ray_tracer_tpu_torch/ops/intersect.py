@@ -15,7 +15,11 @@ the plane/sphere/quad broadcast with the triangles left out, the skip-link
 walk of ``ops/bvh.py`` over the triangles, and the JAX combine.  On a CUDA
 device ``scene_hit`` and ``scene_hit_any`` launch the BVH scene kernels
 instead (``ops/cuda/bvh.py``, K4a and K4b); ``scene_hit_bvh_plain`` and
-``scene_hit_any_bvh_plain`` are their plain versions.
+``scene_hit_any_bvh_plain`` are their plain versions.  A paged tree
+(``cs.bvh.paged``) takes the two-level walk (``ops/cuda/bvh_paged.py``, K6),
+whose plain versions are ``scene_hit_paged_plain`` and
+``scene_hit_any_paged_plain``: the plane/sphere/quad result seeds the plain
+top walk, then each lane's pending pages are walked with its carried best.
 """
 from __future__ import annotations
 
@@ -23,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .bvh import traverse_any, traverse_closest
+from .bvh import paged_top, pages, traverse_any, traverse_closest
 from .v3 import V3
 
 EPS = 1e-6
@@ -38,6 +42,18 @@ class SceneHit(NamedTuple):
     u: torch.Tensor  # (N,)
     v: torch.Tensor  # (N,)
     prim: torch.Tensor  # (N,) int32 global primitive index, -1 on miss
+
+
+class ClosestRecord(NamedTuple):
+    """The closest-hit record the BVH kernels emit and carry from walk to
+    walk: a triangle winner's raw barycentrics as ``u, v`` and its stored
+    normal flipped toward the ray; another winner's surface UV and normal."""
+
+    t: torch.Tensor  # (N,) f32, the bound on a miss
+    prim: torch.Tensor  # (N,) int32, -1 on a miss
+    u: torch.Tensor
+    v: torch.Tensor
+    normal: V3
 
 
 def _plane_candidate(cs, i, ro: V3, rd: V3, t_min, best_t):
@@ -189,13 +205,39 @@ def scene_hit_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) ->
     return _hit_record(cs, ro, rd, best_idx, best_t, ps_hit | tri_hit, tri_uv=tri_uv_read(cs))
 
 
+def scene_hit_paged_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) -> SceneHit:
+    """The plain version of the paged route (K6a, then K6c): the
+    plane/sphere/quad broadcast seeds the plain top walk, whose pending
+    pages are then walked in increasing index with the carried best
+    (``ops/bvh.paged_top`` and ``pages``); the record as
+    ``scene_hit_bvh_plain`` builds it."""
+    off = cs.n_planes + cs.n_spheres + cs.n_quads
+    ps_idx, ps_t, _ = _closest_broadcast(cs, ro, rd, t_min, t_max, include_tris=False)
+    best_t, best_i, plo, phi = paged_top(cs.bvh, cs.triangles, ro, rd, t_min, ps_t,
+                                         best_i=ps_idx, tri_offset=off, counts=counts)
+    best_t, best_i = pages(cs.bvh, cs.triangles, ro, rd, t_min, best_t, plo, phi, best_i=best_i,
+                           tri_offset=off, counts=counts)
+    return _hit_record(cs, ro, rd, best_i, best_t, best_i >= 0, tri_uv=tri_uv_read(cs))
+
+
+def closest_record(cs, ro: V3, rd: V3, best_idx, best_t) -> ClosestRecord:
+    """The :class:`ClosestRecord` of the winners ``best_idx`` at ``best_t``,
+    recomputed from the primitive tables."""
+    h = _hit_record(cs, ro, rd, best_idx, best_t, best_idx >= 0, tri_uv=None)
+    return ClosestRecord(h.t, h.prim, h.u, h.v, h.normal)
+
+
 def tri_uv_read(cs) -> bool:
     """Does anything read triangle UVs (a textured triangle, or no flag)?"""
     return cs.tri_uv_used is None or bool(cs.tri_uv_used.shape[0])
 
 
-def _hit_record(cs, ro: V3, rd: V3, best_idx, best_t, hit, tri_uv: bool) -> SceneHit:
-    """The winners' attributes, recomputed from the primitive tables."""
+def _hit_record(cs, ro: V3, rd: V3, best_idx, best_t, hit, tri_uv, tri_attrs=None) -> SceneHit:
+    """The winners' attributes, recomputed from the primitive tables; a
+    triangle winner's barycentrics and stored normal come from ``tri_attrs``
+    ``(u, v, normal)`` when a walk kernel emitted them.  ``tri_uv``: True
+    interpolates triangle UVs, False leaves them 0, None keeps the raw
+    barycentrics (a :class:`ClosestRecord`)."""
     P, S, Q, T = cs.n_planes, cs.n_spheres, cs.n_quads, cs.n_triangles
     point = ro + rd * best_t
 
@@ -229,21 +271,27 @@ def _hit_record(cs, ro: V3, rd: V3, best_idx, best_t, hit, tri_uv: bool) -> Scen
     q_u = cs.quads.uv0[0][qi] + qa * cs.quads.uva[0][qi] + qb * cs.quads.uvb[0][qi]
     q_v = cs.quads.uv0[1][qi] + qa * cs.quads.uva[1][qi] + qb * cs.quads.uvb[1][qi]
 
-    # triangle attributes: barycentrics recomputed from the winner's vertices
-    tv0 = cs.triangles.v0.take(ti)
-    e1 = cs.triangles.v1.take(ti) - tv0
-    e2 = cs.triangles.v2.take(ti) - tv0
-    h = rd.cross(e2)
-    det = e1.dot(h)
-    inv_det = 1.0 / torch.where(torch.abs(det) > EPS, det, 1.0)
-    s_vec = ro - tv0
-    bu = inv_det * s_vec.dot(h)
-    bv = inv_det * rd.dot(s_vec.cross(e1))
-    tn_raw = cs.triangles.normal.take(ti)
+    # triangle attributes: barycentrics from the kernel, or recomputed from
+    # the winner's vertices
+    if tri_attrs is not None:
+        bu, bv, tn_raw = tri_attrs
+    else:
+        tv0 = cs.triangles.v0.take(ti)
+        e1 = cs.triangles.v1.take(ti) - tv0
+        e2 = cs.triangles.v2.take(ti) - tv0
+        h = rd.cross(e2)
+        det = e1.dot(h)
+        inv_det = 1.0 / torch.where(torch.abs(det) > EPS, det, 1.0)
+        s_vec = ro - tv0
+        bu = inv_det * s_vec.dot(h)
+        bv = inv_det * rd.dot(s_vec.cross(e1))
+        tn_raw = cs.triangles.normal.take(ti)
     bw = 1.0 - bu - bv
     tn = V3.where(tn_raw.dot(rd) > 0.0, -tn_raw, tn_raw)
     tri = cs.triangles
-    if tri_uv:
+    if tri_uv is None:  # the raw barycentrics
+        t_u, t_v = bu, bv
+    elif tri_uv:
         t_u = bu * tri.uv1[0][ti] + bv * tri.uv2[0][ti] + bw * tri.uv0[0][ti]
         t_v = bu * tri.uv1[1][ti] + bv * tri.uv2[1][ti] + bw * tri.uv0[1][ti]
     else:  # nothing reads triangle UVs
@@ -287,6 +335,17 @@ def scene_hit_any_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None
     broadcast, then the skip-link occlusion walk over the triangles."""
     return _ps_any(cs, ro, rd, t_min, t_max, _CANDIDATES[:3]) | traverse_any(
         cs.bvh, cs.triangles, ro, rd, t_min, t_max, counts=counts)
+
+
+def scene_hit_any_paged_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None):
+    """The plain version of the paged occlusion route (K6b, then K6d): the
+    plane/sphere/quad broadcast, the plain top walk of the lanes it leaves
+    unoccluded, then their pending pages up to the first hit."""
+    found = _ps_any(cs, ro, rd, t_min, t_max, _CANDIDATES[:3])
+    found, plo, phi = paged_top(cs.bvh, cs.triangles, ro, rd, t_min, t_max, any_hit=True,
+                                found=found, counts=counts)
+    return pages(cs.bvh, cs.triangles, ro, rd, t_min, t_max, plo, phi, any_hit=True,
+                 found=found, counts=counts)
 
 
 def resolve_material(cs, prim_idx: torch.Tensor):

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain torch versions, on an NVIDIA GPU:
 the path-tracer bounce (K1), the Whitted bounce (K2), the standalone
 closest-hit / any-hit sweeps (K3a, K3b) and, on a BVH mesh scene, the
-scene walks (K4a, K4b) and the BVH path bounce (K5).
+scene walks (K4a, K4b), the BVH path bounce (K5), the triangle-only walks
+over the whole tree (K4c, K4d) and, on the mesh with paging forced, the
+two-level walk (K6a-d).
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -18,8 +20,10 @@ import pytest
 import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
+from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.ops import intersect as plain
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh, intersect, whitted
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
+    bounce, bounce_bvh, bvh, bvh_paged, intersect, whitted)
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -242,3 +246,98 @@ def test_mesh_renderers_launch_their_kernels(mesh_card, name, counters):
                          pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
     assert all(a > b for a, b in zip(counters(), before))
     assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+
+
+@pytest.mark.cuda
+def test_per_ray_bound_walks_match_plain(mesh_card):
+    """K4c (``scene_closest`` with a per-ray bound) and K4d (the whole-tree
+    occlusion walk) against their plain versions."""
+    dev, cs, _ = mesh_card
+    n = 131072
+    o, d, _, _, _ = _inputs(n, 17, dev)
+    bound = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(17), device=dev) * 60
+    before = (bvh_paged.pages_closest.launches, bvh_paged.pages_any.launches)
+    got = bvh.scene_closest(cs, o, d, 1e-3, bound)
+    found = torch.zeros(n, dtype=torch.bool, device=dev)
+    occ = bvh_paged.pages_any(cs, o, d, 1e-3, bound, found)
+    torch.cuda.synchronize()
+    assert (bvh_paged.pages_closest.launches, bvh_paged.pages_any.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = plain.scene_hit_bvh_plain(cs, o, d, 1e-3, bound)
+    same = got.prim == want.prim
+    assert float(same.float().mean()) >= 0.9999 and 0.2 < float(got.hit.float().mean()) < 1.0
+    _assert_floats_close(got, want, same & got.hit, ("t", "normal", "u", "v"))
+    want_occ = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, bound)
+    assert float((occ == want_occ).float().mean()) >= 0.9999 and bool(occ.any())
+
+
+@pytest.fixture(scope="module")
+def paged_card(card):
+    """The config-5 mesh cut into 36 pages of at most 8,000 floats (paging
+    forced), so both pending words are used; its one-level records stay."""
+    dev = card[0]
+    saved = tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS
+    tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = 0, 8000
+    try:
+        cs = pt.compile_scene(pt.MeshSceneBuilder(grid=3, subdivisions=3).build_scene(), device=dev)
+    finally:
+        tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = saved
+    assert cs.bvh.paged.n_pages == 36
+    return dev, cs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_paged_kernels_match_plain(paged_card, n):
+    """K6a + K6c and K6b + K6d against the plain paged walks, and against the
+    one-level K4a / K4b; K6a's pending words hold every page whose root box
+    the lane enters at its final ``t``."""
+    dev, cs = paged_card
+    o, d, _, _, _ = _inputs(n, n + 5, dev)
+    fns = (bvh_paged.paged_top_closest, bvh_paged.paged_top_any, bvh_paged.pages_closest,
+           bvh_paged.pages_any)
+    before = [f.launches for f in fns]
+    got = bvh.scene_closest(cs, o, d, 1e-3, 1e6)
+    limit = torch.where(torch.arange(n, device=dev) % 7 == 0, -1.0,
+                        torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n),
+                                   device=dev) * 60)
+    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == [b + 1 for b in before]
+    care = limit > 0
+    one_level = cs._replace(bvh=cs.bvh._replace(paged=None))
+    for want, want_occ in ((plain.scene_hit_paged_plain(cs, o, d, 1e-3, 1e6),
+                            plain.scene_hit_any_paged_plain(cs, o, d, 1e-3, limit)),
+                           (bvh.scene_closest(one_level, o, d, 1e-3, 1e6),
+                            bvh.scene_any(one_level, o, d, 1e-3, limit))):
+        same = got.prim == want.prim
+        assert float(same.float().mean()) >= 0.9999 and 0.2 < float(got.hit.float().mean()) < 1.0
+        _assert_floats_close(got, want, same & got.hit, ("t", "normal", "u", "v"))
+        assert float((occ == want_occ)[care].float().mean()) >= 0.9999
+    assert bool(occ[~care].all()) and 0.05 < float(occ[care].float().mean()) < 0.95
+    best, plo, phi = bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6)
+    entered = tbvh.page_root_mask(cs.bvh.paged, o, d, 1e-3, got.t)
+    assert bool((entered & ~tbvh.pend_mask(plo, phi) == 0).all())
+    assert bool((phi != 0).any())
+
+
+@pytest.mark.cuda
+def test_paged_path_tracer_launches_k6(paged_card):
+    """A paged scene's path tracer takes the plain bounce, whose queries
+    launch K6 (K5 stays idle)."""
+    dev, cs = paged_card
+    from path_tracing__ray_tracer_tpu_torch.models.path_tracer import bounce_fn
+
+    o, d, thr, key, depth = _inputs(4096, 23, dev)
+    before = (bounce_bvh.path_bounce_bvh.launches, bvh_paged.paged_top_closest.launches,
+              bvh_paged.paged_top_any.launches)
+    out = bounce_fn(cs, bounce_bvh.pack_bvh_tables(cs))(o, d, thr, key, depth, True)
+    torch.cuda.synchronize()
+    assert bounce_bvh.path_bounce_bvh.launches == before[0]
+    assert (bvh_paged.paged_top_closest.launches, bvh_paged.paged_top_any.launches) == (
+        before[1] + 1, before[2] + 1)
+    want = bounce.path_bounce_plain(cs._replace(bvh=cs.bvh._replace(paged=None)), o, d, thr, key,
+                                    depth, shadow_light=True)
+    same = (out.hit == want.hit) & (out.prim == want.prim)
+    assert float(same.float().mean()) >= 0.9999
+    _assert_floats_close(out, want, same & out.hit & (out.killed == want.killed), FLOATS)

@@ -198,4 +198,5 @@ def test_config5_mesh_compiles_on_cpu():
     cs = pt.compile_scene(pt.MeshSceneBuilder(grid=3, subdivisions=3).build_scene(), device="cpu")
     assert cs.n_triangles == 11520 and (cs.n_planes, cs.n_lights) == (5, 16)
     assert bounce_bvh.bounce_bvh_ok(cs) and 1 < cs.bvh.depth4 <= MAX_DEPTH4
+    assert cs.bvh.paged is None  # one-level: K5, K4a and K4b take it, as in the JAX package
     assert cs.bvh.slot_rec.shape[0] % (16 * 13) == 0 and cs.bvh.ps_blob.shape[0] == 92

@@ -8,6 +8,18 @@ against the JAX package's.
   levels that lanes reach.  Results must match, mechanisms need not.
 * ``render`` against ``tests/goldens/oracle.npy`` (the JAX package's CPU
   render, config of ``tests/test_golden.py``) within the golden tolerance.
+* On a BVH scene, ``render`` against ``tests/goldens/torch_mesh_oracle.npy``,
+  made once by the JAX oracle on the CPU::
+
+    JAX_PLATFORMS=cpu python -c "
+    import numpy as np, path_tracing__ray_tracer_tpu as jp
+    from path_tracing__ray_tracer_tpu.scene_builders.mesh_scene_builder import MeshSceneBuilder
+    b = MeshSceneBuilder(grid=2, subdivisions=1)
+    r = jp.RendererFactory.create('cpu_raytracer', seed=42)
+    np.save('tests/goldens/torch_mesh_oracle.npy', np.asarray(r.render(
+        b.build_scene(), b.create_camera(4 / 3), jp.RenderSettings(40, 30, 1, 3))))"
+
+  with the one-level BVH and with paging forced.
 * The depth clamp: depth 14 renders as depth 12, with a ``depth_clamped``
   event; the factory name, conventions and defaults; and the launch
   counters (0: CPU tensors take the plain intersection).
@@ -28,6 +40,7 @@ from path_tracing__ray_tracer_tpu.ops import intersect as jint
 from path_tracing__ray_tracer_tpu.ops import texture as jtex
 from path_tracing__ray_tracer_tpu.ops.v3 import V3 as JV3
 from path_tracing__ray_tracer_tpu_torch.models import whitted_oracle as to
+from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect as tint
 from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import pack_scene_blob
 from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
@@ -109,6 +122,27 @@ def test_render_matches_golden(cornell):
     assert img.shape == golden.shape and img.dtype == np.uint8
     diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
     assert float((diff > 2).mean()) < 0.01, (float((diff > 2).mean()), int(diff.max()))
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_mesh_render_matches_golden(monkeypatch, paged):
+    """The oracle on a BVH scene: its queries take the scene walks (the
+    paged ones when paging is forced), as the JAX oracle's do."""
+    if paged:
+        monkeypatch.setattr(tbvh, "ONE_LEVEL_LIMIT", 2600)
+        monkeypatch.setattr(tbvh, "PAGE_BUDGET_FLOATS", 800)
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    scene = b.build_scene()
+    r = pt.RendererFactory.create("cpu_raytracer", seed=42, device="cpu")
+    assert "bvh_acceleration" in r.get_capabilities()
+    bvh = r.compiled(scene).bvh
+    assert bvh is not None and (bvh.paged is not None) == paged
+    img = np.asarray(r.render(scene, b.create_camera(4.0 / 3.0), pt.RenderSettings(40, 30, 1, 3)))
+    golden = np.load(GOLDEN.parent / "torch_mesh_oracle.npy")
+    assert img.shape == golden.shape and img.dtype == np.uint8
+    diff = np.abs(img.astype(np.int32) - golden.astype(np.int32))
+    assert float((diff > 2).mean()) < 0.01, (float((diff > 2).mean()), int(diff.max()))
+    assert img.mean() > 20
 
 
 class _Events(logging.Handler):

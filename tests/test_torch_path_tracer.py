@@ -141,6 +141,7 @@ def test_package_imports_without_jax():
             "import path_tracing__ray_tracer_tpu_torch.models.whitted_oracle; "
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh; "
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce_bvh; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh_paged; "
             "import path_tracing__ray_tracer_tpu_torch.ops.bvh; "
             "import path_tracing__ray_tracer_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]; "
