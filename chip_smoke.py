@@ -67,7 +67,26 @@ It imports no JAX.
    occlusion against K4a/K4b over the whole tree, and K4a against the plain
    walk on a slice of the rays;
 15. the oracle on BVH scenes: the mesh oracle golden of ``tests/goldens/``
-   and a config-5 frame (K4a's and K4b's launch counts).
+   and a config-5 frame (K4a's and K4b's launch counts);
+16. the path tracer's scheduler modes (``models/experimental.py``): K7 (the
+   fused step) against its plain version on the main path's first chunk
+   (131,072 lanes, 2 samples) after six plain fused steps, when retired,
+   regenerated and live lanes are all present; K8 (atlas gather) and K9
+   (mip gather) on that chunk's texel indices into the route's atlas, the
+   defer64 mip and the LOD mip, bit-equal; their times, the library call ``index_select`` beside
+   K8/K9, and bounds;
+17. four runs at the main path's shape (1024², depth 8, one 128-sample
+   group after an 8-sample warm-up group, seed 0), each image held against
+   the default run's: (a) the pipe (``_PIPE_REGEN``, K7), within the golden
+   tolerance; (b) deferred texture ``mip_budget=64`` and (c) texture LOD
+   ``texture_lod=256, texture_lod_depth=2`` (K9), their RMSE/255 under
+   ``DEFER_RMSE_MAX`` and ``LOD_RMSE_MAX``; (d) the
+   atlas route (``ENABLED``, K8) at the largest ``texture_budget`` whose
+   atlas fits ``MAX_ROWS``, bit-equal to the default path at that budget;
+   then profiles of a 4-sample frame, default and pipe, and of a 128-sample
+   pipe frame: device operations per bounce and busy share;
+18. at 160x120, deferred texture and LOD with the mip equal to the atlas
+   (texture budget 64) against the default render.
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -121,6 +140,17 @@ PLAIN_REPS = 3  # the plain paged walks take seconds per call at 131,072 rays
 # config-5 frame
 MO_GOLDEN = (40, 30, 1, 3)
 MO_WIDTH, MO_HEIGHT, MO_SPP, MO_DEPTH = 160, 120, 4, 6
+# the scheduler modes: K7's check chunk holds MODE_SPP samples so that lanes
+# retire within MODE_STEPS steps; the defer64 configuration of the JAX
+# package's experiments/measure_defer.py:76; the LOD run; the warm-up group
+MODE_SPP, MODE_STEPS = 2, 6
+DEFER_MIP, LOD_BUDGET, LOD_DEPTH = 64, 256, 2
+# bounds on the defer and LOD runs' RMSE/255 against the default image: a
+# little above the 5.3930 and 3.2385 this script measures on an H100 80GB
+# HBM3 at 700 W (PERF.md); the samples are seeded, so the numbers repeat
+DEFER_RMSE_MAX, LOD_RMSE_MAX = 5.6, 3.4
+MODE_WARM_SPP = 8
+PROP_BUDGET = 64  # texture budget (= mip budget) of the mip == atlas property
 
 
 def _run(cmd) -> str:
@@ -153,12 +183,12 @@ def phase_environment():
 
 def phase_build():
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, build, bvh, bvh_paged, intersect, whitted)
+        bounce, bounce_bvh, build, bvh, bvh_paged, intersect, step, texture, whitted)
 
     t0 = time.perf_counter()
     libs = build.load_all()
     secs = time.perf_counter() - t0
-    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged):
+    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged, step, texture):
         mod.build()  # binds the argument types
     print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
     for name, built in libs.items():
@@ -312,9 +342,11 @@ GOLDENS = (  # tests/test_golden.py's configs, seed 42
 def wrappers():
     """Every kernel wrapper by kernel name; each counts its own launches."""
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, bvh, bvh_paged, intersect, whitted)
+        bounce, bounce_bvh, bvh, bvh_paged, intersect, step, texture, whitted)
 
-    return {"path_bounce": bounce.path_bounce, "whitted_bounce": whitted.whitted_bounce,
+    return {"path_bounce": bounce.path_bounce, "path_step": step.path_step,
+            "atlas_gather": texture.atlas_gather, "mip_gather": texture.mip_gather,
+            "whitted_bounce": whitted.whitted_bounce,
             "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit,
             "scene_closest": bvh.scene_closest, "scene_any": bvh.scene_any,
             "path_bounce_bvh": bounce_bvh.path_bounce_bvh,
@@ -392,7 +424,19 @@ def phase_main_path(device):
         raise SystemExit(f"chip_smoke: implausible mean radiance {mean}")
     if launches == 0:
         raise SystemExit("chip_smoke: the main path never launched the bounce kernel")
-    return launches, secs, mrays
+    return launches, secs, mrays, image_of(sums, GROUP_SPP)
+
+
+def image_of(sums, spp):
+    """The uint8 (H*W, 3) image of host radiance sums over ``spp`` samples
+    (the path tracer's ACES and truncating quantise)."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.tonemap import aces, quantize_u8
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    img = aces(torch.from_numpy(sums).T / float(spp))
+    return quantize_u8(V3(img[0], img[1], img[2])).to_array().numpy()
 
 
 # ---- K2 / K3: the Whitted bounce and the standalone sweeps ---------------------
@@ -681,6 +725,25 @@ def phase_new_timing(cs, blobs, camera_rays, shadow):
     return out
 
 
+def k1_flops(cs, o, d, key, depth):
+    """Float operations of K1's sweeps on these rays: the closest sweep,
+    then the NEE shadow sweep (bound t_max = 1e6, the reference quirk) to
+    its first occluder on hit lanes facing the light with a diffuse
+    material (the kernel's ``care``)."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import rng
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
+    from path_tracing__ray_tracer_tpu_torch.ops.sampling import pick_light
+
+    h = scene_hit(cs, o, d, 1e-3, 1e6)
+    ldir, _dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
+    care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
+        resolve_material(cs, h.prim)[1] > 0)
+    return sweep_flops(cs, o, d, 1e6, False) + sweep_flops(cs, h.point + h.normal * 1e-3, ldir,
+                                                           1e6, True, care)
+
+
 def kernel_bounds(cs, k1_state, camera_rays, shadow):
     """``{name: (bound_ms, bound_by)}`` for K1, K2, K3a, K3b on the inputs
     they were timed on: full closest sweeps, and shadow sweeps to their
@@ -689,23 +752,13 @@ def kernel_bounds(cs, k1_state, camera_rays, shadow):
     written once."""
     import torch
 
-    from path_tracing__ray_tracer_tpu_torch.ops import rng
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
-    from path_tracing__ray_tracer_tpu_torch.ops.sampling import pick_light
     from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
     n = N_RAYS
     closest = {}
-    # K1: closest sweep + the NEE shadow sweep (bound t_max = 1e6, the reference
-    # quirk) on hit lanes facing the light with a diffuse material
     o, d, _thr, key, depth = k1_state
-    h = scene_hit(cs, o, d, 1e-3, 1e6)
-    ldir, _dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
-    care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
-        resolve_material(cs, h.prim)[1] > 0)
-    k1 = sweep_flops(cs, o, d, 1e6, False) + sweep_flops(cs, h.point + h.normal * 1e-3, ldir,
-                                                         1e6, True, care)
-    closest["path_bounce"] = bound_ms(k1, n * (4 * 11 + 4 * 19 + 4))
+    closest["path_bounce"] = bound_ms(k1_flops(cs, o, d, key, depth), n * (4 * 11 + 4 * 19 + 4))
     # K2 (texture variant, as timed): closest sweep + one shadow sweep (bound
     # dist - 1e-3) per light sample whose Lambert or Phong term is not zero
     # whatever the occlusion (csrc/whitted_bounce.cu's `care`)
@@ -1383,6 +1436,279 @@ def phase_mesh_oracle(device):
         raise SystemExit("chip_smoke: the mesh oracle did not launch K4a and K4b")
 
 
+# ---- the scheduler modes: K7, K8, K9 -----------------------------------------
+def atlas_route_budget(scene):
+    """The largest ``texture_budget`` whose atlas fits the atlas route's
+    ``MAX_ROWS`` rows of 128 texels (budgets from 1 to 4096)."""
+    from path_tracing__ray_tracer_tpu_torch.compiler import _build_atlas, collect_texture_paths
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import texture
+
+    paths = collect_texture_paths(scene)
+    lo, hi = 1, 4096
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if -(-_build_atlas(paths, mid)[0].shape[0] // 128) <= texture.MAX_ROWS:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
+
+def step_leaves(out):
+    for x in out:
+        yield from (step_leaves(x) if isinstance(x, tuple) else (x,))
+
+
+def check_step(label, got, want):
+    """K7's 38 outputs against the plain version's: integer and 0/1 outputs
+    equal on every lane, floats within tolerance (the next record's
+    geometry on its hit lanes, where the scheduler reads it); returns max
+    |diff| and whether the floats are bit-equal on those lanes."""
+    import torch
+
+    got, want = list(step_leaves(got)), list(step_leaves(want))
+    hit = want[1] > 0.5
+    worst, bad, int_bad, bit_equal = 0.0, 0, 0, True
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != torch.float32 or k in (1, 2):
+            int_bad += int((a != b).sum())
+            continue
+        m = hit if 3 <= k <= 15 else torch.ones_like(hit)
+        bit_equal = bit_equal and torch.equal(a[m], b[m])
+        diff = (a - b).abs()[m]
+        bad += int((diff > TOL + TOL * b.abs()[m]).sum())
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+    print(f"[modes] path_step, {label}: {int_bad} integer/flag values differ, {bad} floats out "
+          f"of tolerance, max |diff| {worst:.3e}, floats bit-equal on those lanes {bit_equal}")
+    if int_bad or bad:
+        raise SystemExit(f"chip_smoke: K7 disagrees with its plain version on {label}")
+    return worst, bit_equal
+
+
+def phase_modes_check(device):
+    """K7 against its plain version on the main path's first chunk after
+    ``MODE_STEPS`` plain fused steps; K8 and K9 on that chunk's texel
+    indices; times (kernel, plain, the library call) and bounds."""
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.models import experimental
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, step, texture
+    from path_tracing__ray_tracer_tpu_torch.ops.texture import _unpack_rgb
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
+    cs = pt.compile_scene(scene, device=device)
+    blobs = (bounce.pack_scene_blob(cs), bounce.pack_mat_blob(cs), bounce.pack_light_blob(cs))
+    cam12 = pt.pack_camera(cam, device)
+    st, tables, scal, lane = experimental.pipe_start(
+        cs, blobs, cam12, 0, 0, 0, n_pix=N_RAYS, width=WIDTH, height=HEIGHT, n_samples=MODE_SPP,
+        max_depth=DEPTH, jitter="independent")
+    for _ in range(MODE_STEPS):
+        out = step.path_step_plain(cs, st, tables, cam12, scal, lane[0],
+                                   experimental.step_texel(cs, st, lane[0]), *lane[1:])
+        lane = (out[0],) + out[3:11]
+    args = (cs, st, tables, cam12, scal, lane[0], experimental.step_texel(cs, st, lane[0]),
+            *lane[1:])
+    got, want = step.path_step(*args), step.path_step_plain(*args)
+    s0, s2, item = lane[5], want[7], want[11]
+    kinds = {"retired": s0 == st.ns, "finishing an item": item < st.ns,
+             "regenerated": (item < st.ns) & (s2 < st.ns), "live": (s0 < st.ns) & (item == st.ns)}
+    print(f"[modes] K7 check: the first {N_RAYS}-lane chunk of the {WIDTH}x{HEIGHT} frame, "
+          f"{MODE_SPP} samples, after {MODE_STEPS} plain fused steps: " + ", ".join(
+              f"{k} {int(v.sum())}" for k, v in kinds.items()))
+    if not all(bool(v.any()) for v in kinds.values()):
+        raise SystemExit("chip_smoke: the K7 check's chunk lacks retired, regenerated or "
+                         "live lanes")
+    k7_err, k7_bits = check_step("main path's first chunk", got, want)
+
+    # the record's hits again through K1: their texel indices into each table
+    rec1 = bounce.path_bounce(cs, *blobs, want[1], want[2], want[3], want[5], want[6])
+    textured = rec1.tex_id >= 0
+    idx_full = texture.texel_index(cs, rec1.tex_id, rec1.u, rec1.v)
+    if not torch.equal(torch.where(textured, idx_full, -1), want[0].idx):
+        raise SystemExit("chip_smoke: K7's texel indices differ from texel_index of K1's record")
+    budget = atlas_route_budget(scene)
+    cs_b = pt.compile_scene(scene, texture_budget=budget, device=device)
+    cs_m = pt.compile_scene(scene, mip_budget=DEFER_MIP, device=device)
+    cs_l = pt.compile_scene(scene, mip_budget=LOD_BUDGET, device=device)
+    # (name, table, indices): K9 on the defer mip (timed) and on the LOD mip
+    gathers = (("atlas_gather", cs_b.atlas, texture.texel_index(cs_b, rec1.tex_id, rec1.u, rec1.v)),
+               ("mip_gather", cs_m.mip_atlas,
+                texture.mip_texel_index(cs_m, rec1.tex_id, rec1.u, rec1.v)),
+               ("mip_gather", cs_l.mip_atlas,
+                texture.mip_texel_index(cs_l, rec1.tex_id, rec1.u, rec1.v)))
+    print(f"[modes] atlas route budget {budget}: {cs_b.atlas.shape[0]} texels = "
+          f"{texture.atlas_rows(cs_b)} rows of 128 (MAX_ROWS {texture.MAX_ROWS}); defer mip "
+          f"budget {DEFER_MIP}: {cs_m.mip_atlas.shape[0]} texels = {texture.mip_rows(cs_m)} rows; "
+          f"LOD mip budget {LOD_BUDGET}: {cs_l.mip_atlas.shape[0]} texels = "
+          f"{texture.mip_rows(cs_l)} rows; textured lanes {int(textured.sum())} of {N_RAYS}")
+    errs, times, bounds = {"path_step": k7_err}, {}, {}
+    plain = texture.gather_plain
+    for name, table, idx in gathers:
+        fn = getattr(texture, name)
+        idx = idx.contiguous()
+        g, w = fn(table, idx), plain(table, idx)
+        same = all(torch.equal(a, c) for a, c in zip(g, w))
+        err = max(float((a - c).abs().max()) for a, c in zip(g, w))
+        errs[name] = max(errs.get(name, 0.0), err)
+        print(f"[modes] {name} on a table of {table.shape[0]} texels: bit-equal {same} on "
+              f"{N_RAYS} lanes (max |diff| {err:.3e})")
+        if not same:
+            raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
+        if name in times:
+            continue
+        lib = cuda_ms(lambda: torch.index_select(table, 0, idx))
+        texel = torch.index_select(table, 0, idx)
+        unpack = cuda_ms(lambda: _unpack_rgb(texel))
+        times[name] = (cuda_ms(lambda: fn(table, idx)), cuda_ms(lambda: plain(table, idx)), lib)
+        bounds[name] = bound_ms(3 * N_RAYS, N_RAYS * (4 + 4 + 12))
+        print(f"[time] {name} at N={N_RAYS}: kernel {times[name][0]:.4f} ms, plain torch "
+              f"{times[name][1]:.4f} ms, library index_select {lib:.4f} ms (+ its unpack "
+              f"{unpack:.4f} ms) (median of 25, CUDA events)")
+    times["path_step"] = (cuda_ms(lambda: step.path_step(*args)),
+                          cuda_ms(lambda: step.path_step_plain(*args)), None)
+    print(f"[time] path_step at N={N_RAYS}: kernel {times['path_step'][0]:.4f} ms, plain torch "
+          f"{times['path_step'][1]:.4f} ms (median of 25, CUDA events)")
+    # K7 reads 29 words a lane and writes 38; its sweeps are K1's on the rays it traces
+    bounds["path_step"] = bound_ms(k1_flops(cs, want[1], want[2], want[5], want[6]),
+                                   N_RAYS * 4 * (29 + 38))
+    for name, (ms, by) in bounds.items():
+        print(f"[bound] {name}: {ms:.5f} ms ({by})")
+    return budget, errs, k7_bits, times, bounds
+
+
+def mode_run(device, label, default_img, kernel, **kw):
+    """One 128-sample group of the main path's shape (after a warm-up group
+    of ``MODE_WARM_SPP`` samples) with a mode; returns launches, seconds,
+    Mrays/s and the image of the timed group."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
+    r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
+                                  chunk_rays=CHUNK_RAYS, device=device, **kw)
+    t0 = time.perf_counter()
+    r.render_sums(scene, cam, pt.RenderSettings(WIDTH, HEIGHT, MODE_WARM_SPP, DEPTH))
+    warm = time.perf_counter() - t0
+    settings = pt.RenderSettings(WIDTH, HEIGHT, GROUP_SPP, DEPTH)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, settings, sample_offset=GROUP_SPP, n_samples=GROUP_SPP)
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in counts().items() if v}
+    mrays = WIDTH * HEIGHT * GROUP_SPP * DEPTH / secs / 1e6
+    img = image_of(sums, GROUP_SPP)
+    diff = np.abs(img.astype(np.int32) - default_img.astype(np.int32))
+    rmse = float(np.sqrt((diff.astype(np.float64) ** 2).mean()))
+    print(f"[modes] ({label}) {WIDTH}x{HEIGHT} depth {DEPTH}, one {GROUP_SPP}-sample group: "
+          f"warm-up ({MODE_WARM_SPP} spp) {warm:.3f} s, timed {secs:.3f} s -> {mrays:.2f} Mrays/s; "
+          f"launches {launched}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB; against the default image: "
+          f"RMSE {rmse:.4f}/255, {float((diff > 2).mean()):.5f} of channels off by >2/255, "
+          f"max {int(diff.max())}, bit-equal {bool((diff == 0).all())}")
+    if not np.isfinite(sums).all() or (sums < 0).any():
+        raise SystemExit(f"chip_smoke: ({label}) sums are not finite and non-negative")
+    if not launched.get(kernel):
+        raise SystemExit(f"chip_smoke: ({label}) never launched {kernel}")
+    return launched, secs, mrays, img, (rmse, float((diff > 2).mean()))
+
+
+def phase_modes_main(device, default_img, budget):
+    """Runs (a)-(d) at the main path's shape; the profiles of a 4-sample
+    frame, default and pipe, and of a 128-sample pipe frame."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.models import path_tracer
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, step, texture
+
+    runs = {}
+    path_tracer._PIPE_REGEN = True
+    try:
+        runs["pipe"] = mode_run(device, "a: pipe", default_img, "path_step")
+    finally:
+        path_tracer._PIPE_REGEN = False
+    rmse, share = runs["pipe"][4]
+    if share >= 0.01 or runs["pipe"][0].get("path_bounce"):
+        raise SystemExit("chip_smoke: the pipe run is outside the golden tolerance or ran K1")
+    runs["defer"] = mode_run(device, f"b: defer, mip_budget={DEFER_MIP}", default_img,
+                             "mip_gather", mip_budget=DEFER_MIP)
+    runs["lod"] = mode_run(device, f"c: LOD, texture_lod={LOD_BUDGET}, depth {LOD_DEPTH}",
+                           default_img, "mip_gather", texture_lod=LOD_BUDGET,
+                           texture_lod_depth=LOD_DEPTH)
+    for label, bound in (("defer", DEFER_RMSE_MAX), ("lod", LOD_RMSE_MAX)):
+        if runs[label][4][0] > bound:
+            raise SystemExit(f"chip_smoke: the {label} run's RMSE {runs[label][4][0]:.4f}/255 "
+                             f"against the default image is above {bound}/255")
+    torch.cuda.empty_cache()
+    at_budget = mode_run(device, f"d0: default path at texture_budget={budget}", default_img,
+                         "path_bounce", texture_budget=budget)
+    texture.ENABLED = True
+    try:
+        runs["atlas"] = mode_run(device, f"d: atlas route, texture_budget={budget}",
+                                 at_budget[3], "atlas_gather", texture_budget=budget)
+    finally:
+        texture.ENABLED = False
+    if not np.array_equal(runs["atlas"][3], at_budget[3]):
+        raise SystemExit("chip_smoke: the atlas route's image differs from the default path's")
+    torch.cuda.empty_cache()
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
+    for tag, spp, counter, kernels in (
+            ("[modes] default", 4, lambda: bounce.path_bounce.launches, {"K1": "path_bounce"}),
+            ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step"}),
+            ("[modes] pipe", GROUP_SPP, lambda: step.path_step.launches, {"K7": "path_step"})):
+        r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
+                                      chunk_rays=CHUNK_RAYS, device=device)
+        r.compiled(scene)  # the scene compile stays out of the frame's time
+        path_tracer._PIPE_REGEN = tag.endswith("pipe")
+        try:
+            profile_frame(tag, r, scene, cam, pt.RenderSettings(WIDTH, HEIGHT, spp, DEPTH),
+                          counter, kernels, top=3)
+        finally:
+            path_tracer._PIPE_REGEN = False
+    return runs
+
+
+def phase_modes_property(device):
+    """At 160x120, deferred texture and LOD with the mip equal to the atlas
+    against the default render: LOD bit for bit; deferred texture at the
+    JAX package's bar (its A + base0*B rounds differently)."""
+    import numpy as np
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(MO_WIDTH / MO_HEIGHT)
+    settings = pt.RenderSettings(MO_WIDTH, MO_HEIGHT, MO_SPP, MO_DEPTH)
+
+    def sums(**kw):
+        return pt.RendererFactory.create("cuda_path_raytracer", seed=0, texture_budget=PROP_BUDGET,
+                                         device=device, **kw).render_sums(scene, cam, settings)
+
+    want = sums()
+    for label, kw in (("LOD", dict(texture_lod=PROP_BUDGET)),
+                      ("defer", dict(mip_budget=PROP_BUDGET))):
+        got = sums(**kw)
+        diff = np.abs(got - want)
+        print(f"[modes] property, {label} with mip == atlas (budget {PROP_BUDGET}), "
+              f"{MO_WIDTH}x{MO_HEIGHT} {MO_SPP} spp depth {MO_DEPTH}: bit-equal "
+              f"{np.array_equal(got, want)}, max |diff| {float(diff.max()):.3e}, "
+              f"{float((diff > 1e-3).mean()):.5f} of values off by >1e-3, mean {diff.mean():.3e}")
+        if label == "LOD" and not np.array_equal(got, want):
+            raise SystemExit("chip_smoke: LOD with mip == atlas differs from the default render")
+        if (diff > 1e-3).mean() >= 0.01 or diff.mean() >= 1e-3:
+            raise SystemExit(f"chip_smoke: {label} with mip == atlas is off the default render")
+
+
 def main() -> int:
     phase_environment()
     import torch
@@ -1405,7 +1731,12 @@ def main() -> int:
     times["path_bounce"] = (k1_ms, k1_plain_ms)
     bounds = kernel_bounds(cs, state, camera_rays, shadow)
     phase_golden(device)
-    k1_launches, secs, mrays = phase_main_path(device)
+    k1_launches, secs, mrays, default_img = phase_main_path(device)
+    budget, merrs, k7_bits, mtimes, mbounds = phase_modes_check(device)
+    times.update(mtimes)
+    bounds.update(mbounds)
+    runs = phase_modes_main(device, default_img, budget)
+    phase_modes_property(device)
     k2_launches, w_secs, w_mrays, rmse = phase_whitted_frame(device)
     phase_whitted_profile(device, w_secs)
     oracle = phase_oracle(device)
@@ -1446,18 +1777,27 @@ def main() -> int:
          max(berr["closest"], berr["k4c"], k512_err)),
         ("pages_any", "bvh_paged.cu", "bvh_paged_pallas.py:605", k6_launched["pages_any"],
          berr["any"]),
+        ("path_step", "path_step.cu", "bounce_pallas.py:401", runs["pipe"][0]["path_step"],
+         merrs["path_step"]),
+        ("atlas_gather", "texture_gather.cu", "texture_pallas.py:64",
+         runs["atlas"][0]["atlas_gather"], merrs["atlas_gather"]),
+        ("mip_gather", "texture_gather.cu", "texture_pallas.py:172",
+         runs["defer"][0]["mip_gather"], merrs["mip_gather"]),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
         "launches": launches, "max_abs_err": err, "ms": times[name][0],
         "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": None,
+        "library_ms": times[name][2] if len(times[name]) > 2 else None,
     } for name, source, replaces, launches, err in rows]}))
     print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
-          f"group at 1024x1024 depth 8); Whitted frame {w_secs:.3f} s ({w_mrays:.2f} Mrays/s, "
-          f"RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s ({m_secs:.3f} s per "
-          f"{MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH}); config-6 path "
-          f"{b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample group) on:")
+          f"group at 1024x1024 depth 8); its modes: pipe {runs['pipe'][2]:.2f} (K7 bit-equal "
+          f"{k7_bits}), defer {runs['defer'][2]:.2f}, LOD {runs['lod'][2]:.2f}, atlas route "
+          f"{runs['atlas'][2]:.2f} Mrays/s (budget {budget}); Whitted frame {w_secs:.3f} s "
+          f"({w_mrays:.2f} Mrays/s, RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s "
+          f"({m_secs:.3f} s per {MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth "
+          f"{M_DEPTH}); config-6 path {b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample "
+          f"group) on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

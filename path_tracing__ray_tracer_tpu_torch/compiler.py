@@ -108,7 +108,8 @@ class CompiledScene(NamedTuple):
     tex_height: torch.Tensor
     device: torch.device  # every tensor above and below lives here
     bvh: object = None  # Optional[ops.bvh.FlatBVH] over the triangles (big scenes)
-    # the JAX package's optional mip atlas (deferred-texture mode); never built
+    # optional low-resolution mip of the atlas (``mip_budget`` compile arg):
+    # the deferred-texture and texture-LOD modes of the path tracer
     mip_atlas: Optional[torch.Tensor] = None
     mip_offset: Optional[torch.Tensor] = None
     mip_width: Optional[torch.Tensor] = None
@@ -266,6 +267,7 @@ def compile_scene(
     convention: str = "gpu",
     gpu_parity: bool = True,
     texture_budget: int = 0,
+    mip_budget: int = 0,
     device="cuda",
     use_bvh: Optional[bool] = None,
 ) -> CompiledScene:
@@ -276,9 +278,11 @@ def compile_scene(
     ``v = normal × u``.  ``gpu_parity`` reproduces the wire-format quirks of
     the reference GPU flatteners (see module doc).  ``texture_budget`` caps
     each texture's max dimension (box-filter downsample); 0 keeps the
-    reference-exact full resolution.  ``use_bvh`` forces the flat BVH on
-    (``True``) or off (``False``); by default a scene gets one above
-    ``BVH_THRESHOLD`` triangles after the quad merge.
+    reference-exact full resolution.  ``mip_budget`` > 0 adds a second,
+    smaller atlas capped the same way (``mip_*`` fields), which the path
+    tracer's deferred-texture and texture-LOD modes sample.  ``use_bvh``
+    forces the flat BVH on (``True``) or off (``False``); by default a scene
+    gets one above ``BVH_THRESHOLD`` triangles after the quad merge.
     """
     device = torch.device(device)
     planes = [o for o in scene.objects if isinstance(o, Plane)]
@@ -423,6 +427,9 @@ def compile_scene(
         lights = V3(lights.x[:0], lights.y[:0], lights.z[:0])  # truly empty
 
     atlas, offs, ws, hs = _build_atlas(texture_paths, texture_budget)
+    mip = (None,) * 4
+    if mip_budget:
+        mip = tuple(_tensor(a, device) for a in _build_atlas(texture_paths, mip_budget))
     tri_textured = any(
         t.material is not None and t.material.texture is not None for t in tris
     )
@@ -449,6 +456,10 @@ def compile_scene(
         any_textured=flag(bool(np.any(has_tex > 0.0))),
         mat_uid=mat_uid,
         mat_table=mat_table,
+        mip_atlas=mip[0],
+        mip_offset=mip[1],
+        mip_width=mip[2],
+        mip_height=mip[3],
     )
     if use_bvh is None:
         use_bvh = len(tris) > BVH_THRESHOLD
@@ -565,11 +576,8 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
     carried over unchanged; a flat BVH brings its node arrays, its BVH4
-    node records and its slot records, and a paged tree its paged layout.
-    The mip atlas (the JAX package's ``mip_budget``) is not ported and
-    raises."""
-    if tree.mip_atlas is not None:
-        raise NotImplementedError("the mip atlas (mip_budget) is not ported")
+    node records and its slot records, a paged tree its paged layout, and a
+    ``mip_budget`` scene its mip atlas."""
     device = torch.device(device)
     fields = {f: _from_numpy(getattr(tree, f), device)
               for f in CompiledScene._fields if f not in ("device", "bvh")}

@@ -1,5 +1,6 @@
 // The path tracer's shading after the closest hit, shared by the bounce
-// kernels path_bounce.cu (K1) and path_bounce_bvh.cu (K5): the counter RNG,
+// kernels path_bounce.cu (K1), path_bounce_bvh.cu (K5) and path_step.cu (K7,
+// which keeps its own record): the counter RNG,
 // the next-event-estimation query (uniform light pick, shadow ray, its bound
 // and unoccluded weight), Russian roulette, the 60/25/15 glass event with
 // the TIR fallback, the mirror / cosine-hemisphere scatter, and the write of
@@ -103,11 +104,17 @@ __device__ __forceinline__ ShadowQuery nee_query(const float* light, int n_light
   return q;
 }
 
-// Russian roulette, the scatter event and the record of lane `i` of `n`.
-__device__ __forceinline__ void scatter_write(float* __restrict__ out, int n, int i, uint32_t key,
-                                              uint32_t depth, const Ray& r, float thx,
-                                              float thy, float thz, const Surface& s,
-                                              const Material& m, float w_nee) {
+// What Russian roulette and the scatter event decide for one lane.
+struct Scatter {
+  bool killed;
+  float rr_scale, s_thr, t_thr;
+  float nox, noy, noz, ndx, ndy, ndz;  // the next ray
+};
+
+// Russian roulette and the scatter event of one lane.
+__device__ __forceinline__ Scatter scatter(uint32_t key, uint32_t depth, const Ray& r, float thx,
+                                           float thy, float thz, const Surface& s,
+                                           const Material& m) {
   const float nx = s.nx, ny = s.ny, nz = s.nz;
   const float px = s.px, py = s.py, pz = s.pz;
 
@@ -188,25 +195,38 @@ __device__ __forceinline__ void scatter_write(float* __restrict__ out, int n, in
                         : (ev_diff ? m.diffuse * (float)(3.0 / (1.0 - 0.6 - 0.25))
                                    : (mirror ? m.reflective : m.diffuse));
   if (ev_refr) t_thr = 0.0f;
+  return Scatter{killed, rr_scale, s_thr, t_thr, nox, noy, noz, ndx, ndy, ndz};
+}
 
+// The base colour's texture id on the record: -1 when untextured.
+__device__ __forceinline__ float record_tex(const Material& m) {
+  return m.has_tex > 0.5f ? m.tex_id : -1.0f;
+}
+
+// Russian roulette, the scatter event and the record of lane `i` of `n`.
+__device__ __forceinline__ void scatter_write(float* __restrict__ out, int n, int i, uint32_t key,
+                                              uint32_t depth, const Ray& r, float thx,
+                                              float thy, float thz, const Surface& s,
+                                              const Material& m, float w_nee) {
+  const Scatter c = scatter(key, depth, r, thx, thy, thz, s, m);
   float* o = out + i;
   const size_t N = (size_t)n;
   o[0 * N] = s.hit ? 1.0f : 0.0f;
-  o[1 * N] = killed ? 1.0f : 0.0f;
+  o[1 * N] = c.killed ? 1.0f : 0.0f;
   o[2 * N] = s.hit ? 0.0f : kSky;
   o[3 * N] = w_nee;
-  o[4 * N] = rr_scale;
-  o[5 * N] = s_thr;
-  o[6 * N] = t_thr;
-  o[7 * N] = nox;
-  o[8 * N] = noy;
-  o[9 * N] = noz;
-  o[10 * N] = ndx;
-  o[11 * N] = ndy;
-  o[12 * N] = ndz;
+  o[4 * N] = c.rr_scale;
+  o[5 * N] = c.s_thr;
+  o[6 * N] = c.t_thr;
+  o[7 * N] = c.nox;
+  o[8 * N] = c.noy;
+  o[9 * N] = c.noz;
+  o[10 * N] = c.ndx;
+  o[11 * N] = c.ndy;
+  o[12 * N] = c.ndz;
   o[13 * N] = s.u;
   o[14 * N] = s.v;
-  o[15 * N] = m.has_tex > 0.5f ? m.tex_id : -1.0f;
+  o[15 * N] = record_tex(m);
   o[16 * N] = m.r;
   o[17 * N] = m.g;
   o[18 * N] = m.b;

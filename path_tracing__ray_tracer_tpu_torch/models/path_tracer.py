@@ -13,9 +13,15 @@ intersections launch K4a and K4b.  A paged BVH (a big scene, such as
 as the JAX package's ``bounce_bvh_ok`` sends it there: its closest hit and
 shadow rays launch the two-level walk (K6a + K6c, K6b + K6d).  On the CPU
 each takes its plain torch version.  Between bounces plain torch ops
-resolve the base colour (atlas texel or material colour), apply the two
+resolve the base colour (atlas texel or material colour; the atlas gather
+K8 when ``ops/cuda/texture.fits_mxu_atlas`` holds), apply the two
 multiply-adds, and regenerate finished lanes.  Randomness is the counter
 hash: a pure function of (seed, pixel, sample, depth, use).
+
+The scheduler's modes (deferred texture, texture LOD, the fused step K7)
+are gated in ``models/experimental.py``, as in the JAX package: the
+texture modes run in ``_regen_loop`` beside the default resolve, the fused
+step in its own loop there.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from ..ops import rng
 from ..ops.camera import generate_rays
 from ..ops.cuda.bounce import T_MAX, T_MIN, path_bounce, path_bounce_plain
 from ..ops.cuda.bounce_bvh import path_bounce_bvh
-from ..ops.texture import resolve_base_color
+from ..ops.cuda.texture import fits_mxu_atlas, resolve_base_color_mxu, texel_index
+from ..ops.texture import _unpack_rgb, resolve_base_color, resolve_base_color_lod
 from ..ops.tonemap import aces
 from ..ops.v3 import V3
 from .base import RendererFactory
@@ -42,6 +49,12 @@ _U_JITX, _U_JITY = 0, 1
 # batch is compacted to those lanes.
 _CHECK_EVERY = 4
 _COMPACT_BELOW = 0.5
+
+# Fused in-kernel regeneration (the pipe mode of models/experimental.py):
+# each bounce is one launch of K7, which also runs the glue between bounces.
+# Off by default, as in the JAX package, which measured it flat on its TPU;
+# read at each chunk.
+_PIPE_REGEN = False
 
 
 def bounce_fn(cs, blobs):
@@ -60,9 +73,57 @@ def bounce_fn(cs, blobs):
         cs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
 
 
+def resolve_fn(cs, n_pix: int):
+    """``resolve(out) -> base colour`` of a bounce record for a chunk of
+    ``n_pix`` lanes: the atlas gather K8 where the JAX package's gate holds
+    (``fits_mxu_atlas`` and a chunk of whole 1024-lane blocks), else the
+    plain resolve.  Both give the same colours bit for bit."""
+    if fits_mxu_atlas(cs) and n_pix % 1024 == 0:
+        return lambda out: resolve_base_color_mxu(cs, out.mat_color, out.tex_id, out.u, out.v)
+    return lambda out: resolve_base_color(cs, out.mat_color, (out.tex_id >= 0.0).to(torch.float32),
+                                          out.tex_id.to(torch.int32), out.u, out.v)
+
+
+def item_stride(n_pix: int, n_samples: int) -> int:
+    """Lane ``i``'s ``s``-th item is pixel ``(i + s·stride) mod n_pix``."""
+    return (int(n_pix * 0.6180339887) | 1) % n_pix if n_samples > 1 else 0
+
+
+def camera_rays(cam12, lane_ids, s, *, pix0: int, seed: int, sample_base: int, n_pix: int,
+                stride: int, width: int, height: int, max_depth: int, jitter: str):
+    """Camera ray, RNG key and pixel slot of lane ``lane_ids``' item ``s``.
+    Out-of-frame lanes clamp to the last pixel but hash their unclamped
+    index; the jitter draws sit at depth ``max_depth``, slots 0 and 1."""
+    p_local = (lane_ids + s * stride) % n_pix
+    idx = pix0 + p_local
+    safe = torch.clamp(idx, max=width * height - 1)
+    x = (safe % width).to(torch.float32)
+    y = (safe // width).to(torch.float32)
+    key = rng.ray_key(seed, idx, sample_base + s)
+    if jitter == "center":
+        r1 = r2 = 0.5
+    else:
+        r1 = rng.uniform(key, max_depth, _U_JITX)
+        r2 = r1 if jitter == "diagonal" else rng.uniform(key, max_depth, _U_JITY)
+    o, d = generate_rays(cam12, (x + r1) / width, (y + r2) / height)
+    return o, d, key, p_local
+
+
+def compact(sel, *xs):
+    """The lanes ``sel`` of each lane tensor or ``V3`` in ``xs``."""
+    return tuple(x.take(sel) if isinstance(x, V3) else x[sel] for x in xs)
+
+
+def rebin(sums, acc, pix0: int, n_pix: int, n_samples: int) -> None:
+    """Add each pixel's items onto ``sums`` in ascending sample order."""
+    chunk = sums[:, pix0:pix0 + n_pix]
+    for si in range(n_samples):
+        chunk += acc[:, si * n_pix:(si + 1) * n_pix]
+
+
 def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
                  n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
-                 jitter: str, shadow_tmax: str = "reference") -> None:
+                 jitter: str, shadow_tmax: str = "reference", lod_depth: int = 0) -> None:
     """Add ``n_samples`` radiance samples for the pixels
     ``[pix0, pix0 + n_pix)`` into ``sums`` (a ``(3, ≥ pix0 + n_pix)`` tensor),
     by *ray regeneration*: a pool of ``n_pix`` lanes in which a lane that
@@ -80,29 +141,48 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
     when the item finishes, so the fold order holds whatever the lane
     schedule, stride, compaction or chunk width.  Out-of-frame lanes clamp
     to the last pixel but hash their unclamped index; the caller cuts them.
+
+    A mode (``_PIPE_REGEN``; ``lod_depth`` > 0; a scene with a mip atlas)
+    goes through ``models/experimental.regen_chunk_modes``, the JAX
+    package's mode gate, which runs the pipe's own loop or
+    :func:`_regen_loop` with a texture mode.
+    """
+    kw = dict(n_pix=n_pix, width=width, height=height, n_samples=n_samples,
+              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax)
+    if _PIPE_REGEN or lod_depth > 0 or cs.mip_atlas is not None:
+        from .experimental import regen_chunk_modes
+
+        return regen_chunk_modes(cs, blobs, cam12, sums, pix0, seed, sample_base,
+                                 lod_depth=lod_depth, **kw)
+    _regen_loop(cs, blobs, cam12, sums, pix0, seed, sample_base, **kw)
+
+
+def _regen_loop(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
+                n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
+                jitter: str, shadow_tmax: str, lod_depth: int = 0, mip_resolve=None) -> None:
+    """The scheduler of :func:`_regen_chunk`, with the default resolve, or
+    texture LOD when ``lod_depth`` > 0 (bounces below it read the atlas,
+    deeper ones the mip), or deferred texture when ``mip_resolve`` (the mip
+    resolve of the bounces past the camera's) is given.
+
+    In deferred mode ``thr`` is the throughput without the camera bounce's
+    base colour ``base₀``, ``e`` says whether ``base₀`` is pending in it and
+    ``b0m`` is the mip estimate of ``base₀``.  Each lane also carries ``B``
+    (``psum_b``, the sum that ``base₀`` multiplies) and the camera bounce's
+    exact texel index (``idx0``); one bulk gather per chunk resolves every
+    item's ``base₀`` into ``A + base₀·B``.
     """
     NS, N = int(n_samples), int(n_pix)
     dev = sums.device
-    stride = (int(N * 0.6180339887) | 1) % N if NS > 1 else 0
-    total = width * height
+    defer = mip_resolve is not None
     bounce = bounce_fn(cs, blobs)
+    resolve = resolve_fn(cs, N)
     shadow_light = shadow_tmax == "light"
 
     def make_ray(lane_ids, s):
-        """Camera ray, RNG key and pixel slot of lane ``lane_ids``' item ``s``."""
-        p_local = (lane_ids + s * stride) % N
-        idx = pix0 + p_local
-        safe = torch.clamp(idx, max=total - 1)
-        x = (safe % width).to(torch.float32)
-        y = (safe // width).to(torch.float32)
-        key = rng.ray_key(seed, idx, sample_base + s)
-        if jitter == "center":
-            r1 = r2 = 0.5
-        else:
-            r1 = rng.uniform(key, max_depth, _U_JITX)
-            r2 = r1 if jitter == "diagonal" else rng.uniform(key, max_depth, _U_JITY)
-        o, d = generate_rays(cam12, (x + r1) / width, (y + r2) / height)
-        return o, d, key, p_local
+        return camera_rays(cam12, lane_ids, s, pix0=pix0, seed=seed, sample_base=sample_base,
+                           n_pix=N, stride=item_stride(N, NS), width=width, height=height,
+                           max_depth=max_depth, jitter=jitter)
 
     lane = torch.arange(N, dtype=torch.int64, device=dev)
     s = torch.zeros(N, dtype=torch.int64, device=dev)
@@ -111,9 +191,15 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
     thr = V3(one, one, one)
     psum = V3(*(torch.zeros_like(one) for _ in range(3)))  # the item's running path sum
     depth = torch.zeros(N, dtype=torch.int32, device=dev)
-    # finished item sums by (sample, pixel slot); row NS catches the lanes
-    # that finish nothing in a bounce (each at its own slot: no duplicates)
-    acc = torch.zeros((3, (NS + 1) * N), dtype=torch.float32, device=dev)
+    # finished item sums by (sample, pixel slot), then B in deferred mode;
+    # row NS catches the lanes that finish nothing in a bounce (each at its
+    # own slot: no duplicates)
+    acc = torch.zeros((6 if defer else 3, (NS + 1) * N), dtype=torch.float32, device=dev)
+    if defer:
+        psum_b, b0m = psum, thr
+        idx0 = torch.zeros(N, dtype=torch.int32, device=dev)
+        e = torch.zeros(N, dtype=torch.bool, device=dev)
+        acc_idx = torch.zeros(((NS + 1) * N,), dtype=torch.int32, device=dev)
 
     it = 0
     while True:
@@ -126,25 +212,51 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
                 raise RuntimeError(f"path tracer: {n_left} lanes unfinished after {it} bounces")
             if n_left <= _COMPACT_BELOW * lane.shape[0]:
                 sel = torch.nonzero(left)[:, 0]
-                o, d, thr, psum = o.take(sel), d.take(sel), thr.take(sel), psum.take(sel)
-                key, depth, s, ploc, lane = key[sel], depth[sel], s[sel], ploc[sel], lane[sel]
-        out = bounce(o, d, thr, key, depth, shadow_light)
-        base = resolve_base_color(cs, out.mat_color, (out.tex_id >= 0.0).to(torch.float32),
-                                  out.tex_id.to(torch.int32), out.u, out.v)
+                o, d, thr, psum, key, depth, s, ploc, lane = compact(
+                    sel, o, d, thr, psum, key, depth, s, ploc, lane)
+                if defer:
+                    psum_b, idx0, e, b0m = compact(sel, psum_b, idx0, e, b0m)
         active = s < NS
-        contrib = thr * out.w_sky + thr * (base * out.w_nee)
+        out = bounce(o, d, V3.where(e, thr * b0m, thr) if defer else thr, key, depth,
+                     shadow_light)
+        if defer:
+            base = mip_resolve(out)
+            defer_now = (depth == 0) & (out.tex_id >= 0.0)
+            full = thr * out.w_sky + thr * (base * out.w_nee)
+            contrib = V3.where(defer_now, thr * out.w_sky,
+                               V3(*(torch.where(e, 0.0, ch) for ch in full)))
+            contrib_b = V3.where(defer_now, thr * out.w_nee,
+                                 V3(*(torch.where(e, ch, 0.0) for ch in full)))
+            psum_b = V3.where(active, psum_b + contrib_b, psum_b)
+            idx0 = torch.where(active & defer_now, texel_index(cs, out.tex_id, out.u, out.v), idx0)
+            base_thr = V3.where(defer_now, V3(*(torch.ones_like(out.u),) * 3), base)
+            e = torch.where(defer_now, out.t_thr > 0.0, e)
+            b0m = V3.where(defer_now, base, b0m)
+        else:
+            if lod_depth > 0:
+                base = resolve_base_color_lod(cs, out.mat_color, out.tex_id, out.u, out.v,
+                                              depth < lod_depth)
+            else:
+                base = resolve(out)
+            contrib = thr * out.w_sky + thr * (base * out.w_nee)
+            base_thr = base
         psum = V3.where(active, psum + contrib, psum)
         live = active & out.hit & ~out.killed
-        thr_new = thr * out.rr_scale * (base * out.t_thr + V3(out.s_thr, out.s_thr, out.s_thr))
+        thr_new = thr * out.rr_scale * (base_thr * out.t_thr + V3(out.s_thr, out.s_thr, out.s_thr))
         thr = V3.where(live, thr_new, thr)
-        live = live & (thr.max_component() >= 0.001)
+        thr_cut = V3.where(e, thr * b0m, thr) if defer else thr
+        live = live & (thr_cut.max_component() >= 0.001)
         ndepth = depth + 1
         live = live & (ndepth < max_depth)
         done = active & ~live
 
         slot = torch.where(done, s * N + ploc, NS * N + lane)
-        acc[:, slot] = torch.stack(psum)
+        acc[:, slot] = torch.stack(tuple(psum) + (tuple(psum_b) if defer else ()))
         psum = V3(*(torch.where(done, 0.0, ch) for ch in psum))
+        if defer:
+            acc_idx[slot] = idx0
+            psum_b = V3(*(torch.where(done, 0.0, ch) for ch in psum_b))
+            idx0 = torch.where(done, 0, idx0)
 
         s = s + done.to(torch.int64)
         regen = done & (s < NS)
@@ -155,12 +267,17 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
         key = torch.where(regen, key_new, key)
         ploc = torch.where(regen, ploc_new, ploc)
         depth = torch.where(live, ndepth, 0)
+        if defer:
+            e = e & ~regen
+            b0m = V3(*(torch.where(regen, 1.0, ch) for ch in b0m))
         it += 1
 
-    # re-bin: each pixel adds its items in ascending sample order
-    chunk = sums[:, pix0:pix0 + N]
-    for si in range(NS):
-        chunk += acc[:, si * N:(si + 1) * N]
+    if defer:
+        # base₀ of every item: ONE bulk gather of the exact atlas per chunk
+        n_tex = int(cs.atlas.shape[0])
+        b0 = _unpack_rgb(cs.atlas[torch.clamp(acc_idx[:NS * N], 0, n_tex - 1).long()])
+        acc = torch.stack([acc[c, :NS * N] + b0[c] * acc[3 + c, :NS * N] for c in range(3)])
+    rebin(sums, acc, pix0, N, NS)
 
 
 class PathTracer(WavefrontRenderer):
@@ -168,16 +285,30 @@ class PathTracer(WavefrontRenderer):
     ``tpu_path_raytracer``)."""
 
     def __init__(self, sample_group: int = 128, jitter: str = "independent",
-                 shadow_tmax: str = "reference", **kw):
+                 shadow_tmax: str = "reference", mip_budget: int = 0, texture_lod: int = 0,
+                 texture_lod_depth: int = 2, **kw):
         # sample_group: samples per chunk call; renders are group-invariant
         # bit for bit (every pixel folds its samples in ascending order).
         # shadow_tmax="light" bounds NEE occlusion at the sampled light
         # instead of the reference's 1e6 quirk.
+        # mip_budget > 0: deferred-texture mode (models/experimental.py):
+        # the camera bounce's texel stays exact, later bounces sample a mip
+        # capped at mip_budget.  texture_lod > 0: texture-LOD mode: bounces
+        # below texture_lod_depth sample the full atlas, deeper ones a mip
+        # capped at texture_lod.  Both compile the mip; they exclude each other.
         if shadow_tmax not in ("reference", "light"):
             raise ValueError(f"shadow_tmax must be reference or light, not {shadow_tmax!r}")
+        if mip_budget and texture_lod:
+            raise ValueError("deferred-texture (mip_budget) and texture-LOD (texture_lod) "
+                             "modes are mutually exclusive")
+        if mip_budget or texture_lod:
+            co = dict(kw.pop("compile_overrides", None) or {})
+            co.setdefault("mip_budget", int(mip_budget or texture_lod))
+            kw["compile_overrides"] = co
         super().__init__("cuda_path_raytracer", jitter=jitter, **kw)
         self.sample_group = int(sample_group)
         self.shadow_tmax = str(shadow_tmax)
+        self.lod_depth = int(texture_lod_depth) if texture_lod else 0
 
     def get_capabilities(self) -> List[str]:
         return [
@@ -192,7 +323,8 @@ class PathTracer(WavefrontRenderer):
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, **kw):
         _regen_chunk(cs, self.blobs(cs), cam12, sums, pix0, seed, sample_base,
-                     jitter=self.jitter, shadow_tmax=self.shadow_tmax, **kw)
+                     jitter=self.jitter, shadow_tmax=self.shadow_tmax, lod_depth=self.lod_depth,
+                     **kw)
 
     def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):
         spp = settings.samples_per_pixel if n_samples is None else n_samples

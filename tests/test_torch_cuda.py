@@ -3,7 +3,8 @@ the path-tracer bounce (K1), the Whitted bounce (K2), the standalone
 closest-hit / any-hit sweeps (K3a, K3b) and, on a BVH mesh scene, the
 scene walks (K4a, K4b), the BVH path bounce (K5), the triangle-only walks
 over the whole tree (K4c, K4d) and, on the mesh with paging forced, the
-two-level walk (K6a-d).
+two-level walk (K6a-d); the fused scheduler step (K7), the atlas and mip
+gathers (K8, K9), and the path tracer's modes launching them.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -13,7 +14,8 @@ there without the JAX-configuring ``conftest.py``:
 
 Bars as in ``chip_smoke.py``: hit and the winning primitive on ≥ 99.99% of
 lanes, ``killed`` on ≥ 99.9%, occlusion on ≥ 99.99%, float fields within
-``atol = rtol = 1e-4`` on lanes where both hit.
+``atol = rtol = 1e-4`` on lanes where both hit; K7's integer and 0/1
+outputs equal on every lane, K8's and K9's colours bit for bit.
 """
 import numpy as np
 import pytest
@@ -22,8 +24,10 @@ import torch
 import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.ops import intersect as plain
+from path_tracing__ray_tracer_tpu_torch.models import experimental
+from path_tracing__ray_tracer_tpu_torch.models import path_tracer as tpath
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-    bounce, bounce_bvh, bvh, bvh_paged, intersect, whitted)
+    bounce, bounce_bvh, bvh, bvh_paged, intersect, step, texture, whitted)
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -341,3 +345,92 @@ def test_paged_path_tracer_launches_k6(paged_card):
     same = (out.hit == want.hit) & (out.prim == want.prim)
     assert float(same.float().mean()) >= 0.9999
     _assert_floats_close(out, want, same & out.hit & (out.killed == want.killed), FLOATS)
+
+
+def _leaves(out):
+    for x in out:
+        yield from (_leaves(x) if isinstance(x, tuple) else (x,))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 6])  # fresh camera rays; retired, finishing and live lanes
+def test_step_kernel_matches_plain(card, steps):
+    """K7 on the first 131,072-lane chunk of a 512x256 frame, 2 samples,
+    after ``steps`` plain fused steps (the pipe mode's own start)."""
+    dev, cs, blobs = card
+    cam12 = pt.pack_camera(pt.CustomSceneBuilder().create_camera(2.0), dev)
+    st, tables, scal, lane = experimental.pipe_start(
+        cs, blobs, cam12, 0, 3, 0, n_pix=131072, width=512, height=256, n_samples=2,
+        max_depth=8, jitter="independent")
+    for _ in range(steps):
+        out = step.path_step_plain(cs, st, tables, cam12, scal, lane[0],
+                                   experimental.step_texel(cs, st, lane[0]), *lane[1:])
+        lane = (out[0],) + out[3:11]
+    args = (cs, st, tables, cam12, scal, lane[0], experimental.step_texel(cs, st, lane[0]),
+            *lane[1:])
+    before = step.path_step.launches
+    got = list(_leaves(step.path_step(*args)))
+    torch.cuda.synchronize()
+    assert step.path_step.launches == before + 1
+    want = list(_leaves(step.path_step_plain(*args)))
+    assert len(got) == len(want) == 38
+    hit = want[1] > 0.5
+    for k, (a, b) in enumerate(zip(got, want)):
+        if a.dtype != torch.float32 or k in (1, 2):  # integers, hit and kill: every lane
+            assert torch.equal(a, b), k
+        else:  # the next record's geometry is read on its hit lanes only
+            m = hit if 3 <= k <= 15 else torch.ones_like(hit)
+            torch.testing.assert_close(a[m], b[m], rtol=TOL, atol=TOL, msg=str(k))
+    s0, s2, item = lane[5], want[30], want[34]
+    if steps > 1:
+        assert bool((s0 == st.ns).any()) and bool((item < st.ns).any()) and bool((s2 < st.ns).any())
+    assert bool((want[0] >= 0).any()) and 0.2 < float(hit.float().mean()) < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_texture_gathers_match_plain(card, n):
+    dev = card[0]
+    cs = pt.compile_scene(pt.CustomSceneBuilder().build_scene(), texture_budget=64,
+                          mip_budget=16, device=dev)
+    for fn, table in ((texture.atlas_gather, cs.atlas), (texture.mip_gather, cs.mip_atlas)):
+        m = int(table.shape[0])
+        idx = torch.randint(-3, m + 200, (n,), generator=torch.Generator(device=dev).manual_seed(n),
+                            device=dev, dtype=torch.int32)
+        before = fn.launches
+        got = fn(table, idx)
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for a, b in zip(got, texture.gather_plain(table, idx)):
+            assert torch.equal(a, b)
+        with pytest.raises(ValueError):
+            fn(table, idx.long())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["pipe", "defer", "lod", "atlas"])
+def test_path_tracer_modes_launch_their_kernels(card, monkeypatch, mode):
+    kw, counter = {"texture_budget": 64}, {"pipe": step.path_step, "defer": texture.mip_gather,
+                                           "lod": texture.mip_gather, "atlas": texture.atlas_gather}
+    if mode == "pipe":
+        monkeypatch.setattr(tpath, "_PIPE_REGEN", True)
+    elif mode == "defer":
+        kw["mip_budget"] = 16
+    elif mode == "lod":
+        kw["texture_lod"] = 16
+    else:
+        monkeypatch.setattr(texture, "ENABLED", True)
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(1.0)
+    settings = pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4)
+    before = (counter[mode].launches, bounce.path_bounce.launches)
+    sums = pt.RendererFactory.create("cuda_path_raytracer", seed=1, **kw).render_sums(
+        scene, cam, settings)
+    assert counter[mode].launches > before[0]
+    assert (bounce.path_bounce.launches > before[1]) == (mode != "pipe")
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+    if mode in ("pipe", "atlas"):  # the same image as the default path
+        want = pt.RendererFactory.create("cuda_path_raytracer", seed=1, texture_budget=64)
+        monkeypatch.setattr(tpath, "_PIPE_REGEN", False)
+        monkeypatch.setattr(texture, "ENABLED", False)
+        np.testing.assert_array_equal(sums, want.render_sums(scene, cam, settings))

@@ -7,6 +7,8 @@
   ``cos``/``sin`` differently, which can flip one Russian-roulette or edge
   decision and move that one path.
 * ``render`` against ``tests/goldens/path.npy`` at the golden tolerance.
+* The fused-step scheduler's chunk sums (``_PIPE_REGEN``) against the same
+  JAX chunk, also on a chunk that overhangs the frame.
 * Chunk-size and sample-group invariance, bit for bit within the port.
 * The factory names, the import without JAX, and the kernel's launch count
   (0: CPU tensors take the plain bounce).
@@ -24,8 +26,9 @@ import torch
 import path_tracing__ray_tracer_tpu as jp
 import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu.models.path_tracer import _path_chunk
+from path_tracing__ray_tracer_tpu_torch.models import path_tracer as tpath
 from path_tracing__ray_tracer_tpu_torch.models.path_tracer import PathTracer, _regen_chunk
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, step
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 GOLDEN = Path(__file__).parent / "goldens" / "path.npy"
@@ -143,6 +146,9 @@ def test_package_imports_without_jax():
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce_bvh; "
             "import path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh_paged; "
             "import path_tracing__ray_tracer_tpu_torch.ops.bvh; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.step; "
+            "import path_tracing__ray_tracer_tpu_torch.ops.cuda.texture; "
+            "import path_tracing__ray_tracer_tpu_torch.models.experimental; "
             "import path_tracing__ray_tracer_tpu_torch.native; "
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'triton')]; "
             "assert not bad, bad; print('ok')")
@@ -157,3 +163,32 @@ def test_launch_counter_stays_zero_on_cpu(cornell):
     pt.RendererFactory.create("cuda_path_raytracer", device="cpu").render_sums(
         scene, cam, pt.RenderSettings(width=16, height=8, samples_per_pixel=1, max_depth=2))
     assert bounce.path_bounce.launches == before == 0
+
+
+@pytest.mark.parametrize("pix0,sample_base", [(0, 0), (1000, 6)])  # the second overhangs
+def test_pipe_chunk_sums_match_jax_path_chunk(monkeypatch, pix0, sample_base):
+    """The fused-step scheduler (``_PIPE_REGEN``; on the CPU K7's plain
+    version) against JAX ``_path_chunk`` at the diagonal case's shape above,
+    whose compiled chunk it shares; the JAX pipe needs a TPU, so on the CPU
+    the JAX chunk takes its XLA route.  Held to the bar of
+    ``tests/test_pipe_regen.py``: under 1% of values off by more than 1e-3
+    and a mean difference under 1e-3.  The second chunk starts at pixel
+    1000 of the 4096-pixel frame with ``sample_base = 6``: the item advance
+    wraps and the lanes past the frame clamp."""
+    b = jp.CustomSceneBuilder()
+    jcs = jp.compile_scene(b.build_scene())
+    jcam = jp.pack_camera(b.create_camera(1.0))
+    kw = dict(n_pix=4096, width=64, height=64, n_samples=4, max_depth=4, jitter="diagonal")
+    want = _path_chunk(jcs, jcam, jnp.int32(pix0), jnp.uint32(0), jnp.int32(sample_base), **kw)
+    want = np.stack([np.asarray(c) for c in want], -1)
+    tcs = pt.compiled_scene_from_numpy(jax.tree.map(np.asarray, jcs), device="cpu")
+    blobs = (bounce.pack_scene_blob(tcs), bounce.pack_mat_blob(tcs), bounce.pack_light_blob(tcs))
+    sums = torch.zeros((3, pix0 + 4096), dtype=torch.float32)
+    monkeypatch.setattr(tpath, "_PIPE_REGEN", True)
+    before = step.path_step.launches
+    _regen_chunk(tcs, blobs, torch.from_numpy(np.array(jcam)), sums, pix0, 0, sample_base, **kw)
+    assert step.path_step.launches == before  # CPU tensors: the plain step
+    diff = np.abs(sums[:, pix0:].T.numpy() - want)
+    assert float(np.mean(diff > 1e-3)) < 0.01, ((diff > 1e-3).mean(), diff.max())
+    assert float(diff.mean()) < 1e-3, diff.mean()
+    assert float(want.mean()) > 0.1  # a lit frame, not a trivially equal one
