@@ -86,7 +86,24 @@ It imports no JAX.
    then profiles of a 4-sample frame, default and pipe, and of a 128-sample
    pipe frame: device operations per bounce and busy share;
 18. at 160x120, deferred texture and LOD with the mip equal to the atlas
-   (texture budget 64) against the default render.
+   (texture budget 64) against the default render;
+19. the split BVH route on config 5 (``ops/cuda/bvh.tri_route``): on
+   131,072 camera rays over the 1920×1080 frame, K4e's skip-link and
+   ordered closest walks (t_max 1e6 and a per-ray bound) against the plain
+   skip-link walk (misses equal on every lane, the winner on ≥ 99.99%, t
+   within tolerance), K4e's occlusion walks on the light-sample shadow rays
+   (equal on every ray that needs an answer), each K11 pass against its
+   plain version and the whole multipass walk against the single-pass K4c;
+   their times (the plain walks median of ``PLAIN_REPS``) and bounds;
+20. the config-5 mesh path at 1920×1080, depth 12, ``shadow_tmax="light"``,
+   one ``SPLIT_SPP``-sample group, seed 0: the default route (K5), then
+   ``BVH_QUAD = False`` (K4e ordered, K5 idle) and ``BVH_ATTRS = False,
+   BVH_MULTIPASS = True`` (K11), each image within the golden tolerance of
+   the default's, Mrays/s beside it;
+21. the fault closed: config 5's tree reported 33 levels deep (past the
+   BVH4 walks' stack) is routed to K4e; its queries answer, and its path at
+   480×270, 4 spp, depth 12 with ``BVH_ORDERED = False`` (K4e skip-link)
+   renders within the golden tolerance of the default route's.
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -150,6 +167,12 @@ DEFER_MIP, LOD_BUDGET, LOD_DEPTH = 64, 256, 2
 # HBM3 at 700 W (PERF.md); the samples are seeded, so the numbers repeat
 DEFER_RMSE_MAX, LOD_RMSE_MAX = 5.6, 3.4
 MODE_WARM_SPP = 8
+# the split route on config 5: one 16-sample group of its full-width path on
+# each forced route (the plain bounce glue runs each bounce), and the
+# frame of the 33-deep tree's render
+SPLIT_SPP = 16
+SPLIT_QUAD, SPLIT_MP = "BVH_QUAD = False", "BVH_ATTRS = False, BVH_MULTIPASS = True"
+FAULT_WIDTH, FAULT_HEIGHT, FAULT_SPP = 480, 270, 4
 PROP_BUDGET = 64  # texture budget (= mip budget) of the mip == atlas property
 
 
@@ -183,12 +206,12 @@ def phase_environment():
 
 def phase_build():
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, build, bvh, bvh_paged, intersect, step, texture, whitted)
+        bounce, bounce_bvh, build, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
 
     t0 = time.perf_counter()
     libs = build.load_all()
     secs = time.perf_counter() - t0
-    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged, step, texture):
+    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged, step, texture, bvh2):
         mod.build()  # binds the argument types
     print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
     for name, built in libs.items():
@@ -342,7 +365,7 @@ GOLDENS = (  # tests/test_golden.py's configs, seed 42
 def wrappers():
     """Every kernel wrapper by kernel name; each counts its own launches."""
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, bvh, bvh_paged, intersect, step, texture, whitted)
+        bounce, bounce_bvh, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
 
     return {"path_bounce": bounce.path_bounce, "path_step": step.path_step,
             "atlas_gather": texture.atlas_gather, "mip_gather": texture.mip_gather,
@@ -352,7 +375,9 @@ def wrappers():
             "path_bounce_bvh": bounce_bvh.path_bounce_bvh,
             "paged_top_closest": bvh_paged.paged_top_closest,
             "paged_top_any": bvh_paged.paged_top_any, "pages_closest": bvh_paged.pages_closest,
-            "pages_any": bvh_paged.pages_any}
+            "pages_any": bvh_paged.pages_any, "closest_skiplink": bvh2.closest_skiplink,
+            "closest_ordered": bvh2.closest_ordered, "any_skiplink": bvh2.any_skiplink,
+            "any_ordered": bvh2.any_ordered, "closest_rooted": bvh.closest_rooted}
 
 
 def reset_counts():
@@ -1436,6 +1461,332 @@ def phase_mesh_oracle(device):
         raise SystemExit("chip_smoke: the mesh oracle did not launch K4a and K4b")
 
 
+# ---- K4e / K11: the split BVH route on config 5 ----------------------------------
+def check_walk(label, t, tri, want):
+    """A triangle walk's ``(t, tri)`` against the plain one: misses equal on
+    every lane, the winner on >= 99.99%, ``t`` within tolerance where the
+    winners agree; returns max |diff| of ``t`` there."""
+    want_t, want_tri = want
+    misses = int(((tri < 0) != (want_tri < 0)).sum())
+    same = tri == want_tri
+    share = float(same.float().mean())
+    diff = (t - want_t).abs()[same]
+    bad = int((diff > TOL + TOL * want_t.abs()[same]).sum())
+    worst = float(diff.max()) if diff.numel() else 0.0
+    print(f"[split]   {label}: misses differ on {misses} lanes, winner agree {share:.6f} "
+          f"({int((~same).sum())} differ), hit {float((tri >= 0).float().mean()):.4f}, max |t diff| "
+          f"{worst:.2e} ({bad} out of tolerance)")
+    if misses or share < HIT_AGREE or bad:
+        raise SystemExit(f"chip_smoke: {label} disagrees with its plain version")
+    return worst
+
+
+def split_passes(cs, o, d):
+    """The multipass walk's three passes as ``(roots, en)``: the depth-2
+    subtree each ray enters first, the one it enters second, the root."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+
+    table, valid = tbvh.subtree_nodes(cs.bvh.nodes4)
+    passes = []
+    for s in tbvh.subtree_keys2(cs.bvh.nodes4, o, d):
+        sc = torch.clamp(s, 0, 15).long()
+        en = valid[sc] & (s < 16)
+        passes.append((torch.where(en, table[sc], 0).to(torch.int32).contiguous(), en))
+    zero = torch.zeros_like(passes[0][0])
+    return passes + [(zero, torch.ones_like(zero, dtype=torch.bool))]
+
+
+def split_check_rays(cs, label, o, d, key, depth, err, cnt=None):
+    """K4e and K11 against their plain versions on the rays ``(o, d)`` and
+    their light-sample shadow rays; folds each kernel's max |t diff| into
+    ``err``.  Returns ``(so, sd, lim, carried)``: the shadow rays and K11's
+    three passes' inputs.  ``cnt`` collects the plain walks' tests."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import ClosestRecord
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    cnt = cnt if cnt is not None else {"closest": {}, "any": {}, "rooted": {}}
+    device, n, tris = o.x.device, o.x.shape[0], cs.triangles
+    print(f"[split] {label}:")
+    so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+    want = tbvh.traverse_closest(cs.bvh, tris, o, d, 1e-3, 1e6, counts=cnt["closest"])
+    u = torch.rand(n, generator=torch.Generator(device=device).manual_seed(5), device=device)
+    bound = (want[0] * (0.5 + u)).contiguous()  # about half of the hits lie beyond it
+    want_ray = tbvh.traverse_closest(cs.bvh, tris, o, d, 1e-3, bound)
+    occ_sets = (("one light-sample shadow ray per lane", so, sd, lim,
+                 tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim, counts=cnt["any"])),
+                ("the rays themselves, limit the per-ray bound", o, d, bound,
+                 tbvh.traverse_any(cs.bvh, tris, o, d, 1e-3, bound)))
+
+    def fold(name, x):
+        err[name] = max(err.get(name, 0.0), x)
+
+    for w in (bvh2.closest_skiplink, bvh2.closest_ordered):
+        fold(w.__name__, check_walk(f"{w.__name__}, t_max 1e6", *w(cs, o, d, 1e-3, 1e6), want))
+        fold(w.__name__, check_walk(f"{w.__name__}, per-ray bound", *w(cs, o, d, 1e-3, bound),
+                                    want_ray))
+    for w in (bvh2.any_skiplink, bvh2.any_ordered):
+        for what, ao, ad, alim, want_occ in occ_sets:
+            occ, need = w(cs, ao, ad, 1e-3, alim), alim > 0
+            differ = int((occ != want_occ)[need].sum())
+            print(f"[split]   {w.__name__}, {what}: occlusion differs on {differ} of "
+                  f"{int(need.sum())} rays that need an answer, occluded "
+                  f"{float(occ[need].float().mean()):.4f}; lanes that need none report occluded: "
+                  f"{bool(occ[~need].all())}")
+            if differ or not bool(occ[~need].all()):
+                raise SystemExit(f"chip_smoke: {w.__name__} disagrees with its plain version")
+        fold(w.__name__, 0.0)
+    # K11: each pass from the kernel's carried state against the plain pass
+    passes = split_passes(cs, o, d)
+    bt = torch.full((n,), 1e6, dtype=torch.float32, device=device)
+    bi = torch.full((n,), -1, dtype=torch.int32, device=device)
+    carried = []
+    for k, (roots, en) in enumerate(passes):
+        carried.append((roots, en, bt, bi))
+        got = bvh.closest_rooted(cs, o, d, 1e-3, roots, en, bt, bi)
+        plain = tbvh.rooted(cs.bvh, tris, o, d, 1e-3, roots, en, bt, bi, counts=cnt["rooted"])
+        fold("closest_rooted", check_walk(
+            f"closest_rooted pass {k + 1} ({int(en.sum())} lanes, "
+            f"{int(torch.unique(roots[en]).numel())} roots)", *got, plain))
+        bt, bi = got
+    hit = bi >= 0  # lanes whose winner the two subtree passes had already found
+    found = float(((carried[2][3] == bi) & hit).sum()) / max(int(hit.sum()), 1)
+    off = cs.n_planes + cs.n_spheres + cs.n_quads
+    zero = torch.zeros((n,), dtype=torch.float32, device=device)
+    seed = ClosestRecord(torch.full((n,), 1e6, dtype=torch.float32, device=device),
+                         torch.full((n,), -1, dtype=torch.int32, device=device), zero, zero,
+                         V3(zero, zero, zero))
+    one = bvh_paged.pages_closest(cs, o, d, 1e-3, seed)
+    t_mp, i_mp = bvh.multipass_closest(cs, o, d, 1e-3, seed.t)
+    fold("closest_rooted", check_walk(
+        f"multipass (three K11 passes; {100 * found:.2f}% of the hits found before the cleanup "
+        f"pass) against the single-pass K4c", t_mp, i_mp,
+        (one.t, torch.where(one.prim >= 0, one.prim - off, -1))))
+    check_walk("multipass against the plain skip-link walk", t_mp, i_mp, want)
+    return so, sd, lim, carried
+
+
+def aimed_rays(cs, o, key):
+    """Rays from the origins ``o`` at a random point of a random triangle
+    each (seed 6): nearly every one hits the mesh, at grazing angles too.
+    Returns ``(o, d, key, depth)`` with depth 1, a path's second ray."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    n, device = o.x.shape[0], o.x.device
+    g = torch.Generator(device=device).manual_seed(6)
+    idx = torch.randint(0, cs.n_triangles, (n,), generator=g, device=device)
+    r1, r2 = torch.rand(2, n, generator=g, device=device)
+    s1 = torch.sqrt(r1)  # uniform over the triangle
+    tri = cs.triangles
+    p = (tri.v0.take(idx) * (1.0 - s1) + tri.v1.take(idx) * (s1 * (1.0 - r2))
+         + tri.v2.take(idx) * (s1 * r2))
+    d = (p - o).normalized()
+    depth = torch.ones((n,), dtype=torch.int32, device=device)
+    return o, V3(*(c.contiguous() for c in (d.x, d.y, d.z))), key, depth
+
+
+def phase_split_check(device):
+    """K4e (skip-link and ordered walks) and K11 against their plain
+    versions on config 5, at 131,072 camera rays over the 1920x1080 frame,
+    the secondary rays of those (one plain bounce on) and rays from those
+    secondary origins aimed at the mesh, each set with its light-sample
+    shadow rays; then their times and bounds on the camera rays."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import ClosestRecord
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    _scene, cam, cs = mesh_scene(device)
+    print(f"[split] config-5 scene: BVH2 {cs.bvh.n_nodes} nodes, depth {cs.bvh.depth2}; BVH4 "
+          f"depth {cs.bvh.depth4}; default route {bvh.tri_route(cs)}")
+    camera = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    bo, bd, _bt, bkey, bdepth = advance_plain(cs, camera, 1)
+    err = {}
+    split_check_rays(cs, "their secondary rays (one plain bounce on, depth 1-3)", bo, bd, bkey,
+                     bdepth, err)
+    split_check_rays(cs, "rays from those origins aimed at random points of the mesh",
+                     *aimed_rays(cs, bo, bkey), err)
+    o, d, _t, key, depth = camera
+    cnt = {"closest": {}, "any": {}, "rooted": {}}
+    so, sd, lim, carried = split_check_rays(cs, "131,072 camera rays over the 1920x1080 frame",
+                                            o, d, key, depth, err, cnt)
+    n, care, tris = N_RAYS, lim > 0, cs.triangles
+    zero = torch.zeros((n,), dtype=torch.float32, device=device)
+    seed = ClosestRecord(torch.full((n,), 1e6, dtype=torch.float32, device=device),
+                         torch.full((n,), -1, dtype=torch.int32, device=device), zero, zero,
+                         V3(zero, zero, zero))
+
+    def k4c():
+        return bvh_paged.pages_closest(cs, o, d, 1e-3, seed)
+
+    # times at N = 131,072 (kernel: median of 25; plain: median of PLAIN_REPS)
+    plain_closest = cuda_ms(lambda: tbvh.traverse_closest(cs.bvh, tris, o, d, 1e-3, 1e6),
+                            PLAIN_REPS, 1)
+    plain_any = cuda_ms(lambda: tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim), PLAIN_REPS, 1)
+    times = {
+        "closest_skiplink": (cuda_ms(lambda: bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6)),
+                             plain_closest),
+        "closest_ordered": (cuda_ms(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6)),
+                            plain_closest),
+        "any_skiplink": (cuda_ms(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim)), plain_any),
+        "any_ordered": (cuda_ms(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim)), plain_any),
+        "closest_rooted": (
+            cuda_ms(lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried]),
+            cuda_ms(lambda: [tbvh.rooted(cs.bvh, tris, o, d, 1e-3, *c) for c in carried],
+                    PLAIN_REPS, 1)),
+    }
+    for name, (ms, plain_ms) in times.items():
+        print(f"[time] {name} at N={n}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
+              f"(median of 25 / {PLAIN_REPS}, CUDA events)" + (
+                  "; the three passes of one multipass walk" if name == "closest_rooted" else ""))
+    per_pass = [cuda_ms(lambda c=c: bvh.closest_rooted(cs, o, d, 1e-3, *c)) for c in carried]
+    mp_ms = cuda_ms(lambda: bvh.multipass_closest(cs, o, d, 1e-3, seed.t))
+    k4c_ms, k4a_ms = cuda_ms(k4c), cuda_ms(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6))
+    print(f"[time] K11 passes {', '.join(f'{x:.4f}' for x in per_pass)} ms; the multipass walk "
+          f"(keys + three launches) {mp_ms:.4f} ms against one K4c pass {k4c_ms:.4f} ms and K4a "
+          f"(with the plane/sphere/quad sweep) {k4a_ms:.4f} ms")
+
+    def walk_ops(c):
+        return BOX_FLOPS * c.get("boxes", 0) + TEST_FLOPS[3] * c.get("tri_tests", 0)
+
+    en_lanes = sum(int(c[1].sum()) for c in carried)
+    walk_bounds = {  # ray 24 B, bound or limit 4, (t, tri) 8, occlusion 1, root 4, en 1
+        "closest": bound_ms(walk_ops(cnt["closest"]), n * (24 + 8)),
+        "any": bound_ms(walk_ops(cnt["any"]), n * (4 + 1) + int(care.sum()) * 24),
+        "closest_rooted": bound_ms(walk_ops(cnt["rooted"]), 3 * n * (1 + 8 + 8)
+                                   + en_lanes * (4 + 24)),
+    }
+    bounds = {"closest_skiplink": walk_bounds["closest"],
+              "closest_ordered": walk_bounds["closest"], "any_skiplink": walk_bounds["any"],
+              "any_ordered": walk_bounds["any"], "closest_rooted": walk_bounds["closest_rooted"]}
+    print("[bound] split walks (ms): " + "; ".join(f"{k} {v[0]:.5f} ({v[1]})"
+                                                 for k, v in walk_bounds.items())
+          + f"; tests counted by the plain walks: closest {cnt['closest']}, shadow {cnt['any']} "
+          f"({int(care.sum())} rays need an answer), the three rooted passes {cnt['rooted']} "
+          f"({en_lanes} lane walks)")
+    return times, bounds, err
+
+
+def split_render(device, label, scene, cam, settings, flags, kernels, compiled=None):
+    """The config-5 mesh path with the route flags ``flags`` set (restored
+    after): ``(uint8 image, seconds, Mrays/s, launches)``; fails when a
+    kernel of ``kernels`` did not launch or K5 did while the route is not
+    ``fused``.  ``compiled`` may alter the compiled scene first."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+
+    saved = {k: getattr(bvh, k) for k in flags}
+    try:
+        for k, v in flags.items():
+            setattr(bvh, k, v)
+        r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=settings.samples_per_pixel,
+                                      chunk_rays=CHUNK_RAYS, shadow_tmax="light", seed=0,
+                                      compile_overrides={"use_bvh": True}, device=device)
+        cs = r.compiled(scene)
+        if compiled is not None:
+            r._scene_cache = {k: compiled(v) for k, v in r._scene_cache.items()}
+            cs = r.compiled(scene)
+        route = bvh.tri_route(cs)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sums = r.render_sums(scene, cam, settings)
+        secs = time.perf_counter() - t0
+        launched = counts()
+    finally:
+        for k, v in saved.items():
+            setattr(bvh, k, v)
+    spp, depth = settings.samples_per_pixel, settings.max_depth
+    mrays = settings.width * settings.height * spp * depth / secs / 1e6
+    shown = {k: launched[k] for k in (*kernels, "path_bounce_bvh", "scene_closest", "scene_any")}
+    print(f"[split] {label}: route {route}, {settings.width}x{settings.height} {spp} spp depth "
+          f"{depth}: {secs:.3f} s -> {mrays:.2f} Mrays/s (W*H*spp*depth/t); launches {shown}")
+    if sums.shape != (settings.width * settings.height, 3) or not np.isfinite(sums).all() or (
+            sums < 0).any():
+        raise SystemExit(f"chip_smoke: {label}: sums are not finite and non-negative")
+    if not all(launched[k] for k in kernels) or (route != "fused" and launched["path_bounce_bvh"]):
+        raise SystemExit(f"chip_smoke: {label} did not launch {kernels}, or launched K5")
+    return image_of(sums, spp), secs, mrays, launched
+
+
+def golden_share(label, img, ref):
+    """The share of channels off by more than 2/255 (the golden tolerance:
+    under 1%)."""
+    import numpy as np
+
+    diff = np.abs(img.astype(np.int32) - ref.astype(np.int32))
+    share = float((diff > 2).mean())
+    print(f"[split]   {label} against the default route's image: {share:.5f} of channels differ "
+          f"by >2/255 (max {int(diff.max())})")
+    if img.shape != ref.shape or share >= 0.01:
+        raise SystemExit(f"chip_smoke: {label} is outside the golden tolerance of the default")
+    return share
+
+
+def phase_split_main(device):
+    """The config-5 mesh path at full width through the split route, forced
+    by the flags: the BVH2 ordered walks (``BVH_QUAD = False``) and the
+    multipass walk (``BVH_ATTRS = False, BVH_MULTIPASS = True``), each image
+    against the default route's (K5) at the same seed."""
+    import path_tracing__ray_tracer_tpu_torch as pt
+
+    scene, cam, _cs = mesh_scene(device)
+    settings = pt.RenderSettings(M_WIDTH, M_HEIGHT, SPLIT_SPP, M_DEPTH)
+    default, d_secs, d_mrays, _ = split_render(device, "default route", scene, cam, settings, {},
+                                               ("path_bounce_bvh", "scene_any"))
+    runs = {"default": (d_secs, d_mrays)}
+    for label, flags, kernels in (
+            (SPLIT_QUAD, dict(BVH_QUAD=False), ("closest_ordered", "any_ordered")),
+            (SPLIT_MP, dict(BVH_ATTRS=False, BVH_MULTIPASS=True), ("closest_rooted", "pages_any"))):
+        img, secs, mrays, launched = split_render(device, label, scene, cam, settings, flags,
+                                                  kernels)
+        runs[label] = (secs, mrays, golden_share(label, img, default), launched)
+    return runs
+
+
+def phase_split_fault(device):
+    """A config-5 tree reported 33 levels deep (past the BVH4 walks' stack):
+    routed to K4e, its queries and a path render answer without a raise,
+    the render within the golden tolerance of the default route's."""
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+
+    scene, cam, cs = mesh_scene(device)
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=bvh.MAX_DEPTH4 + 1))
+    o, d, _t, _k, _dp = camera_state(cs, cam, 4096, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    got, want = bvh.scene_closest(deep, o, d, 1e-3, 1e6), bvh.scene_closest(cs, o, d, 1e-3, 1e6)
+    occ = bvh.scene_any(deep, o, d, 1e-3, torch.full_like(o.x, 1e6))
+    print(f"[split] depth4 {deep.bvh.depth4}: route {bvh.tri_route(deep)}; scene_hit on 4,096 "
+          f"camera rays agrees with the default route on "
+          f"{float((got.prim == want.prim).float().mean()):.6f} of them; scene_hit_any answered "
+          f"({float(occ.float().mean()):.4f} of them hit something)")
+    if bvh.tri_route(deep) != "ordered" or float((got.prim == want.prim).float().mean()) < HIT_AGREE:
+        raise SystemExit("chip_smoke: a BVH4 deeper than the walks' stack is not routed to K4e")
+    settings = pt.RenderSettings(FAULT_WIDTH, FAULT_HEIGHT, FAULT_SPP, M_DEPTH)
+    ref, *_ = split_render(device, "default route", scene, cam, settings, {},
+                           ("path_bounce_bvh", "scene_any"))
+    img, *_rest, launched = split_render(
+        device, f"depth4 {deep.bvh.depth4}, BVH_ORDERED = False", scene, cam, settings,
+        dict(BVH_ORDERED=False), ("closest_skiplink", "any_skiplink"),
+        compiled=lambda c: c._replace(bvh=c.bvh._replace(depth4=bvh.MAX_DEPTH4 + 1)))
+    golden_share("the 33-deep tree's render", img, ref)
+    return launched
+
+
 # ---- the scheduler modes: K7, K8, K9 -----------------------------------------
 def atlas_route_budget(scene):
     """The largest ``texture_budget`` whose atlas fits the atlas route's
@@ -1755,6 +2106,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     k512_err = phase_512k_check(device)
     phase_mesh_oracle(device)
+    stimes, sbounds, serr = phase_split_check(device)
+    times.update(stimes)
+    bounds.update(sbounds)
+    split_runs = phase_split_main(device)
+    fault_launched = phase_split_fault(device)
     torch.cuda.synchronize()
 
     src = "path_tracing__ray_tracer_tpu_torch/csrc/"
@@ -1783,6 +2139,16 @@ def main() -> int:
          runs["atlas"][0]["atlas_gather"], merrs["atlas_gather"]),
         ("mip_gather", "texture_gather.cu", "texture_pallas.py:172",
          runs["defer"][0]["mip_gather"], merrs["mip_gather"]),
+        ("closest_skiplink", "bvh2_walk.cu", "bvh_pallas.py:418",
+         fault_launched["closest_skiplink"], serr["closest_skiplink"]),
+        ("closest_ordered", "bvh2_walk.cu", "bvh_pallas.py:479",
+         split_runs[SPLIT_QUAD][3]["closest_ordered"], serr["closest_ordered"]),
+        ("any_skiplink", "bvh2_walk.cu", "bvh_pallas.py:585", fault_launched["any_skiplink"],
+         serr["any_skiplink"]),
+        ("any_ordered", "bvh2_walk.cu", "bvh_pallas.py:639",
+         split_runs[SPLIT_QUAD][3]["any_ordered"], serr["any_ordered"]),
+        ("closest_rooted", "bvh_scene.cu", "bvh_pallas.py:1140",
+         split_runs[SPLIT_MP][3]["closest_rooted"], serr["closest_rooted"]),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
@@ -1797,7 +2163,9 @@ def main() -> int:
           f"({w_mrays:.2f} Mrays/s, RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s "
           f"({m_secs:.3f} s per {MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth "
           f"{M_DEPTH}); config-6 path {b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample "
-          f"group) on:")
+          f"group); config 5's split route at {SPLIT_SPP} spp: default {split_runs['default'][1]:.2f}, "
+          f"BVH2 ordered (K4e) {split_runs[SPLIT_QUAD][1]:.2f}, multipass (K11) "
+          f"{split_runs[SPLIT_MP][1]:.2f} Mrays/s; on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -43,7 +43,7 @@ def main():
             lo, hi = np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2)
             for native in (True, False):
                 arrs = bvh.build_bvh(lo, hi, use_native=native)
-                _nodes4, depth4 = bvh.pack_blobs4(arrs)
+                _nodes4, depth4, _node2 = bvh.pack_blobs4(arrs)
                 deepest = max(deepest, depth4)
                 print(f"{kind:5s} {n:5d} triangles, {'native' if native else 'numpy '} builder: "
                       f"BVH2 {arrs['lo'].shape[0]:5d} nodes, BVH4 depth {depth4}")

@@ -575,8 +575,8 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     """The port's ``CompiledScene`` on ``device`` from a JAX ``CompiledScene``
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
-    carried over unchanged; a flat BVH brings its node arrays, its BVH4
-    node records and its slot records, a paged tree its paged layout, and a
+    carried over unchanged; a flat BVH brings its node arrays, its BVH2 and
+    BVH4 node records and its slot records, a paged tree its paged layout, and a
     ``mip_budget`` scene its mip atlas."""
     device = torch.device(device)
     fields = {f: _from_numpy(getattr(tree, f), device)
@@ -591,8 +591,9 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     arrs = {k: np.asarray(getattr(b, k)) for k in ("lo", "hi", "skip", "is_leaf", "slots")}
     if b.quad_blob is not None:
         nodes4, depth4 = np.asarray(b.quad_blob), int(b.quad_depth_token.shape[0])
+        node2 = bvh_mod.pack_blobs4(arrs)[2]  # the JAX package keeps no such map
     else:
-        nodes4, depth4 = bvh_mod._root_leaf_node4(arrs), 1
+        nodes4, depth4, node2 = bvh_mod._root_leaf_node4(arrs), 1, np.zeros(1, np.int64)
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)  # a copy: JAX's arrays are read-only
@@ -610,5 +611,6 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
             page_hi=t(pg.page_hi), page_root=t(bvh_mod.page_roots(arrs, top_tree, n_pages)))
     flat = bvh_mod.FlatBVH(**{k: t(a) for k, a in arrs.items()}, nodes4=t(nodes4[0]),
                            slot_rec=t(np.asarray(b.slot_blob)[0]), depth4=depth4,
-                           uid_packed=b.uid_token is not None, paged=paged)
+                           uid_packed=b.uid_token is not None, tree2=t(np.asarray(b.tree_blob)[0]),
+                           depth2=int(b.depth_token.shape[0]), node2=t(node2), paged=paged)
     return cs._replace(bvh=flat._replace(ps_blob=pack_ps_blob(cs)))

@@ -1,6 +1,6 @@
 // Whole-scene intersection of a BVH scene, one ray per thread: the closest
 // hit with its attributes (K4a) and the occlusion test with a per-ray bound
-// (K4b).
+// (K4b); and the rooted triangle walk of the multipass route (K11).
 //
 // Replaces the JAX package's ops/pallas/bvh_pallas.py::
 // _bvh4_scene_closest_kernel (entered there through bvh_scene_closest_pallas)
@@ -23,6 +23,16 @@
 // barycentrics), the shading normal (triangles flipped toward the ray;
 // zeros on a miss).  K4b: one byte per ray, 1 when occluded in
 // (t_min, limit[i]); lanes with limit <= 0 (no answer needed) report 1.
+//
+// K11 replaces ops/pallas/bvh_pallas.py::_bvh4_closest_rooted_kernel
+// (entered through _bvh_closest_rooted, driven by _bvh_closest_multipass):
+// one pass of the triangle-only BVH4 walk from a subtree root with the
+// lane's carried (best t, triangle).  The TPU kernel takes one root per
+// block of 1,024 coherence-sorted rays and masks the lanes that want
+// another; here each lane walks from its own root (roots[i]), so no sort is
+// needed, and lanes with en[i] = 0 pass their carried pair through.  The
+// triangle id comes out decoded (local, the uid stripped by gid_mask);
+// decoding a carried id again leaves it unchanged.  Bound: latency, as K4a.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -91,6 +101,32 @@ bvh_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __rest
                 walk_any(nodes, n_nodes, slots, r, t_min, limit)) ? 1 : 0;
 }
 
+__global__ void __launch_bounds__(kBvhThreads)
+bvh4_rooted_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
+                   const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+                   const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+                   const float* __restrict__ dy_in, const float* __restrict__ dz_in,
+                   const int* __restrict__ roots, const uint8_t* __restrict__ en,
+                   const float* __restrict__ bt0, const int* __restrict__ bi0, int n,
+                   int gid_mask, float t_min, float* __restrict__ bt_out,
+                   int* __restrict__ bi_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Hit h;
+  h.t = bt0[i];
+  h.prim = bi0[i];
+  if (en[i]) {
+    Ray r;
+    r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
+    r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
+    h.u = h.v = h.nx = h.ny = h.nz = 0.0f;
+    walk_closest_t<false>(nodes, n_nodes, slots, r, t_min, 0, h, nullptr, roots[i]);
+    h.prim = decode_prim(h.prim, 0, gid_mask);
+  }
+  bt_out[i] = h.t;
+  bi_out[i] = h.prim;
+}
+
 inline size_t ps_bytes(int P, int S, int Q) {
   return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
 }
@@ -124,5 +160,18 @@ extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slots,
   ptrt::bvh_any_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
                          (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy, oz,
                                                  dx, dy, dz, limit, n, t_min, occluded);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_bvh4_closest_rooted(const float* nodes, int n_nodes, const float* slots,
+                                        const float* ox, const float* oy, const float* oz,
+                                        const float* dx, const float* dy, const float* dz,
+                                        const int* roots, const uint8_t* en, const float* bt0,
+                                        const int* bi0, int n, int gid_mask, float t_min,
+                                        float* bt, int* bi, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::bvh4_rooted_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, 0, (cudaStream_t)stream>>>(
+      nodes, n_nodes, slots, ox, oy, oz, dx, dy, dz, roots, en, bt0, bi0, n, gid_mask, t_min, bt,
+      bi);
   return (int)cudaGetLastError();
 }

@@ -127,19 +127,20 @@ __device__ __forceinline__ void push_children(const float* __restrict__ b, const
 }
 
 // Closest hit below h.t among the triangles; h carries the best so far in
-// (the plane/sphere/quad winner, or an earlier page's) and the winner out:
-// t, prim = gid + gid_offset (gid still packed), the raw barycentrics as u, v
-// and the stored (unflipped) normal.  kPaged: a top tree, whose page
-// children set bits of `pend` instead of being walked.
+// (the plane/sphere/quad winner, or an earlier page's or pass's) and the
+// winner out: t, prim = gid + gid_offset (gid still packed), the raw
+// barycentrics as u, v and the stored (unflipped) normal.  kPaged: a top
+// tree, whose page children set bits of `pend` instead of being walked.
+// `root`: the node the walk starts from (a subtree's, in a multipass pass).
 template <bool kPaged>
 __device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
                                                const float* __restrict__ slots, const Ray& r,
                                                float t_min, int gid_offset, Hit& h,
-                                               Pend* pend) {
+                                               Pend* pend, int root = 0) {
   const WalkRay w = walk_ray(r);
   int stack[kStackCap];
   int sp = 0;
-  stack[sp++] = 0;
+  stack[sp++] = root;
   for (int step = 0; sp > 0 && step < n_nodes + 2; ++step) {
     const float* b = nodes + (size_t)stack[--sp] * kNode4F;
     bool hit[4];

@@ -11,7 +11,10 @@ triangles, no unique-material table) runs ``path_bounce_plain``, whose
 intersections launch K4a and K4b.  A paged BVH (a big scene, such as
 ``--scene mesh_big``'s 128,000 triangles) also runs ``path_bounce_plain``,
 as the JAX package's ``bounce_bvh_ok`` sends it there: its closest hit and
-shadow rays launch the two-level walk (K6a + K6c, K6b + K6d).  On the CPU
+shadow rays launch the two-level walk (K6a + K6c, K6b + K6d).  So does a
+scene whose triangles take the split route (``ops/cuda/bvh.tri_route``: a
+BVH4 deeper than the walks' stack, or the route flags set): its queries
+launch K4c/K4d, K11 or the BVH2 walks K4e.  On the CPU
 each takes its plain torch version.  Between bounces plain torch ops
 resolve the base colour (atlas texel or material colour; the atlas gather
 K8 when ``ops/cuda/texture.fits_mxu_atlas`` holds), apply the two
@@ -33,6 +36,7 @@ from ..ops import rng
 from ..ops.camera import generate_rays
 from ..ops.cuda.bounce import T_MAX, T_MIN, path_bounce, path_bounce_plain
 from ..ops.cuda.bounce_bvh import path_bounce_bvh
+from ..ops.cuda.bvh import tri_route
 from ..ops.cuda.texture import fits_mxu_atlas, resolve_base_color_mxu, texel_index
 from ..ops.texture import _unpack_rgb, resolve_base_color, resolve_base_color_lod
 from ..ops.tonemap import aces
@@ -60,13 +64,15 @@ _PIPE_REGEN = False
 def bounce_fn(cs, blobs):
     """``bounce(o, d, thr, key, depth, shadow_light) -> BounceOut`` for
     ``cs`` and its packed tables ``blobs`` (``WavefrontRenderer.blobs``):
-    K1 for a scene without a BVH, K5 for one that K5 takes and that is not
-    paged, else the plain bounce (the JAX package's
+    K1 for a scene without a BVH, K5 for one that K5 takes on the ``fused``
+    triangle route (``ops/cuda/bvh.tri_route``, as the JAX package's
+    ``bounce_bvh_ok`` asks ``_scene_fused_ok``), else the plain bounce, whose
+    queries take the BVH route (the JAX package's
     ``_make_bounce_and_resolve``)."""
     if cs.bvh is None:
         return lambda o, d, thr, key, depth, shadow_light: path_bounce(
             cs, *blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
-    if blobs is not None and cs.bvh.paged is None:
+    if blobs is not None and tri_route(cs) == "fused":
         return lambda o, d, thr, key, depth, shadow_light: path_bounce_bvh(
             cs, blobs, o, d, thr, key, depth, T_MIN, T_MAX, shadow_light)
     return lambda o, d, thr, key, depth, shadow_light: path_bounce_plain(

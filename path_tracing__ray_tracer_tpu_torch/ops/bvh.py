@@ -8,11 +8,12 @@ Port of the JAX package's ``ops/bvh.py`` with the host-side packers of its
   and ``skip[i]`` jumps past its subtree.  Leaves hold ``LEAF_SIZE`` slots,
   ``-1`` padded.  The C++ builder of ``native/`` gives the same arrays and
   is taken first.
-* **Records** the CUDA walks read (``csrc/bvh_walk.cuh``): the BVH4 node
-  records of ``pack_blobs4`` (two BVH2 levels collapsed, near-first split
-  codes) and the leaf-ordered triangle slot records of ``pack_blobs`` (v0,
-  e1, e2, gid, stored normal), whose gid may carry the triangle's
-  unique-material id (``GID_UID_SHIFT``).
+* **Records** the CUDA walks read: the BVH2 node records of ``pack_blobs``
+  (lo, hi, skip link, slot base or split code; ``csrc/bvh2_walk.cu``), the
+  BVH4 node records of ``pack_blobs4`` (two BVH2 levels collapsed,
+  near-first split codes; ``csrc/bvh_walk.cuh``) and the leaf-ordered
+  triangle slot records of ``pack_blobs`` (v0, e1, e2, gid, stored normal),
+  whose gid may carry the triangle's unique-material id (``GID_UID_SHIFT``).
 * **Paged layout** (host, ``pack_paged``, a numpy copy of the JAX
   package's ``ops/pallas/bvh_paged_pallas.py``): a tree whose one-level
   records exceed ``ONE_LEVEL_LIMIT`` floats is cut into at most
@@ -77,6 +78,9 @@ class FlatBVH(NamedTuple):
     slot_rec: torch.Tensor  # (13·K,) f32 leaf-ordered triangle records (pack_blobs)
     depth4: int  # BVH4 depth, root = 1: bounds the walk's stack
     uid_packed: bool  # slot gids carry packed unique-material ids
+    tree2: torch.Tensor  # (8·M,) f32 BVH2 node records (pack_blobs): the JAX tree_blob
+    depth2: int  # BVH2 depth, root = 1: bounds the ordered BVH2 walk's stack
+    node2: torch.Tensor  # (M4,) int64: the BVH2 node each BVH4 node collapses
     # plane/sphere/quad blob (ops/cuda/bounce.pack_ps_blob) seeding the
     # scene walks; the compiler sets it
     ps_blob: Optional[torch.Tensor] = None
@@ -301,8 +305,10 @@ def pack_blobs(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
 
 
 def pack_blobs4(arrs: dict):
-    """``(nodes4 (1, 32·M4), depth4)``: the BVH2 collapsed into BVH4 nodes, or
-    ``(None, 0)`` when the root is a leaf.  Each node merges a BVH2 inner
+    """``(nodes4 (1, 32·M4), depth4, node2 (M4,))``: the BVH2 collapsed into
+    BVH4 nodes and, for each, the BVH2 node it collapses (its subtree is
+    ``[node2, skip[node2])`` in DFS order), or ``(None, 0, None)`` when the
+    root is a leaf.  Each node merges a BVH2 inner
     node with its children: child slots 0-1 come from the left subtree, 2-3
     from the right; a leaf child takes its pair's first slot beside an empty
     (never-hit) one.  Record: 4 child boxes (lo, hi), 4 metas (leaf: its
@@ -312,17 +318,18 @@ def pack_blobs4(arrs: dict):
     is_leaf, slots = arrs["is_leaf"], arrs["slots"]
     m, leaf_size = slots.shape
     if is_leaf[0]:
-        return None, 0
+        return None, 0, None
     leaf_ids = np.where(is_leaf)[0]
     slot_base = np.full(m, -1, np.int64)
     slot_base[leaf_ids] = np.arange(len(leaf_ids), dtype=np.int64) * leaf_size
     codes = _split_codes(lo, hi, skip, is_leaf)
-    records = []
+    records, node2 = [], []
     max_depth = [1]
 
     def build(i: int, d: int) -> int:
         me = len(records)
         records.append(None)
+        node2.append(i)
         max_depth[0] = max(max_depth[0], d)
         l, r = i + 1, int(skip[i + 1])
         child_slots = []
@@ -356,7 +363,8 @@ def pack_blobs4(arrs: dict):
         build(0, 1)
     finally:
         sys.setrecursionlimit(limit)
-    return np.stack(records).astype(np.float32).reshape(1, -1), max_depth[0]
+    return (np.stack(records).astype(np.float32).reshape(1, -1), max_depth[0],
+            np.asarray(node2, np.int64))
 
 
 def _root_leaf_node4(arrs: dict) -> np.ndarray:
@@ -521,7 +529,7 @@ def pack_paged(arrs: dict, v0, v1, v2, nrm=None, uid=None, budget_floats: int = 
                "skip": np.clip(skip[r_node:e] - r_node, 0, e - r_node).astype(skip.dtype),
                "is_leaf": is_leaf[r_node:e], "slots": slots[r_node:e]}
         _t, s_np, _d = pack_blobs(sub, v0, v1, v2, nrm=nrm, uid=uid)
-        q_np, d4 = pack_blobs4(sub)
+        q_np, d4, _ = pack_blobs4(sub)
         page_trees.append(q_np[0])
         page_slots.append(s_np[0])
         pdepth = max(pdepth, d4)
@@ -583,10 +591,10 @@ def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: n
     triangle's unique-material id into its slot gid.  A tree whose one-level
     records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout."""
     v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
-    _tree, slot_np, _depth = pack_blobs(arrs, v0, v1, v2, nrm=nrm, uid=uid)
-    nodes4, depth4 = pack_blobs4(arrs)
+    tree_np, slot_np, depth2 = pack_blobs(arrs, v0, v1, v2, nrm=nrm, uid=uid)
+    nodes4, depth4, node2 = pack_blobs4(arrs)
     if nodes4 is None:
-        nodes4, depth4 = _root_leaf_node4(arrs), 1
+        nodes4, depth4, node2 = _root_leaf_node4(arrs), 1, np.zeros(1, np.int64)
     paged = None
     if nodes4.size + slot_np.size > ONE_LEVEL_LIMIT:
         paged = pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, device=device)
@@ -594,7 +602,8 @@ def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: n
                    skip=_tensor(arrs["skip"], device), is_leaf=_tensor(arrs["is_leaf"], device),
                    slots=_tensor(arrs["slots"], device), nodes4=_tensor(nodes4[0], device),
                    slot_rec=_tensor(slot_np[0], device), depth4=int(depth4),
-                   uid_packed=uid is not None, paged=paged)
+                   uid_packed=uid is not None, tree2=_tensor(tree_np[0], device),
+                   depth2=int(depth2), node2=_tensor(node2, device), paged=paged)
 
 
 # ---- plain walks -------------------------------------------------------------------
@@ -822,3 +831,88 @@ def pages(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, plo, phi,
                                    best_i=best_i, tri_offset=tri_offset, lanes=lanes,
                                    start=root, end=end)
     return found if any_hit else (best_t, best_i)
+
+
+# ---- the multipass walk's plain parts ------------------------------------------------
+def subtree_nodes(nodes4: torch.Tensor):
+    """``(ids (16,) int32, valid (16,) bool)``: the BVH4 nodes of the root's
+    grandchildren in ``4·c0 + c1`` order (the JAX package's
+    ``_subtree_nodes``).  Invalid where the slot is empty or the child at
+    depth 1 or 2 is a leaf: the cleanup pass answers those lanes."""
+    meta = nodes4.view(-1, _NODE4_F)[:, 24:28]
+    j = torch.clamp((-meta[0]).to(torch.int32) - 1, min=0)
+    inner0 = (meta[0] < 0.0) & (j >= 1)
+    meta1 = meta[j.long()]  # (4, 4): row c0 holds the metas of child c0's record
+    node1 = (-meta1).to(torch.int32) - 1
+    return (torch.clamp(node1, min=0).reshape(16),
+            (inner0[:, None] & (meta1 < 0.0) & (node1 >= 1)).reshape(16))
+
+
+def _slab_keys(rec: torch.Tensor, ro: V3, rd: V3) -> torch.Tensor:
+    """``(N, 4)``: does each ray enter each child box of the BVH4 record
+    ``rec`` within ``(1e-3, 1e6)``?  (The JAX package's ``_slab_key``.)"""
+    box = rec[:24].view(1, 4, 6)
+    o = torch.stack(tuple(ro), -1)[:, None, :]
+    d = torch.stack(tuple(rd), -1)[:, None, :]
+    iv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12)
+    a, b = (box[..., 0:3] - o) * iv, (box[..., 3:6] - o) * iv
+    near, far = torch.minimum(a, b), torch.maximum(a, b)
+    enter = torch.clamp(near.amax(-1), min=1e-3)
+    exit_ = torch.clamp(far.amin(-1), max=1e6)
+    return enter <= exit_
+
+
+def _child_ranks(rec: torch.Tensor, rd: V3) -> torch.Tensor:
+    """``(N, 4)`` int32: each child's rank (0..3) in the ray's own
+    near-first visit order of the BVH4 record ``rec`` (the JAX package's
+    ``_child_ranks``, mirroring the walk's push order)."""
+    k = rec[28:31].to(torch.int32)
+    d = torch.stack(tuple(rd), -1)[:, (k % 4).long()]
+    p0n, c0n, c2n = ((d > 0.0) ^ (k // 4 > 0)).unbind(1)
+    zero = torch.zeros_like(k[0])
+    pair0 = torch.where(p0n, zero, 2)
+    pair1 = torch.where(p0n, 2, zero)
+    return torch.stack((pair0 + torch.where(c0n, zero, 1), pair0 + torch.where(c0n, 1, zero),
+                        pair1 + torch.where(c2n, zero, 1), pair1 + torch.where(c2n, 1, zero)), 1)
+
+
+def subtree_keys2(nodes4: torch.Tensor, ro: V3, rd: V3):
+    """Per-ray ``(s1, s2)`` int32: the first and second depth-2 subtrees
+    (``4·c0 + c1``; 16 = none) that the ray enters in its own near-first
+    order (the JAX package's ``_subtree_keys2``).  A prediction only: a
+    wrong one moves work into the cleanup pass and changes no result."""
+    recs = nodes4.view(-1, _NODE4_F)
+    hits0, ranks0 = _slab_keys(recs[0], ro, rd), _child_ranks(recs[0], rd)
+    meta0 = recs[0, 24:28]
+    j = torch.clamp((-meta0).to(torch.int32) - 1, min=0).long()
+    first = torch.arange(4, device=nodes4.device) == 0  # a leaf child is one unit at (c0, 0)
+    rank16 = []
+    for c0 in range(4):
+        inner = meta0[c0] < 0.0
+        hit = hits0[:, c0:c0 + 1] & torch.where(inner, _slab_keys(recs[j[c0]], ro, rd), first)
+        rank = ranks0[:, c0:c0 + 1] * 4 + torch.where(inner, _child_ranks(recs[j[c0]], rd), 0)
+        rank16.append(torch.where(hit, rank, 99))
+    rank16 = torch.cat(rank16, 1)
+    none = torch.full_like(rank16[:, 0], 16)
+
+    def argmin16(r):  # the first least rank below 99, else 16
+        best, arg = r.min(1)
+        return torch.where(best < 99, arg.to(torch.int32), none)
+
+    s1 = argmin16(rank16)
+    lane16 = torch.arange(16, device=nodes4.device)
+    return s1, argmin16(torch.where(lane16 == s1[:, None], 99, rank16))
+
+
+def rooted(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, roots, en, best_t, best_i,
+           counts: Optional[dict] = None):
+    """One plain multipass pass (K11's plain version): each lane with ``en``
+    walks the BVH2 subtree that its BVH4 root ``roots`` collapses,
+    ``[node2, skip[node2])``, from its carried ``(best_t, best_i)``, one
+    group of lanes per distinct root; other lanes pass through."""
+    for r in torch.unique(roots[en]).tolist():
+        i = int(bvh.node2[r])
+        best_t, best_i = _walk(bvh, tris, ro, rd, t_min, best_t, False, counts, best_i=best_i,
+                               lanes=torch.nonzero(en & (roots == r))[:, 0], start=i,
+                               end=bvh.n_nodes if i == 0 else int(bvh.skip[i]))
+    return best_t, best_i

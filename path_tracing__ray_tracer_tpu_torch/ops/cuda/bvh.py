@@ -1,31 +1,36 @@
-"""Whole-scene intersection of a BVH scene: the CUDA kernels
-``csrc/bvh_scene.cu`` and their plain torch versions.
+"""Whole-scene intersection of a BVH scene: the route among the BVH walks,
+the CUDA kernels ``csrc/bvh_scene.cu`` and their plain torch versions.
 
-The kernels replace the JAX package's
-``ops/pallas/bvh_pallas.py::_bvh4_scene_closest_kernel`` (K4a, entered there
-through ``bvh_scene_closest_pallas``) and ``::_bvh4_scene_any_kernel`` (K4b,
-``bvh_scene_any_pallas``).  ``ops/intersect.scene_hit`` and
-``scene_hit_any`` call these wrappers for every scene with a BVH; on a CUDA
-tensor they launch the kernel (or raise), on a CPU tensor they take the
-plain versions ``ops/intersect.scene_hit_bvh_plain`` and
-``scene_hit_any_bvh_plain``.
+``ops/intersect.scene_hit`` and ``scene_hit_any`` call :func:`scene_closest`
+and :func:`scene_any` for every scene with a BVH.  :func:`tri_route` picks
+the triangle walk as the JAX package's ``scene_hit`` and
+``bvh_pallas.bvh_closest_pallas`` do, reading this module's copies of its
+route flags at each call:
 
-* :func:`scene_closest` returns the ``SceneHit`` of the plain version: the
-  kernel emits t, prim, the shading normal and, for a triangle winner, its
-  raw barycentrics, from which this wrapper interpolates the triangle's UVs
-  where a textured triangle reads them (else 0), as the JAX package's
-  ``_fused_scene_hit`` does.  A per-ray bound takes the JAX package's
-  per-ray branch instead: the plane/sphere/quad broadcast, the triangle-only
-  walk K4c (``ops/cuda/bvh_paged.pages_closest`` over the whole tree) seeded
-  with the bound, and the strict-``<`` combine.
-* :func:`scene_any` returns a bool occlusion mask for a per-ray (or scalar)
-  bound; the kernel reports lanes whose bound is ≤ 0 as occluded (their
-  answer is not needed; the plain version says not occluded).
+* ``fused`` (K4a / K4b, and K5 for the path tracer's bounce): one launch
+  sweeps the planes, spheres and quads and walks the BVH4 seeded with their
+  winner.  ``bvh_scene.cu``'s kernels replace
+  ``ops/pallas/bvh_pallas.py::_bvh4_scene_closest_kernel`` (K4a, entered
+  there through ``bvh_scene_closest_pallas``) and ``::_bvh4_scene_any_kernel``
+  (K4b, ``bvh_scene_any_pallas``); their plain versions are
+  ``ops/intersect.scene_hit_bvh_plain`` and ``scene_hit_any_bvh_plain``.
+  The closest kernel emits t, prim, the shading normal and, for a triangle
+  winner, its raw barycentrics, from which the wrapper interpolates the
+  triangle's UVs where a textured triangle reads them (else 0), as the JAX
+  package's ``_fused_scene_hit`` does.
+* ``paged`` (K6, ``ops/cuda/bvh_paged.py``): the two-level walk of a paged
+  tree; plain versions ``scene_hit_paged_plain`` and
+  ``scene_hit_any_paged_plain``.
+* the *split* route, ``quad`` (K4c / K4d), ``multipass`` (K11, then K4d for
+  occlusion), ``ordered`` or ``skiplink`` (K4e, ``ops/cuda/bvh2.py``): the
+  plane/sphere/quad broadcast, the triangle walk, and the strict-``<``
+  combine of the JAX ``scene_hit`` (occlusion: the broadcast's verdict or
+  the walk's).  A per-ray closest-hit bound always takes it.
 
-A scene with a paged tree (``cs.bvh.paged``) takes the two-level walk K6 of
-``ops/cuda/bvh_paged.py`` for a scalar bound and for occlusion, as the JAX
-package does; its plain versions are ``scene_hit_paged_plain`` and
-``scene_hit_any_paged_plain``.
+On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
+tensor it takes its plain version, so the CPU runs the same route.  The
+occlusion kernels report lanes whose bound is ≤ 0 as occluded (their answer
+is not needed; the plain versions say not occluded).
 """
 from __future__ import annotations
 
@@ -33,12 +38,14 @@ import ctypes
 
 import torch
 
-from ..bvh import GID_TRI_MASK
+from ..bvh import GID_TRI_MASK, rooted, subtree_keys2, subtree_nodes
 from ..intersect import (
+    _CANDIDATES,
     ClosestRecord,
     SceneHit,
     _closest_broadcast,
     _hit_record,
+    _ps_any,
     scene_hit_any_bvh_plain,
     scene_hit_any_paged_plain,
     scene_hit_bvh_plain,
@@ -51,28 +58,82 @@ from .bounce import _check
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 MAX_DEPTH4 = 32  # csrc/bvh_walk.cuh kMaxDepth4: the deepest BVH4 the walks take
 
+# The JAX package's route flags (ops/pallas/bvh_pallas.py), with its
+# defaults; read at each call, so tests and scripts may set them.
+BVH_QUAD = True  # the BVH4 walks (else the BVH2 walks K4e)
+BVH_ORDERED = True  # the ordered BVH2 walk (else the skip-link walk)
+BVH_ATTRS = True  # the fused scene walks K4a/K4b (else the split route)
+BVH_MULTIPASS = False  # the multipass closest hit, K11
+_MP_MIN_DEPTH4 = 4  # shallower BVH4s take no multipass
+# Not a flag: the ordered BVH2 walk's stack, fixed in csrc/bvh2_walk.cu
+# (kStack2Cap); ops/cuda/bvh2.build checks that the two agree.
+STACK_CAP = 192
+
+
+def tri_route(cs, per_ray: bool = False) -> str:
+    """The triangle walk of ``cs``'s BVH: ``fused``, ``paged``, ``quad``,
+    ``multipass``, ``ordered`` or ``skiplink`` (see the module's docstring).
+    ``per_ray``: a closest-hit query with a per-ray bound, which neither the
+    fused nor the paged kernels take.
+
+    The JAX package's gates, with its TPU terms replaced:
+
+    * the BVH4 walks need ``BVH_QUAD`` and ``depth4 ≤ MAX_DEPTH4``: the
+      per-thread stack of ``csrc/bvh_walk.cuh`` in place of the JAX
+      ``3·depth4 + 2 ≤ 192`` (``_quad_ok``);
+    * ``fused`` also needs ``BVH_ATTRS`` (``_scene_fused_ok``; its SMEM
+      budgets have no counterpart here);
+    * ``multipass`` needs ``BVH_MULTIPASS`` and ``depth4 ≥ _MP_MIN_DEPTH4``
+      (``_mp_ok``, less its ``BVH_SORT`` and ``n ≥ 16·128`` terms: each lane
+      walks from its own root, so there is no coherence sort and no block
+      of 1,024 lanes to fill);
+    * ``ordered`` needs ``BVH_ORDERED`` and ``depth2 + 2 ≤ STACK_CAP``
+      (``_ordered_ok``), else ``skiplink``;
+    * a paged tree takes ``paged`` when its top and page depths both fit
+      the BVH4 stack (the JAX ``paged_ok``), else the BVH2 walks over the
+      whole tree, which the card holds whole."""
+    bvh = cs.bvh
+    if not per_ray and bvh.paged is not None:
+        if max(bvh.paged.top_depth, bvh.paged.page_depth) <= MAX_DEPTH4:
+            return "paged"
+        return _bvh2_route(bvh)
+    quad = BVH_QUAD and bvh.depth4 <= MAX_DEPTH4
+    if quad and BVH_ATTRS and not per_ray:
+        return "fused"
+    if quad and BVH_MULTIPASS and bvh.depth4 >= _MP_MIN_DEPTH4:
+        return "multipass"
+    return "quad" if quad else _bvh2_route(bvh)
+
+
+def _bvh2_route(bvh) -> str:
+    return "ordered" if BVH_ORDERED and bvh.depth2 + 2 <= STACK_CAP else "skiplink"
+
 
 def build():
     """Compile (once per source hash) and load ``csrc/bvh_scene.cu``."""
     from . import build as _build
 
     built = _build.load("bvh_scene")
+    lib = built.lib
     head = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
-    built.lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
-    built.lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P]
-    built.lib.ptrt_bvh_closest.restype = built.lib.ptrt_bvh_any.restype = ctypes.c_int
+    lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
+    lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P]
+    lib.ptrt_bvh4_closest_rooted.argtypes = [_P, _I, _P] + [_P] * 10 + [_I, _I, _F, _P, _P, _P]
+    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any, lib.ptrt_bvh4_closest_rooted):
+        fn.restype = ctypes.c_int
     return built
 
 
 def tree_args(who, cs, device):
     """The walk's records as launch arguments ``(nodes, n_nodes, slots, ps,
-    P, S, Q)``, after checking them against ``cs`` and the kernel's limits."""
+    P, S, Q)``, after checking them against ``cs`` and the kernel's limits
+    (``tri_route`` sends no deeper tree here)."""
     bvh = cs.bvh
     if bvh is None:
         raise ValueError(f"{who}: the scene has no BVH")
     if bvh.depth4 > MAX_DEPTH4:
         raise ValueError(f"{who}: the BVH4 is {bvh.depth4} deep; the kernel's stack takes "
-                         f"at most {MAX_DEPTH4}")
+                         f"at most {MAX_DEPTH4} (tri_route sends such a tree to K4e)")
     P, S, Q = cs.n_planes, cs.n_spheres, cs.n_quads
     n_nodes = bvh.nodes4.shape[0] // 32
     _check("nodes4", bvh.nodes4, torch.float32, 32 * n_nodes, device, who)
@@ -121,26 +182,35 @@ def _fused_hit(cs, ro: V3, rd: V3, t, prim, u, v, normal: V3) -> SceneHit:
                     normal=V3.where(hit, normal, V3(zero, one, zero)), u=u, v=v, prim=prim)
 
 
-def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
-    """Closest hit of every ray in ``(t_min, t_max)`` on a BVH scene: K4a, or
-    K6 on a paged tree, for a scalar ``t_max``; the per-ray branch (K4c) for
-    a tensor one.  Rays on the CPU take the plain versions."""
-    dev = ro.x.device
-    per_ray = isinstance(t_max, torch.Tensor)
-    paged = cs.bvh is not None and cs.bvh.paged is not None and not per_ray
-    if dev.type == "cpu":
-        if paged:
-            return scene_hit_paged_plain(cs, ro, rd, t_min, t_max)
-        return scene_hit_bvh_plain(cs, ro, rd, t_min, t_max)
-    if dev.type != "cuda":
-        raise ValueError(f"scene_closest: no kernel for device {dev}")
-    from . import bvh_paged
+def _on(who, dev) -> bool:
+    """Is ``dev`` the card (else the CPU)?  Raises for any other device."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{who}: no kernel for device {dev}")
+    return dev.type == "cuda"
 
-    if paged:
+
+def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
+    """Closest hit of every ray in ``(t_min, t_max)`` on a BVH scene, by
+    :func:`tri_route`: K4a, K6, or the split route (always for a tensor
+    ``t_max``).  Rays on the CPU take the plain versions."""
+    on_card = _on("scene_closest", ro.x.device)
+    route = tri_route(cs, per_ray=isinstance(t_max, torch.Tensor))
+    if route == "paged":
+        if not on_card:
+            return scene_hit_paged_plain(cs, ro, rd, t_min, t_max)
+        from . import bvh_paged
+
         return bvh_paged.scene_closest_paged(cs, ro, rd, t_min, t_max)
-    if per_ray:
-        return _per_ray_closest(cs, ro, rd, t_min, t_max)
+    if route == "fused":
+        return _fused_closest(cs, ro, rd, t_min, t_max) if on_card else scene_hit_bvh_plain(
+            cs, ro, rd, t_min, t_max)
+    return split_closest(cs, ro, rd, t_min, t_max, route)
+
+
+def _fused_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
+    """K4a: the plane/sphere/quad sweep seeds the BVH4 walk, one launch."""
     who = "scene_closest"
+    dev = ro.x.device
     tree = tree_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
@@ -155,50 +225,64 @@ def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     return _fused_hit(cs, ro, rd, t, prim, u, v, V3(nx, ny, nz))
 
 
-def _per_ray_closest(cs, ro: V3, rd: V3, t_min: float, t_max: torch.Tensor) -> SceneHit:
-    """The JAX ``scene_hit``'s per-ray-bound BVH branch on the card: the
-    plane/sphere/quad broadcast, the triangle walk K4c seeded with the
-    bound (raw barycentrics and stored normal out), the strict-``<``
-    combine."""
-    from . import bvh_paged
+def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneHit:
+    """The JAX ``scene_hit``'s split route: the plane/sphere/quad broadcast,
+    the triangle walk ``route`` below the bound (K4c with the winner's raw
+    barycentrics and stored normal; K11 or K4e with its local id, whose
+    attributes ``_hit_record`` recomputes), the strict-``<`` combine."""
+    from . import bvh2, bvh_paged
 
     n = ro.x.shape[0]
-    bound = t_max.to(torch.float32).expand(n).contiguous()
+    bound = torch.as_tensor(t_max, dtype=torch.float32, device=ro.x.device).expand(n).contiguous()
     ps_idx, ps_t, ps_hit = _closest_broadcast(cs, ro, rd, t_min, bound, include_tris=False)
-    zero = torch.zeros_like(bound)
-    seed = ClosestRecord(bound, torch.full((n,), -1, dtype=torch.int32, device=bound.device),
-                         zero, zero, V3(zero, zero, zero))
-    tri = bvh_paged.pages_closest(cs, ro, rd, t_min, seed)
-    tri_hit = tri.prim >= 0
-    tri_wins = tri_hit & (~ps_hit | (tri.t < ps_t))
-    return _hit_record(cs, ro, rd, torch.where(tri_wins, tri.prim, ps_idx),
-                       torch.where(tri_wins, tri.t, ps_t), ps_hit | tri_hit,
-                       tri_uv=tri_uv_read(cs), tri_attrs=(tri.u, tri.v, tri.normal))
+    attrs = None
+    if route == "quad":
+        zero = torch.zeros_like(bound)
+        seed = ClosestRecord(bound, torch.full((n,), -1, dtype=torch.int32, device=bound.device),
+                             zero, zero, V3(zero, zero, zero))
+        tri = bvh_paged.pages_closest(cs, ro, rd, t_min, seed)
+        tri_t, tri_idx, attrs = tri.t, tri.prim, (tri.u, tri.v, tri.normal)
+    else:
+        if route == "multipass":
+            tri_t, local = multipass_closest(cs, ro, rd, t_min, bound)
+        else:
+            walk = bvh2.closest_ordered if route == "ordered" else bvh2.closest_skiplink
+            tri_t, local = walk(cs, ro, rd, t_min, bound)
+        tri_idx = torch.where(local >= 0, local + (cs.n_planes + cs.n_spheres + cs.n_quads), -1)
+    tri_hit = tri_idx >= 0
+    tri_wins = tri_hit & (~ps_hit | (tri_t < ps_t))
+    return _hit_record(cs, ro, rd, torch.where(tri_wins, tri_idx, ps_idx),
+                       torch.where(tri_wins, tri_t, ps_t), ps_hit | tri_hit,
+                       tri_uv=tri_uv_read(cs), tri_attrs=attrs)
 
 
 def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
-    """Bool mask: is anything hit in ``(t_min, limit)`` on a BVH scene (K4b,
-    or K6 on a paged tree)?  ``limit`` is per ray, or a scalar that is
-    broadcast.
-
-    Rays on a CUDA device go to the kernels; rays on the CPU take
-    ``scene_hit_any_bvh_plain`` or ``scene_hit_any_paged_plain``."""
-    dev = ro.x.device
-    paged = cs.bvh is not None and cs.bvh.paged is not None
-    if dev.type == "cpu":
-        if paged:
-            return scene_hit_any_paged_plain(cs, ro, rd, t_min, limit)
-        return scene_hit_any_bvh_plain(cs, ro, rd, t_min, limit)
-    if dev.type != "cuda":
-        raise ValueError(f"scene_any: no kernel for device {dev}")
-    who = "scene_any"
+    """Bool mask: is anything hit in ``(t_min, limit)`` on a BVH scene?
+    ``limit`` is per ray, or a scalar that is broadcast.  By
+    :func:`tri_route`: K4b (``fused``), K6 (``paged``), or the
+    plane/sphere/quad broadcast and the triangle walk K4d (``quad``,
+    ``multipass``) or K4e.  Rays on the CPU take the plain versions."""
+    on_card = _on("scene_any", ro.x.device)
+    route = tri_route(cs)
     n = int(ro.x.shape[0])
     if not isinstance(limit, torch.Tensor):
-        limit = torch.full((n,), float(limit), dtype=torch.float32, device=dev)
-    if paged:
+        limit = torch.full((n,), float(limit), dtype=torch.float32, device=ro.x.device)
+    if route == "paged":
+        if not on_card:
+            return scene_hit_any_paged_plain(cs, ro, rd, t_min, limit)
         from . import bvh_paged
 
         return bvh_paged.scene_any_paged(cs, ro, rd, t_min, limit)
+    if route == "fused":
+        return _fused_any(cs, ro, rd, t_min, limit) if on_card else scene_hit_any_bvh_plain(
+            cs, ro, rd, t_min, limit)
+    return split_any(cs, ro, rd, t_min, limit, route)
+
+
+def _fused_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
+    """K4b: the plane/sphere/quad sweep, then the BVH4 occlusion walk."""
+    who = "scene_any"
+    dev = ro.x.device
     tree = tree_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
@@ -211,5 +295,67 @@ def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
     return occ
 
 
-scene_closest.launches = 0  # kernel launches; the plain version does not count
+def split_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, route: str) -> torch.Tensor:
+    """Occlusion on the split route: the plane/sphere/quad broadcast's
+    verdict, or the triangle walk's for the lanes it leaves unoccluded (the
+    JAX ``scene_hit_any``'s ``ps_any | walk``)."""
+    from . import bvh2, bvh_paged
+
+    found = _ps_any(cs, ro, rd, t_min, limit, _CANDIDATES[:3])
+    if route in ("quad", "multipass"):
+        return bvh_paged.pages_any(cs, ro, rd, t_min, limit, found)
+    walk = bvh2.any_ordered if route == "ordered" else bvh2.any_skiplink
+    return found | walk(cs, ro, rd, t_min, torch.where(found, -1.0, limit))
+
+
+# ---- K11: the multipass closest hit ----------------------------------------------
+def closest_rooted(cs, ro: V3, rd: V3, t_min: float, roots, en, bt0, bi0):
+    """One multipass pass (K11): each lane with ``en`` walks the BVH4
+    subtree from its own root ``roots`` (int32 BVH4 node ids) with its
+    carried ``(bt0, bi0)`` (local triangle ids); other lanes pass them
+    through.  Returns ``(bt, bi)``.  The plain version walks each root's
+    BVH2 range (``ops/bvh.rooted``)."""
+    who = "closest_rooted"
+    if not _on(who, ro.x.device):
+        return rooted(cs.bvh, cs.triangles, ro, rd, t_min, roots, en, bt0, bi0)
+    dev = ro.x.device
+    nodes, n_nodes, slots = tree_args(who, cs, dev)[:3]
+    n, rays = _rays(who, ro, rd)
+    for name, x, dtype in (("roots", roots, torch.int32), ("en", en, torch.bool),
+                           ("bt0", bt0, torch.float32), ("bi0", bi0, torch.int32)):
+        _check(name, x, dtype, n, dev, who)
+    bt = torch.empty((n,), dtype=torch.float32, device=dev)
+    bi = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = build().lib.ptrt_bvh4_closest_rooted(
+        nodes, n_nodes, slots, *(r.data_ptr() for r in rays), roots.data_ptr(), en.data_ptr(),
+        bt0.data_ptr(), bi0.data_ptr(), n, gid_mask(cs), float(t_min), bt.data_ptr(),
+        bi.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(who, err)
+    closest_rooted.launches += 1
+    return bt, bi
+
+
+def multipass_closest(cs, ro: V3, rd: V3, t_min: float, bound: torch.Tensor):
+    """``(t, local triangle id)``: the JAX package's ``_bvh_closest_multipass``
+    with a root per lane.  Pass 1 walks the depth-2 subtree each ray enters
+    first, pass 2 the one it enters second, each from the best so far; a
+    cleanup pass from the root makes the result exact whatever the
+    predictions (``ops/bvh.subtree_keys2``) chose.  The JAX package's
+    coherence sort and its ``_base_key`` are left out: they group the lanes
+    of a TPU block under one root, and here every lane has its own."""
+    n = ro.x.shape[0]
+    table, valid = subtree_nodes(cs.bvh.nodes4)
+    bt = bound
+    bi = torch.full((n,), -1, dtype=torch.int32, device=bound.device)
+    for s in subtree_keys2(cs.bvh.nodes4, ro, rd):
+        sc = torch.clamp(s, 0, 15).long()
+        en = valid[sc] & (s < 16)
+        roots = torch.where(en, table[sc], 0).to(torch.int32).contiguous()
+        bt, bi = closest_rooted(cs, ro, rd, t_min, roots, en.contiguous(), bt, bi)
+    zero = torch.zeros((n,), dtype=torch.int32, device=bound.device)
+    return closest_rooted(cs, ro, rd, t_min, zero, torch.ones_like(zero, dtype=torch.bool), bt, bi)
+
+
+scene_closest.launches = 0  # kernel launches; the plain versions do not count
 scene_any.launches = 0
+closest_rooted.launches = 0

@@ -1,0 +1,132 @@
+"""The BVH2 walks over the triangles: the CUDA kernels ``csrc/bvh2_walk.cu``
+(K4e) and their plain torch versions.
+
+The kernels replace the JAX package's ``ops/pallas/bvh_pallas.py``
+``_bvh_closest_kernel`` and ``_bvh_closest_ordered_kernel`` (entered there
+through ``_bvh_closest_unsorted``) and ``_bvh_any_kernel`` and
+``_bvh_any_ordered_kernel`` (``_bvh_any_unsorted``).  They walk the BVH2
+node records ``FlatBVH.tree2`` and the slot records, one ray per thread:
+the skip-link walk in preorder with no stack, or the ordered walk, near
+child first, with a stack of ``STACK_CAP`` nodes.  The split route of
+``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
+(``tri_route``: ``ordered`` or ``skiplink``).
+
+* :func:`closest_skiplink` / :func:`closest_ordered`: ``(t, tri)``, the
+  closest triangle below a scalar ``t_max`` or a per-ray seed bound, as a
+  local triangle id (the packed uid stripped), −1 and the bound on a miss.
+* :func:`any_skiplink` / :func:`any_ordered`: the bool occlusion mask for a
+  per-ray limit; the kernels report lanes whose limit is ≤ 0 as occluded
+  (their answer is not needed), the plain versions as not.
+
+Each wrapper launches its kernel on a CUDA tensor (or raises) and takes its
+plain version on a CPU tensor: the skip-link walks of ``ops/bvh.py``
+(``traverse_closest``, ``traverse_any``) for both variants, whose winners
+may differ only between triangles at exactly equal ``t``.  Each counts its
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..bvh import traverse_any, traverse_closest
+from ..v3 import V3
+from .bounce import _check
+from .bvh import STACK_CAP, _on, _raise_on, _rays, gid_mask
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def build():
+    """Compile (once per source hash) and load ``csrc/bvh2_walk.cu``."""
+    from . import build as _build
+
+    built = _build.load("bvh2")
+    lib = built.lib
+    lib.ptrt_bvh2_closest.argtypes = [_P, _I, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P,
+                                                                 _P]
+    lib.ptrt_bvh2_any.argtypes = [_P, _I, _P] + [_P] * 6 + [_P, _I, _I, _F, _P, _P]
+    lib.ptrt_bvh2_closest.restype = lib.ptrt_bvh2_any.restype = ctypes.c_int
+    lib.ptrt_bvh2_stack_cap.argtypes = []
+    lib.ptrt_bvh2_stack_cap.restype = ctypes.c_int
+    if lib.ptrt_bvh2_stack_cap() != STACK_CAP:
+        raise RuntimeError(f"bvh2: the kernels' stack holds {lib.ptrt_bvh2_stack_cap()} nodes, "
+                           f"ops/cuda/bvh.STACK_CAP says {STACK_CAP}")
+    return built
+
+
+def _tree_args(who, cs, device, ordered: bool):
+    bvh = cs.bvh
+    if bvh is None:
+        raise ValueError(f"{who}: the scene has no BVH")
+    cap = build().lib.ptrt_bvh2_stack_cap()
+    if ordered and bvh.depth2 + 2 > cap:
+        raise ValueError(f"{who}: the BVH2 is {bvh.depth2} deep; the ordered walk's stack "
+                         f"takes at most {cap - 2}")
+    m = bvh.tree2.shape[0] // 8
+    _check("tree2", bvh.tree2, torch.float32, 8 * m, device, who)
+    _check("slot_rec", bvh.slot_rec, torch.float32, bvh.slot_rec.shape[0], device, who)
+    return bvh.tree2.data_ptr(), m, bvh.slot_rec.data_ptr()
+
+
+def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
+    who = wrapper.__name__
+    dev = ro.x.device
+    if not _on(who, dev):
+        return traverse_closest(cs.bvh, cs.triangles, ro, rd, t_min, bound)
+    tree = _tree_args(who, cs, dev, ordered)
+    n, rays = _rays(who, ro, rd)
+    per_ray = isinstance(bound, torch.Tensor)
+    if per_ray:
+        _check("bound", bound, torch.float32, n, dev, who)
+    t = torch.empty((n,), dtype=torch.float32, device=dev)
+    tri = torch.empty((n,), dtype=torch.int32, device=dev)
+    err = build().lib.ptrt_bvh2_closest(
+        *tree, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs), float(t_min),
+        0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None, t.data_ptr(),
+        tri.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(who, err)
+    wrapper.launches += 1
+    return t, tri
+
+
+def _any(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor):
+    who = wrapper.__name__
+    dev = ro.x.device
+    if not _on(who, dev):
+        return traverse_any(cs.bvh, cs.triangles, ro, rd, t_min, limit)
+    tree = _tree_args(who, cs, dev, ordered)
+    n, rays = _rays(who, ro, rd)
+    _check("limit", limit, torch.float32, n, dev, who)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    err = build().lib.ptrt_bvh2_any(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
+                                    int(ordered), float(t_min), occ.data_ptr(),
+                                    torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(who, err)
+    wrapper.launches += 1
+    return occ
+
+
+def closest_skiplink(cs, ro: V3, rd: V3, t_min: float, bound):
+    """Closest triangle by the stackless skip-link walk (K4e)."""
+    return _closest(closest_skiplink, False, cs, ro, rd, t_min, bound)
+
+
+def closest_ordered(cs, ro: V3, rd: V3, t_min: float, bound):
+    """Closest triangle by the ordered stack walk, near child first (K4e)."""
+    return _closest(closest_ordered, True, cs, ro, rd, t_min, bound)
+
+
+def any_skiplink(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
+    """Occlusion by the skip-link walk, a lane stopping at its first hit (K4e)."""
+    return _any(any_skiplink, False, cs, ro, rd, t_min, limit)
+
+
+def any_ordered(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
+    """Occlusion by the ordered stack walk (K4e)."""
+    return _any(any_ordered, True, cs, ro, rd, t_min, limit)
+
+
+for _w in (closest_skiplink, closest_ordered, any_skiplink, any_ordered):
+    _w.launches = 0  # kernel launches; the plain versions do not count

@@ -44,7 +44,7 @@ from ..intersect import (
 )
 from ..v3 import V3
 from .bounce import _check
-from .bvh import MAX_DEPTH4, _fused_hit, _raise_on, _rays, gid_mask
+from .bvh import MAX_DEPTH4, _fused_hit, _on, _raise_on, _rays, gid_mask
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -139,12 +139,6 @@ def _masks(who, plo, phi, n, device):
     _check("plo", plo, torch.int32, n, device, who)
     _check("phi", phi, torch.int32, n, device, who)
     return plo.data_ptr(), phi.data_ptr()
-
-
-def _on(who, dev):
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{who}: no kernel for device {dev}")
-    return dev.type == "cuda"
 
 
 def _offset(cs) -> int:

@@ -4,7 +4,10 @@ closest-hit / any-hit sweeps (K3a, K3b) and, on a BVH mesh scene, the
 scene walks (K4a, K4b), the BVH path bounce (K5), the triangle-only walks
 over the whole tree (K4c, K4d) and, on the mesh with paging forced, the
 two-level walk (K6a-d); the fused scheduler step (K7), the atlas and mip
-gathers (K8, K9), and the path tracer's modes launching them.
+gathers (K8, K9), and the path tracer's modes launching them; the split
+BVH route's walks, the BVH2 walks (K4e) and the rooted multipass walk
+(K11), and the path tracer launching them on a forced route or a BVH4 too
+deep for the BVH4 walks.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -27,7 +30,7 @@ from path_tracing__ray_tracer_tpu_torch.ops import intersect as plain
 from path_tracing__ray_tracer_tpu_torch.models import experimental
 from path_tracing__ray_tracer_tpu_torch.models import path_tracer as tpath
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-    bounce, bounce_bvh, bvh, bvh_paged, intersect, step, texture, whitted)
+    bounce, bounce_bvh, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -345,6 +348,148 @@ def test_paged_path_tracer_launches_k6(paged_card):
     same = (out.hit == want.hit) & (out.prim == want.prim)
     assert float(same.float().mean()) >= 0.9999
     _assert_floats_close(out, want, same & out.hit & (out.killed == want.killed), FLOATS)
+
+
+def _bounds(n, seed, dev):
+    """A per-ray bound in [0, 60) and the same with every 7th lane at −1."""
+    bound = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(seed), device=dev) * 60
+    return bound, torch.where(torch.arange(n, device=dev) % 7 == 0, -1.0, bound)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [False, True])
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_bvh2_walks_match_plain(mesh_card, n, ordered):
+    """K4e, closest (scalar and per-ray bound) and occlusion, against the
+    plain skip-link walks: misses equal on every lane, the winner on
+    ≥ 99.99% and ``t`` within 1e-4 where the winners agree; occlusion equal
+    on every lane whose answer is needed (the others report occluded)."""
+    dev, cs, _ = mesh_card
+    o, d, _, _, _ = _inputs(n, n + 7, dev)
+    closest = bvh2.closest_ordered if ordered else bvh2.closest_skiplink
+    occluded = bvh2.any_ordered if ordered else bvh2.any_skiplink
+    bound, limit = _bounds(n, n, dev)
+    before = (closest.launches, occluded.launches)
+    got = [closest(cs, o, d, 1e-3, b) for b in (1e6, bound)]
+    occ = occluded(cs, o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert (closest.launches, occluded.launches) == (before[0] + 2, before[1] + 1)
+    for (t, tri), b in zip(got, (1e6, bound)):
+        want_t, want_tri = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b)
+        assert torch.equal(tri < 0, want_tri < 0) and 0.02 < float((tri >= 0).float().mean()) < 1
+        same = tri == want_tri
+        assert float(same.float().mean()) >= 0.9999
+        torch.testing.assert_close(t[same], want_t[same], rtol=TOL, atol=TOL)
+    care = limit > 0
+    want_occ = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, limit)
+    assert torch.equal(occ[care], want_occ[care]) and bool(occ[~care].all())
+    assert 0.05 < float(occ[care].float().mean()) < 0.95
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ordered", [False, True])
+def test_bvh2_walks_match_plain_on_a_190_deep_chain(ordered):
+    """K4e on a BVH2 190 levels deep, the most the ordered walk's stack
+    takes (``tests/torch_chain.py``: its rays along +x fill the stack),
+    against the plain walks: misses equal on every lane, the winner on
+    ≥ 99.99% and ``t`` within 1e-4 where the winners agree; occlusion equal
+    on every lane."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from torch_chain import chain_rays, chain_scene
+
+    dev = torch.device("cuda")
+    cs = chain_scene(bvh.STACK_CAP - 2, dev)
+    assert cs.bvh.depth2 == bvh.STACK_CAP - 2 and bvh.tri_route(cs) == "ordered"
+    n = 4096 + 37
+    o, d = (_v3_on(a, dev) for a in chain_rays(cs.bvh.depth2, n, 31))
+    closest = bvh2.closest_ordered if ordered else bvh2.closest_skiplink
+    occluded = bvh2.any_ordered if ordered else bvh2.any_skiplink
+    want_t, want_tri = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, 1e6)
+    u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(32), device=dev)
+    bound = want_t * (0.5 + u)  # about half of the hits lie beyond it
+    before = (closest.launches, occluded.launches)
+    for b in (1e6, bound):
+        t, tri = closest(cs, o, d, 1e-3, b)
+        wt, wi = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b)
+        same = tri == wi
+        assert torch.equal(tri < 0, wi < 0) and float(same.float().mean()) >= 0.9999
+        torch.testing.assert_close(t[same], wt[same], rtol=TOL, atol=TOL)
+    assert bool((want_tri[: n // 3] == cs.bvh.depth2 - 1).all())  # the deep stack's rays
+    occ = occluded(cs, o, d, 1e-3, bound)
+    torch.cuda.synchronize()
+    assert (closest.launches, occluded.launches) == (before[0] + 2, before[1] + 1)
+    assert torch.equal(occ, tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, bound))
+    assert 0.2 < float(occ.float().mean()) < 0.8
+
+
+def _v3_on(a, dev):
+    return V3(*(torch.from_numpy(a[:, i].copy()).to(dev) for i in range(3)))
+
+
+@pytest.mark.cuda
+def test_multipass_matches_plain(mesh_card):
+    """K11: each pass against its plain version (``ops/bvh.rooted``), and the
+    whole multipass walk (three launches) against the single-pass K4c."""
+    dev, cs, _ = mesh_card
+    n = 131072
+    o, d, _, _, _ = _inputs(n, 29, dev)
+    bound = torch.full((n,), 1e6, device=dev)
+    table, valid = tbvh.subtree_nodes(cs.bvh.nodes4)
+    s1, _ = tbvh.subtree_keys2(cs.bvh.nodes4, o, d)
+    en = valid[s1.clamp(0, 15).long()] & (s1 < 16)
+    roots = torch.where(en, table[s1.clamp(0, 15).long()], 0).to(torch.int32)
+    none = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    before = bvh.closest_rooted.launches
+    got = bvh.closest_rooted(cs, o, d, 1e-3, roots, en, bound, none)
+    want = tbvh.rooted(cs.bvh, cs.triangles, o, d, 1e-3, roots, en, bound, none)
+    assert bool(en.any()) and bool((got[1] >= 0).any())
+    for gt, gi, wt, wi in ((*got, *want),):
+        same = gi == wi
+        assert torch.equal(gi < 0, wi < 0) and float(same.float().mean()) >= 0.9999
+        torch.testing.assert_close(gt[same], wt[same], rtol=TOL, atol=TOL)
+    assert torch.equal(got[0][~en], bound[~en]) and bool((got[1][~en] == -1).all())
+    t, tri = bvh.multipass_closest(cs, o, d, 1e-3, bound)
+    torch.cuda.synchronize()
+    assert bvh.closest_rooted.launches == before + 4
+    zero = torch.zeros_like(bound)
+    one = bvh_paged.pages_closest(cs, o, d, 1e-3, plain.ClosestRecord(
+        bound, none, zero, zero, V3(zero, zero, zero)))
+    off = cs.n_planes + cs.n_spheres + cs.n_quads
+    same = torch.where(tri >= 0, tri + off, -1) == one.prim
+    assert float(same.float().mean()) >= 0.9999 and 0.02 < float((tri >= 0).float().mean()) < 1
+    torch.testing.assert_close(t[same], one.t[same], rtol=TOL, atol=TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["ordered", "skiplink", "multipass", "deep"])
+def test_split_route_path_tracer_launches(mesh_card, monkeypatch, route):
+    """The path tracer on a forced split route, or on a BVH4 deeper than the
+    walks' stack (routed to K4e, rendered without a raise), takes the plain
+    bounce, whose queries launch the route's kernels; K5 stays idle."""
+    flags = {"ordered": dict(BVH_QUAD=False), "skiplink": dict(BVH_QUAD=False, BVH_ORDERED=False),
+             "multipass": dict(BVH_ATTRS=False, BVH_MULTIPASS=True, _MP_MIN_DEPTH4=1),
+             "deep": {}}[route]
+    for k, v in flags.items():
+        monkeypatch.setattr(bvh, k, v)
+    if route == "deep":
+        to_device = tbvh.to_device
+        monkeypatch.setattr(tbvh, "to_device", lambda *a, **k: to_device(*a, **k)._replace(
+            depth4=bvh.MAX_DEPTH4 + 1))
+    kernels = {"ordered": (bvh2.closest_ordered, bvh2.any_ordered),
+               "skiplink": (bvh2.closest_skiplink, bvh2.any_skiplink),
+               "multipass": (bvh.closest_rooted, bvh_paged.pages_any),
+               "deep": (bvh2.closest_ordered, bvh2.any_ordered)}[route]
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    r = pt.RendererFactory.create("cuda_path_raytracer", seed=1, shadow_tmax="light")
+    scene = b.build_scene()
+    assert bvh.tri_route(r.compiled(scene)) == ("ordered" if route == "deep" else route)
+    before = [k.launches for k in kernels] + [bounce_bvh.path_bounce_bvh.launches]
+    sums = r.render_sums(scene, b.create_camera(1.0),
+                         pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    after = [k.launches for k in kernels] + [bounce_bvh.path_bounce_bvh.launches]
+    assert after[0] > before[0] and after[1] > before[1] and after[2] == before[2]
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
 
 
 def _leaves(out):
