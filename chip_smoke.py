@@ -44,7 +44,7 @@ It imports no JAX.
 10. the mesh main path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``MESH_SPP``-sample group after a warm-up on
    a small frame (K5's and K4b's launch counts), then a profile of a
-   2-sample frame: device operations per bounce, busy time, K5's and K4b's
+   one-sample frame: device operations per bounce, busy time, K5's and K4b's
    shares;
 11. the mesh Whitted frame: ``cuda_texture_raytracer`` at 480×270, 4 spp,
    depth 16 (K4a's and K4b's launch counts);
@@ -60,7 +60,7 @@ It imports no JAX.
    of K6a-d and K4c/K4d, and of K6, K4a/K4b and K5 + K4b on the same rays;
 13. config 6's path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``B_SPP``-sample group after a warm-up frame
-   (K6a-d's launch counts; K5 must stay idle), then a profile of a 2-sample
+   (K6a-d's launch counts; K5 must stay idle), then a profile of a one-sample
    frame: device operations per bounce, busy time, K6a-d's shares;
 14. the 512,000-triangle scene (``MeshSceneBuilder(5, 5)``): its set-up, its
    pages (more than 32, so both pending words are used), K6 closest and
@@ -103,7 +103,23 @@ It imports no JAX.
 21. the fault closed: config 5's tree reported 33 levels deep (past the
    BVH4 walks' stack) is routed to K4e; its queries answer, and its path at
    480×270, 4 spp, depth 12 with ``BVH_ORDERED = False`` (K4e skip-link)
-   renders within the golden tolerance of the default route's.
+   renders within the golden tolerance of the default route's;
+22. the K10 walks through the leaf coefficient table
+   (``ops/cuda/bvh_leafmat.py``) on config 5, before phase 20's renders: on
+   the three ray sets of phase 19, K10a (scene closest), K10b (scene
+   occlusion), K10c (triangle closest with a per-ray bound) and K10d
+   (triangle occlusion) against their plain versions (the winner on
+   ≥ 99.99% of lanes, floats within tolerance, the share bit-equal,
+   occlusion equal on every ray that needs an answer), and against their
+   K4 twins (reported only); their times, their twins' and their bounds on
+   the camera rays;
+23. within phase 20, three more renders of its frame: ``BVH_MXU_LEAF``
+   (K5 with K10b), ``BVH_MXU_LEAF`` with ``BVH_ATTRS = False`` (K10c +
+   K10d) and ``BVH_ATTRS = False`` alone (K4c + K4d), each within the golden
+   tolerance of the default route's, the kernels each replaces idle;
+24. config 5's mesh Whitted frame (as phase 11) on the default route and
+   with ``BVH_MXU_LEAF`` (K10a + K10b, K4a/K4b idle), within the golden
+   tolerance of each other.
 
 Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
 then, as its last line, ``{"ok": true, "device": {...}}``.
@@ -145,6 +161,10 @@ BOX_FLOPS = 25
 # spp cut from 512 to one of its 128-sample groups (about half a minute on an
 # H100; 256 would take about a minute)
 M_WIDTH, M_HEIGHT, M_DEPTH, MESH_SPP = 1920, 1080, 12, 128
+# the profiled mesh and config-6 frames: one sample (cut from two to keep the
+# script well inside its time limit; the profiler's cost grows with the
+# frame's device operations, and its ratios are per bounce)
+MESH_PROFILE_SPP = 1
 # the mesh Whitted frame (small: its bounces run the plain Whitted glue)
 MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH = 480, 270, 4, 16
 # config 6 (benchmarks.py:91-99, the CLI's --scene mesh_big): 25 icospheres of
@@ -173,6 +193,14 @@ MODE_WARM_SPP = 8
 SPLIT_SPP = 16
 SPLIT_QUAD, SPLIT_MP = "BVH_QUAD = False", "BVH_ATTRS = False, BVH_MULTIPASS = True"
 FAULT_WIDTH, FAULT_HEIGHT, FAULT_SPP = 480, 270, 4
+# the K10 walks (the leaf coefficient table, ops/cuda/bvh.BVH_MXU_LEAF): config
+# 5's path on the two routes they serve and the scalar twin of the second
+MXU_FUSED, MXU_QUAD = "BVH_MXU_LEAF = True", "BVH_MXU_LEAF = True, BVH_ATTRS = False"
+SCALAR_QUAD = "BVH_ATTRS = False"
+# float operations every slot visit of csrc/bvh_walk.cuh's MatLeaf makes (the
+# forms det, u·det and v·det, det², u·det·det, v·det·det and the inside test);
+# the t form and its tests run only on slots inside the triangle
+MAT_UV_FLOPS = 37
 PROP_BUDGET = 64  # texture budget (= mip budget) of the mip == atlas property
 
 
@@ -206,12 +234,14 @@ def phase_environment():
 
 def phase_build():
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, build, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
+        bounce, bounce_bvh, build, bvh, bvh2, bvh_leafmat, bvh_paged, intersect, step, texture,
+        whitted)
 
     t0 = time.perf_counter()
     libs = build.load_all()
     secs = time.perf_counter() - t0
-    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged, step, texture, bvh2):
+    for mod in (bounce, intersect, whitted, bvh, bounce_bvh, bvh_paged, step, texture, bvh2,
+                bvh_leafmat):
         mod.build()  # binds the argument types
     print(f"[build] {len(libs)} libraries, nvcc in parallel: {secs:.2f} s wall")
     for name, built in libs.items():
@@ -365,7 +395,7 @@ GOLDENS = (  # tests/test_golden.py's configs, seed 42
 def wrappers():
     """Every kernel wrapper by kernel name; each counts its own launches."""
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-        bounce, bounce_bvh, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
+        bounce, bounce_bvh, bvh, bvh2, bvh_leafmat, bvh_paged, intersect, step, texture, whitted)
 
     return {"path_bounce": bounce.path_bounce, "path_step": step.path_step,
             "atlas_gather": texture.atlas_gather, "mip_gather": texture.mip_gather,
@@ -377,7 +407,10 @@ def wrappers():
             "paged_top_any": bvh_paged.paged_top_any, "pages_closest": bvh_paged.pages_closest,
             "pages_any": bvh_paged.pages_any, "closest_skiplink": bvh2.closest_skiplink,
             "closest_ordered": bvh2.closest_ordered, "any_skiplink": bvh2.any_skiplink,
-            "any_ordered": bvh2.any_ordered, "closest_rooted": bvh.closest_rooted}
+            "any_ordered": bvh2.any_ordered, "closest_rooted": bvh.closest_rooted,
+            "scene_closest_mat": bvh_leafmat.scene_closest,
+            "scene_any_mat": bvh_leafmat.scene_any, "tri_closest_mat": bvh_leafmat.tri_closest,
+            "tri_any_mat": bvh_leafmat.tri_any}
 
 
 def reset_counts():
@@ -1115,12 +1148,13 @@ def profile_frame(tag, r, scene, cam, settings, counter, kernels, top=4):
 
 def phase_mesh_profile(r, scene, cam):
     """Device operations per mesh bounce, device busy time and the shares
-    of K5 and K4b, from the torch profiler over a 2-sample mesh frame."""
+    of K5 and K4b, from the torch profiler over a one-sample mesh frame."""
     import path_tracing__ray_tracer_tpu_torch as pt
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh
 
-    r.sample_group = 2
-    profile_frame("[mesh]", r, scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH),
+    r.sample_group = MESH_PROFILE_SPP
+    profile_frame("[mesh]", r, scene, cam,
+                  pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bounce_bvh.path_bounce_bvh.launches,
                   {"K5": "path_bounce_bvh", "K4b": "bvh_any"})
 
@@ -1344,7 +1378,7 @@ def phase_big_check(device):
 
 def phase_big_main(device, scene, cam):
     """Config 6's path at full width (spp cut to one B_SPP-sample group),
-    then the profile of a 2-sample frame."""
+    then the profile of a one-sample frame."""
     import numpy as np
     import torch
 
@@ -1380,8 +1414,9 @@ def phase_big_main(device, scene, cam):
         raise SystemExit(f"chip_smoke: implausible config-6 mean radiance {mean}")
     if not all(k6.values()) or launched["path_bounce_bvh"]:
         raise SystemExit("chip_smoke: config 6's path must launch K6a-d and not K5")
-    r.sample_group = 2
-    profile_frame("[big]", r, scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, 2, M_DEPTH),
+    r.sample_group = MESH_PROFILE_SPP
+    profile_frame("[big]", r, scene, cam,
+                  pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bvh_paged.paged_top_closest.launches,
                   {"K6a": "paged_top_closest", "K6c": "pages_closest", "K6b": "paged_top_any",
                    "K6d": "pages_any"}, top=3)
@@ -1738,8 +1773,11 @@ def golden_share(label, img, ref):
 def phase_split_main(device):
     """The config-5 mesh path at full width through the split route, forced
     by the flags: the BVH2 ordered walks (``BVH_QUAD = False``) and the
-    multipass walk (``BVH_ATTRS = False, BVH_MULTIPASS = True``), each image
-    against the default route's (K5) at the same seed."""
+    multipass walk (``BVH_ATTRS = False, BVH_MULTIPASS = True``); then
+    through the leaf coefficient table, K5 with K10b (``BVH_MXU_LEAF``) and
+    the ``quad`` route's K10c + K10d, and that route's scalar twin K4c + K4d
+    (``BVH_ATTRS = False``).  Each image against the default route's (K5)
+    at the same seed; the twins a route replaces stay idle."""
     import path_tracing__ray_tracer_tpu_torch as pt
 
     scene, cam, _cs = mesh_scene(device)
@@ -1747,11 +1785,19 @@ def phase_split_main(device):
     default, d_secs, d_mrays, _ = split_render(device, "default route", scene, cam, settings, {},
                                                ("path_bounce_bvh", "scene_any"))
     runs = {"default": (d_secs, d_mrays)}
-    for label, flags, kernels in (
+    for label, flags, kernels in (  # MXU fused beside the default, MXU quad beside its twin
+            (MXU_FUSED, dict(BVH_MXU_LEAF=True), ("path_bounce_bvh", "scene_any_mat")),
             (SPLIT_QUAD, dict(BVH_QUAD=False), ("closest_ordered", "any_ordered")),
-            (SPLIT_MP, dict(BVH_ATTRS=False, BVH_MULTIPASS=True), ("closest_rooted", "pages_any"))):
+            (SPLIT_MP, dict(BVH_ATTRS=False, BVH_MULTIPASS=True), ("closest_rooted", "pages_any")),
+            (MXU_QUAD, dict(BVH_MXU_LEAF=True, BVH_ATTRS=False),
+             ("tri_closest_mat", "tri_any_mat")),
+            (SCALAR_QUAD, dict(BVH_ATTRS=False), ("pages_closest", "pages_any"))):
         img, secs, mrays, launched = split_render(device, label, scene, cam, settings, flags,
                                                   kernels)
+        idle = {MXU_FUSED: ("scene_any",), MXU_QUAD: ("pages_closest", "pages_any"),
+                SCALAR_QUAD: ("tri_closest_mat", "tri_any_mat")}.get(label, ())
+        if any(launched[k] for k in idle):
+            raise SystemExit(f"chip_smoke: {label} launched {idle}")
         runs[label] = (secs, mrays, golden_share(label, img, default), launched)
     return runs
 
@@ -1784,6 +1830,224 @@ def phase_split_fault(device):
         dict(BVH_ORDERED=False), ("closest_skiplink", "any_skiplink"),
         compiled=lambda c: c._replace(bvh=c.bvh._replace(depth4=bvh.MAX_DEPTH4 + 1)))
     golden_share("the 33-deep tree's render", img, ref)
+    return launched
+
+
+# ---- K10: the BVH4 walks through the leaf coefficient table ---------------------
+def mat_share(label, got, want):
+    """A K10 closest record against its plain version: the winning primitive
+    on >= 99.99% of lanes, ``t`` within tolerance where it agrees, the
+    winner's normal and u, v where it is a hit (on a miss the kernel passes
+    the carried record's through, the plain version writes its defaults);
+    prints the share of lanes equal bit for bit; returns max |diff|."""
+    same = got.prim == want.prim
+    hit = same & (got.prim >= 0)
+    attrs = (got.u == want.u) & (got.v == want.v)
+    for a, b in zip(got.normal, want.normal):
+        attrs = attrs & (a == b)
+    bits = same & (got.t == want.t) & (attrs | (got.prim < 0))
+    share, hits = float(same.float().mean()), float((got.prim >= 0).float().mean())
+    print(f"[mxu]   {label}: prim agree {share:.6f} ({int((~same).sum())} differ), hit {hits:.4f}, "
+          f"bit-equal {float(bits.float().mean()):.6f}")
+    worst = max(compare_fields(label, got, want, same, ("t",)),
+                compare_fields(label, got, want, hit, ("normal", "u", "v")))
+    if share < HIT_AGREE:
+        raise SystemExit(f"chip_smoke: {label} disagrees with its plain version")
+    return worst
+
+
+def occ_share(label, occ, want, need):
+    """K10 occlusion against its plain version: equal on every ray in
+    ``need`` (those whose answer the two report alike)."""
+    differ = int((occ != want)[need].sum())
+    print(f"[mxu]   {label}: occlusion differs on {differ} of {int(need.sum())} rays compared, "
+          f"occluded {float(occ[need].float().mean()):.4f}")
+    if differ:
+        raise SystemExit(f"chip_smoke: {label} disagrees with its plain version")
+    return 0.0
+
+
+def twin_gap(label, got, twin):
+    """K10 against its scalar twin K4 (reported only: the forms round
+    differently from Möller–Trumbore): the share of equal winners and the
+    largest ``t`` gap where they agree."""
+    same = got.prim == twin.prim
+    gap = (got.t - twin.t).abs()[same & (got.prim >= 0)]
+    print(f"[mxu]   {label} against its K4 twin: winner equal {float(same.float().mean()):.6f}, "
+          f"max |t gap| {float(gap.max()) if gap.numel() else 0.0:.3e}")
+
+
+def mxu_check_rays(cs, label, o, d, key, depth, err):
+    """K10a-d against their plain versions on the rays ``(o, d)`` (closest:
+    t_max 1e6, and a per-ray bound for K10c) and their light-sample shadow
+    rays (occlusion); each against its K4 twin, reported.  Folds max |diff|
+    into ``err``; returns the shadow rays."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh_leafmat, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh_paged import (
+        pages_any_plain, pages_closest_plain)
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        ClosestRecord, scene_hit_any_bvh_plain, scene_hit_bvh_plain)
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    n, device = o.x.shape[0], o.x.device
+    print(f"[mxu] {label}:")
+    so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+    need = lim > 0
+    want_a = scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, mxu=True)
+    u = torch.rand(n, generator=torch.Generator(device=device).manual_seed(7), device=device)
+    zero = torch.zeros(n, device=device)
+    seed = ClosestRecord((want_a.t * (0.5 + u)).contiguous(),
+                         torch.full((n,), -1, dtype=torch.int32, device=device), zero, zero,
+                         V3(zero, zero, zero))
+    unfound = torch.zeros(n, dtype=torch.bool, device=device)
+
+    def fold(name, x):
+        err[name] = max(err.get(name, 0.0), x)
+
+    got_a = bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6)
+    fold("scene_closest_mat", mat_share("K10a scene closest, t_max 1e6", got_a, want_a))
+    twin_gap("K10a", got_a, bvh.scene_closest(cs, o, d, 1e-3, 1e6))
+    occ = bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim)
+    fold("scene_any_mat", occ_share(
+        "K10b scene occlusion, shadow rays that need an answer", occ,
+        scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True), need))
+    if not bool(occ[~need].all()):
+        raise SystemExit("chip_smoke: K10b does not report the lanes that need no answer")
+    twin = bvh.scene_any(cs, so, sd, 1e-3, lim)
+    print(f"[mxu]   K10b against K4b: equal on {float((occ == twin)[need].float().mean()):.6f} "
+          f"of the rays that need an answer")
+    got_c = bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed)
+    fold("tri_closest_mat", mat_share("K10c triangle closest, per-ray bound", got_c,
+                                      pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True)))
+    twin_gap("K10c", got_c, bvh_paged.pages_closest(cs, o, d, 1e-3, seed))
+    occ = bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound)
+    fold("tri_any_mat", occ_share("K10d triangle occlusion, every shadow ray", occ,
+                                  pages_any_plain(cs, so, sd, 1e-3, lim, unfound, mxu=True),
+                                  torch.ones_like(need)))
+    twin = bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound)
+    print(f"[mxu]   K10d against K4d: equal on {float((occ == twin).float().mean()):.6f} of rays")
+    return so, sd, lim, seed
+
+
+def phase_mxu_check(device):
+    """K10a-d against their plain versions on config 5, on the ray sets of
+    ``phase_split_check`` (camera rays over the 1920x1080 frame, their
+    secondary rays, rays from those origins aimed at the mesh), each with its
+    light-sample shadow rays; then the times of each K10 kernel, its plain
+    version and its K4 twin on the camera rays, and the bounds."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh_leafmat, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda.bvh_paged import (
+        pages_any_plain, pages_closest_plain)
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
+        scene_hit_any_bvh_plain, scene_hit_bvh_plain)
+
+    _scene, cam, cs = mesh_scene(device)
+    mat = cs.bvh.leaf_mat
+    print(f"[mxu] config-5 leaf table: {tuple(mat.shape)} f32, {mat.numel() * 4 / 1e6:.2f} MB "
+          f"({mat.shape[1] // 128} leaves) beside {cs.bvh.slot_rec.numel() * 4 / 1e6:.2f} MB of "
+          f"slot records")
+    camera = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
+    bo, bd, _bt, bkey, bdepth = advance_plain(cs, camera, 1)
+    err = {}
+    mxu_check_rays(cs, "their secondary rays (one plain bounce on)", bo, bd, bkey, bdepth, err)
+    mxu_check_rays(cs, "rays from those origins aimed at random points of the mesh",
+                   *aimed_rays(cs, bo, bkey), err)
+    o, d, _t, key, depth = camera
+    so, sd, lim, seed = mxu_check_rays(cs, "131,072 camera rays over the 1920x1080 frame", o, d,
+                                       key, depth, err)
+    n = N_RAYS
+    unfound = torch.zeros(n, dtype=torch.bool, device=device)
+    calls = {  # kernel, plain version, K4 twin
+        "scene_closest_mat": (lambda: bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6),
+                              lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, mxu=True),
+                              lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6)),
+        "scene_any_mat": (lambda: bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim),
+                          lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True),
+                          lambda: bvh.scene_any(cs, so, sd, 1e-3, lim)),
+        "tri_closest_mat": (lambda: bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed),
+                            lambda: pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True),
+                            lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed)),
+        "tri_any_mat": (lambda: bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound),
+                        lambda: pages_any_plain(cs, so, sd, 1e-3, lim, unfound, mxu=True),
+                        lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound)),
+    }
+    times, twins = {}, {}
+    for name, (kernel, plain, twin) in calls.items():
+        # kernel and twin in turns (kernel, twin, twin, kernel): the mean of each pair of medians
+        k1, t1, t2, k2 = cuda_ms(kernel), cuda_ms(twin), cuda_ms(twin), cuda_ms(kernel)
+        times[name] = ((k1 + k2) / 2, cuda_ms(plain, PLAIN_REPS, 1))
+        twins[name] = (t1 + t2) / 2
+        print(f"[time] {name} at N={n}: kernel {times[name][0]:.4f} ms ({k1:.4f}, {k2:.4f}), "
+              f"plain torch {times[name][1]:.4f} ms (median of 25 / {PLAIN_REPS}, CUDA events); "
+              f"its K4 twin {twins[name]:.4f} ms ({t1:.4f}, {t2:.4f}): "
+              f"{times[name][0] / twins[name]:.2f}x")
+
+    # bounds: the slot visits the plain walks with the table count, at the
+    # forms' uv test; bytes of the lane records only (no tree or table record)
+    cnt = {name: {} for name in calls}
+    scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, counts=cnt["scene_closest_mat"], mxu=True)
+    scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, counts=cnt["scene_any_mat"], mxu=True)
+    pages_closest_plain(cs, o, d, 1e-3, seed, counts=cnt["tri_closest_mat"], mxu=True)
+    pages_any_plain(cs, so, sd, 1e-3, lim, unfound, counts=cnt["tri_any_mat"], mxu=True)
+
+    def walk_ops(c):
+        return BOX_FLOPS * c.get("boxes", 0) + MAT_UV_FLOPS * c.get("tri_tests", 0)
+
+    care = lim > 0
+    ncare = int(care.sum())
+    bounds = {  # ray 24 B, limit 4, closest record 28, occlusion 1, found 1
+        "scene_closest_mat": bound_ms(sweep_flops(cs, o, d, 1e6, False, kinds=3)
+                                      + walk_ops(cnt["scene_closest_mat"]), n * (24 + 28)),
+        "scene_any_mat": bound_ms(sweep_flops(cs, so, sd, lim, True, care, kinds=3)
+                                  + walk_ops(cnt["scene_any_mat"]), n * (4 + 1) + ncare * 24),
+        "tri_closest_mat": bound_ms(walk_ops(cnt["tri_closest_mat"]), n * (24 + 28 + 28)),
+        "tri_any_mat": bound_ms(walk_ops(cnt["tri_any_mat"]), n * (1 + 1 + 4) + ncare * 24),
+    }
+    print("[bound] K10 walks (ms): " + "; ".join(f"{k} {v[0]:.5f} ({v[1]})"
+                                               for k, v in bounds.items())
+          + f"; tests counted by the plain walks: {cnt} ({ncare} shadow rays need an answer)")
+    return times, bounds, err, twins
+
+
+def phase_mxu_whitted(device):
+    """Config 5's mesh Whitted frame (480x270, 4 spp, depth 16, seed 0) on
+    the default route and with ``BVH_MXU_LEAF`` (K10a, K10b), the second
+    image within the golden tolerance of the first; K4a/K4b idle in it."""
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+
+    b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    scene, cam = b.build_scene(), b.create_camera(MW_WIDTH / MW_HEIGHT)
+    settings = pt.RenderSettings(MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH)
+    imgs = {}
+    for flag in (False, True):
+        bvh.BVH_MXU_LEAF = flag
+        try:
+            r = pt.RendererFactory.create("cuda_texture_raytracer", seed=0, device=device)
+            r.compiled(scene)
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.perf_counter()
+            imgs[flag] = np.asarray(r.render(scene, cam, settings))
+            secs = time.perf_counter() - t0
+            launched = counts()
+        finally:
+            bvh.BVH_MXU_LEAF = False
+        shown = {k: launched[k] for k in ("scene_closest", "scene_any", "scene_closest_mat",
+                                          "scene_any_mat")}
+        print(f"[mxu] mesh Whitted {MW_WIDTH}x{MW_HEIGHT} {MW_SPP} spp depth {MW_DEPTH}, "
+              f"BVH_MXU_LEAF = {flag}: {secs:.3f} s; launches {shown}")
+    if not (launched["scene_closest_mat"] and launched["scene_any_mat"]) or (
+            launched["scene_closest"] or launched["scene_any"]):
+        raise SystemExit("chip_smoke: the MXU mesh Whitted frame did not take K10a and K10b alone")
+    golden_share("the MXU mesh Whitted frame", imgs[True], imgs[False])
     return launched
 
 
@@ -2109,8 +2373,12 @@ def main() -> int:
     stimes, sbounds, serr = phase_split_check(device)
     times.update(stimes)
     bounds.update(sbounds)
+    xtimes, xbounds, xerr, _twins = phase_mxu_check(device)
+    times.update(xtimes)
+    bounds.update(xbounds)
     split_runs = phase_split_main(device)
     fault_launched = phase_split_fault(device)
+    xw_launched = phase_mxu_whitted(device)
     torch.cuda.synchronize()
 
     src = "path_tracing__ray_tracer_tpu_torch/csrc/"
@@ -2149,6 +2417,14 @@ def main() -> int:
          split_runs[SPLIT_QUAD][3]["any_ordered"], serr["any_ordered"]),
         ("closest_rooted", "bvh_scene.cu", "bvh_pallas.py:1140",
          split_runs[SPLIT_MP][3]["closest_rooted"], serr["closest_rooted"]),
+        ("scene_closest_mat", "bvh_leafmat.cu", "bvh_pallas.py:1106",
+         xw_launched["scene_closest_mat"], xerr["scene_closest_mat"]),
+        ("scene_any_mat", "bvh_leafmat.cu", "bvh_pallas.py:1324",
+         split_runs[MXU_FUSED][3]["scene_any_mat"], xerr["scene_any_mat"]),
+        ("tri_closest_mat", "bvh_leafmat.cu", "bvh_pallas.py:1083",
+         split_runs[MXU_QUAD][3]["tri_closest_mat"], xerr["tri_closest_mat"]),
+        ("tri_any_mat", "bvh_leafmat.cu", "bvh_pallas.py:1305",
+         split_runs[MXU_QUAD][3]["tri_any_mat"], xerr["tri_any_mat"]),
     )
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
@@ -2165,7 +2441,9 @@ def main() -> int:
           f"{M_DEPTH}); config-6 path {b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample "
           f"group); config 5's split route at {SPLIT_SPP} spp: default {split_runs['default'][1]:.2f}, "
           f"BVH2 ordered (K4e) {split_runs[SPLIT_QUAD][1]:.2f}, multipass (K11) "
-          f"{split_runs[SPLIT_MP][1]:.2f} Mrays/s; on:")
+          f"{split_runs[SPLIT_MP][1]:.2f}, leaf table K5 + K10b {split_runs[MXU_FUSED][1]:.2f}, "
+          f"quad K10c + K10d {split_runs[MXU_QUAD][1]:.2f}, quad K4c + K4d "
+          f"{split_runs[SCALAR_QUAD][1]:.2f} Mrays/s; on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

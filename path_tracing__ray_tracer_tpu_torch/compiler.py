@@ -576,8 +576,9 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
     carried over unchanged; a flat BVH brings its node arrays, its BVH2 and
-    BVH4 node records and its slot records, a paged tree its paged layout, and a
-    ``mip_budget`` scene its mip atlas."""
+    BVH4 node records and its slot records, a paged tree its paged layout, a
+    one-level tree its leaf coefficient table, and a ``mip_budget`` scene its
+    mip atlas."""
     device = torch.device(device)
     fields = {f: _from_numpy(getattr(tree, f), device)
               for f in CompiledScene._fields if f not in ("device", "bvh")}
@@ -612,5 +613,7 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     flat = bvh_mod.FlatBVH(**{k: t(a) for k, a in arrs.items()}, nodes4=t(nodes4[0]),
                            slot_rec=t(np.asarray(b.slot_blob)[0]), depth4=depth4,
                            uid_packed=b.uid_token is not None, tree2=t(np.asarray(b.tree_blob)[0]),
-                           depth2=int(b.depth_token.shape[0]), node2=t(node2), paged=paged)
+                           depth2=int(b.depth_token.shape[0]), node2=t(node2), paged=paged,
+                           leaf_mat=None if paged is not None or b.leaf_mat is None
+                           else t(b.leaf_mat))
     return cs._replace(bvh=flat._replace(ps_blob=pack_ps_blob(cs)))

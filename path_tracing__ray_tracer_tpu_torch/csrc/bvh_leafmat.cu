@@ -1,0 +1,229 @@
+// The BVH4 walks whose leaf visit reads the leaf coefficient table (K10),
+// one ray per thread: the whole-scene closest hit (K10a) and occlusion
+// (K10b), and the triangle-only closest hit from a carried record (K10c) and
+// occlusion from a carried verdict (K10d).
+//
+// Replaces the JAX package's ops/pallas/bvh_pallas.py::
+// _bvh4_scene_closest_mxu_kernel (K10a, entered through
+// bvh_scene_closest_pallas), _bvh4_scene_any_mxu_kernel (K10b,
+// bvh_scene_any_pallas), _bvh4_closest_attrs_mxu_kernel (K10c,
+// bvh_closest_attrs_pallas) and _bvh4_any_mxu_kernel (K10d, _bvh_any_unsorted):
+// K4a-K4d with each 16-triangle leaf tested as one (128, W) × (16, W) MXU
+// product of its table slice and the block's ray features, then sign tests.
+// Here there is no matrix unit to feed: each thread walks its own ray with
+// bvh_walk.cuh's walk and evaluates the same linear forms in FP32, slot by
+// slot (MatLeaf): 19 coefficients and about 40 operations a slot, against
+// Möller–Trumbore's 13 floats of slot record.  The features are computed
+// once per walk in registers.  No tensor core: lanes of one warp visit
+// different leaves.
+//
+// What bounds them: latency, as K4a-K4d (dependent node and table loads from
+// device memory through the read-only cache, one ray per thread).  Per ray
+// K10a reads 24 B and writes 28 B, K10b reads 28 B and writes 1 B, K10c reads
+// 52 B and writes 28 B, K10d reads 29 B and writes 1 B.  The table is 8 KB a
+// leaf (16 rows × 128 columns), ten times the leaf's slot records.
+//
+// Outputs as bvh_scene.cu's K4a/K4b and bvh_paged.cu's whole-tree K4c/K4d:
+// records finished by finish_hit (the uid bits of a packed gid stripped by
+// gid_mask, triangle normals flipped toward the ray, raw barycentrics as u,
+// v); K10b reports lanes with limit <= 0 as occluded, K10d carries found_in
+// and walks the other lanes with their limit.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "bvh_walk.cuh"
+#include "sweep.cuh"
+
+namespace ptrt {
+
+constexpr int kMatThreads = 128;
+
+__device__ __forceinline__ Ray mat_ray(const float* __restrict__ ox, const float* __restrict__ oy,
+                                       const float* __restrict__ oz, const float* __restrict__ dx,
+                                       const float* __restrict__ dy, const float* __restrict__ dz,
+                                       int i) {
+  Ray r;
+  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
+  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
+  return r;
+}
+
+__device__ __forceinline__ void stage_mat_ps(float* smem, const float* __restrict__ ps_g,
+                                             int size) {
+  for (int k = threadIdx.x; k < size; k += blockDim.x) smem[k] = ps_g[k];
+  __syncthreads();
+}
+
+// K10a: the plane/sphere/quad sweep seeds the walk.
+__global__ void __launch_bounds__(kMatThreads)
+mat_scene_closest_kernel(const float* __restrict__ nodes, int n_nodes,
+                         const float* __restrict__ mat, long long stride,
+                         const float* __restrict__ ps_g, int P, int S, int Q,
+                         const float* __restrict__ ox, const float* __restrict__ oy,
+                         const float* __restrict__ oz, const float* __restrict__ dx,
+                         const float* __restrict__ dy, const float* __restrict__ dz, int n,
+                         int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
+                         int* __restrict__ prim_out, float* __restrict__ u_out,
+                         float* __restrict__ v_out, float* __restrict__ nx_out,
+                         float* __restrict__ ny_out, float* __restrict__ nz_out) {
+  extern __shared__ float smem[];
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  stage_mat_ps(smem, ps_g, L.tb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
+  const int off = P + S + Q;
+  Hit h = closest_hit(smem, L, r, t_min, t_max);
+  walk_closest_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min, off, h,
+                           nullptr);
+  finish_hit(h, r, off, gid_mask);
+  t_out[i] = h.t;
+  prim_out[i] = h.prim;
+  u_out[i] = h.u;
+  v_out[i] = h.v;
+  nx_out[i] = h.nx;
+  ny_out[i] = h.ny;
+  nz_out[i] = h.nz;
+}
+
+// K10b: the sweep's verdict, else the walk's.
+__global__ void __launch_bounds__(kMatThreads)
+mat_scene_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
+                     long long stride, const float* __restrict__ ps_g, int P, int S, int Q,
+                     const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const float* __restrict__ limit_in, int n, float t_min,
+                     uint8_t* __restrict__ occ_out) {
+  extern __shared__ float smem[];
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  stage_mat_ps(smem, ps_g, L.tb);
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
+  const float limit = limit_in[i];
+  occ_out[i] = (limit <= 0.0f || any_hit(smem, L, r, t_min, limit) ||
+                walk_any_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min,
+                                     limit, nullptr)) ? 1 : 0;
+}
+
+// K10c: the carried record through the whole tree.
+__global__ void __launch_bounds__(kMatThreads)
+mat_tri_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
+                       long long stride, int gid_offset, int gid_mask,
+                       const float* __restrict__ ox, const float* __restrict__ oy,
+                       const float* __restrict__ oz, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ dz,
+                       const float* __restrict__ t_in, const int* __restrict__ prim_in,
+                       const float* __restrict__ u_in, const float* __restrict__ v_in,
+                       const float* __restrict__ nx_in, const float* __restrict__ ny_in,
+                       const float* __restrict__ nz_in, int n, float t_min,
+                       float* __restrict__ t_out, int* __restrict__ prim_out,
+                       float* __restrict__ u_out, float* __restrict__ v_out,
+                       float* __restrict__ nx_out, float* __restrict__ ny_out,
+                       float* __restrict__ nz_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
+  Hit h;
+  h.t = t_in[i]; h.prim = prim_in[i]; h.u = u_in[i]; h.v = v_in[i];
+  h.nx = nx_in[i]; h.ny = ny_in[i]; h.nz = nz_in[i];
+  walk_closest_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min, gid_offset,
+                           h, nullptr);
+  finish_hit(h, r, gid_offset, gid_mask);
+  t_out[i] = h.t;
+  prim_out[i] = h.prim;
+  u_out[i] = h.u;
+  v_out[i] = h.v;
+  nx_out[i] = h.nx;
+  ny_out[i] = h.ny;
+  nz_out[i] = h.nz;
+}
+
+// K10d: the carried verdict, else the walk's.
+__global__ void __launch_bounds__(kMatThreads)
+mat_tri_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
+                   long long stride, const float* __restrict__ ox, const float* __restrict__ oy,
+                   const float* __restrict__ oz, const float* __restrict__ dx,
+                   const float* __restrict__ dy, const float* __restrict__ dz,
+                   const float* __restrict__ limit_in, const uint8_t* __restrict__ found_in,
+                   int n, float t_min, uint8_t* __restrict__ found_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  bool found = found_in[i] != 0;
+  if (!found) {
+    const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
+    found = walk_any_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min,
+                                 limit_in[i], nullptr);
+  }
+  found_out[i] = found ? 1 : 0;
+}
+
+inline size_t mat_ps_bytes(int P, int S, int Q) {
+  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
+}
+
+inline int mat_blocks(int n) { return (n + kMatThreads - 1) / kMatThreads; }
+
+}  // namespace ptrt
+
+// All four launch on `stream`, allocate nothing and do not synchronise.  Each
+// returns the launch's cudaError_t (0 when the launch was accepted).  `mat`
+// is the (16, stride) table, stride = 128 · leaves.
+extern "C" int ptrt_mat_scene_closest(const float* nodes, int n_nodes, const float* mat,
+                                      long long stride, const float* ps, int P, int S, int Q,
+                                      const float* ox, const float* oy, const float* oz,
+                                      const float* dx, const float* dy, const float* dz, int n,
+                                      int gid_mask, float t_min, float t_max, float* t, int* prim,
+                                      float* u, float* v, float* nx, float* ny, float* nz,
+                                      void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::mat_scene_closest_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads,
+                                   ptrt::mat_ps_bytes(P, S, Q), (cudaStream_t)stream>>>(
+      nodes, n_nodes, mat, stride, ps, P, S, Q, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max,
+      t, prim, u, v, nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_mat_scene_any(const float* nodes, int n_nodes, const float* mat,
+                                  long long stride, const float* ps, int P, int S, int Q,
+                                  const float* ox, const float* oy, const float* oz,
+                                  const float* dx, const float* dy, const float* dz,
+                                  const float* limit, int n, float t_min, uint8_t* occluded,
+                                  void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::mat_scene_any_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads,
+                               ptrt::mat_ps_bytes(P, S, Q), (cudaStream_t)stream>>>(
+      nodes, n_nodes, mat, stride, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min,
+      occluded);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_mat_tri_closest(const float* nodes, int n_nodes, const float* mat,
+                                    long long stride, int gid_offset, int gid_mask,
+                                    const float* ox, const float* oy, const float* oz,
+                                    const float* dx, const float* dy, const float* dz,
+                                    const float* t_in, const int* prim_in, const float* u_in,
+                                    const float* v_in, const float* nx_in, const float* ny_in,
+                                    const float* nz_in, int n, float t_min, float* t, int* prim,
+                                    float* u, float* v, float* nx, float* ny, float* nz,
+                                    void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::mat_tri_closest_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads, 0,
+                                 (cudaStream_t)stream>>>(
+      nodes, n_nodes, mat, stride, gid_offset, gid_mask, ox, oy, oz, dx, dy, dz, t_in, prim_in,
+      u_in, v_in, nx_in, ny_in, nz_in, n, t_min, t, prim, u, v, nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_mat_tri_any(const float* nodes, int n_nodes, const float* mat,
+                                long long stride, const float* ox, const float* oy,
+                                const float* oz, const float* dx, const float* dy, const float* dz,
+                                const float* limit, const uint8_t* found_in, int n, float t_min,
+                                uint8_t* found, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  ptrt::mat_tri_any_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads, 0, (cudaStream_t)stream>>>(
+      nodes, n_nodes, mat, stride, ox, oy, oz, dx, dy, dz, limit, found_in, n, t_min, found);
+  return (int)cudaGetLastError();
+}

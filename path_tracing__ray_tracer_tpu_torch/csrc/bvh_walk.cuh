@@ -26,6 +26,19 @@
 // Slot record, 13 floats: v0, e1, e2, gid (-1 padding; uid << 17 | tri
 // when packed), the stored unit normal.
 //
+// The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
+// records by Möller–Trumbore (K4, K5, K6, K11).  MatLeaf (K10, the JAX
+// package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
+// same decision quantities as linear forms of the lane's ray features
+// f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
+// (ops/bvh.py pack_leaf_mat: 16 feature rows of stride G·128 floats; leaf g
+// at column 128g, quantity q at +16q, slot k at +k: det | u·det | v·det |
+// t·det | nx | ny | nz | gid, the last four on the constant row 9).  Each
+// form adds its feature rows' products in increasing row order, as the
+// plain version does (ops/bvh.py _forms), so the two agree bit for bit;
+// the decisions are division free (with s2 = det², u ≥ 0 ⇔ u·det·det ≥ 0),
+// and t = t·det / det, u and v one division each.
+//
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
 // bvh_paged_pallas.py) adds a fourth kind of child: a page, meta
 // -(1 + PAGE_META_BASE + page).  The walks instantiated with kPaged = true
@@ -126,17 +139,133 @@ __device__ __forceinline__ void push_children(const float* __restrict__ b, const
   }
 }
 
+// The 16 slot records of the leaf whose first slot is `base`, by
+// Möller–Trumbore: the first slot with the least t below h.t wins.
+struct SlotLeaf {
+  const float* __restrict__ slots;
+
+  __device__ __forceinline__ void closest(float base, const Ray& r, float t_min, int gid_offset,
+                                          Hit& h) const {
+    const float* s = slots + (size_t)base * kSlotF;
+    for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
+      float tt, bu, bv;
+      if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, h.t, tt,
+                          bu, bv) &&
+          s[9] >= 0.0f) {
+        h.t = tt;
+        h.prim = (int)s[9] + gid_offset;
+        h.u = bu;
+        h.v = bv;
+        h.nx = s[10];
+        h.ny = s[11];
+        h.nz = s[12];
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool any(float base, const Ray& r, float t_min, float limit) const {
+    const float* s = slots + (size_t)base * kSlotF;
+    for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
+      float tt, bu, bv;
+      if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, limit,
+                          tt, bu, bv) &&
+          s[9] >= 0.0f)
+        return true;
+    }
+    return false;
+  }
+};
+
+// The leaf's columns of the coefficient table, contracted with the lane's
+// features slot by slot (19 coefficients a slot, read as they are needed).
+struct MatLeaf {
+  const float* __restrict__ mat;
+  size_t stride;  // G · 128, the floats of one feature row
+  float f[10];
+
+  __device__ __forceinline__ MatLeaf(const float* __restrict__ m, size_t row_stride, const Ray& r)
+      : mat(m), stride(row_stride) {
+    f[0] = r.dx; f[1] = r.dy; f[2] = r.dz;
+    f[3] = r.oy * r.dz - r.oz * r.dy;  // m = o × d
+    f[4] = r.oz * r.dx - r.ox * r.dz;
+    f[5] = r.ox * r.dy - r.oy * r.dx;
+    f[6] = r.ox; f[7] = r.oy; f[8] = r.oz; f[9] = 1.0f;
+  }
+
+  // Σ col[row · stride] · f[row] over rows [r0, r1), in increasing row order
+  __device__ __forceinline__ float form(const float* col, int r0, int r1) const {
+    float acc = col[r0 * stride] * f[r0];
+    for (int r = r0 + 1; r < r1; ++r) acc = acc + col[r * stride] * f[r];
+    return acc;
+  }
+
+  // the slot's det, u·det, v·det; *inside: |det| > 1e-6 and (u, v) in the triangle
+  __device__ __forceinline__ void uv(const float* col, float& det, float& un, float& vn,
+                                     float& s2, bool& inside) const {
+    det = form(col, 0, 3);
+    un = form(col + 16, 0, 6);
+    vn = form(col + 32, 0, 6);
+    s2 = det * det;
+    const float ud = un * det, vd = vn * det;
+    inside = fabsf(det) > 1e-6f && ud >= 0.0f && ud <= s2 && vd >= 0.0f && ud + vd <= s2;
+  }
+
+  // The least t in (t_min, h.t) of the leaf's slots wins, ties to the lowest
+  // slot: _leaf_closest_mxu's per-visit minimum kept below the running best,
+  // which the sequential strict-`<` scan gives.
+  __device__ __forceinline__ void closest(float base, const Ray&, float t_min, int gid_offset,
+                                          Hit& h) const {
+    const float* col0 = mat + (size_t)base / kLeafSize * 128;
+    int won = -1;
+    for (int k = 0; k < kLeafSize; ++k) {
+      float det, un, vn, s2;
+      bool inside;
+      uv(col0 + k, det, un, vn, s2, inside);
+      if (!inside) continue;
+      const float t = form(col0 + k + 48, 6, 10) / det;
+      if (t > t_min && t < h.t) {
+        h.t = t;
+        h.u = un / det;
+        h.v = vn / det;
+        won = k;
+      }
+    }
+    if (won >= 0) {
+      const float* c9 = col0 + won + 9 * stride;
+      h.prim = (int)c9[112] + gid_offset;
+      h.nx = c9[64];
+      h.ny = c9[80];
+      h.nz = c9[96];
+    }
+  }
+
+  // Any slot hit with t_min·det² < t·det·det < limit·det².
+  __device__ __forceinline__ bool any(float base, const Ray&, float t_min, float limit) const {
+    const float* col0 = mat + (size_t)base / kLeafSize * 128;
+    for (int k = 0; k < kLeafSize; ++k) {
+      float det, un, vn, s2;
+      bool inside;
+      uv(col0 + k, det, un, vn, s2, inside);
+      if (!inside) continue;
+      const float td = form(col0 + k + 48, 6, 10) * det;
+      if (td > t_min * s2 && td < limit * s2) return true;
+    }
+    return false;
+  }
+};
+
 // Closest hit below h.t among the triangles; h carries the best so far in
 // (the plane/sphere/quad winner, or an earlier page's or pass's) and the
 // winner out: t, prim = gid + gid_offset (gid still packed), the raw
 // barycentrics as u, v and the stored (unflipped) normal.  kPaged: a top
 // tree, whose page children set bits of `pend` instead of being walked.
 // `root`: the node the walk starts from (a subtree's, in a multipass pass).
-template <bool kPaged>
-__device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
-                                               const float* __restrict__ slots, const Ray& r,
-                                               float t_min, int gid_offset, Hit& h,
-                                               Pend* pend, int root = 0) {
+// `leaf`: the leaf visit (SlotLeaf or MatLeaf).
+template <bool kPaged, class Leaf>
+__device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ nodes, int n_nodes,
+                                                  const Leaf& leaf, const Ray& r, float t_min,
+                                                  int gid_offset, Hit& h, Pend* pend,
+                                                  int root = 0) {
   const WalkRay w = walk_ray(r);
   int stack[kStackCap];
   int sp = 0;
@@ -152,27 +281,19 @@ __device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, 
       meta[c] = b[24 + c];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (!(hit[c] && meta[c] >= 0.0f)) continue;
-      const float* s = slots + (size_t)meta[c] * kSlotF;
-      for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
-        float tt, bu, bv;
-        if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, h.t,
-                            tt, bu, bv) &&
-            s[9] >= 0.0f) {
-          h.t = tt;
-          h.prim = (int)s[9] + gid_offset;
-          h.u = bu;
-          h.v = bv;
-          h.nx = s[10];
-          h.ny = s[11];
-          h.nz = s[12];
-        }
-      }
-    }
+    for (int c = 0; c < 4; ++c)
+      if (hit[c] && meta[c] >= 0.0f) leaf.closest(meta[c], r, t_min, gid_offset, h);
     if constexpr (kPaged) pend_pages(hit, meta, *pend);
     push_children<kPaged>(b, hit, meta, r, stack, sp);
   }
+}
+
+template <bool kPaged>
+__device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
+                                               const float* __restrict__ slots, const Ray& r,
+                                               float t_min, int gid_offset, Hit& h,
+                                               Pend* pend, int root = 0) {
+  walk_closest_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, pend, root);
 }
 
 __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
@@ -183,10 +304,10 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, in
 
 // Is any triangle hit in (t_min, limit)?  Stops at the first one; the page
 // bits set before it stay set.
-template <bool kPaged>
-__device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int n_nodes,
-                                           const float* __restrict__ slots, const Ray& r,
-                                           float t_min, float limit, Pend* pend) {
+template <bool kPaged, class Leaf>
+__device__ __forceinline__ bool walk_any_leaf(const float* __restrict__ nodes, int n_nodes,
+                                              const Leaf& leaf, const Ray& r, float t_min,
+                                              float limit, Pend* pend) {
   const WalkRay w = walk_ray(r);
   int stack[kStackCap];
   int sp = 0;
@@ -201,21 +322,19 @@ __device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int 
       meta[c] = b[24 + c];
     }
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (!(hit[c] && meta[c] >= 0.0f)) continue;
-      const float* s = slots + (size_t)meta[c] * kSlotF;
-      for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
-        float tt, bu, bv;
-        if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min,
-                            limit, tt, bu, bv) &&
-            s[9] >= 0.0f)
-          return true;
-      }
-    }
+    for (int c = 0; c < 4; ++c)
+      if (hit[c] && meta[c] >= 0.0f && leaf.any(meta[c], r, t_min, limit)) return true;
     if constexpr (kPaged) pend_pages(hit, meta, *pend);
     push_children<kPaged>(b, hit, meta, r, stack, sp);
   }
   return false;
+}
+
+template <bool kPaged>
+__device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int n_nodes,
+                                           const float* __restrict__ slots, const Ray& r,
+                                           float t_min, float limit, Pend* pend) {
+  return walk_any_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, limit, pend);
 }
 
 __device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_nodes,

@@ -24,9 +24,15 @@ Port of the JAX package's ``ops/bvh.py`` with the host-side packers of its
   budget), not a limit of the GPU: it is kept so that the same scenes take
   the same kernels in both packages.  The one-level records stay beside the
   pages.
+* **Leaf coefficient table** (host, ``pack_leaf_mat``, a numpy copy of the
+  JAX package's): per leaf, the Möller–Trumbore decision quantities of its
+  16 slots as linear forms of the ray features ``leaf_features`` (K10, the
+  JAX package's MXU leaf visit); built for one-level trees only.
 * **Plain walks** ``traverse_closest`` / ``traverse_any``: the JAX skip-link
   walks in torch ops, every lane with its own cursor, compacted to the
-  lanes still walking.  ``paged_top`` and ``pages`` are the same walk over a
+  lanes still walking.  Given the leaf table they test a leaf by its linear
+  forms (``_leaf_closest_mat`` / ``_leaf_any_mat``) instead of its slot
+  records.  ``paged_top`` and ``pages`` are the same walk over a
   paged tree: the top walk treats a page root as a leaf that sets the
   lane's pending bit, and each page is walked, in increasing index, from its
   root to the end of its subtree with the lane's carried best.  They serve
@@ -85,6 +91,8 @@ class FlatBVH(NamedTuple):
     # scene walks; the compiler sets it
     ps_blob: Optional[torch.Tensor] = None
     paged: Optional["PagedBlobs"] = None  # the two-level layout of a big tree
+    # (16, G·128) f32 leaf coefficient table (pack_leaf_mat) of a one-level tree
+    leaf_mat: Optional[torch.Tensor] = None
 
     @property
     def n_nodes(self) -> int:
@@ -367,6 +375,60 @@ def pack_blobs4(arrs: dict):
             np.asarray(node2, np.int64))
 
 
+def pack_leaf_mat(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray,
+                  nrm: np.ndarray = None, uid: np.ndarray = None) -> np.ndarray:
+    """The leaf coefficient table ``(16, G·128)`` f32 of the JAX package's
+    ``pack_leaf_mat``, float for float.  Möller–Trumbore's decision
+    quantities are linear in the ray features ``f = [d, m = o×d, o, 1]``:
+
+        det   = d·n'                 with n' = e2×e1
+        u·det = m·e2 − d·(e2×v0)
+        v·det = −m·e1 − d·(v0×e1)
+        t·det = n'·v0 − o·n'
+
+    Rows are feature rows (10 used); leaf ``g`` (``pack_blobs``' leaf
+    numbering, so ``g = slot base // 16``) owns columns ``g·128 ..``: 8
+    quantity blocks × 16 slots, ``det | u·det | v·det | t·det | nx | ny | nz
+    | gid``, the last four on the constant row 9.  Padding slots stay zero
+    (``det = 0`` never wins).  Computed in float64, as the JAX package does."""
+    is_leaf, slots = arrs["is_leaf"], arrs["slots"]
+    leaf_size = slots.shape[1]
+    assert leaf_size <= 16 and 128 % leaf_size == 0
+    leaf_ids = np.where(is_leaf)[0]
+    v0 = np.asarray(v0, np.float64)
+    e1 = np.asarray(v1, np.float64) - v0
+    e2 = np.asarray(v2, np.float64) - v0
+    if nrm is None:
+        n = np.cross(e1, e2)
+        n = n / np.maximum(np.linalg.norm(n, axis=1, keepdims=True), 1e-30)
+    else:
+        n = np.asarray(nrm, np.float64)
+    flat = slots[leaf_ids].reshape(-1)
+    valid = flat >= 0
+    tri = flat[valid]
+    rows = np.where(valid)[0]
+    g_of, k_of = rows // leaf_size, rows % leaf_size
+    mat = np.zeros((16, len(leaf_ids) * 128), np.float32)
+    npr = np.cross(e2[tri], e1[tri])
+
+    def put(q, feat_rows, vals):
+        cols = g_of * 128 + q * 16 + k_of
+        for r, v in zip(feat_rows, vals.T if vals.ndim == 2 else [vals]):
+            mat[r, cols] = v.astype(np.float32)
+
+    put(0, [0, 1, 2], npr)
+    put(1, [0, 1, 2], -np.cross(e2[tri], v0[tri]))
+    put(1, [3, 4, 5], e2[tri])
+    put(2, [0, 1, 2], -np.cross(v0[tri], e1[tri]))
+    put(2, [3, 4, 5], -e1[tri])
+    put(3, [6, 7, 8], -npr)
+    put(3, [9], np.einsum("ij,ij->i", npr, v0[tri]))
+    for q in range(3):
+        put(4 + q, [9], n[tri][:, q])
+    put(7, [9], _pack_gid(tri, uid))
+    return mat
+
+
 def _root_leaf_node4(arrs: dict) -> np.ndarray:
     """One BVH4 node whose only child is the root leaf (slot base 0), for a
     tree that ``pack_blobs4`` cannot collapse."""
@@ -589,27 +651,32 @@ def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: n
     ``device``.  ``nrm`` is the compiler's stored normal (``triangles.normal``),
     so the kernels' normals equal the plain gathers'; ``uid`` packs each
     triangle's unique-material id into its slot gid.  A tree whose one-level
-    records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout."""
+    records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout;
+    any other gets the leaf coefficient table (``pack_leaf_mat``, 8 KB a
+    leaf), which the paged walks never read."""
     v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
     tree_np, slot_np, depth2 = pack_blobs(arrs, v0, v1, v2, nrm=nrm, uid=uid)
     nodes4, depth4, node2 = pack_blobs4(arrs)
     if nodes4 is None:
         nodes4, depth4, node2 = _root_leaf_node4(arrs), 1, np.zeros(1, np.int64)
-    paged = None
+    paged = leaf_mat = None
     if nodes4.size + slot_np.size > ONE_LEVEL_LIMIT:
         paged = pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, device=device)
+    if paged is None:
+        leaf_mat = _tensor(pack_leaf_mat(arrs, v0, v1, v2, nrm=nrm, uid=uid), device)
     return FlatBVH(lo=_tensor(arrs["lo"], device), hi=_tensor(arrs["hi"], device),
                    skip=_tensor(arrs["skip"], device), is_leaf=_tensor(arrs["is_leaf"], device),
                    slots=_tensor(arrs["slots"], device), nodes4=_tensor(nodes4[0], device),
                    slot_rec=_tensor(slot_np[0], device), depth4=int(depth4),
                    uid_packed=uid is not None, tree2=_tensor(tree_np[0], device),
-                   depth2=int(depth2), node2=_tensor(node2, device), paged=paged)
+                   depth2=int(depth2), node2=_tensor(node2, device), paged=paged,
+                   leaf_mat=leaf_mat)
 
 
 # ---- plain walks -------------------------------------------------------------------
 def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool,
           counts: Optional[dict], best_i=None, tri_offset: int = 0, lanes=None, start: int = 0,
-          end: Optional[int] = None, page_of=None):
+          end: Optional[int] = None, page_of=None, leaf_mat=None):
     """The skip-link walk of every ray (``traverse_closest`` /
     ``traverse_any``).  Each step tests one node box per walking lane and,
     at a leaf whose box is hit, its ``LEAF_SIZE`` slots at once: the first
@@ -625,7 +692,9 @@ def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool
     the lane enters sets the lane's pending bit and is skipped.
 
     Returns ``(best_t, best_i)`` or the found mask, then, with ``page_of``,
-    the pending words ``(plo, phi)`` (int32)."""
+    the pending words ``(plo, phi)`` (int32).  With ``leaf_mat`` (the leaf
+    coefficient table) a leaf is tested by its linear forms
+    (``_leaf_closest_mat`` / ``_leaf_any_mat``), the K10 walks' leaf visit."""
     n = ro.x.shape[0]
     m = bvh.n_nodes
     stop = m if end is None else end
@@ -645,6 +714,11 @@ def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool
     iv = 1.0 / torch.where(torch.abs(d) > 1e-12, d, 1e-12)
     lim = best_t[ids]
     bt, bi, pd = best_t[ids], best_i[ids], pend[ids]
+    feat = None
+    if leaf_mat is not None:
+        feat = leaf_features(ro, rd).T[ids]  # (lanes, 10), compacted with the lanes
+        leaf_rank = torch.cumsum(bvh.is_leaf.long(), 0) - 1  # leaf g of each leaf node
+        blocks = leaf_mat.view(16, -1, 8, LEAF_SIZE)  # (row, g, quantity, slot)
     cursor = torch.full((ids.numel(),), start, dtype=torch.int64, device=dev)
     boxes = torch.zeros((), dtype=torch.int64, device=dev)
     tests = torch.zeros((), dtype=torch.int64, device=dev)
@@ -668,8 +742,18 @@ def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool
             valid = slot >= 0
             ti = torch.clamp(slot, min=0).long()
             tests = tests + valid.sum()
-            t, win = _leaf_test(v0[ti], e1[ti], e2[ti], o[rows, None, :], d[rows, None, :],
-                                t_min, (lim if any_hit else bt)[rows, None])
+            bound_k = (lim if any_hit else bt)[rows, None]
+            if leaf_mat is None:
+                t, win = _leaf_test(v0[ti], e1[ti], e2[ti], o[rows, None, :], d[rows, None, :],
+                                    t_min, bound_k)
+            else:
+                # the rows and quantities the forms read: (10, k, 4, 16)
+                coef = blocks[:10, leaf_rank[cursor[rows]], :4]
+                forms = _forms(lambda r, q: coef[r, :, q], feat[rows].T[..., None])
+                if any_hit:
+                    t, win = None, _leaf_any_mat(*forms, t_min, bound_k)
+                else:
+                    t, win = _leaf_closest_mat(*forms, t_min, bound_k)
             win = win & valid
             if any_hit:
                 done[rows] = win.any(1)
@@ -697,6 +781,8 @@ def _walk(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, bound, any_hit: bool
         sel = torch.nonzero(keep)[:, 0]
         ids, o, d, iv, lim, bt, bi, pd, cursor = (
             x[sel] for x in (ids, o, d, iv, lim, bt, bi, pd, cursor))
+        if feat is not None:
+            feat = feat[sel]
     # lanes cut by the step cap (a corrupted tree) keep their state so far
     best_t[ids], best_i[ids], pend[ids] = bt, bi, pd
     if counts is not None:
@@ -739,22 +825,101 @@ def _leaf_test(v0, e1, e2, o, d, t_min, bound):
 
 
 def traverse_closest(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
-                     tri_offset: int = 0, counts: Optional[dict] = None, best_i=None):
+                     tri_offset: int = 0, counts: Optional[dict] = None, best_i=None,
+                     leaf_mat=None):
     """Closest triangle hit by the skip-link walk: ``(best_t, best_idx)``
     with the global id ``tri_offset + triangle`` or −1.  Strict ``<``
     against the running best, so the winner equals a brute-force sweep's up
     to ties on exactly equal ``t`` (visit order is SAH order).  ``counts``
     (a dict) accumulates ``boxes`` and ``tri_tests``.  ``t_max`` and
-    ``best_i`` may carry a best so far in (−1: none)."""
+    ``best_i`` may carry a best so far in (−1: none).  ``leaf_mat``: test
+    the leaves by the coefficient table (K10's plain version)."""
     return _walk(bvh, tris, ro, rd, t_min, t_max, False, counts, best_i=best_i,
-                 tri_offset=tri_offset)
+                 tri_offset=tri_offset, leaf_mat=leaf_mat)
 
 
 def traverse_any(bvh: FlatBVH, tris, ro: V3, rd: V3, t_min: float, t_max,
-                 counts: Optional[dict] = None) -> torch.Tensor:
+                 counts: Optional[dict] = None, leaf_mat=None) -> torch.Tensor:
     """Is any triangle hit in ``(t_min, t_max)``?  A lane stops walking at
-    its first accepted hit."""
-    return _walk(bvh, tris, ro, rd, t_min, t_max, True, counts)
+    its first accepted hit.  ``leaf_mat`` as for :func:`traverse_closest`."""
+    return _walk(bvh, tris, ro, rd, t_min, t_max, True, counts, leaf_mat=leaf_mat)
+
+
+# ---- the leaf coefficient table's tests (K10's plain versions) -----------------------
+# the feature rows each linear form reads: det, u·det, v·det, t·det
+_FORM_ROWS = ((0, 1, 2), (0, 1, 2, 3, 4, 5), (0, 1, 2, 3, 4, 5), (6, 7, 8, 9))
+
+
+def leaf_features(ro: V3, rd: V3) -> torch.Tensor:
+    """``(10, N)`` f32 ray features in ``pack_leaf_mat``'s row order:
+    ``[d, m = o × d, o, 1]`` (the JAX ``_feat_matrix`` without its limit
+    and zero rows)."""
+    m = ro.cross(rd)
+    return torch.stack((rd.x, rd.y, rd.z, m.x, m.y, m.z, ro.x, ro.y, ro.z, torch.ones_like(ro.x)))
+
+
+def _forms(coef, f):
+    """``(det, u·det, v·det, t·det)``: each quantity ``q``'s sum of
+    ``coef(r, q) · f[r]`` over its feature rows, added in increasing row
+    order (the K10 kernels add in the same order, so the two agree bit for
+    bit).  The JAX product contracts all 16 rows; the others hold zeros."""
+    out = []
+    for q, rows in enumerate(_FORM_ROWS):
+        acc = coef(rows[0], q) * f[rows[0]]
+        for r in rows[1:]:
+            acc = acc + coef(r, q) * f[r]
+        out.append(acc)
+    return out
+
+
+def _mat_uv(det, un, vn):
+    """``(ok, inside)``: ``|det| > 1e-6`` and the division-free barycentric
+    test ``0 ≤ u·det² ≤ det²``, ``v·det² ≥ 0``, ``(u + v)·det² ≤ det²``
+    (the JAX ``_leaf_closest_mxu`` / ``_leaf_any_mxu``)."""
+    s2, ud, vd = det * det, un * det, vn * det
+    ok = torch.abs(det) > 1e-6
+    return ok, s2, ok & (ud >= 0.0) & (ud <= s2) & (vd >= 0.0) & (ud + vd <= s2)
+
+
+def _leaf_closest_mat(det, un, vn, tn, t_min, bound):
+    """``(t, hit in (t_min, bound))`` of the slots' forms: ``t = t·det /
+    det``, one rounding.  The least ``t`` with ties to the lowest slot, kept
+    only below the running best, is what ``_leaf_closest_mxu`` takes."""
+    ok, _s2, inside = _mat_uv(det, un, vn)
+    t = tn / torch.where(ok, det, 1.0)
+    return t, inside & (t > t_min) & (t < bound)
+
+
+def _leaf_any_mat(det, un, vn, tn, t_min, limit):
+    """Hit in ``(t_min, limit)`` by the forms, division free:
+    ``t_min·det² < t·det² < limit·det²`` (``_leaf_any_mxu``).  The limit is
+    not a feature row: an infinite one occludes on any hit beyond ``t_min``,
+    where the JAX product's ``0 · inf`` would make every form NaN."""
+    _ok, s2, inside = _mat_uv(det, un, vn)
+    td = tn * det
+    return inside & (td > t_min * s2) & (td < limit * s2)
+
+
+def _leaf_slot_of(bvh: FlatBVH) -> torch.Tensor:
+    """The leaf-ordered slot (``16·g + k``) of each triangle."""
+    flat = bvh.slots[bvh.is_leaf].reshape(-1)
+    real = flat >= 0
+    slot_of = torch.zeros(int(flat.max()) + 1, dtype=torch.int64, device=flat.device)
+    slot_of[flat[real].long()] = torch.nonzero(real)[:, 0]
+    return slot_of
+
+
+def leaf_attrs(bvh: FlatBVH, ro: V3, rd: V3, tri: torch.Tensor):
+    """``(u, v, stored normal V3)`` of each ray against its triangle ``tri``
+    (local ids; other lanes get values nobody reads) from the leaf table, as
+    the K10 closest walks emit them: ``u = u·det / det`` and ``v = v·det /
+    det``, one rounding each, the forms as the walk computed them."""
+    pos = _leaf_slot_of(bvh)[torch.clamp(tri, min=0).long()]
+    col = (pos // LEAF_SIZE) * 128 + pos % LEAF_SIZE
+    mat = bvh.leaf_mat
+    det, un, vn, _tn = _forms(lambda r, q: mat[r][col + 16 * q], leaf_features(ro, rd))
+    safe = torch.where(det != 0.0, det, 1.0)
+    return un / safe, vn / safe, V3(*(mat[9][col + 16 * q] for q in (4, 5, 6)))
 
 
 def _page_of(bvh: FlatBVH) -> torch.Tensor:

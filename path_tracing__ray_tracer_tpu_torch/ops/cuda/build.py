@@ -45,6 +45,7 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "path_bounce_bvh": (("path_bounce_bvh.cu",), ("sweep.cuh", "bvh_walk.cuh", "path_shade.cuh")),
     "bvh_paged": (("bvh_paged.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "bvh2": (("bvh2_walk.cu",), ("sweep.cuh", "bvh_walk.cuh")),
+    "bvh_leafmat": (("bvh_leafmat.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "path_step": (("path_step.cu",), ("sweep.cuh", "path_shade.cuh")),
     "texture_gather": (("texture_gather.cu",), ()),
 }

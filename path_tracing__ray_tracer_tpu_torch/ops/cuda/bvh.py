@@ -27,6 +27,12 @@ route flags at each call:
   combine of the JAX ``scene_hit`` (occlusion: the broadcast's verdict or
   the walk's).  A per-ray closest-hit bound always takes it.
 
+:func:`mxu_leaf_ok` (the JAX ``BVH_MXU_LEAF`` gate, off by default) swaps
+the leaf visit of the BVH4 walks for the leaf coefficient table's linear
+forms, not the walk: K10a / K10b on the ``fused`` route, K10c / K10d on
+``quad``, K10d for ``multipass`` occlusion (``ops/cuda/bvh_leafmat.py``).
+K5's closest hit and K11 have no such variant, as in the JAX package.
+
 On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it takes its plain version, so the CPU runs the same route.  The
 occlusion kernels report lanes whose bound is ≤ 0 as occluded (their answer
@@ -65,6 +71,7 @@ BVH_ORDERED = True  # the ordered BVH2 walk (else the skip-link walk)
 BVH_ATTRS = True  # the fused scene walks K4a/K4b (else the split route)
 BVH_MULTIPASS = False  # the multipass closest hit, K11
 _MP_MIN_DEPTH4 = 4  # shallower BVH4s take no multipass
+BVH_MXU_LEAF = False  # leaves tested by the leaf coefficient table (K10)
 # Not a flag: the ordered BVH2 walk's stack, fixed in csrc/bvh2_walk.cu
 # (kStack2Cap); ops/cuda/bvh2.build checks that the two agree.
 STACK_CAP = 192
@@ -103,6 +110,14 @@ def tri_route(cs, per_ray: bool = False) -> str:
     if quad and BVH_MULTIPASS and bvh.depth4 >= _MP_MIN_DEPTH4:
         return "multipass"
     return "quad" if quad else _bvh2_route(bvh)
+
+
+def mxu_leaf_ok(cs) -> bool:
+    """Do the BVH4 walks of ``cs`` test leaves by the leaf coefficient table
+    (K10)?  The JAX ``_mxu_leaf_ok`` less its ``LEAF_MAT_VMEM_BYTES`` term,
+    a TPU VMEM budget: the table lives in device memory here.  Only a
+    one-level tree carries a table (``ops/bvh.to_device``)."""
+    return BVH_MXU_LEAF and cs.bvh.leaf_mat is not None
 
 
 def _bvh2_route(bvh) -> str:
@@ -191,8 +206,9 @@ def _on(who, dev) -> bool:
 
 def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     """Closest hit of every ray in ``(t_min, t_max)`` on a BVH scene, by
-    :func:`tri_route`: K4a, K6, or the split route (always for a tensor
-    ``t_max``).  Rays on the CPU take the plain versions."""
+    :func:`tri_route`: K4a (K10a by the leaf table, :func:`mxu_leaf_ok`), K6,
+    or the split route (always for a tensor ``t_max``).  Rays on the CPU take
+    the plain versions."""
     on_card = _on("scene_closest", ro.x.device)
     route = tri_route(cs, per_ray=isinstance(t_max, torch.Tensor))
     if route == "paged":
@@ -202,6 +218,10 @@ def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
 
         return bvh_paged.scene_closest_paged(cs, ro, rd, t_min, t_max)
     if route == "fused":
+        if mxu_leaf_ok(cs):
+            from . import bvh_leafmat
+
+            return bvh_leafmat.scene_closest(cs, ro, rd, t_min, t_max)
         return _fused_closest(cs, ro, rd, t_min, t_max) if on_card else scene_hit_bvh_plain(
             cs, ro, rd, t_min, t_max)
     return split_closest(cs, ro, rd, t_min, t_max, route)
@@ -227,10 +247,11 @@ def _fused_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
 
 def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneHit:
     """The JAX ``scene_hit``'s split route: the plane/sphere/quad broadcast,
-    the triangle walk ``route`` below the bound (K4c with the winner's raw
-    barycentrics and stored normal; K11 or K4e with its local id, whose
-    attributes ``_hit_record`` recomputes), the strict-``<`` combine."""
-    from . import bvh2, bvh_paged
+    the triangle walk ``route`` below the bound (K4c, or K10c by the leaf
+    table, with the winner's raw barycentrics and stored normal; K11 or K4e
+    with its local id, whose attributes ``_hit_record`` recomputes), the
+    strict-``<`` combine."""
+    from . import bvh2, bvh_leafmat, bvh_paged
 
     n = ro.x.shape[0]
     bound = torch.as_tensor(t_max, dtype=torch.float32, device=ro.x.device).expand(n).contiguous()
@@ -240,7 +261,8 @@ def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneH
         zero = torch.zeros_like(bound)
         seed = ClosestRecord(bound, torch.full((n,), -1, dtype=torch.int32, device=bound.device),
                              zero, zero, V3(zero, zero, zero))
-        tri = bvh_paged.pages_closest(cs, ro, rd, t_min, seed)
+        walk = bvh_leafmat.tri_closest if mxu_leaf_ok(cs) else bvh_paged.pages_closest
+        tri = walk(cs, ro, rd, t_min, seed)
         tri_t, tri_idx, attrs = tri.t, tri.prim, (tri.u, tri.v, tri.normal)
     else:
         if route == "multipass":
@@ -259,9 +281,10 @@ def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneH
 def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
     """Bool mask: is anything hit in ``(t_min, limit)`` on a BVH scene?
     ``limit`` is per ray, or a scalar that is broadcast.  By
-    :func:`tri_route`: K4b (``fused``), K6 (``paged``), or the
-    plane/sphere/quad broadcast and the triangle walk K4d (``quad``,
-    ``multipass``) or K4e.  Rays on the CPU take the plain versions."""
+    :func:`tri_route`: K4b (``fused``; K10b by the leaf table), K6
+    (``paged``), or the plane/sphere/quad broadcast and the triangle walk K4d
+    (``quad``, ``multipass``; K10d by the leaf table) or K4e.  Rays on the
+    CPU take the plain versions."""
     on_card = _on("scene_any", ro.x.device)
     route = tri_route(cs)
     n = int(ro.x.shape[0])
@@ -274,6 +297,10 @@ def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
 
         return bvh_paged.scene_any_paged(cs, ro, rd, t_min, limit)
     if route == "fused":
+        if mxu_leaf_ok(cs):
+            from . import bvh_leafmat
+
+            return bvh_leafmat.scene_any(cs, ro, rd, t_min, limit)
         return _fused_any(cs, ro, rd, t_min, limit) if on_card else scene_hit_any_bvh_plain(
             cs, ro, rd, t_min, limit)
     return split_any(cs, ro, rd, t_min, limit, route)
@@ -298,12 +325,14 @@ def _fused_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.T
 def split_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, route: str) -> torch.Tensor:
     """Occlusion on the split route: the plane/sphere/quad broadcast's
     verdict, or the triangle walk's for the lanes it leaves unoccluded (the
-    JAX ``scene_hit_any``'s ``ps_any | walk``)."""
-    from . import bvh2, bvh_paged
+    JAX ``scene_hit_any``'s ``ps_any | walk``): K4d, or K10d by the leaf
+    table, on the ``quad`` and ``multipass`` routes."""
+    from . import bvh2, bvh_leafmat, bvh_paged
 
     found = _ps_any(cs, ro, rd, t_min, limit, _CANDIDATES[:3])
     if route in ("quad", "multipass"):
-        return bvh_paged.pages_any(cs, ro, rd, t_min, limit, found)
+        walk = bvh_leafmat.tri_any if mxu_leaf_ok(cs) else bvh_paged.pages_any
+        return walk(cs, ro, rd, t_min, limit, found)
     walk = bvh2.any_ordered if route == "ordered" else bvh2.any_skiplink
     return found | walk(cs, ro, rd, t_min, torch.where(found, -1.0, limit))
 

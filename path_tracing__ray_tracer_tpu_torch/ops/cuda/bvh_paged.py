@@ -33,7 +33,7 @@ import ctypes
 
 import torch
 
-from ..bvh import paged_top, pages, traverse_any, traverse_closest
+from ..bvh import leaf_attrs, paged_top, pages, traverse_any, traverse_closest
 from ..intersect import (
     _CANDIDATES,
     ClosestRecord,
@@ -163,24 +163,32 @@ def paged_top_any_plain(cs, ro: V3, rd: V3, t_min: float, limit, counts=None):
 
 
 def pages_closest_plain(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord, plo=None,
-                        phi=None, counts=None) -> ClosestRecord:
+                        phi=None, counts=None, mxu: bool = False) -> ClosestRecord:
     """K6c's plain version (``ops/bvh.pages``); without ``plo``/``phi``,
-    K4c's: the skip-link walk of the whole tree from ``best``."""
+    K4c's: the skip-link walk of the whole tree from ``best``, and with
+    ``mxu`` K10c's: the leaves tested by the leaf coefficient table, whose
+    forms give a triangle winner's barycentrics and normal."""
+    attrs = None
     if plo is None:
         t, prim = traverse_closest(cs.bvh, cs.triangles, ro, rd, t_min, best.t,
-                                   tri_offset=_offset(cs), counts=counts, best_i=best.prim)
+                                   tri_offset=_offset(cs), counts=counts, best_i=best.prim,
+                                   leaf_mat=cs.bvh.leaf_mat if mxu else None)
+        if mxu:
+            attrs = leaf_attrs(cs.bvh, ro, rd, prim - _offset(cs))
     else:
         t, prim = pages(cs.bvh, cs.triangles, ro, rd, t_min, best.t, plo, phi, best_i=best.prim,
                         tri_offset=_offset(cs), counts=counts)
-    return closest_record(cs, ro, rd, prim, t)
+    return closest_record(cs, ro, rd, prim, t, tri_attrs=attrs)
 
 
 def pages_any_plain(cs, ro: V3, rd: V3, t_min: float, limit, found, plo=None, phi=None,
-                    counts=None) -> torch.Tensor:
-    """K6d's plain version; without ``plo``/``phi``, K4d's."""
+                    counts=None, mxu: bool = False) -> torch.Tensor:
+    """K6d's plain version; without ``plo``/``phi``, K4d's (with ``mxu``,
+    K10d's: the leaves tested by the leaf coefficient table)."""
     if plo is None:
         return found | traverse_any(cs.bvh, cs.triangles, ro, rd, t_min,
-                                    torch.where(found, -1.0, limit), counts=counts)
+                                    torch.where(found, -1.0, limit), counts=counts,
+                                    leaf_mat=cs.bvh.leaf_mat if mxu else None)
     return pages(cs.bvh, cs.triangles, ro, rd, t_min, limit, plo, phi, any_hit=True, found=found,
                  counts=counts)
 

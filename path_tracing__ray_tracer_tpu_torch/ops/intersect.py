@@ -27,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from .bvh import paged_top, pages, traverse_any, traverse_closest
+from .bvh import leaf_attrs, paged_top, pages, traverse_any, traverse_closest
 from .v3 import V3
 
 EPS = 1e-6
@@ -189,20 +189,26 @@ def scene_hit(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
     return _hit_record(cs, ro, rd, best_idx, best_t, hit, tri_uv=True)
 
 
-def scene_hit_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) -> SceneHit:
+def scene_hit_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None,
+                        mxu: bool = False) -> SceneHit:
     """The JAX BVH branch of ``scene_hit``: the plane/sphere/quad broadcast,
     the skip-link walk over the triangles (``counts`` gathers its tests),
     the JAX combine; triangle UVs stay 0 when no textured triangle reads
-    them."""
+    them.  ``mxu``: the leaves are tested by the leaf coefficient table,
+    whose forms also give a triangle winner's barycentrics and normal (the
+    plain version of K10a, the JAX MXU-leaf scene walk)."""
     P, S, Q = cs.n_planes, cs.n_spheres, cs.n_quads
     ps_idx, ps_t, ps_hit = _closest_broadcast(cs, ro, rd, t_min, t_max, include_tris=False)
     tri_t, tri_idx = traverse_closest(cs.bvh, cs.triangles, ro, rd, t_min, t_max,
-                                      tri_offset=P + S + Q, counts=counts)
+                                      tri_offset=P + S + Q, counts=counts,
+                                      leaf_mat=cs.bvh.leaf_mat if mxu else None)
     tri_hit = tri_idx >= 0
     tri_wins = tri_hit & (~ps_hit | (tri_t < ps_t))
     best_idx = torch.where(tri_wins, tri_idx, ps_idx)
     best_t = torch.where(tri_wins, tri_t, ps_t)
-    return _hit_record(cs, ro, rd, best_idx, best_t, ps_hit | tri_hit, tri_uv=tri_uv_read(cs))
+    attrs = leaf_attrs(cs.bvh, ro, rd, best_idx - (P + S + Q)) if mxu else None
+    return _hit_record(cs, ro, rd, best_idx, best_t, ps_hit | tri_hit, tri_uv=tri_uv_read(cs),
+                       tri_attrs=attrs)
 
 
 def scene_hit_paged_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) -> SceneHit:
@@ -220,10 +226,11 @@ def scene_hit_paged_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None) 
     return _hit_record(cs, ro, rd, best_i, best_t, best_i >= 0, tri_uv=tri_uv_read(cs))
 
 
-def closest_record(cs, ro: V3, rd: V3, best_idx, best_t) -> ClosestRecord:
+def closest_record(cs, ro: V3, rd: V3, best_idx, best_t, tri_attrs=None) -> ClosestRecord:
     """The :class:`ClosestRecord` of the winners ``best_idx`` at ``best_t``,
-    recomputed from the primitive tables."""
-    h = _hit_record(cs, ro, rd, best_idx, best_t, best_idx >= 0, tri_uv=None)
+    recomputed from the primitive tables (a triangle's barycentrics and
+    stored normal from ``tri_attrs`` when given)."""
+    h = _hit_record(cs, ro, rd, best_idx, best_t, best_idx >= 0, tri_uv=None, tri_attrs=tri_attrs)
     return ClosestRecord(h.t, h.prim, h.u, h.v, h.normal)
 
 
@@ -330,11 +337,14 @@ def _ps_any(cs, ro: V3, rd: V3, t_min, t_max, candidates) -> torch.Tensor:
     return occluded
 
 
-def scene_hit_any_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None):
+def scene_hit_any_bvh_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None,
+                            mxu: bool = False):
     """The JAX BVH branch of ``scene_hit_any``: the plane/sphere/quad
-    broadcast, then the skip-link occlusion walk over the triangles."""
+    broadcast, then the skip-link occlusion walk over the triangles (by the
+    leaf coefficient table with ``mxu``: K10b's plain version)."""
     return _ps_any(cs, ro, rd, t_min, t_max, _CANDIDATES[:3]) | traverse_any(
-        cs.bvh, cs.triangles, ro, rd, t_min, t_max, counts=counts)
+        cs.bvh, cs.triangles, ro, rd, t_min, t_max, counts=counts,
+        leaf_mat=cs.bvh.leaf_mat if mxu else None)
 
 
 def scene_hit_any_paged_plain(cs, ro: V3, rd: V3, t_min: float, t_max, counts=None):

@@ -7,7 +7,8 @@ two-level walk (K6a-d); the fused scheduler step (K7), the atlas and mip
 gathers (K8, K9), and the path tracer's modes launching them; the split
 BVH route's walks, the BVH2 walks (K4e) and the rooted multipass walk
 (K11), and the path tracer launching them on a forced route or a BVH4 too
-deep for the BVH4 walks.
+deep for the BVH4 walks; the walks through the leaf coefficient table
+(K10a-d) and the path tracer launching them on its two routes.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -30,7 +31,7 @@ from path_tracing__ray_tracer_tpu_torch.ops import intersect as plain
 from path_tracing__ray_tracer_tpu_torch.models import experimental
 from path_tracing__ray_tracer_tpu_torch.models import path_tracer as tpath
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import (
-    bounce, bounce_bvh, bvh, bvh2, bvh_paged, intersect, step, texture, whitted)
+    bounce, bounce_bvh, bvh, bvh2, bvh_leafmat, bvh_paged, intersect, step, texture, whitted)
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
 TOL = 1e-4
@@ -489,6 +490,71 @@ def test_split_route_path_tracer_launches(mesh_card, monkeypatch, route):
                          pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
     after = [k.launches for k in kernels] + [bounce_bvh.path_bounce_bvh.launches]
     assert after[0] > before[0] and after[1] > before[1] and after[2] == before[2]
+    assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_leafmat_walks_match_plain(mesh_card, n):
+    """K10a-d against their plain versions (the walks of ``ops/bvh.py`` with
+    the leaf table): K10a and K10c's records, K10b and K10d's verdicts on
+    every ray that needs an answer (K10b reports the others occluded)."""
+    dev, cs, _ = mesh_card
+    assert cs.bvh.leaf_mat is not None
+    o, d, _, _, _ = _inputs(n, n + 5, dev)
+    g = torch.Generator(device=dev).manual_seed(n + 5)
+    limit = torch.where(torch.arange(n, device=dev) % 7 == 0, -1.0,
+                        torch.rand(n, generator=g, device=dev) * 60)
+    zero = torch.zeros(n, device=dev)
+    seed = plain.ClosestRecord(torch.rand(n, generator=g, device=dev) * 60,
+                               torch.full((n,), -1, dtype=torch.int32, device=dev), zero, zero,
+                               V3(zero, zero, zero))
+    found = torch.arange(n, device=dev) % 5 == 0
+    wrappers = (bvh_leafmat.scene_closest, bvh_leafmat.scene_any, bvh_leafmat.tri_closest,
+                bvh_leafmat.tri_any)
+    before = [w.launches for w in wrappers]
+    got_a = bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6)
+    occ_b = bvh_leafmat.scene_any(cs, o, d, 1e-3, limit)
+    got_c = bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed)
+    occ_d = bvh_leafmat.tri_any(cs, o, d, 1e-3, limit, found)
+    torch.cuda.synchronize()
+    assert [w.launches for w in wrappers] == [b + 1 for b in before]
+    for got, want in ((got_a, plain.scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, mxu=True)),
+                      (got_c, bvh_paged.pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True))):
+        same = got.prim == want.prim
+        assert float(same.float().mean()) >= 0.9999 and bool((got.prim >= 0).any())
+        _assert_floats_close(got, want, same & (got.prim >= 0), ("t", "normal", "u", "v"))
+    care = limit > 0
+    want_b = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit, mxu=True)
+    assert torch.equal(occ_b[care], want_b[care]) and bool(occ_b[~care].all())
+    assert 0.05 < float(occ_b[care].float().mean()) < 0.95
+    want_d = bvh_paged.pages_any_plain(cs, o, d, 1e-3, limit, found, mxu=True)
+    assert torch.equal(occ_d, want_d) and bool(occ_d[found].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "quad"])
+def test_mxu_route_path_tracer_launches(mesh_card, monkeypatch, route):
+    """The path tracer with ``BVH_MXU_LEAF``: K5 with K10b answering its
+    shadow rays (``fused``), or the plain bounce with K10c and K10d
+    (``quad``); the K4 walks they replace stay idle."""
+    monkeypatch.setattr(bvh, "BVH_MXU_LEAF", True)
+    if route == "quad":
+        monkeypatch.setattr(bvh, "BVH_ATTRS", False)
+    kernels, idle = {
+        "fused": ((bounce_bvh.path_bounce_bvh, bvh_leafmat.scene_any), (bvh.scene_any,)),
+        "quad": ((bvh_leafmat.tri_closest, bvh_leafmat.tri_any),
+                 (bvh_paged.pages_closest, bvh_paged.pages_any, bounce_bvh.path_bounce_bvh)),
+    }[route]
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    r = pt.RendererFactory.create("cuda_path_raytracer", seed=1, shadow_tmax="light")
+    scene = b.build_scene()
+    assert bvh.tri_route(r.compiled(scene)) == route and bvh.mxu_leaf_ok(r.compiled(scene))
+    before = [k.launches for k in kernels + idle]
+    sums = r.render_sums(scene, b.create_camera(1.0),
+                         pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    after = [k.launches for k in kernels + idle]
+    assert all(a > b for a, b in zip(after[:2], before[:2])) and after[2:] == before[2:]
     assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
 
 
