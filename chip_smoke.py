@@ -21,9 +21,13 @@ It imports no JAX.
    the compacted second bounce), K3a/K3b on level 0 of the oracle frame's
    first chunk (its camera rays, and the shadow rays of all 16 light
    samples from every lane in one batch);
-4. timing of each kernel and its plain version at 131,072 rays (CUDA
-   events, median), and each kernel's bound (the least time the card could
-   take for the same work) from this run's inputs;
+4. timing of each kernel at 131,072 rays: its own device time per launch
+   (``device_ms``: the torch profiler over 25 calls of its wrapper, the
+   median of the launches of the kernel's own symbol), the call time of its
+   wrapper and the call time of its plain version (``cuda_ms``: CUDA events
+   around one call, median of 25; host and device), and each kernel's bound
+   (the least time the card could take for the same work) from this run's
+   inputs;
 5. the four golden renders of ``tests/goldens/`` on the card, each failing
    if its kernel did not launch;
 6. the path tracer's main path at bench size: 1024², depth 8, one
@@ -38,14 +42,22 @@ It imports no JAX.
 9. the BVH mesh scene of BASELINE.json config 5 (``MeshSceneBuilder(3, 3)``,
    11,520 triangles): K4a (scene closest hit) against its plain version on
    131,072 rays over the 1920×1080 frame and on the frame's first chunk;
-   K4b (scene any hit) on one light-sample shadow ray per lane with a care
-   mask; K5 (BVH path bounce) on the first chunk at depth 0 and three plain
-   bounces on, both shadow bounds; their times and bounds at 131,072 rays;
+   the persistent K4b (scene any hit) on one light-sample shadow ray per
+   lane with a care mask, of those two ray sets and of the first chunk
+   three plain bounces on, and the persistent K5 (BVH path bounce) on the
+   first chunk at depth 0 and three plain bounces on, both shadow bounds:
+   each against its plain version (occlusion; hit, prim and killed, on
+   every lane) and bit for bit against its twin (the first design), with
+   the node table staged in shared memory and read from device memory; their times
+   and bounds at 131,072 rays, K4b and K5 beside their twins in turns (new,
+   twin, twin, new) on the camera rays and three bounces on, and the
+   redesign's steps (``WALK_STEPS``);
 10. the mesh main path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``MESH_SPP``-sample group after a warm-up on
    a small frame (K5's and K4b's launch counts), then a profile of a
    one-sample frame: device operations per bounce, busy time, K5's and K4b's
-   shares;
+   shares, launches and device time per launch; no render may launch a
+   twin (``counts``);
 11. the mesh Whitted frame: ``cuda_texture_raytracer`` at 480×270, 4 spp,
    depth 16 (K4a's and K4b's launch counts);
 12. the paged BVH of config 6 (``MeshSceneBuilder(5, 4)``, 128,000
@@ -121,11 +133,15 @@ It imports no JAX.
    with ``BVH_MXU_LEAF`` (K10a + K10b, K4a/K4b idle), within the golden
    tolerance of each other.
 
-Prints a ``{"kernels": [...]}`` line and the card's name and power limit,
-then, as its last line, ``{"ok": true, "device": {...}}``.
+Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
+``call_ms``: the wrapper's call time; ``twin_ms``, ``tree_ms`` for K4b and
+K5: the twin's device time in turns and the tree traffic the plain walk
+counts, over the memory rate) and the card's name and power limit, then, as
+its last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -250,22 +266,27 @@ def phase_build():
 
 
 def ptxas_summary(log: str) -> str:
-    """``kernel regs/stack/spill`` for each kernel of ``nvcc -Xptxas -v``'s
-    log, and any error line."""
+    """``kernel<template arguments> regs/stack/spill/static smem`` for each
+    kernel of ``nvcc -Xptxas -v``'s log, and any error line."""
     import re
 
     out, kernel = [], None
     for line in log.splitlines():
         m = re.search(r"Function properties for _ZN4ptrt(\d+)", line)
         if m:
-            start = m.end()
-            kernel = line[start:start + int(m.group(1))]
+            start = m.end() + int(m.group(1))
+            kernel = line[m.end():start]
+            targs = re.match(r"I((?:L[a-z]+\d+E)+)E", line[start:])
+            if targs:
+                kernel += f"<{','.join(re.findall(r'L[a-z]+(\d+)E', targs.group(1)))}>"
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line)
         if m and kernel:
             stack, spill = m.groups()
         m = re.search(r"Used (\d+) registers", line)
         if m and kernel:
-            out.append(f"{kernel} {m.group(1)} regs/{stack} B stack/{spill} B spill")
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{kernel} {m.group(1)} regs/{stack} B stack/{spill} B spill/"
+                       f"{smem.group(1) if smem else 0} B static smem")
             kernel = None
         if "rror" in line:
             out.append(line.strip())
@@ -324,8 +345,9 @@ FLOAT_FIELDS = ("w_sky", "w_nee", "rr_scale", "s_thr", "t_thr", "new_org", "new_
                 "tex_id", "mat_color")
 
 
-def compare(name, got, want):
-    """The kernel's record against the plain version's; returns max |diff|."""
+def compare(name, got, want, exact=False):
+    """The kernel's record against the plain version's; returns max |diff|.
+    ``exact``: hit, prim and killed must agree on every lane."""
     n = got.hit.shape[0]
     same_hit = (got.hit == want.hit) & (got.prim == want.prim)
     hit_share = float(same_hit.float().mean())
@@ -334,9 +356,40 @@ def compare(name, got, want):
     print(f"[check] {name}: hit+prim agree {hit_share:.6f} ({int((~same_hit).sum())} of {n} differ), "
           f"killed agree {kill_share:.6f}, hit lanes {int(lanes.sum())}")
     worst = compare_fields(name, got, want, lanes, FLOAT_FIELDS)
-    if hit_share < HIT_AGREE or kill_share < KILL_AGREE:
+    hit_bar, kill_bar = (1.0, 1.0) if exact else (HIT_AGREE, KILL_AGREE)
+    if hit_share < hit_bar or kill_share < kill_bar:
         raise SystemExit(f"chip_smoke: kernel disagrees with its plain version on {name}")
     return worst
+
+
+def same_bits(a, b) -> bool:
+    """Are two tensors equal bit for bit (floats by their int32 patterns)?"""
+    import torch
+
+    if a.dtype == torch.float32:
+        a, b = a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)
+    return a.shape == b.shape and torch.equal(a, b)
+
+
+def check_twin(label, got, twin):
+    """A redesigned kernel's output against its twin's (the first design),
+    bit for bit on every lane: a tensor, or a record of tensors and V3s."""
+    def tensors(rec):
+        if not hasattr(rec, "_fields"):
+            return {"": rec}
+        out = {}
+        for f in rec._fields:
+            x = getattr(rec, f)
+            out.update({f"{f}.{c}": t for c, t in zip("xyz", x)} if isinstance(x, tuple)
+                       else {f: x})
+        return out
+
+    want = tensors(twin)
+    bad = [f for f, a in tensors(got).items() if not same_bits(a, want[f])]
+    print(f"[check] {label}: bit-equal to its twin on every lane: {not bad}"
+          + (f" (differ: {bad})" if bad else ""))
+    if bad:
+        raise SystemExit(f"chip_smoke: {label} differs from its twin")
 
 
 def phase_kernel_check(cs, camera, device):
@@ -356,8 +409,10 @@ def phase_kernel_check(cs, camera, device):
 
 
 def cuda_ms(fn, reps=25, warm=2):
-    """Median milliseconds of one call (CUDA events, after ``warm`` warm-up
-    calls)."""
+    """Median milliseconds of one call, host and device (CUDA events around
+    the call, after ``warm`` warm-up calls): the *call time*.  It covers the
+    wrapper's host work (checks, allocations, the ctypes call) whenever that
+    takes longer than the kernel."""
     import torch
 
     for _ in range(warm):
@@ -373,15 +428,164 @@ def cuda_ms(fn, reps=25, warm=2):
     return statistics.median(times)
 
 
+def kernel_is(name: str, symbol: str) -> bool:
+    """Is the profiler's device event ``name`` the kernel ``symbol`` (its
+    function name, demangled or mangled, whatever its namespace, template
+    arguments and parameters)?"""
+    import re
+
+    sym = re.escape(symbol)
+    return bool(re.search(rf"(?<!\w){sym}\s*[<(]|(?<!\d){len(symbol)}{sym}[IE]", name))
+
+
+# each kernel symbol's library (ops/cuda/build.KERNELS) and C entries (csrc/*.cu)
+C_ENTRIES = {
+    "path_bounce_kernel": ("path_bounce", ("ptrt_path_bounce",)),
+    "whitted_bounce_kernel": ("whitted_bounce", ("ptrt_whitted_bounce",)),
+    "closest_kernel": ("intersect", ("ptrt_closest_hit",)),
+    "any_kernel": ("intersect", ("ptrt_any_hit",)),
+    "bvh_closest_kernel": ("bvh_scene", ("ptrt_bvh_closest",)),
+    "bvh_any_persistent": ("bvh_scene", ("ptrt_bvh_any",)),
+    "bvh_any_kernel": ("bvh_scene", ("ptrt_bvh_any_simple",)),
+    "bvh4_rooted_kernel": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
+    "path_bounce_bvh_persistent": ("path_bounce_bvh", ("ptrt_path_bounce_bvh",)),
+    "path_bounce_bvh_kernel": ("path_bounce_bvh", ("ptrt_path_bounce_bvh_simple",)),
+    "paged_top_closest_kernel": ("bvh_paged", ("ptrt_paged_top_closest",)),
+    "paged_top_any_kernel": ("bvh_paged", ("ptrt_paged_top_any",)),
+    "pages_closest_kernel": ("bvh_paged", ("ptrt_pages_closest",)),
+    "pages_any_kernel": ("bvh_paged", ("ptrt_pages_any",)),
+    "bvh2_closest_kernel": ("bvh2", ("ptrt_bvh2_closest",)),
+    "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
+    "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
+    "mat_scene_any_kernel": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
+    "mat_tri_closest_kernel": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
+    "mat_tri_any_kernel": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
+    "path_step_kernel": ("path_step", ("ptrt_path_step",)),
+    "gather_rgb_kernel": ("texture_gather", ("ptrt_atlas_gather", "ptrt_mip_gather")),
+}
+
+
+# the pause at each end of a profiler trace (device_ms)
+TRACE_PAD_S = 0.1
+
+
+def device_ms(fn, symbol, reps=25, warm=2, tries=3, per_call=1):
+    """The kernel ``symbol``'s own device time per launch over ``reps``
+    calls of ``fn`` after ``warm`` warm-up calls, each of which launches it
+    ``per_call`` times: ``(median, min, max, launches seen per call,
+    method)`` in ms.  ``symbol=None`` takes every device operation of a
+    call (``per_call`` of them), per call (a library call's time).
+
+    Method ``"profiler"``: the torch profiler (CUDA activity), the launches
+    of the kernel's symbol, taken only from a trace that kept every one of
+    them.  Late in a long process a short trace may keep only some launches,
+    or none (0-100% of them, on an H100), and the launches it drops are not
+    a fair sample, so such a trace is taken again, up to ``tries`` times.
+    Each trace opens and closes with a pause of ``TRACE_PAD_S`` (launches
+    near a trace's ends are the ones suspected lost; PERF.md §7).  After
+    that, method ``"events"``: CUDA
+    events recorded on the stream right before and right after each call of
+    the kernel's C entry (``C_ENTRIES``), with the calls queued behind a
+    device spin that outlasts their host work, so that no event waits on the
+    host (a library call: events around the whole call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    host_s = (time.perf_counter() - t0) / warm
+    kept = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
+        times = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and (symbol is None or kernel_is(e.name, symbol))]
+        if len(times) == per_call * reps:
+            if symbol is None:
+                total = sum(times) / reps
+                return total, total, total, per_call, "profiler"
+            return statistics.median(times), min(times), max(times), per_call, "profiler"
+        kept.append(len(times))
+    times = bracketed_ms(fn, symbol, reps, host_s)
+    print(f"[time] no trace of {tries} kept all {per_call * reps} launches of "
+          f"{symbol or 'the call'} (kept {kept}); timed by CUDA events around each launch: "
+          f"{statistics.median(times):.4f} ms")
+    return (statistics.median(times), min(times), max(times), len(times) / reps, "events")
+
+
+def bracketed_ms(fn, symbol, reps, host_s):
+    """Device ms of each launch of ``symbol``'s C entries (of each call of
+    ``fn`` when ``symbol`` is None) during ``reps`` calls of ``fn``, by CUDA
+    events around it, the calls queued behind a spin of twice their host
+    time (at the H100's ~1.98 GHz)."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import build
+
+    marks = []
+
+    def bracket(call):
+        def run(*args):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = call(*args)
+            b.record()
+            marks.append((a, b))
+            return out
+        return run
+
+    lib_name, entries = C_ENTRIES[symbol] if symbol else (None, ())
+    lib = build.load(lib_name).lib if lib_name else None
+    real = {e: getattr(lib, e) for e in entries}
+    for e, call in real.items():
+        setattr(lib, e, bracket(call))
+    try:
+        torch.cuda._sleep(int(min(2 * reps * host_s, 1.0) * 1.98e9))
+        for _ in range(reps):
+            bracket(fn)() if symbol is None else fn()
+        torch.cuda.synchronize()
+    finally:
+        for e, call in real.items():
+            setattr(lib, e, call)
+    return [a.elapsed_time(b) for a, b in marks]
+
+
+def timed(fn, symbol, plain=None, plain_reps=25, per_call=1):
+    """The timing record of one kernel row: ``ms``, its device time per
+    launch (median, with ``ms_min``/``ms_max``; ``fn`` launches it
+    ``per_call`` times); ``call_ms``, the call time of its wrapper;
+    ``plain_ms``, the call time of its plain version."""
+    ms, lo, hi, per_call, method = device_ms(fn, symbol, per_call=per_call)
+    rec = {"ms": ms, "ms_min": lo, "ms_max": hi, "per_call": per_call, "ms_by": method,
+           "call_ms": cuda_ms(fn)}
+    if plain is not None:
+        rec["plain_ms"] = cuda_ms(plain, plain_reps, 1 if plain_reps < 25 else 2)
+    return rec
+
+
+def show_time(name, rec, note=""):
+    print(f"[time] {name} at N={N_RAYS}: device {rec['ms']:.4f} ms per launch (min "
+          f"{rec['ms_min']:.4f}, max {rec['ms_max']:.4f}; {rec['per_call']:g} a call seen; "
+          f"{rec['ms_by']}), call "
+          f"{rec['call_ms']:.4f} ms" + (f", plain torch {rec['plain_ms']:.4f} ms"
+                                        if "plain_ms" in rec else "") + note)
+
+
 def phase_timing(cs, blobs, state):
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
 
     o, d, thr, key, depth = state
-    ms = cuda_ms(lambda: bounce.path_bounce(cs, *blobs, o, d, thr, key, depth))
-    plain_ms = cuda_ms(lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth))
-    print(f"[time] path_bounce at N={N_RAYS}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-          f"(median of 25, CUDA events)")
-    return ms, plain_ms
+    rec = timed(lambda: bounce.path_bounce(cs, *blobs, o, d, thr, key, depth), "path_bounce_kernel",
+                lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth))
+    show_time("path_bounce", rec)
+    return rec
 
 
 GOLDENS = (  # tests/test_golden.py's configs, seed 42
@@ -403,6 +607,8 @@ def wrappers():
             "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit,
             "scene_closest": bvh.scene_closest, "scene_any": bvh.scene_any,
             "path_bounce_bvh": bounce_bvh.path_bounce_bvh,
+            "scene_any_simple": bvh.scene_any_simple,
+            "path_bounce_bvh_simple": bounce_bvh.path_bounce_bvh_simple,
             "paged_top_closest": bvh_paged.paged_top_closest,
             "paged_top_any": bvh_paged.paged_top_any, "pages_closest": bvh_paged.pages_closest,
             "pages_any": bvh_paged.pages_any, "closest_skiplink": bvh2.closest_skiplink,
@@ -418,8 +624,17 @@ def reset_counts():
         w.launches = 0
 
 
+# the first designs of K4b and K5, kept as timing twins: no render launches them
+TWINS = ("scene_any_simple", "path_bounce_bvh_simple")
+
+
 def counts():
-    return {name: w.launches for name, w in wrappers().items()}
+    """Launches since ``reset_counts()``; fails when a timing twin launched
+    (every caller reads them after a render)."""
+    launched = {name: w.launches for name, w in wrappers().items()}
+    if any(launched[t] for t in TWINS):
+        raise SystemExit(f"chip_smoke: a render launched a timing twin: {launched}")
+    return launched
 
 
 def phase_golden(device):
@@ -601,14 +816,15 @@ def check_closest(label, got, want, name="closest_hit"):
     return worst
 
 
-def check_occlusion(label, occ, want, lanes, name="any_hit"):
+def check_occlusion(label, occ, want, lanes, name="any_hit", exact=False):
     """K3b's (or K4b's) verdicts against the plain ones on the shadow rays
-    in ``lanes`` (those whose verdict the caller reads); returns max |diff|."""
+    in ``lanes`` (those whose verdict the caller reads); returns max |diff|.
+    ``exact``: equal on every one of them."""
     agree = float((occ == want)[lanes].float().mean())
     print(f"[check] {name}, {label}: occlusion agree {agree:.6f} on {int(lanes.sum())} of "
           f"{occ.shape[0]} rays (all rays {float((occ == want).float().mean()):.6f}), "
           f"occluded {float(occ[lanes].float().mean()):.4f}")
-    if agree < OCC_AGREE:
+    if agree < (1.0 if exact else OCC_AGREE):
         raise SystemExit(f"chip_smoke: {name} disagrees with its plain version on {label}")
     diff = (occ[lanes].float() - want[lanes].float()).abs()
     return float(diff.max()) if diff.numel() else 0.0
@@ -768,18 +984,18 @@ def phase_new_timing(cs, blobs, camera_rays, shadow):
     so, sd, bound = shadow
     times = {
         "whitted_bounce": (lambda: whitted.whitted_bounce(cs, *blobs, o, d, whitted.TEXTURE),
-                           lambda: whitted.whitted_bounce_plain(cs, o, d, whitted.TEXTURE)),
+                           lambda: whitted.whitted_bounce_plain(cs, o, d, whitted.TEXTURE),
+                           "whitted_bounce_kernel"),
         "closest_hit": (lambda: intersect.closest_hit(cs, blobs[0], o, d, 1e-3, 1e6),
-                        lambda: intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6)),
+                        lambda: intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6),
+                        "closest_kernel"),
         "any_hit": (lambda: intersect.any_hit(cs, blobs[0], so, sd, 1e-3, bound),
-                    lambda: intersect.any_hit_plain(cs, so, sd, 1e-3, bound)),
+                    lambda: intersect.any_hit_plain(cs, so, sd, 1e-3, bound), "any_kernel"),
     }
     out = {}
-    for name, (kernel, plain) in times.items():
-        ms, plain_ms = cuda_ms(kernel), cuda_ms(plain)
-        out[name] = (ms, plain_ms)
-        print(f"[time] {name} at N={N_RAYS}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-              f"(median of 25, CUDA events)")
+    for name, (kernel, plain, symbol) in times.items():
+        out[name] = timed(kernel, symbol, plain)
+        show_time(name, out[name])
     return out
 
 
@@ -986,71 +1202,204 @@ def mesh_shadow(cs, o, d, key, depth, h=None):
     return h.point + h.normal * 1e-3, ldir, torch.where(care, dist - 1e-3, -1.0)
 
 
+@contextlib.contextmanager
+def bvh_set(**values):
+    """``ops/cuda/bvh``'s module globals set to ``values`` inside, restored
+    after (the route flags, the walks' shared-memory budgets)."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+
+    saved = {k: getattr(bvh, k) for k in values}
+    try:
+        for k, v in values.items():
+            setattr(bvh, k, v)
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(bvh, k, v)
+
+
+def walk_plans(cs, tables, n=N_RAYS):
+    """The persistent K4b's and K5's plans on ``cs`` and their grids for
+    ``n`` lanes, as their wrappers pick them (the budget as now set)."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh, bvh
+
+    dev = torch.device("cuda", 0)
+    limit = bvh.smem_limit(dev)
+    out = {}
+    for name, plan, occupancy in (
+            ("K4b", bvh.any_plan(cs, limit), bvh.build().lib.ptrt_bvh_any_occupancy),
+            ("K5", bounce_bvh.bounce_plan(cs, tables, limit),
+             bounce_bvh.build().lib.ptrt_path_bounce_bvh_occupancy)):
+        out[name] = (plan, bvh.launch_grid(name, occupancy, plan, n, dev))
+    return out
+
+
+def show_plans(label, plans):
+    print(f"[mesh] {label}: " + "; ".join(
+        f"{k} stage {p.stage}, depth class {p.depth_class}, {p.smem_bytes} B of shared memory "
+        f"a block, {grid} blocks of 256 threads" for k, (p, grid) in plans.items()))
+
+
 def phase_mesh_check(device):
-    """K4a, K4b and K5 against their plain versions on the mesh scene; K5's
-    plain version is ``path_bounce_plain``, whose intersections launch K4a
-    and K4b on the card (checked first)."""
+    """K4a against its plain version; K4b and K5 against their plain
+    versions and their twins (the first designs), with the node table
+    staged in shared memory (``SMEM_TREE_BYTES`` lifted) and read from
+    device memory (``SMEM_TREE_BYTES = 0``, the default):
+    K4b on the light-sample shadow rays of camera rays over the frame, of
+    the frame's first chunk and of that chunk three plain bounces on (equal
+    on every ray that needs an answer), K5 on the first chunk at depth 0 and
+    three plain bounces on, both shadow bounds (hit, prim and killed equal
+    on every lane).  K5's plain version is ``path_bounce_plain``, whose
+    intersections launch K4a and K4b on the card (checked first)."""
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
         scene_hit_any_bvh_plain, scene_hit_bvh_plain)
 
     _scene, cam, cs = mesh_scene(device)
     print(f"[mesh] config-5 scene: {cs.n_triangles} triangles, BVH {cs.bvh.n_nodes} nodes, "
-          f"BVH4 {cs.bvh.nodes4.shape[0] // 32} nodes, depth {cs.bvh.depth4}")
+          f"BVH4 {cs.bvh.nodes4.shape[0] // 32} nodes ({cs.bvh.nodes4.numel() * 4} B), depth "
+          f"{cs.bvh.depth4}; slot records {cs.bvh.slot_rec.numel() * 4} B, padded "
+          f"{cs.bvh.slot16.numel() * 4} B")
     tables = bounce_bvh.pack_bvh_tables(cs)
     spread = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
     chunk = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH, stride=1)
+    bounced = advance_plain(cs, chunk, 3)
     k4a = k4b = k5 = 0.0
-    for label, (o, d, _t, key, depth) in (("131,072 rays over the 1920x1080 frame", spread),
-                                          ("the frame's first chunk", chunk)):
+    for label, (o, d, _t, _key, _depth) in (("131,072 rays over the 1920x1080 frame", spread),
+                                            ("the frame's first chunk", chunk)):
         k4a = max(k4a, check_closest(label, bvh.scene_closest(cs, o, d, 1e-3, 1e6),
                                      scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6), "scene_closest"))
-        so, sd, lim = mesh_shadow(cs, o, d, key, depth)
-        k4b = max(k4b, check_occlusion(f"{label}, one light-sample shadow ray per lane",
-                                       bvh.scene_any(cs, so, sd, 1e-3, lim),
-                                       scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim), lim > 0,
-                                       "scene_any"))
-    states = {"first chunk, depth 0": chunk,
-              "first chunk, 3 plain bounces on, depth 3-5": advance_plain(cs, chunk, 3)}
-    for label, (o, d, thr, key, depth) in states.items():
-        for shadow_light in (False, True):
-            got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
-                                             shadow_light=shadow_light)
-            want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=shadow_light)
-            k5 = max(k5, compare(f"path_bounce_bvh, {label}, shadow_light={shadow_light}", got,
-                                 want))
-    return cs, tables, spread, (k4a, k4b, k5)
+    shadow = {label: mesh_shadow(cs, o, d, key, depth) for label, (o, d, _t, key, depth) in (
+        ("131,072 rays over the 1920x1080 frame", spread), ("the frame's first chunk", chunk),
+        ("the first chunk, 3 plain bounces on", bounced))}
+    states = {"first chunk, depth 0": chunk, "first chunk, 3 plain bounces on, depth 3-5": bounced}
+    for staged in (True, False):
+        where = "tree in shared memory" if staged else "tree in device memory"
+        with bvh_set(SMEM_TREE_BYTES=STAGE_ALL if staged else 0):
+            plans = walk_plans(cs, tables)
+            show_plans(where, plans)
+            if any(p.stage != staged for p, _ in plans.values()):
+                raise SystemExit(f"chip_smoke: the walk plan did not put the {where}")
+            for label, (so, sd, lim) in shadow.items():
+                occ = bvh.scene_any(cs, so, sd, 1e-3, lim)
+                k4b = max(k4b, check_occlusion(
+                    f"{where}, {label}, one light-sample shadow ray per lane", occ,
+                    scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim), lim > 0, "scene_any", True))
+                check_twin(f"scene_any, {where}, {label}", occ,
+                           bvh.scene_any_simple(cs, so, sd, 1e-3, lim))
+            for label, (o, d, thr, key, depth) in states.items():
+                for shadow_light in (False, True):
+                    name = f"path_bounce_bvh, {where}, {label}, shadow_light={shadow_light}"
+                    got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
+                                                     shadow_light=shadow_light)
+                    want = bounce.path_bounce_plain(cs, o, d, thr, key, depth,
+                                                    shadow_light=shadow_light)
+                    k5 = max(k5, compare(name, got, want, exact=True))
+                    check_twin(name, got, bounce_bvh.path_bounce_bvh_simple(
+                        cs, tables, o, d, thr, key, depth, shadow_light=shadow_light))
+    return cs, tables, (spread, bounced), (k4a, k4b, k5)
 
 
-def phase_mesh_timing(cs, tables, state):
-    """Kernel and plain times of K4a, K4b and K5 at N = 131,072 (K5: the
-    wrapper, its K5 launch and the K4b launch answering its shadow rays),
-    and their bounds from the same inputs: bytes, each input read once and
-    each output written once; operations, the plane/sphere/quad sweeps plus
-    the box and triangle tests the plain skip-link walk counts."""
+def in_turns(new, twin):
+    """Device ms per launch of a kernel and its twin timed in turns (new,
+    twin, twin, new): ``(new mean, twin mean, the four times)``;
+    ``new``/``twin`` are ``(call, symbol)``."""
+    got = [device_ms(*x) for x in (new, twin, twin, new)]
+    if any(g[4] != "profiler" for g in got):
+        print(f"[turns] {new[1]} / {twin[1]}: some times are by CUDA events around the launch "
+              f"({[g[4] for g in got]})")
+    n1, t1, t2, n2 = (g[0] for g in got)
+    return (n1 + n2) / 2, (t1 + t2) / 2, (n1, t1, t2, n2)
+
+
+# a tree budget that stages every node table a block can hold
+STAGE_ALL = 1 << 30
+# the redesign of K4b and K5 step by step after the twin: the budget each
+# step sets
+WALK_STEPS = (
+    ("persistent, 16-byte loads, stack by depth class, tree in device memory (the default "
+     "plan)", {"SMEM_TREE_BYTES": 0}),
+    ("+ tree in shared memory (TMA)", {"SMEM_TREE_BYTES": STAGE_ALL}),
+)
+# float operations of K5's shading on a lane that hits (csrc/path_bounce_bvh.cu:
+# "the shading adds about 60 float operations")
+SHADE_FLOPS = 60
+
+
+def phase_mesh_timing(cs, tables, sets):
+    """K4a, K4b and K5 at N = 131,072 on the camera rays: device time per
+    launch of each kernel's own symbol (K5 alone: its wrapper's K4b launch
+    and glue belong to K4b's row and to the call time), call and plain
+    times; K4b and K5 against their twins in turns on the camera rays and on
+    the first chunk three plain bounces on; the redesign's steps on the
+    camera rays; and the bounds from the same inputs: lane bytes, each input
+    read once and each output written once; operations, the plane/sphere/quad
+    sweeps plus the box and triangle tests the plain skip-link walk counts
+    (K5: its closest walk and its shading); beside them, the tree traffic the
+    plain walk counts (a quarter of a 128 B node record a box test, a slot
+    record a triangle test)."""
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh, bvh
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
         scene_hit_any_bvh_plain, scene_hit_bvh_plain)
 
-    o, d, thr, key, depth = state
-    so, sd, lim = mesh_shadow(cs, o, d, key, depth)
-    calls = {
-        "scene_closest": (lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
-                          lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)),
-        "scene_any": (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim),
-                      lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim)),
-        "path_bounce_bvh": (
-            lambda: bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
-                                               shadow_light=True),
-            lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=True)),
+    spread, bounced = sets
+
+    def calls(state):
+        o, d, thr, key, depth = state
+        so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+        return {
+            "scene_any": ((lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent"),
+                          (lambda: bvh.scene_any_simple(cs, so, sd, 1e-3, lim), "bvh_any_kernel")),
+            "path_bounce_bvh": (
+                (lambda: bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
+                                                    shadow_light=True),
+                 "path_bounce_bvh_persistent"),
+                (lambda: bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth,
+                                                           shadow_light=True),
+                 "path_bounce_bvh_kernel")),
+        }, (so, sd, lim)
+
+    o, d, thr, key, depth = spread
+    camera, (so, sd, lim) = calls(spread)
+    times = {
+        "scene_closest": timed(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6), "bvh_closest_kernel",
+                               lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)),
+        "scene_any": timed(camera["scene_any"][0][0], "bvh_any_persistent",
+                           lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim)),
+        "path_bounce_bvh": timed(camera["path_bounce_bvh"][0][0], "path_bounce_bvh_persistent",
+                                 lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth,
+                                                                  shadow_light=True)),
     }
-    times = {}
-    for name, (kernel, plain) in calls.items():
-        times[name] = (cuda_ms(kernel), cuda_ms(plain))
-        print(f"[time] {name} at N={N_RAYS}: kernel {times[name][0]:.4f} ms, plain torch "
-              f"{times[name][1]:.4f} ms (median of 25, CUDA events)")
+    for name, rec in times.items():
+        show_time(name, rec, " (K5 alone; the call adds K4b and the glue)"
+                  if name == "path_bounce_bvh" else "")
+    for label, state in (("camera rays", spread), ("first chunk, 3 plain bounces on", bounced)):
+        pairs = camera if state is spread else calls(state)[0]
+        for name, (new, twin) in pairs.items():
+            new_ms, twin_ms, each = in_turns(new, twin)
+            print(f"[turns] {name} on {label}: new {new_ms:.4f} ms, twin {twin_ms:.4f} ms per "
+                  f"launch (device; new, twin, twin, new: {', '.join(f'{x:.4f}' for x in each)})"
+                  f" -> {new_ms / twin_ms:.3f}x")
+            if state is spread:
+                times[name]["twin_ms"] = twin_ms
+    for name, (new, twin) in camera.items():
+        order = [("twin (first design)", twin, {})] + [
+            (label, new, budgets) for label, budgets in WALK_STEPS]
+        got = {label: [] for label, _, _ in order}
+        for label, call, budgets in order + order[::-1]:
+            with bvh_set(**budgets):
+                got[label].append(device_ms(*call)[0])
+        print(f"[steps] {name} on camera rays (device ms per launch, each the mean of two "
+              f"timed in a palindrome order): " + "; ".join(
+                  f"{label} {statistics.mean(v):.4f}" for label, v in got.items()))
+    for label, budgets in WALK_STEPS:
+        with bvh_set(**budgets):
+            show_plans(label, walk_plans(cs, tables))
+
     closest, shadow = {}, {}
-    scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, counts=closest)
+    plain_hit = scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, counts=closest)
     scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, counts=shadow)
     care = lim > 0
     ops_a = (sweep_flops(cs, o, d, 1e6, False, kinds=3) + BOX_FLOPS * closest["boxes"]
@@ -1060,11 +1409,24 @@ def phase_mesh_timing(cs, tables, state):
     n = N_RAYS
     bounds = {"scene_closest": bound_ms(ops_a, n * (4 * 6 + 4 * 7)),
               "scene_any": bound_ms(ops_b, n * (4 * 7 + 1)),
-              "path_bounce_bvh": bound_ms(ops_a + ops_b, n * (4 * 11 + 4 * 19 + 4))}
+              # reads 44 B; writes the 76 B record, 4 B of prim, the 28 B shadow ray
+              "path_bounce_bvh": bound_ms(ops_a + SHADE_FLOPS * int(plain_hit.hit.sum()),
+                                          n * (4 * 11 + 4 * 19 + 4 + 4 * 7))}
+
+    def tree_ms(c, slot_bytes):
+        return (32 * c["boxes"] + slot_bytes * c["tri_tests"]) / PEAK_BYTES * 1e3
+
+    trees = {"scene_closest": tree_ms(closest, 52), "scene_any": tree_ms(shadow, 64),
+             "path_bounce_bvh": tree_ms(closest, 64)}
+    for name, tree in trees.items():
+        times[name]["tree_ms"] = tree
     print(f"[bound] mesh walks at N={N_RAYS}: closest {closest['boxes']} box and "
           f"{closest['tri_tests']} triangle tests, shadow {shadow['boxes']} and "
           f"{shadow['tri_tests']} ({int(care.sum())} rays need an answer); " + "; ".join(
-              f"{k} {v[0]:.5f} ms ({v[1]})" for k, v in bounds.items()))
+              f"{k} {v[0]:.5f} ms ({v[1]}; tree traffic {trees[k]:.5f} ms, slot records of "
+              f"{52 if k == 'scene_closest' else 64} B; old layout "
+              f"{tree_ms(closest if k != 'scene_any' else shadow, 52):.5f})"
+              for k, v in bounds.items()))
     return times, bounds
 
 
@@ -1109,9 +1471,10 @@ def phase_mesh_main(device):
 
 def profile_frame(tag, r, scene, cam, settings, counter, kernels, top=4):
     """Device operations per bounce, the device's busy share of the untraced
-    frame and each kernel's share of the busy time, from the torch profiler
-    over ``r.device_sums`` of one frame.  ``counter()`` counts the frame's
-    bounces; ``kernels`` maps a label to a substring of a kernel's name."""
+    frame and each kernel's share of the busy time, launches and device time
+    per launch, from the torch profiler over ``r.device_sums`` of one frame.
+    ``counter()`` counts the frame's bounces; ``kernels`` maps a label to a
+    kernel's symbol (``kernel_is``)."""
     import collections
 
     import torch
@@ -1134,10 +1497,12 @@ def profile_frame(tag, r, scene, cam, settings, counter, kernels, top=4):
     for e in ops:
         by_name[e.name] += e.time_range.elapsed_us() / 1e3
     busy = sum(by_name.values())
-    shares = ", ".join(
-        f"{k} {sum(ms for n, ms in by_name.items() if sub in n):.3f} ms "
-        f"({100 * sum(ms for n, ms in by_name.items() if sub in n) / busy:.1f}%)"
-        for k, sub in kernels.items())
+    shares = []
+    for k, sym in kernels.items():
+        mine = [e.time_range.elapsed_us() / 1e3 for e in ops if kernel_is(e.name, sym)]
+        shares.append(f"{k} {sum(mine):.3f} ms ({100 * sum(mine) / busy:.1f}%; {len(mine)} "
+                      f"launches, {sum(mine) / max(len(mine), 1):.4f} ms each)")
+    shares = ", ".join(shares)
     print(f"{tag} profile of a {settings.width}x{settings.height} {settings.samples_per_pixel}-spp "
           f"depth {settings.max_depth} frame (untraced {untraced:.3f} s): {len(ops)} device ops in "
           f"{bounces} bounces -> {len(ops) / max(bounces, 1):.1f} per bounce; device busy "
@@ -1156,7 +1521,7 @@ def phase_mesh_profile(r, scene, cam):
     profile_frame("[mesh]", r, scene, cam,
                   pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bounce_bvh.path_bounce_bvh.launches,
-                  {"K5": "path_bounce_bvh", "K4b": "bvh_any"})
+                  {"K5": "path_bounce_bvh_persistent", "K4b": "bvh_any_persistent"})
 
 
 def phase_mesh_whitted(device):
@@ -1320,7 +1685,11 @@ def phase_big_check(device):
         "K4d": (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
                 lambda: bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound)),
     }
-    times = {name: (cuda_ms(k), cuda_ms(p, PLAIN_REPS, 1)) for name, (k, p) in calls.items()}
+    symbols = {"paged_top_closest": "paged_top_closest_kernel",
+               "pages_closest": "pages_closest_kernel", "paged_top_any": "paged_top_any_kernel",
+               "pages_any": "pages_any_kernel", "K4c": "pages_closest_kernel",
+               "K4d": "pages_any_kernel"}
+    times = {name: timed(k, symbols[name], p, PLAIN_REPS) for name, (k, p) in calls.items()}
     routes = {
         "K6 closest": lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
         "K4a whole tree": lambda: bvh.scene_closest(flat, o, d, 1e-3, 1e6),
@@ -1334,8 +1703,8 @@ def phase_big_check(device):
     routes["plain bounce (K6), first chunk"] = lambda: bounce.path_bounce_plain(
         cs, c_o, c_d, c_thr, c_key, c_depth, shadow_light=True)
     route_ms = {name: cuda_ms(fn) for name, fn in routes.items()}
-    print("[big] times at N=131072 (kernel / plain ms; median of 25 / of 3): " + "; ".join(
-        f"{k} {a:.4f} / {b:.2f}" for k, (a, b) in times.items()))
+    for name, rec in times.items():
+        show_time(name, rec, f" (config 6; plain median of {PLAIN_REPS})")
     print("[big] routes (ms, median of 25): " + "; ".join(
         f"{k} {v:.4f}" for k, v in route_ms.items()))
 
@@ -1418,8 +1787,8 @@ def phase_big_main(device, scene, cam):
     profile_frame("[big]", r, scene, cam,
                   pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bvh_paged.paged_top_closest.launches,
-                  {"K6a": "paged_top_closest", "K6c": "pages_closest", "K6b": "paged_top_any",
-                   "K6d": "pages_any"}, top=3)
+                  {"K6a": "paged_top_closest_kernel", "K6c": "pages_closest_kernel",
+                   "K6b": "paged_top_any_kernel", "K6d": "pages_any_kernel"}, top=3)
     return k6, secs, mrays
 
 
@@ -1663,26 +2032,32 @@ def phase_split_check(device):
     def k4c():
         return bvh_paged.pages_closest(cs, o, d, 1e-3, seed)
 
-    # times at N = 131,072 (kernel: median of 25; plain: median of PLAIN_REPS)
+    # times at N = 131,072: device time per launch and call time (median of
+    # 25), plain call time (median of PLAIN_REPS); K11's call and plain times
+    # are the three passes of one multipass walk
     plain_closest = cuda_ms(lambda: tbvh.traverse_closest(cs.bvh, tris, o, d, 1e-3, 1e6),
                             PLAIN_REPS, 1)
     plain_any = cuda_ms(lambda: tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim), PLAIN_REPS, 1)
     times = {
-        "closest_skiplink": (cuda_ms(lambda: bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6)),
-                             plain_closest),
-        "closest_ordered": (cuda_ms(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6)),
-                            plain_closest),
-        "any_skiplink": (cuda_ms(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim)), plain_any),
-        "any_ordered": (cuda_ms(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim)), plain_any),
-        "closest_rooted": (
-            cuda_ms(lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried]),
-            cuda_ms(lambda: [tbvh.rooted(cs.bvh, tris, o, d, 1e-3, *c) for c in carried],
-                    PLAIN_REPS, 1)),
+        "closest_skiplink": timed(lambda: bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6),
+                                  "bvh2_closest_kernel"),
+        "closest_ordered": timed(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6),
+                                 "bvh2_closest_kernel"),
+        "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
+        "any_ordered": timed(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
+        "closest_rooted": timed(
+            lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried], "bvh4_rooted_kernel",
+            lambda: [tbvh.rooted(cs.bvh, tris, o, d, 1e-3, *c) for c in carried], PLAIN_REPS,
+            per_call=len(carried)),
     }
-    for name, (ms, plain_ms) in times.items():
-        print(f"[time] {name} at N={n}: kernel {ms:.4f} ms, plain torch {plain_ms:.4f} ms "
-              f"(median of 25 / {PLAIN_REPS}, CUDA events)" + (
-                  "; the three passes of one multipass walk" if name == "closest_rooted" else ""))
+    for name in ("closest_skiplink", "closest_ordered"):
+        times[name]["plain_ms"] = plain_closest
+    for name in ("any_skiplink", "any_ordered"):
+        times[name]["plain_ms"] = plain_any
+    for name, rec in times.items():
+        show_time(name, rec, f" (plain median of {PLAIN_REPS})" + (
+            "; call and plain: the three passes of one multipass walk"
+            if name == "closest_rooted" else ""))
     per_pass = [cuda_ms(lambda c=c: bvh.closest_rooted(cs, o, d, 1e-3, *c)) for c in carried]
     mp_ms = cuda_ms(lambda: bvh.multipass_closest(cs, o, d, 1e-3, seed.t))
     k4c_ms, k4a_ms = cuda_ms(k4c), cuda_ms(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6))
@@ -1700,6 +2075,9 @@ def phase_split_check(device):
         "closest_rooted": bound_ms(walk_ops(cnt["rooted"]), 3 * n * (1 + 8 + 8)
                                    + en_lanes * (4 + 24)),
     }
+    # K11's row is per launch: a third of the three passes' bound
+    walk_bounds["closest_rooted"] = (walk_bounds["closest_rooted"][0] / 3,
+                                     walk_bounds["closest_rooted"][1])
     bounds = {"closest_skiplink": walk_bounds["closest"],
               "closest_ordered": walk_bounds["closest"], "any_skiplink": walk_bounds["any"],
               "any_ordered": walk_bounds["any"], "closest_rooted": walk_bounds["closest_rooted"]}
@@ -1722,10 +2100,7 @@ def split_render(device, label, scene, cam, settings, flags, kernels, compiled=N
     import path_tracing__ray_tracer_tpu_torch as pt
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
 
-    saved = {k: getattr(bvh, k) for k in flags}
-    try:
-        for k, v in flags.items():
-            setattr(bvh, k, v)
+    with bvh_set(**flags):
         r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=settings.samples_per_pixel,
                                       chunk_rays=CHUNK_RAYS, shadow_tmax="light", seed=0,
                                       compile_overrides={"use_bvh": True}, device=device)
@@ -1740,9 +2115,6 @@ def split_render(device, label, scene, cam, settings, flags, kernels, compiled=N
         sums = r.render_sums(scene, cam, settings)
         secs = time.perf_counter() - t0
         launched = counts()
-    finally:
-        for k, v in saved.items():
-            setattr(bvh, k, v)
     spp, depth = settings.samples_per_pixel, settings.max_depth
     mrays = settings.width * settings.height * spp * depth / secs / 1e6
     shown = {k: launched[k] for k in (*kernels, "path_bounce_bvh", "scene_closest", "scene_any")}
@@ -1961,30 +2333,36 @@ def phase_mxu_check(device):
                                        key, depth, err)
     n = N_RAYS
     unfound = torch.zeros(n, dtype=torch.bool, device=device)
-    calls = {  # kernel, plain version, K4 twin
-        "scene_closest_mat": (lambda: bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6),
+    calls = {  # kernel, plain version, K4 twin (the K4b twin is the persistent K4b)
+        "scene_closest_mat": ((lambda: bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6),
+                               "mat_scene_closest_kernel"),
                               lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, mxu=True),
-                              lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6)),
-        "scene_any_mat": (lambda: bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim),
+                              (lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
+                               "bvh_closest_kernel")),
+        "scene_any_mat": ((lambda: bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim),
+                           "mat_scene_any_kernel"),
                           lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True),
-                          lambda: bvh.scene_any(cs, so, sd, 1e-3, lim)),
-        "tri_closest_mat": (lambda: bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed),
+                          (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent")),
+        "tri_closest_mat": ((lambda: bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed),
+                             "mat_tri_closest_kernel"),
                             lambda: pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True),
-                            lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed)),
-        "tri_any_mat": (lambda: bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound),
+                            (lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed),
+                             "pages_closest_kernel")),
+        "tri_any_mat": ((lambda: bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound),
+                         "mat_tri_any_kernel"),
                         lambda: pages_any_plain(cs, so, sd, 1e-3, lim, unfound, mxu=True),
-                        lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound)),
+                        (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
+                         "pages_any_kernel")),
     }
     times, twins = {}, {}
     for name, (kernel, plain, twin) in calls.items():
-        # kernel and twin in turns (kernel, twin, twin, kernel): the mean of each pair of medians
-        k1, t1, t2, k2 = cuda_ms(kernel), cuda_ms(twin), cuda_ms(twin), cuda_ms(kernel)
-        times[name] = ((k1 + k2) / 2, cuda_ms(plain, PLAIN_REPS, 1))
-        twins[name] = (t1 + t2) / 2
-        print(f"[time] {name} at N={n}: kernel {times[name][0]:.4f} ms ({k1:.4f}, {k2:.4f}), "
-              f"plain torch {times[name][1]:.4f} ms (median of 25 / {PLAIN_REPS}, CUDA events); "
-              f"its K4 twin {twins[name]:.4f} ms ({t1:.4f}, {t2:.4f}): "
-              f"{times[name][0] / twins[name]:.2f}x")
+        times[name] = timed(*kernel, plain, PLAIN_REPS)
+        # kernel and twin in turns (kernel, twin, twin, kernel), by device time
+        k_ms, twins[name], each = in_turns(kernel, twin)
+        times[name]["twin_ms"] = twins[name]
+        show_time(name, times[name], f" (plain median of {PLAIN_REPS}); in turns with its K4 "
+                  f"twin (device ms {', '.join(f'{x:.4f}' for x in each)}): {k_ms:.4f} against "
+                  f"{twins[name]:.4f} -> {k_ms / twins[name]:.2f}x")
 
     # bounds: the slot visits the plain walks with the table count, at the
     # forms' uv test; bytes of the lane records only (no tree or table record)
@@ -2021,15 +2399,13 @@ def phase_mxu_whitted(device):
     import torch
 
     import path_tracing__ray_tracer_tpu_torch as pt
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
 
     b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
     scene, cam = b.build_scene(), b.create_camera(MW_WIDTH / MW_HEIGHT)
     settings = pt.RenderSettings(MW_WIDTH, MW_HEIGHT, MW_SPP, MW_DEPTH)
     imgs = {}
     for flag in (False, True):
-        bvh.BVH_MXU_LEAF = flag
-        try:
+        with bvh_set(BVH_MXU_LEAF=flag):
             r = pt.RendererFactory.create("cuda_texture_raytracer", seed=0, device=device)
             r.compiled(scene)
             torch.cuda.synchronize()
@@ -2038,8 +2414,6 @@ def phase_mxu_whitted(device):
             imgs[flag] = np.asarray(r.render(scene, cam, settings))
             secs = time.perf_counter() - t0
             launched = counts()
-        finally:
-            bvh.BVH_MXU_LEAF = False
         shown = {k: launched[k] for k in ("scene_closest", "scene_any", "scene_closest_mat",
                                           "scene_any_mat")}
         print(f"[mxu] mesh Whitted {MW_WIDTH}x{MW_HEIGHT} {MW_SPP} spp depth {MW_DEPTH}, "
@@ -2173,18 +2547,28 @@ def phase_modes_check(device):
             raise SystemExit(f"chip_smoke: {name} disagrees with its plain version")
         if name in times:
             continue
-        lib = cuda_ms(lambda: torch.index_select(table, 0, idx))
-        texel = torch.index_select(table, 0, idx)
-        unpack = cuda_ms(lambda: _unpack_rgb(texel))
-        times[name] = (cuda_ms(lambda: fn(table, idx)), cuda_ms(lambda: plain(table, idx)), lib)
+        # the library yardstick: one index_select computing the same function
+        # from three float32 planes (each byte times float32(1/255), zero
+        # padded to 128·R texels), on the indices clamped as the kernel does
+        n_tex = table.shape[0]
+        padded = torch.nn.functional.pad(table, (0, -(-n_tex // 128) * 128 - n_tex))
+        planes = torch.stack(tuple(_unpack_rgb(padded))).contiguous()
+        k = idx.clamp(0, planes.shape[1] - 1)
+        lib_out = torch.index_select(planes, 1, k)
+        if not all(same_bits(lib_out[c], g[c]) for c in range(3)):
+            raise SystemExit(f"chip_smoke: the plane index_select differs from {name}")
+        lib, _, _, _, lib_by = device_ms(lambda: torch.index_select(planes, 1, k), None)
+        packed = device_ms(lambda: torch.index_select(table, 0, idx), None)[0]
+        times[name] = timed(lambda: fn(table, idx), "gather_rgb_kernel",
+                            lambda: plain(table, idx))
+        times[name]["library_ms"] = lib
         bounds[name] = bound_ms(3 * N_RAYS, N_RAYS * (4 + 4 + 12))
-        print(f"[time] {name} at N={N_RAYS}: kernel {times[name][0]:.4f} ms, plain torch "
-              f"{times[name][1]:.4f} ms, library index_select {lib:.4f} ms (+ its unpack "
-              f"{unpack:.4f} ms) (median of 25, CUDA events)")
-    times["path_step"] = (cuda_ms(lambda: step.path_step(*args)),
-                          cuda_ms(lambda: step.path_step_plain(*args)), None)
-    print(f"[time] path_step at N={N_RAYS}: kernel {times['path_step'][0]:.4f} ms, plain torch "
-          f"{times['path_step'][1]:.4f} ms (median of 25, CUDA events)")
+        show_time(name, times[name], f"; library index_select on (3, {planes.shape[1]}) float32 "
+                  f"planes, bit-equal: {lib:.4f} ms device ({lib_by}; the packed int32 index_select "
+                  f"{packed:.4f} ms, no unpack)")
+    times["path_step"] = timed(lambda: step.path_step(*args), "path_step_kernel",
+                               lambda: step.path_step_plain(*args))
+    show_time("path_step", times["path_step"])
     # K7 reads 29 words a lane and writes 38; its sweeps are K1's on the rays it traces
     bounds["path_step"] = bound_ms(k1_flops(cs, want[1], want[2], want[5], want[6]),
                                    N_RAYS * 4 * (29 + 38))
@@ -2278,9 +2662,11 @@ def phase_modes_main(device, default_img, budget):
     b = pt.CustomSceneBuilder()
     scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
     for tag, spp, counter, kernels in (
-            ("[modes] default", 4, lambda: bounce.path_bounce.launches, {"K1": "path_bounce"}),
-            ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step"}),
-            ("[modes] pipe", GROUP_SPP, lambda: step.path_step.launches, {"K7": "path_step"})):
+            ("[modes] default", 4, lambda: bounce.path_bounce.launches,
+             {"K1": "path_bounce_kernel"}),
+            ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step_kernel"}),
+            ("[modes] pipe", GROUP_SPP, lambda: step.path_step.launches,
+             {"K7": "path_step_kernel"})):
         r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
                                       chunk_rays=CHUNK_RAYS, device=device)
         r.compiled(scene)  # the scene compile stays out of the frame's time
@@ -2335,7 +2721,7 @@ def main() -> int:
     b = pt.CustomSceneBuilder()
     cs = pt.compile_scene(b.build_scene(), device=device)
     blobs, state, k1_err = phase_kernel_check(cs, b.create_camera(WIDTH / HEIGHT), device)
-    k1_ms, k1_plain_ms = phase_timing(cs, blobs, state)
+    k1_times = phase_timing(cs, blobs, state)
     camera_rays, shadow, k3a_err, k3b_err = phase_intersect_check(
         cs, b.create_camera(W_WIDTH / W_HEIGHT), device)
     k2_err = phase_whitted_check(cs, blobs, camera_rays)
@@ -2343,7 +2729,7 @@ def main() -> int:
     o_err_a, o_err_b = phase_oracle_check(device)
     k3a_err, k3b_err = max(k3a_err, o_err_a), max(k3b_err, o_err_b)
     times = phase_new_timing(cs, blobs, camera_rays, shadow)
-    times["path_bounce"] = (k1_ms, k1_plain_ms)
+    times["path_bounce"] = k1_times
     bounds = kernel_bounds(cs, state, camera_rays, shadow)
     phase_golden(device)
     k1_launches, secs, mrays, default_img = phase_main_path(device)
@@ -2426,11 +2812,25 @@ def main() -> int:
         ("tri_any_mat", "bvh_leafmat.cu", "bvh_pallas.py:1305",
          split_runs[MXU_QUAD][3]["tri_any_mat"], xerr["tri_any_mat"]),
     )
+    rows += (  # K4c / K4d: the whole-tree page walks, timed on config 6
+        ("K4c", "bvh_paged.cu", "bvh_pallas.py:1059", split_runs[SCALAR_QUAD][3]["pages_closest"],
+         berr["k4c"]),
+        ("K4d", "bvh_paged.cu", "bvh_pallas.py:1285", split_runs[SCALAR_QUAD][3]["pages_any"],
+         berr["any"]),
+    )
+    # ms: device time per launch (ms_by "profiler"; "events": the call's device
+    # work, when no trace kept a launch); call_ms: one call of the wrapper,
+    # host and device (CUDA events); twin_ms: the first design's device time,
+    # in turns; tree_ms: the tree traffic the plain walk counts, over the
+    # memory rate
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
-        "launches": launches, "max_abs_err": err, "ms": times[name][0],
-        "plain_ms": times[name][1], "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-        "library_ms": times[name][2] if len(times[name]) > 2 else None,
+        "launches": launches, "max_abs_err": err, "ms": times[name]["ms"],
+        "ms_by": times[name]["ms_by"], "call_ms": times[name]["call_ms"],
+        "plain_ms": times[name]["plain_ms"],
+        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+        "library_ms": times[name].get("library_ms"),
+        **{k: times[name][k] for k in ("twin_ms", "tree_ms") if k in times[name]},
     } for name, source, replaces, launches, err in rows]}))
     print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
           f"group at 1024x1024 depth 8); its modes: pipe {runs['pipe'][2]:.2f} (K7 bit-equal "

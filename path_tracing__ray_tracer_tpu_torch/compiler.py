@@ -610,8 +610,9 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
             top_depth=int(pg.top_depth_token.shape[0]),
             page_depth=int(pg.page_depth_token.shape[0]), page_lo=t(pg.page_lo),
             page_hi=t(pg.page_hi), page_root=t(bvh_mod.page_roots(arrs, top_tree, n_pages)))
+    slot_rec = t(np.asarray(b.slot_blob)[0])
     flat = bvh_mod.FlatBVH(**{k: t(a) for k, a in arrs.items()}, nodes4=t(nodes4[0]),
-                           slot_rec=t(np.asarray(b.slot_blob)[0]), depth4=depth4,
+                           slot_rec=slot_rec, slot16=bvh_mod.pack_slot16(slot_rec), depth4=depth4,
                            uid_packed=b.uid_token is not None, tree2=t(np.asarray(b.tree_blob)[0]),
                            depth2=int(b.depth_token.shape[0]), node2=t(node2), paged=paged,
                            leaf_mat=None if paged is not None or b.leaf_mat is None

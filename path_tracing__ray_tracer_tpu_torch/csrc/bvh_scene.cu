@@ -12,10 +12,22 @@
 // What bounds them: latency.  Per ray K4a reads 24 B and writes 28 B, K4b
 // reads 28 B and writes 1 B, against a walk of tens of node records and
 // leaves of 16 slot records (52 B each), read from device memory through
-// the read-only cache by threads that each follow their own path.  The
-// design keeps it simple: one thread per ray, its stack in local memory,
-// the tree and slot records as packed, and only the few non-triangle
-// primitives staged in shared memory.
+// the read-only cache by threads that each follow their own path, so a
+// lane's time is its chain of dependent loads.  K4a and K11 keep the first
+// design: one thread per ray, its stack in local memory, the tree and slot
+// records as packed, and only the few non-triangle primitives staged in
+// shared memory.
+//
+// K4b is redesigned for Hopper (bvh_any_persistent): persistent blocks of
+// 256 threads, as many as are resident, whose warps take 32 lanes at a time
+// from a counter (next_lane); the BVH4 node table read from device memory,
+// or copied into each block's shared memory by one bulk copy (TMA) when it
+// fits the budget of ops/cuda/bvh.py, either way as eight 16-byte loads a
+// node; the slot records read from the padded 64 B copy as 16-byte loads; a
+// stack of 3 * depth class - 2 entries in local memory.  The wrapper picks the variant by size alone
+// (ops/cuda/bvh.walk_plan).  Each lane's arithmetic and visit order are the
+// first design's, so its verdicts are too.  The first design stays as
+// ptrt_bvh_any_simple, a timing twin that no renderer reaches.
 //
 // K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss; the
 // uid bits of a packed gid stripped by gid_mask), u, v
@@ -101,6 +113,47 @@ bvh_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __rest
                 walk_any(nodes, n_nodes, slots, r, t_min, limit)) ? 1 : 0;
 }
 
+// K4b for Hopper: the occlusion of lanes [0, n) taken 32 at a time from
+// `counter` (two int32, zero at the launch, left zero; finish_lanes).
+template <bool kStage, int kDepth>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+bvh_any_persistent(const float* __restrict__ nodes, int n_nodes,
+                   const float* __restrict__ slot16, const float* __restrict__ ps_g, int P,
+                   int S, int Q, const float* __restrict__ ox_in,
+                   const float* __restrict__ oy_in, const float* __restrict__ oz_in,
+                   const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+                   const float* __restrict__ dz_in, const float* __restrict__ limit_in, int n,
+                   float t_min, uint8_t* __restrict__ occ_out, int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t bar;
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  float* tree = reinterpret_cast<float*>(smem4);
+  float* ps = tree + tree_smem_bytes(kStage, n_nodes) / sizeof(float);
+  if (kStage && threadIdx.x == 0)
+    bulk_copy_start(tree, nodes, (uint32_t)tree_smem_bytes(kStage, n_nodes), &bar);
+  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) ps[k] = ps_g[k];
+  __syncthreads();
+  if (kStage) bulk_copy_wait(&bar);
+  const Vec4Nodes<kStage> src{reinterpret_cast<const float4*>(kStage ? tree : nodes)};
+  const Slot16Leaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    Ray r;
+    r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
+    r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
+    const float limit = limit_in[i];
+    bool occ = limit <= 0.0f || any_hit(ps, L, r, t_min, limit);
+    if (!occ) {
+      LocalStack<stack_cap(kDepth)> stack;
+      occ = walk_any_with<false>(src, n_nodes, leaf, stack, r, t_min, limit, nullptr);
+    }
+    occ_out[i] = occ ? 1 : 0;
+  }
+  finish_lanes(counter);
+}
+
 __global__ void __launch_bounds__(kBvhThreads)
 bvh4_rooted_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
                    const float* __restrict__ ox_in, const float* __restrict__ oy_in,
@@ -133,6 +186,18 @@ inline size_t ps_bytes(int P, int S, int Q) {
 
 inline int blocks_for(int n) { return (n + kBvhThreads - 1) / kBvhThreads; }
 
+using AnyKernel = decltype(&bvh_any_persistent<false, kMaxDepth4>);
+
+// The variants the wrapper picks among (ops/cuda/bvh.walk_plan): the tree
+// staged or not, for either depth class; nullptr for any other class.
+inline AnyKernel any_variant(int stage, int depth_class) {
+  if (depth_class == kShallow4)
+    return stage ? bvh_any_persistent<true, kShallow4> : bvh_any_persistent<false, kShallow4>;
+  if (depth_class == kMaxDepth4)
+    return stage ? bvh_any_persistent<true, kMaxDepth4> : bvh_any_persistent<false, kMaxDepth4>;
+  return nullptr;
+}
+
 }  // namespace ptrt
 
 // Both launch on `stream`, allocate nothing and do not synchronise.  Each
@@ -151,15 +216,49 @@ extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* sl
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slots, const float* ps,
-                            int P, int S, int Q, const float* ox, const float* oy,
-                            const float* oz, const float* dx, const float* dy, const float* dz,
-                            const float* limit, int n, float t_min, uint8_t* occluded,
-                            void* stream) {
+// The first design of K4b, kept as a timing twin (no renderer reaches it).
+extern "C" int ptrt_bvh_any_simple(const float* nodes, int n_nodes, const float* slots,
+                                   const float* ps, int P, int S, int Q, const float* ox,
+                                   const float* oy, const float* oz, const float* dx,
+                                   const float* dy, const float* dz, const float* limit, int n,
+                                   float t_min, uint8_t* occluded, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   ptrt::bvh_any_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
                          (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy, oz,
                                                  dx, dy, dz, limit, n, t_min, occluded);
+  return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the K4b variant (stage, depth_class) with
+// `smem` bytes of dynamic shared memory, into *blocks; first lifts the
+// variant's dynamic shared memory limit to `smem` where it is lower.
+extern "C" int ptrt_bvh_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  const ptrt::AnyKernel k = ptrt::any_variant(stage, depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ptrt::allow_smem(k, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, ptrt::kWalkThreads, smem);
+  return (int)err;
+}
+
+// K4b: `grid` persistent blocks of the variant (stage, depth_class) with
+// `smem` bytes of dynamic shared memory, which ptrt_bvh_any_occupancy has
+// allowed; `counter` is two int32 of scratch, zero at the launch and left
+// zero by the kernel.
+extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slot16, const float* ps,
+                            int P, int S, int Q, const float* ox, const float* oy,
+                            const float* oz, const float* dx, const float* dy, const float* dz,
+                            const float* limit, int n, float t_min, uint8_t* occluded,
+                            int* counter, int stage, int depth_class, int smem, int grid,
+                            void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const ptrt::AnyKernel k = ptrt::any_variant(stage, depth_class);
+  if (k == nullptr ||
+      (size_t)smem < ptrt::tree_smem_bytes(stage, n_nodes) + ptrt::ps_bytes(P, S, Q))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
+      nodes, n_nodes, slot16, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded,
+      counter);
   return (int)cudaGetLastError();
 }
 

@@ -39,6 +39,17 @@
 // the decisions are division free (with s2 = det², u ≥ 0 ⇔ u·det·det ≥ 0),
 // and t = t·det / det, u and v one division each.
 //
+// The node records' source is a compile-time policy too.  PtrNodes reads a
+// record's floats one by one through a pointer into device memory (K4a,
+// K4c/K4d, K6, K10, K11, and the first designs of K4b and K5, kept as
+// timing twins).  Vec4Nodes reads the whole 128 B record as eight 16-byte
+// loads into registers, from device memory or from a copy of the node table
+// in shared memory (the persistent K4b and K5).  The stack is a per-thread
+// array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a port-only copy
+// of the slot records padded to 16 floats (64 B, 16-byte aligned; ops/bvh.py
+// pack_slot16), read as 16-byte loads, a batch of slots at a time.  None of
+// the policies changes a lane's arithmetic or its visit order.
+//
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
 // bvh_paged_pallas.py) adds a fourth kind of child: a page, meta
 // -(1 + PAGE_META_BASE + page).  The walks instantiated with kPaged = true
@@ -54,11 +65,18 @@ namespace ptrt {
 
 constexpr int kNode4F = 32;
 constexpr int kSlotF = 13;
+constexpr int kSlot16F = 16;  // the padded slot record of Slot16Leaf
 constexpr int kLeafSize = 16;
 // deepest BVH4 the walk takes: the stack never holds more than 3 * depth - 2
 // nodes (ops/cuda/bvh.py checks the depth before it launches)
 constexpr int kMaxDepth4 = 32;
 constexpr int kStackCap = 3 * kMaxDepth4;
+// the persistent walks' block (ops/cuda/bvh.py WALK_THREADS) and their two
+// depth classes: a BVH4 at most kShallow4 deep takes a stack of
+// 3 * kShallow4 - 2 entries, any other one 3 * kMaxDepth4 - 2
+constexpr int kWalkThreads = 256;
+constexpr int kShallow4 = 8;
+__host__ __device__ constexpr int stack_cap(int depth_class) { return 3 * depth_class - 2; }
 constexpr int kGidUidBits = 17;
 // a child meta at or below kPageMeta0 names page -(meta) - 1 - kPageMetaBase
 constexpr int kPageMetaBase = 1 << 20;
@@ -118,12 +136,56 @@ __device__ __forceinline__ void pend_pages(const bool* hit, const float* meta, P
   }
 }
 
+// ---- node sources --------------------------------------------------------
+// rec(node, buf) returns the node's 32 floats: a pointer into the records
+// (PtrNodes), or buf filled by eight 16-byte loads (Vec4Nodes).
+struct PtrNodes {
+  const float* __restrict__ nodes;
+
+  __device__ __forceinline__ const float* rec(int node, float (&)[kNode4F]) const {
+    return nodes + (size_t)node * kNode4F;
+  }
+};
+
+template <bool kShared>
+struct Vec4Nodes {
+  const float4* q;  // device memory (read through the read-only cache) or shared memory
+
+  __device__ __forceinline__ const float* rec(int node, float (&buf)[kNode4F]) const {
+    const float4* p = q + (size_t)node * (kNode4F / 4);
+#pragma unroll
+    for (int k = 0; k < kNode4F / 4; ++k) {
+      const float4 v = kShared ? p[k] : __ldg(p + k);
+      buf[4 * k] = v.x;
+      buf[4 * k + 1] = v.y;
+      buf[4 * k + 2] = v.z;
+      buf[4 * k + 3] = v.w;
+    }
+    return buf;
+  }
+};
+
+// ---- stacks ---------------------------------------------------------------
+template <int kCap>
+struct LocalStack {
+  int s[kCap];
+  int sp = 0;
+
+  __device__ __forceinline__ void push(int v) { s[sp++] = v; }
+  __device__ __forceinline__ int pop() { return s[--sp]; }
+  __device__ __forceinline__ bool empty() const { return sp == 0; }
+};
+
 // Push the hit inner children of node record `b`, the farthest first (never
-// a page of a paged top tree).
-template <bool kPaged>
+// a page of a paged top tree).  An inner child's meta is -(1 + node) with
+// node >= 1 (the root is no one's child), so meta < -1; an empty child's -1
+// is never pushed.  Its point box at +3e38 is missed by every ray with a
+// finite bound, but a ray with an infinite bound can enter it (each of its
+// slabs overflows to +inf), and pushing -1 would push the root again: the
+// walk then repeats, and overruns the 3 * depth - 2 entries its stack holds.
+template <bool kPaged, class Stack>
 __device__ __forceinline__ void push_children(const float* __restrict__ b, const bool* hit,
-                                              const float* meta, const Ray& r, int* stack,
-                                              int& sp) {
+                                              const float* meta, const Ray& r, Stack& stack) {
   const bool p0n = near_first(b[28], r);  // the left pair is the near one
   const bool c0n = near_first(b[29], r);  // child 0 is the near one of the left pair
   const bool c2n = near_first(b[30], r);  // child 2 is the near one of the right pair
@@ -134,8 +196,8 @@ __device__ __forceinline__ void push_children(const float* __restrict__ b, const
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int c = order[j];
-    if (hit[c] && meta[c] < 0.0f && (!kPaged || meta[c] > kPageMeta0))
-      stack[sp++] = (int)(-meta[c]) - 1;
+    if (hit[c] && meta[c] < -1.0f && (!kPaged || meta[c] > kPageMeta0))
+      stack.push((int)(-meta[c]) - 1);
   }
 }
 
@@ -171,6 +233,68 @@ struct SlotLeaf {
                           tt, bu, bv) &&
           s[9] >= 0.0f)
         return true;
+    }
+    return false;
+  }
+};
+
+// SlotLeaf over the padded records: v0 e1x | e1y e1z e2x e2y | e2z gid nx ny |
+// nz 0 0 0.  A leaf is read kSlotBatch slots at a time: their three 16-byte
+// loads each are issued together before the batch's tests, which then run
+// in slot order, so a lane waits on device memory once a batch and not once
+// a slot.  The last word is read on a win.
+constexpr int kSlotBatch = 4;
+
+struct Slot16Leaf {
+  const float4* __restrict__ slots;
+
+  __device__ __forceinline__ void load(const float4* s, float4 (&a)[kSlotBatch],
+                                       float4 (&b)[kSlotBatch], float4 (&c)[kSlotBatch]) const {
+#pragma unroll
+    for (int j = 0; j < kSlotBatch; ++j) {
+      a[j] = __ldg(s + 4 * j);
+      b[j] = __ldg(s + 4 * j + 1);
+      c[j] = __ldg(s + 4 * j + 2);
+    }
+  }
+
+  __device__ __forceinline__ void closest(float base, const Ray& r, float t_min, int gid_offset,
+                                          Hit& h) const {
+    const float4* s = slots + (size_t)base * (kSlot16F / 4);
+    for (int k = 0; k < kLeafSize; k += kSlotBatch, s += kSlotBatch * (kSlot16F / 4)) {
+      float4 a[kSlotBatch], b[kSlotBatch], c[kSlotBatch];
+      load(s, a, b, c);
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        float tt, bu, bv;
+        if (moller_trumbore(a[j].x, a[j].y, a[j].z, a[j].w, b[j].x, b[j].y, b[j].z, b[j].w,
+                            c[j].x, r, t_min, h.t, tt, bu, bv) &&
+            c[j].y >= 0.0f) {
+          h.t = tt;
+          h.prim = (int)c[j].y + gid_offset;
+          h.u = bu;
+          h.v = bv;
+          h.nx = c[j].z;
+          h.ny = c[j].w;
+          h.nz = __ldg(&s[4 * j + 3].x);
+        }
+      }
+    }
+  }
+
+  __device__ __forceinline__ bool any(float base, const Ray& r, float t_min, float limit) const {
+    const float4* s = slots + (size_t)base * (kSlot16F / 4);
+    for (int k = 0; k < kLeafSize; k += kSlotBatch, s += kSlotBatch * (kSlot16F / 4)) {
+      float4 a[kSlotBatch], b[kSlotBatch], c[kSlotBatch];
+      load(s, a, b, c);
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        float tt, bu, bv;
+        if (moller_trumbore(a[j].x, a[j].y, a[j].z, a[j].w, b[j].x, b[j].y, b[j].z, b[j].w,
+                            c[j].x, r, t_min, limit, tt, bu, bv) &&
+            c[j].y >= 0.0f)
+          return true;
+      }
     }
     return false;
   }
@@ -260,18 +384,18 @@ struct MatLeaf {
 // barycentrics as u, v and the stored (unflipped) normal.  kPaged: a top
 // tree, whose page children set bits of `pend` instead of being walked.
 // `root`: the node the walk starts from (a subtree's, in a multipass pass).
-// `leaf`: the leaf visit (SlotLeaf or MatLeaf).
-template <bool kPaged, class Leaf>
-__device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ nodes, int n_nodes,
-                                                  const Leaf& leaf, const Ray& r, float t_min,
-                                                  int gid_offset, Hit& h, Pend* pend,
-                                                  int root = 0) {
+// `nodes`, `leaf`, `stack`: the node source, the leaf visit (SlotLeaf,
+// Slot16Leaf or MatLeaf) and an empty stack.
+template <bool kPaged, class Nodes, class Leaf, class Stack>
+__device__ __forceinline__ void walk_closest_with(const Nodes& nodes, int n_nodes,
+                                                  const Leaf& leaf, Stack& stack, const Ray& r,
+                                                  float t_min, int gid_offset, Hit& h,
+                                                  Pend* pend, int root = 0) {
   const WalkRay w = walk_ray(r);
-  int stack[kStackCap];
-  int sp = 0;
-  stack[sp++] = root;
-  for (int step = 0; sp > 0 && step < n_nodes + 2; ++step) {
-    const float* b = nodes + (size_t)stack[--sp] * kNode4F;
+  stack.push(root);
+  for (int step = 0; !stack.empty() && step < n_nodes + 2; ++step) {
+    float buf[kNode4F];
+    const float* b = nodes.rec(stack.pop(), buf);
     bool hit[4];
     float meta[4];
     const float far = h.t;
@@ -284,8 +408,18 @@ __device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ node
     for (int c = 0; c < 4; ++c)
       if (hit[c] && meta[c] >= 0.0f) leaf.closest(meta[c], r, t_min, gid_offset, h);
     if constexpr (kPaged) pend_pages(hit, meta, *pend);
-    push_children<kPaged>(b, hit, meta, r, stack, sp);
+    push_children<kPaged>(b, hit, meta, r, stack);
   }
+}
+
+template <bool kPaged, class Leaf>
+__device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ nodes, int n_nodes,
+                                                  const Leaf& leaf, const Ray& r, float t_min,
+                                                  int gid_offset, Hit& h, Pend* pend,
+                                                  int root = 0) {
+  LocalStack<kStackCap> stack;
+  walk_closest_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, gid_offset, h, pend,
+                            root);
 }
 
 template <bool kPaged>
@@ -304,16 +438,15 @@ __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, in
 
 // Is any triangle hit in (t_min, limit)?  Stops at the first one; the page
 // bits set before it stay set.
-template <bool kPaged, class Leaf>
-__device__ __forceinline__ bool walk_any_leaf(const float* __restrict__ nodes, int n_nodes,
-                                              const Leaf& leaf, const Ray& r, float t_min,
+template <bool kPaged, class Nodes, class Leaf, class Stack>
+__device__ __forceinline__ bool walk_any_with(const Nodes& nodes, int n_nodes, const Leaf& leaf,
+                                              Stack& stack, const Ray& r, float t_min,
                                               float limit, Pend* pend) {
   const WalkRay w = walk_ray(r);
-  int stack[kStackCap];
-  int sp = 0;
-  stack[sp++] = 0;
-  for (int step = 0; sp > 0 && step < n_nodes + 2; ++step) {
-    const float* b = nodes + (size_t)stack[--sp] * kNode4F;
+  stack.push(0);
+  for (int step = 0; !stack.empty() && step < n_nodes + 2; ++step) {
+    float buf[kNode4F];
+    const float* b = nodes.rec(stack.pop(), buf);
     bool hit[4];
     float meta[4];
 #pragma unroll
@@ -325,9 +458,17 @@ __device__ __forceinline__ bool walk_any_leaf(const float* __restrict__ nodes, i
     for (int c = 0; c < 4; ++c)
       if (hit[c] && meta[c] >= 0.0f && leaf.any(meta[c], r, t_min, limit)) return true;
     if constexpr (kPaged) pend_pages(hit, meta, *pend);
-    push_children<kPaged>(b, hit, meta, r, stack, sp);
+    push_children<kPaged>(b, hit, meta, r, stack);
   }
   return false;
+}
+
+template <bool kPaged, class Leaf>
+__device__ __forceinline__ bool walk_any_leaf(const float* __restrict__ nodes, int n_nodes,
+                                              const Leaf& leaf, const Ray& r, float t_min,
+                                              float limit, Pend* pend) {
+  LocalStack<kStackCap> stack;
+  return walk_any_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, limit, pend);
 }
 
 template <bool kPaged>
@@ -341,6 +482,84 @@ __device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_
                                          const float* __restrict__ slots, const Ray& r,
                                          float t_min, float limit) {
   return walk_any_t<false>(nodes, n_nodes, slots, r, t_min, limit, nullptr);
+}
+
+// ---- the persistent walks' block set-up ------------------------------------
+// Dynamic shared memory of a persistent walk: the BVH4 node table when it is
+// staged, then the kernel's own tables.  The bytes before the tables:
+__host__ __device__ inline size_t tree_smem_bytes(int stage, int n_nodes) {
+  return stage ? sizeof(float) * (size_t)n_nodes * kNode4F : 0;
+}
+
+// Lift a persistent walk's dynamic shared memory limit to `smem` bytes where
+// it is lower (a launch above 48 KB needs it); never lowers it, so a launch
+// allowed before stays allowed.
+template <class K>
+inline cudaError_t allow_smem(K kernel, int smem) {
+  cudaFuncAttributes a;
+  cudaError_t err = cudaFuncGetAttributes(&a, kernel);
+  if (err == cudaSuccess && smem > a.maxDynamicSharedSizeBytes)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return err;
+}
+
+// One bulk copy (TMA) of `bytes` from device memory into shared memory,
+// completing on the mbarrier `bar`; called by one thread.  Both addresses
+// are 16-byte aligned and `bytes` is a multiple of 16 (node records are
+// 128 B; ops/cuda/bvh.py checks the table's alignment).
+__device__ __forceinline__ void bulk_copy_start(void* dst, const void* src, uint32_t bytes,
+                                                uint64_t* bar) {
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(d), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(b)
+      : "memory");
+}
+
+// Wait for the copy's phase (0) of `bar` to complete; every thread calls it
+// after a __syncthreads() that follows bulk_copy_start.
+__device__ __forceinline__ void bulk_copy_wait(uint64_t* bar) {
+  const uint32_t b = (uint32_t)__cvta_generic_to_shared(bar);
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(b), "r"(0u)
+        : "memory");
+  } while (!done);
+}
+
+// The persistent loop's next lane (Aila & Laine's persistent threads): lane
+// 0 of each warp takes the next 32 lanes from counter[0] for the whole warp,
+// which runs until the slowest of them ends.  The loop ends when a warp's
+// batch starts at or past n.
+__device__ __forceinline__ int next_lane(int* counter) {
+  const int lane = threadIdx.x & 31;
+  int base = 0;
+  if (lane == 0) base = atomicAdd(counter, 32);
+  return __shfl_sync(0xffffffffu, base, 0) + lane;
+}
+
+// Every thread of a block calls this after its persistent loop.  The last
+// block to get here zeroes counter[0] (the next lane) and counter[1] (the
+// blocks done): every other block has taken its last batch by then, and the
+// next launch on the stream starts from lane 0 with no memset.
+__device__ __forceinline__ void finish_lanes(int* counter) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(counter + 1, 1) == (int)gridDim.x - 1) {
+      atomicExch(counter, 0);
+      atomicExch(counter + 1, 0);
+    }
+  }
 }
 
 // A triangle winner's global id without its packed uid; other ids unchanged.

@@ -93,6 +93,9 @@ class FlatBVH(NamedTuple):
     paged: Optional["PagedBlobs"] = None  # the two-level layout of a big tree
     # (16, G·128) f32 leaf coefficient table (pack_leaf_mat) of a one-level tree
     leaf_mat: Optional[torch.Tensor] = None
+    # (16·K,) f32 the slot records padded to 64 B (pack_slot16), read by the
+    # persistent K4b and K5 as 16-byte loads
+    slot16: Optional[torch.Tensor] = None
 
     @property
     def n_nodes(self) -> int:
@@ -645,6 +648,14 @@ def page_roots(arrs: dict, top_tree: np.ndarray, n_pages: int) -> np.ndarray:
     return roots
 
 
+def pack_slot16(slot_rec: torch.Tensor) -> torch.Tensor:
+    """The 13-float slot records padded to 16 floats each (v0, e1, e2, gid,
+    normal, then three zeros): 64 B a slot, so a slot starts on a 16-byte
+    boundary and reads as four 16-byte loads.  Stored floats unchanged."""
+    rec = slot_rec.view(-1, _SLOT_F)
+    return torch.nn.functional.pad(rec, (0, 16 - _SLOT_F)).reshape(-1).contiguous()
+
+
 def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: np.ndarray,
               uid: np.ndarray = None, device="cpu") -> FlatBVH:
     """A ``build_bvh`` result and its triangles as a :class:`FlatBVH` on
@@ -664,13 +675,14 @@ def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: n
         paged = pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, device=device)
     if paged is None:
         leaf_mat = _tensor(pack_leaf_mat(arrs, v0, v1, v2, nrm=nrm, uid=uid), device)
+    slot_rec = _tensor(slot_np[0], device)
     return FlatBVH(lo=_tensor(arrs["lo"], device), hi=_tensor(arrs["hi"], device),
                    skip=_tensor(arrs["skip"], device), is_leaf=_tensor(arrs["is_leaf"], device),
                    slots=_tensor(arrs["slots"], device), nodes4=_tensor(nodes4[0], device),
-                   slot_rec=_tensor(slot_np[0], device), depth4=int(depth4),
+                   slot_rec=slot_rec, depth4=int(depth4),
                    uid_packed=uid is not None, tree2=_tensor(tree_np[0], device),
                    depth2=int(depth2), node2=_tensor(node2, device), paged=paged,
-                   leaf_mat=leaf_mat)
+                   leaf_mat=leaf_mat, slot16=pack_slot16(slot_rec))
 
 
 # ---- plain walks -------------------------------------------------------------------

@@ -37,10 +37,21 @@ On a CUDA tensor each wrapper launches its kernel (or raises); on a CPU
 tensor it takes its plain version, so the CPU runs the same route.  The
 occlusion kernels report lanes whose bound is ≤ 0 as occluded (their answer
 is not needed; the plain versions say not occluded).
+
+K4b and K5 are persistent walks (``csrc/bvh_walk.cuh``): :func:`walk_plan`
+picks their variant from sizes alone, against the budget
+``SMEM_TREE_BYTES`` (a node table at most this large is copied into each
+block's shared memory), a module global read at each call that tests and
+scripts may set; :func:`persistent_grid` launches only the resident blocks,
+which take their lanes from :func:`lane_counter`.
+They read the padded slot records ``FlatBVH.slot16``.  Their first designs
+stay as timing twins, :func:`scene_any_simple` and
+``bounce_bvh.path_bounce_bvh_simple``, which no renderer reaches.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -75,6 +86,96 @@ BVH_MXU_LEAF = False  # leaves tested by the leaf coefficient table (K10)
 # Not a flag: the ordered BVH2 walk's stack, fixed in csrc/bvh2_walk.cu
 # (kStack2Cap); ops/cuda/bvh2.build checks that the two agree.
 STACK_CAP = 192
+
+# The persistent K4b and K5 (csrc/bvh_walk.cuh kWalkThreads, kShallow4): the
+# block, and the depth class whose stack holds 3·8 − 2 = 22 entries (a deeper
+# tree's holds 3·32 − 2).
+WALK_THREADS = 256
+SHALLOW4 = 8
+# A bound on the kernels' static shared memory (16 B in the staged variants:
+# the copy's mbarrier), which the card's per-block limit also holds.
+_STATIC_SMEM = 64
+# The budget, read at each call: the node table is staged when it is at most
+# SMEM_TREE_BYTES.  0: every tree is read from device memory, as 16-byte
+# loads through the read-only cache.  Staging config 5's 66,688 B table was
+# measured no faster on an H100 (within ±3% either way, K4b and K5; PERF.md),
+# so no tree is staged unless a caller raises the budget.
+SMEM_TREE_BYTES = 0
+
+
+class WalkPlan(NamedTuple):
+    stage: bool  # the node table is copied into each block's shared memory
+    depth_class: int  # SHALLOW4 or MAX_DEPTH4: the stack holds 3·class − 2 entries
+    smem_bytes: int  # dynamic shared memory of a block: the staged tree, the tables
+
+
+def walk_plan(n_nodes: int, depth4: int, table_bytes: int, limit: int) -> WalkPlan:
+    """The variant of a persistent walk over ``n_nodes`` BVH4 nodes of depth
+    ``depth4``, whose kernel stages ``table_bytes`` of its own tables, on a
+    card whose blocks may take ``limit`` bytes of dynamic shared memory
+    (:func:`smem_limit`): a pure function of these sizes and the budget."""
+    tree = 4 * 32 * n_nodes
+    depth_class = SHALLOW4 if depth4 <= SHALLOW4 else MAX_DEPTH4
+    stage = tree <= SMEM_TREE_BYTES and tree + table_bytes <= limit
+    return WalkPlan(stage, depth_class, table_bytes + (tree if stage else 0))
+
+
+def smem_limit(dev) -> int:
+    """The dynamic shared memory a block of the persistent walks may take on
+    ``dev``: the card's opt-in limit per block less their static share."""
+    return torch.cuda.get_device_properties(dev).shared_memory_per_block_optin - _STATIC_SMEM
+
+
+def persistent_grid(n: int, n_sms: int, blocks_per_sm: int) -> int:
+    """Blocks of a persistent launch over ``n`` lanes: the resident ones,
+    or fewer when fewer cover the lanes once."""
+    return max(1, min(-(-n // WALK_THREADS), n_sms * blocks_per_sm))
+
+
+_RESIDENT = {}  # (kernel, device index, plan) -> resident blocks per SM
+
+
+def launch_grid(who, occupancy, plan: WalkPlan, n: int, dev) -> int:
+    """``persistent_grid`` for ``plan`` on ``dev``, with the blocks per SM
+    that the kernel's ``occupancy`` entry reports (asked once per plan; it
+    also allows the plan's shared memory, so a launch needs no attribute)."""
+    key = (who, dev.index, plan)
+    if key not in _RESIDENT:
+        blocks = ctypes.c_int(0)
+        _raise_on(who, occupancy(int(plan.stage), plan.depth_class, plan.smem_bytes,
+                                 ctypes.byref(blocks)))
+        if blocks.value < 1:
+            raise RuntimeError(f"{who}: no block of {plan} fits an SM")
+        _RESIDENT[key] = blocks.value
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return persistent_grid(n, n_sms, _RESIDENT[key])
+
+
+_COUNTERS = {}  # (device index, stream) -> the persistent walks' lane counter
+
+
+def lane_counter(dev) -> torch.Tensor:
+    """The lane counter of the persistent walks on ``dev``'s current stream:
+    two int32 (the next lane, the blocks done), zero between launches, since
+    each launch's last block zeroes them (``bvh_walk.cuh`` finish_lanes).
+    Launches on one stream share it; another stream has its own."""
+    key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros((2,), dtype=torch.int32, device=dev)
+    return _COUNTERS[key]
+
+
+def slot16_arg(who, cs, device) -> int:
+    """The padded slot records' pointer, after checking them (16-byte
+    loads need 16-byte alignment; so do the node records)."""
+    bvh = cs.bvh
+    if bvh.slot16 is None:
+        raise ValueError(f"{who}: the BVH has no padded slot records (ops/bvh.pack_slot16)")
+    _check("slot16", bvh.slot16, torch.float32, bvh.slot_rec.shape[0] // 13 * 16, device, who)
+    for name, t in (("slot16", bvh.slot16), ("nodes4", bvh.nodes4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    return bvh.slot16.data_ptr()
 
 
 def tri_route(cs, per_ray: bool = False) -> str:
@@ -132,9 +233,12 @@ def build():
     lib = built.lib
     head = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
     lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
-    lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P]
+    lib.ptrt_bvh_any_simple.argtypes = head + [_P, _I, _F, _P, _P]
+    lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P] + [_I] * 4 + [_P]
+    lib.ptrt_bvh_any_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.ptrt_bvh4_closest_rooted.argtypes = [_P, _I, _P] + [_P] * 10 + [_I, _I, _F, _P, _P, _P]
-    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any, lib.ptrt_bvh4_closest_rooted):
+    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any_simple, lib.ptrt_bvh_any,
+               lib.ptrt_bvh_any_occupancy, lib.ptrt_bvh4_closest_rooted):
         fn.restype = ctypes.c_int
     return built
 
@@ -307,18 +411,55 @@ def scene_any(cs, ro: V3, rd: V3, t_min: float, limit) -> torch.Tensor:
 
 
 def _fused_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
-    """K4b: the plane/sphere/quad sweep, then the BVH4 occlusion walk."""
+    """K4b: the plane/sphere/quad sweep, then the BVH4 occlusion walk, in
+    the persistent variant :func:`walk_plan` picks."""
     who = "scene_any"
     dev = ro.x.device
+    nodes, n_nodes, _slots, ps, P, S, Q = tree_args(who, cs, dev)
+    slot16 = slot16_arg(who, cs, dev)
+    n, rays = _rays(who, ro, rd)
+    _check("limit", limit, torch.float32, n, dev, who)
+    occ = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return occ
+    lib = build().lib
+    plan = any_plan(cs, smem_limit(dev))
+    grid = launch_grid(who, lib.ptrt_bvh_any_occupancy, plan, n, dev)
+    err = lib.ptrt_bvh_any(nodes, n_nodes, slot16, ps, P, S, Q, *(r.data_ptr() for r in rays),
+                           limit.data_ptr(), n, float(t_min), occ.data_ptr(),
+                           lane_counter(dev).data_ptr(), int(plan.stage), plan.depth_class,
+                           plan.smem_bytes, grid, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(who, err)
+    scene_any.launches += 1
+    return occ
+
+
+def any_plan(cs, limit: int) -> WalkPlan:
+    """The persistent K4b's variant on ``cs`` under the shared memory
+    ``limit``: its own table is the plane/sphere/quad blob."""
+    return walk_plan(cs.bvh.nodes4.shape[0] // 32, cs.bvh.depth4, 4 * cs.bvh.ps_blob.numel(),
+                     limit)
+
+
+def scene_any_simple(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
+    """K4b's first design (one lane per thread, the tree and 13-float slot
+    records read in place), kept to be timed and held against the persistent
+    K4b; no renderer reaches it.  Rays on the CPU take the plain version."""
+    who = "scene_any_simple"
+    dev = ro.x.device
+    if not _on(who, dev):
+        return scene_hit_any_bvh_plain(cs, ro, rd, t_min, limit)
     tree = tree_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = build().lib.ptrt_bvh_any(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
-                                   float(t_min), occ.data_ptr(),
-                                   torch.cuda.current_stream(dev).cuda_stream)
+    if n == 0:
+        return occ
+    err = build().lib.ptrt_bvh_any_simple(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(),
+                                          n, float(t_min), occ.data_ptr(),
+                                          torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
-    scene_any.launches += 1
+    scene_any_simple.launches += 1
     return occ
 
 
@@ -387,4 +528,5 @@ def multipass_closest(cs, ro: V3, rd: V3, t_min: float, bound: torch.Tensor):
 
 scene_closest.launches = 0  # kernel launches; the plain versions do not count
 scene_any.launches = 0
+scene_any_simple.launches = 0
 closest_rooted.launches = 0

@@ -126,7 +126,7 @@ def test_compile_scene_on_mesh_matches_jax(mesh):
     assert tb.depth4 == jb.quad_depth_token.shape[0] and tb.uid_packed == (jb.uid_token is not None)
     assert tb.uid_packed  # the mesh's handful of materials compress
     carried = compiled_scene_from_numpy(jax.tree.map(np.asarray, jcs), device="cpu")
-    for k in ("lo", "hi", "skip", "is_leaf", "slots", "nodes4", "slot_rec", "ps_blob"):
+    for k in ("lo", "hi", "skip", "is_leaf", "slots", "nodes4", "slot_rec", "slot16", "ps_blob"):
         assert getattr(carried.bvh, k).equal(getattr(tb, k)), k
     assert (carried.bvh.depth4, carried.bvh.uid_packed) == (tb.depth4, tb.uid_packed)
 

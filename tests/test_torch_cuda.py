@@ -8,7 +8,10 @@ gathers (K8, K9), and the path tracer's modes launching them; the split
 BVH route's walks, the BVH2 walks (K4e) and the rooted multipass walk
 (K11), and the path tracer launching them on a forced route or a BVH4 too
 deep for the BVH4 walks; the walks through the leaf coefficient table
-(K10a-d) and the path tracer launching them on its two routes.
+(K10a-d) and the path tracer launching them on its two routes; the
+persistent K4b and K5 against their plain versions and their twins (the
+first designs), with the node table in shared memory and out of it, on
+ragged lane counts, none, and two launches back to back.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -254,6 +257,126 @@ def test_mesh_renderers_launch_their_kernels(mesh_card, name, counters):
                          pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
     assert all(a > b for a, b in zip(counters(), before))
     assert sums.shape == (64 * 64, 3) and np.isfinite(sums).all() and (sums >= 0).all()
+
+
+def _bits(x):
+    """A record's tensors by name, floats as their int32 bit patterns."""
+    if not hasattr(x, "_fields"):
+        return {"": x.view(torch.int32) if x.dtype == torch.float32 else x}
+    out = {}
+    for f in x._fields:
+        v = getattr(x, f)
+        parts = zip("xyz", v) if isinstance(v, tuple) else [("", v)]
+        out.update({f + c: t.contiguous().view(torch.int32) if t.dtype == torch.float32 else t
+                    for c, t in parts})
+    return out
+
+
+def _assert_twin(got, twin):
+    want = _bits(twin)
+    for k, t in _bits(got).items():
+        assert torch.equal(t, want[k]), k
+
+
+def _persistent_inputs(n, dev):
+    o, d, thr, key, depth = _inputs(n, n + 5, dev)
+    limit = torch.where(torch.arange(n, device=dev) % 7 == 0, -1.0,
+                        torch.rand(n, generator=torch.Generator(device=dev).manual_seed(n),
+                                   device=dev) * 60)
+    return o, d, thr, key, depth, limit
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [True, False])
+@pytest.mark.parametrize("n", [1, 31, 33, 131089])
+def test_persistent_walks_match_plain_and_twins(mesh_card, monkeypatch, staged, n):
+    """The persistent K4b and K5 against their plain versions (occlusion on
+    every ray that needs an answer; hit, prim and killed on every lane) and
+    bit for bit against their twins, with the node table staged in shared
+    memory (the budget lifted) and read from device memory (no budget)."""
+    dev, cs, tables = mesh_card
+    monkeypatch.setattr(bvh, "SMEM_TREE_BYTES", 1 << 30 if staged else 0)
+    assert bvh.any_plan(cs, bvh.smem_limit(dev)).stage == staged
+    assert bounce_bvh.bounce_plan(cs, tables, bvh.smem_limit(dev)).stage == staged
+    o, d, thr, key, depth, limit = _persistent_inputs(n, dev)
+    before = (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches)
+    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
+    got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth, shadow_light=True)
+    torch.cuda.synchronize()
+    assert (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches) == (
+        before[0] + 2, before[1] + 1)
+    care = limit > 0
+    want_occ = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit)
+    assert torch.equal(occ[care], want_occ[care]) and bool(occ[~care].all())
+    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
+    want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=True)
+    assert torch.equal(got.hit, want.hit) and torch.equal(got.prim, want.prim)
+    assert torch.equal(got.killed, want.killed)
+    _assert_floats_close(got, want, got.hit, FLOATS)
+    _assert_twin(got, bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth,
+                                                        shadow_light=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grid,subdivisions", [(3, 3), (2, 1)])
+def test_occlusion_walks_with_infinite_bounds(mesh_card, grid, subdivisions):
+    """Shadow rays with an infinite bound (the oracle's rays from missed
+    lanes) enter the empty children's point boxes at +3e38; the walks must
+    not push them (that re-walked the tree and overran the shallow stack)."""
+    dev = mesh_card[0]
+    cs = pt.compile_scene(pt.MeshSceneBuilder(grid=grid, subdivisions=subdivisions).build_scene(),
+                          device=dev, use_bvh=True)
+    o, d, _thr, _key, _depth = _inputs(4096, 17, dev)
+    d = V3(*(x.abs().contiguous() for x in d))  # toward +x, +y, +z: every slab of +3e38 is +inf
+    limit = torch.full((4096,), float("inf"), device=dev)
+    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert torch.equal(occ, plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit))
+    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
+
+
+@pytest.mark.cuda
+def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
+    dev, cs, tables = mesh_card
+    o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
+    before = (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches)
+    assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
+    out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
+    torch.cuda.synchronize()
+    assert out.hit.shape == (0,) and out.prim.shape == (0,)
+    assert (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches) == before
+
+
+@pytest.mark.cuda
+def test_persistent_walks_back_to_back_on_one_stream(mesh_card):
+    """Two launches queued without a sync between them (each leaves the
+    stream's lane counter zero for the next) both answer right."""
+    dev, cs, tables = mesh_card
+    o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
+    o2, d2, thr2, key2, depth2, limit2 = _persistent_inputs(4096 + 37, dev)
+    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
+    occ2 = bvh.scene_any(cs, o2, d2, 1e-3, limit2)
+    got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
+    got2 = bounce_bvh.path_bounce_bvh(cs, tables, o2, d2, thr2, key2, depth2)
+    torch.cuda.synchronize()
+    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
+    _assert_twin(occ2, bvh.scene_any_simple(cs, o2, d2, 1e-3, limit2))
+    _assert_twin(got, bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth))
+    _assert_twin(got2, bounce_bvh.path_bounce_bvh_simple(cs, tables, o2, d2, thr2, key2, depth2))
+    assert not bvh.lane_counter(dev).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cuda_path_raytracer", "cuda_texture_raytracer"])
+def test_mesh_renderers_leave_the_twins_idle(mesh_card, name):
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    r = pt.RendererFactory.create(name, seed=1)
+    twins = (bvh.scene_any_simple.launches, bounce_bvh.path_bounce_bvh_simple.launches)
+    before = bvh.scene_any.launches
+    r.render_sums(b.build_scene(), b.create_camera(1.0),
+                  pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
+    assert bvh.scene_any.launches > before
+    assert (bvh.scene_any_simple.launches, bounce_bvh.path_bounce_bvh_simple.launches) == twins
 
 
 @pytest.mark.cuda

@@ -1,0 +1,101 @@
+"""The host side of the persistent BVH walks, K4b and K5, on the CPU.
+
+* ``ops/bvh.pack_slot16``: the padded copy of the slot records that the
+  persistent walks read as 16-byte loads equals the 13-float records field
+  for field, with zero padding, 16-byte aligned.
+* ``ops/cuda/bvh.walk_plan`` and ``persistent_grid``: the variant (tree
+  staged in shared memory or not, depth class) and the grid are pure
+  functions of sizes, the budget, the card's shared memory and the SM
+  count.
+* The timing twins (the first designs) take the plain versions on the CPU,
+  as every wrapper does.
+
+The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
+"""
+import pytest
+import torch
+
+import path_tracing__ray_tracer_tpu_torch as pt
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh, bvh
+from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+from torch_threads import one_torch_thread  # noqa: F401
+
+# config 5 (MeshSceneBuilder(3, 3)): 521 BVH4 nodes, depth 6, a 92-float
+# plane/sphere/quad blob; the H100's and a 99 KB card's dynamic shared
+# memory a block (opt-in, less the walks' 64 B of static)
+C5_NODES, C5_DEPTH, C5_PS = 521, 6, 4 * 92
+TREE = 128 * C5_NODES
+H100, SMALL = 232_448 - 64, 101_376 - 64
+
+
+@pytest.fixture(scope="module")
+def mesh():
+    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
+    return pt.compile_scene(b.build_scene(), device="cpu", use_bvh=True)
+
+
+def test_slot16_is_the_slot_records_padded(mesh):
+    b = mesh.bvh
+    rec, pad = b.slot_rec.view(-1, 13), b.slot16.view(-1, 16)
+    assert pad.shape[0] == rec.shape[0] > 0 and b.slot16.is_contiguous()
+    for name, cols in (("v0", slice(0, 3)), ("e1", slice(3, 6)), ("e2", slice(6, 9)),
+                       ("gid", slice(9, 10)), ("normal", slice(10, 13))):
+        assert torch.equal(pad[:, cols], rec[:, cols]), name
+    assert not pad[:, 13:].any()
+    assert bool((pad[:, 9] < 0).any())  # the leaves' -1 padding slots carried over
+    assert b.slot16.data_ptr() % 16 == 0 and b.nodes4.data_ptr() % 16 == 0
+
+
+@pytest.mark.parametrize("budget,n_nodes,depth4,limit,want", [
+    (None, C5_NODES, C5_DEPTH, H100, (False, 8, C5_PS)),  # the default: nothing staged
+    (TREE, C5_NODES, C5_DEPTH, H100, (True, 8, TREE + C5_PS)),
+    (TREE - 1, C5_NODES, C5_DEPTH, H100, (False, 8, C5_PS)),  # one byte over the budget
+    (TREE, C5_NODES, 9, H100, (True, 32, TREE + C5_PS)),  # the deep class
+    (TREE, C5_NODES, 20, SMALL, (True, 32, TREE + C5_PS)),
+    # under a lifted budget, but past what a block may hold
+    (1 << 30, 1815, 8, H100, (False, 8, C5_PS)),
+    (1 << 30, 1700, 8, H100, (True, 8, 128 * 1700 + C5_PS)),
+    (1 << 30, 1700, 8, SMALL, (False, 8, C5_PS)),
+])
+def test_walk_plan_is_a_function_of_sizes(monkeypatch, budget, n_nodes, depth4, limit, want):
+    if budget is not None:
+        monkeypatch.setattr(bvh, "SMEM_TREE_BYTES", budget)
+    plan = bvh.walk_plan(n_nodes, depth4, C5_PS, limit)
+    assert tuple(plan) == want
+    assert plan == bvh.walk_plan(n_nodes, depth4, C5_PS, limit)
+    assert plan.smem_bytes <= limit
+
+
+@pytest.mark.parametrize("n,n_sms,per_sm,want", [
+    (131072, 132, 2, 264),  # the resident blocks
+    (131089, 132, 4, 513),  # one block a 256-lane batch, fewer than the resident 528
+    (33, 132, 2, 1), (1, 132, 2, 1), (257, 78, 1, 2),
+])
+def test_persistent_grid(n, n_sms, per_sm, want):
+    assert bvh.persistent_grid(n, n_sms, per_sm) == want
+
+
+def test_twins_take_the_plain_versions_on_the_cpu(mesh):
+    g = torch.Generator().manual_seed(3)
+    n = 48
+    o = V3(*(torch.rand(n, generator=g) * 8 - 4 for _ in range(3)))
+    d = V3(*(torch.randn(n, generator=g) for _ in range(3))).normalized()
+    limit = torch.rand(n, generator=g) * 20 - 2
+    before = (bvh.scene_any.launches, bvh.scene_any_simple.launches,
+              bounce_bvh.path_bounce_bvh.launches, bounce_bvh.path_bounce_bvh_simple.launches)
+    assert torch.equal(bvh.scene_any_simple(mesh, o, d, 1e-3, limit),
+                       bvh.scene_any(mesh, o, d, 1e-3, limit))
+    tables = bounce_bvh.pack_bvh_tables(mesh)
+    thr = V3(*(torch.ones(n) for _ in range(3)))
+    key, depth = torch.arange(n, dtype=torch.int32) * 7919, torch.ones(n, dtype=torch.int32)
+    got = bounce_bvh.path_bounce_bvh_simple(mesh, tables, o, d, thr, key, depth)
+    want = bounce_bvh.path_bounce_bvh(mesh, tables, o, d, thr, key, depth)
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(want, f)
+        if isinstance(a, tuple):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), f
+        else:
+            assert torch.equal(a, b), f
+    assert before == (bvh.scene_any.launches, bvh.scene_any_simple.launches,
+                      bounce_bvh.path_bounce_bvh.launches,
+                      bounce_bvh.path_bounce_bvh_simple.launches)
