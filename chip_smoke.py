@@ -69,7 +69,9 @@ It imports no JAX.
    shadow rays against the plain walk and K4b, and the per-ray-bound
    closest hit (K4c) and the whole-tree occlusion walk (K4d) against their
    plain versions; then the times and bounds
-   of K6a-d and K4c/K4d, and of K6, K4a/K4b and K5 + K4b on the same rays;
+   of K6a-d and K4c/K4d (the page walks K6c/K6d and K4c/K4d with their tree
+   traffic, their plans and resident lanes a SM), and of K6, K4a/K4b and
+   K5 + K4b on the same rays;
 13. config 6's path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``B_SPP``-sample group after a warm-up frame
    (K6a-d's launch counts; K5 must stay idle), then a profile of a one-sample
@@ -134,10 +136,11 @@ It imports no JAX.
    tolerance of each other.
 
 Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
-``call_ms``: the wrapper's call time; ``twin_ms``, ``tree_ms`` for K4b and
-K5: the twin's device time in turns and the tree traffic the plain walk
-counts, over the memory rate) and the card's name and power limit, then, as
-its last line, ``{"ok": true, "device": {...}}``.
+``call_ms``: the wrapper's call time; ``twin_ms`` for K4b and K5: the
+twin's device time in turns; ``tree_ms`` for the BVH4 walks K4a-d, K5 and
+K6c/K6d: the tree traffic the plain walk counts, over the memory rate) and
+the card's name and power limit, then, as its last line,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -452,8 +455,8 @@ C_ENTRIES = {
     "path_bounce_bvh_kernel": ("path_bounce_bvh", ("ptrt_path_bounce_bvh_simple",)),
     "paged_top_closest_kernel": ("bvh_paged", ("ptrt_paged_top_closest",)),
     "paged_top_any_kernel": ("bvh_paged", ("ptrt_paged_top_any",)),
-    "pages_closest_kernel": ("bvh_paged", ("ptrt_pages_closest",)),
-    "pages_any_kernel": ("bvh_paged", ("ptrt_pages_any",)),
+    "pages_closest_persistent": ("bvh_paged", ("ptrt_pages_closest",)),
+    "pages_any_persistent": ("bvh_paged", ("ptrt_pages_any",)),
     "bvh2_closest_kernel": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
     "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
@@ -768,6 +771,13 @@ def sweep_flops(cs, o, d, bound, first_only, lanes=None, kinds=4):
         flops += float((tested - start).clamp(0, count).sum()) * per_test
         start += count
     return flops
+
+
+def tree_ms(c, slot_bytes):
+    """The tree traffic of a walk whose plain version counted ``c``, over
+    the memory rate, in ms: a quarter of a 128 B node record a box test,
+    a slot record of ``slot_bytes`` a triangle test."""
+    return (32 * c.get("boxes", 0) + slot_bytes * c.get("tri_tests", 0)) / PEAK_BYTES * 1e3
 
 
 def bound_ms(flops, n_bytes):
@@ -1413,9 +1423,6 @@ def phase_mesh_timing(cs, tables, sets):
               "path_bounce_bvh": bound_ms(ops_a + SHADE_FLOPS * int(plain_hit.hit.sum()),
                                           n * (4 * 11 + 4 * 19 + 4 + 4 * 7))}
 
-    def tree_ms(c, slot_bytes):
-        return (32 * c["boxes"] + slot_bytes * c["tri_tests"]) / PEAK_BYTES * 1e3
-
     trees = {"scene_closest": tree_ms(closest, 52), "scene_any": tree_ms(shadow, 64),
              "path_bounce_bvh": tree_ms(closest, 64)}
     for name, tree in trees.items():
@@ -1620,6 +1627,31 @@ def check_pend(label, cs, o, d, t):
         raise SystemExit(f"chip_smoke: K6a's pending masks miss entered pages ({label})")
 
 
+def page_walk_plans(cs, n=N_RAYS):
+    """The page walks' plans on ``cs`` (K6c/K6d by the page depth, K4c/K4d
+    by the whole tree's), each variant's resident blocks per SM and its grid
+    for ``n`` lanes, as the wrappers pick them."""
+    import ctypes
+
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh_paged
+
+    dev = torch.device("cuda", 0)
+    lib = bvh_paged.build().lib
+    out = {}
+    for name, depth, occupancy in (
+            ("K6c", cs.bvh.paged.page_depth, lib.ptrt_pages_closest_occupancy),
+            ("K6d", cs.bvh.paged.page_depth, lib.ptrt_pages_any_occupancy),
+            ("K4c", cs.bvh.depth4, lib.ptrt_pages_closest_occupancy),
+            ("K4d", cs.bvh.depth4, lib.ptrt_pages_any_occupancy)):
+        plan = bvh.page_plan(depth)
+        blocks = ctypes.c_int(0)
+        bvh._raise_on(name, occupancy(0, plan.depth_class, 0, ctypes.byref(blocks)))
+        out[name] = (depth, plan, blocks.value, bvh.launch_grid(name, occupancy, plan, n, dev))
+    return out
+
+
 def phase_big_check(device):
     """Config 6's paged tree: K6 and K4c against their plain versions and the
     one-level K4a/K4b, the pending-mask property, then times and bounds."""
@@ -1686,9 +1718,9 @@ def phase_big_check(device):
                 lambda: bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound)),
     }
     symbols = {"paged_top_closest": "paged_top_closest_kernel",
-               "pages_closest": "pages_closest_kernel", "paged_top_any": "paged_top_any_kernel",
-               "pages_any": "pages_any_kernel", "K4c": "pages_closest_kernel",
-               "K4d": "pages_any_kernel"}
+               "pages_closest": "pages_closest_persistent",
+               "paged_top_any": "paged_top_any_kernel", "pages_any": "pages_any_persistent",
+               "K4c": "pages_closest_persistent", "K4d": "pages_any_persistent"}
     times = {name: timed(k, symbols[name], p, PLAIN_REPS) for name, (k, p) in calls.items()}
     routes = {
         "K6 closest": lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
@@ -1709,11 +1741,13 @@ def phase_big_check(device):
         f"{k} {v:.4f}" for k, v in route_ms.items()))
 
     # bounds: the tests the plain walks count on the same rays; the bytes of
-    # the lane records each lane must read and write (as K4a/K4b's, no tree
-    # record: which records a lane reaches is not measured).  A lane reads its
-    # ray only where the answer depends on it: K6c/K4c where a page is pending
-    # or the bound is positive, K6b/K6d/K4d where the lane is not already found
-    # and has a page to walk (K6d) or a positive limit
+    # the lane records each lane must read and write.  A lane reads its ray
+    # only where the answer depends on it: K6c/K4c where a page is pending or
+    # the bound is positive, K6b/K6d/K4d where the lane is not already found
+    # and has a page to walk (K6d) or a positive limit.  Beside the page
+    # walks' bounds, their tree traffic (tree_ms) from the same counts: a
+    # quarter of a 128 B node record a box test, a 64 B padded slot record a
+    # triangle test (the packed 52 B record's figure beside it)
     top_c, page_c, top_a, page_a, k4c_c, k4d_c = ({} for _ in range(6))
     bvh_paged.paged_top_closest_plain(cs, o, d, 1e-3, 1e6, counts=top_c)
     bvh_paged.pages_closest_plain(cs, o, d, 1e-3, best, plo, phi, counts=page_c)
@@ -1741,7 +1775,16 @@ def phase_big_check(device):
     print("[big] bounds (ms): " + "; ".join(f"{k} {v[0]:.5f} ({v[1]})" for k, v in bounds.items())
           + f"; lanes: {pend} pending (K6c), {unf} unfound and {walks} with pages (K6d), {care} "
           f"with limit > 0; tests counted: top {top_c}, pages {page_c}, top any {top_a}, pages "
-          f"any {page_a}")
+          f"any {page_a}, K4c {k4c_c}, K4d {k4d_c}")
+    page_walks = {"pages_closest": page_c, "pages_any": page_a, "K4c": k4c_c, "K4d": k4d_c}
+    for name, c in page_walks.items():
+        times[name]["tree_ms"] = tree_ms(c, 64)
+    print("[big] page walks' tree traffic (ms; 64 B padded slots, 52 B packed): " + "; ".join(
+        f"{k} {tree_ms(c, 64):.5f} ({tree_ms(c, 52):.5f})" for k, c in page_walks.items()))
+    print("[big] page walk plans at N=" + str(N_RAYS) + ": " + "; ".join(
+        f"{k} depth {depth} -> class {p.depth_class}, stage {p.stage}, {per_sm} blocks of 256 a "
+        f"SM ({256 * per_sm} lanes), grid {grid}"
+        for k, (depth, p, per_sm, grid) in page_walk_plans(cs).items()))
     return scene, cam, times, bounds, err, route_ms
 
 
@@ -1787,8 +1830,8 @@ def phase_big_main(device, scene, cam):
     profile_frame("[big]", r, scene, cam,
                   pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bvh_paged.paged_top_closest.launches,
-                  {"K6a": "paged_top_closest_kernel", "K6c": "pages_closest_kernel",
-                   "K6b": "paged_top_any_kernel", "K6d": "pages_any_kernel"}, top=3)
+                  {"K6a": "paged_top_closest_kernel", "K6c": "pages_closest_persistent",
+                   "K6b": "paged_top_any_kernel", "K6d": "pages_any_persistent"}, top=3)
     return k6, secs, mrays
 
 
@@ -2347,12 +2390,12 @@ def phase_mxu_check(device):
                              "mat_tri_closest_kernel"),
                             lambda: pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True),
                             (lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed),
-                             "pages_closest_kernel")),
+                             "pages_closest_persistent")),
         "tri_any_mat": ((lambda: bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound),
                          "mat_tri_any_kernel"),
                         lambda: pages_any_plain(cs, so, sd, 1e-3, lim, unfound, mxu=True),
                         (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
-                         "pages_any_kernel")),
+                         "pages_any_persistent")),
     }
     times, twins = {}, {}
     for name, (kernel, plain, twin) in calls.items():

@@ -576,7 +576,8 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
     whose leaves are numpy arrays (e.g. ``jax.tree.map(np.asarray, cs)``).
     Sub-records are matched by class and field name, so every field is
     carried over unchanged; a flat BVH brings its node arrays, its BVH2 and
-    BVH4 node records and its slot records, a paged tree its paged layout, a
+    BVH4 node records and its slot records, a paged tree its paged layout
+    (with the port's padded page slot copy, ``ops/bvh.pack_page_slot16``), a
     one-level tree its leaf coefficient table, and a ``mip_budget`` scene its
     mip atlas."""
     device = torch.device(device)
@@ -604,9 +605,11 @@ def compiled_scene_from_numpy(tree, device="cuda") -> CompiledScene:
         pg = b.paged
         top_tree = np.asarray(pg.top_tree)[0]
         n_pages = int(np.asarray(pg.page_tree).shape[0])
+        page_slot = t(pg.page_slot)
         paged = bvh_mod.PagedBlobs(
             top_tree=t(top_tree), top_slot=t(np.asarray(pg.top_slot)[0]),
-            page_tree=t(pg.page_tree), page_slot=t(pg.page_slot),
+            page_tree=t(pg.page_tree), page_slot=page_slot,
+            page_slot16=bvh_mod.pack_page_slot16(page_slot),
             top_depth=int(pg.top_depth_token.shape[0]),
             page_depth=int(pg.page_depth_token.shape[0]), page_lo=t(pg.page_lo),
             page_hi=t(pg.page_hi), page_root=t(bvh_mod.page_roots(arrs, top_tree, n_pages)))

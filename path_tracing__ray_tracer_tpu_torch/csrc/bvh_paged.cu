@@ -23,17 +23,33 @@
 // (the page root's box against the carried best) before each page.  So a
 // lane's winner equals the composition of the JAX per-page launches.
 //
-// What bounds them: latency, as K4a (dependent node and slot loads from
-// device memory, one ray per thread).  Per ray K6a reads 24 B and writes 36 B,
-// K6c reads 60 B and writes 28 B, K6b reads 28 B and writes 9 B, K6d reads
-// 29 B and writes 1 B.  The design keeps it simple: the records as packed,
-// only the plane/sphere/quad blob in shared memory (K6a, K6b).
+// What bounds them: latency, as K4a (dependent node and slot loads, one ray
+// per thread).  Per ray K6a reads 24 B and writes 36 B, K6c reads 60 B and
+// writes 28 B, K6b reads 28 B and writes 9 B, K6d reads 29 B and writes 1 B,
+// against walks of tens of 128 B node records and 64 B slot records.  K6a and
+// K6b keep the first design: a lane per thread in blocks of 128, the records
+// as packed, only the plane/sphere/quad blob in shared memory.
+//
+// The page walks (K6c, K6d; so K4c, K4d) are designed for Hopper as K4b is
+// (bvh_scene.cu): persistent blocks of 256 threads, as many as are resident,
+// whose warps take 32 lanes at a time from a counter (next_lane), since a
+// lane's work varies widely (from none to several of config 6's 14 pages,
+// each after a root-box cull) and a block of fixed lanes waits on its
+// slowest one; node records read as eight 16-byte loads (Vec4Nodes) and
+// leaves from the padded 64 B slot copy, four slots' loads issued together
+// (Slot16Leaf); a stack of 3 * depth class - 2 entries in local memory, the
+// class from the page depth (K6c/K6d) or the whole tree's (K4c/K4d).
+// Nothing is staged in shared memory: a config-6 page holds ~800 KB, past a
+// block's 227 KB, while all 14 pages (0.6 MB of node records, 12.9 MB of
+// padded slot records) fit the 50 MB L2.  Each lane's floats and its order
+// of tests are the first design's, so its results are too.
 //
 // Records: the top tree and top slots as bvh_walk.cuh's, page children
-// marked by their metas; page p's BVH4 records at page_tree + p * tc and its
-// slot records at page_slot + p * sc; its root box at page_lo/page_hi + 3p.
-// Closest records (t, prim, u, v, normal) are finished (finish_hit): decoded
-// prim, triangle normals flipped toward the ray, raw barycentrics as u, v.
+// marked by their metas; page p's BVH4 records at page_tree + p * tc, its
+// padded slot records at page_slot16 + p * sc16 (ops/bvh.py
+// pack_page_slot16); its root box at page_lo/page_hi + 3p.  Closest records
+// (t, prim, u, v, normal) are finished (finish_hit): decoded prim, triangle
+// normals flipped toward the ray, raw barycentrics as u, v.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -159,65 +175,132 @@ paged_top_any_kernel(const float* __restrict__ top, int n_top, const float* __re
   phi_out[i] = (int)pend.hi;
 }
 
-// K6c (K4c): the carried closest record through each pending page.
-__global__ void __launch_bounds__(kPagedThreads)
-pages_closest_kernel(const float* __restrict__ page_tree, long long tc,
-                     const float* __restrict__ page_slot, long long sc,
-                     const float* __restrict__ page_lo, const float* __restrict__ page_hi,
-                     int n_pages, int gid_offset, int gid_mask, const float* __restrict__ ox,
-                     const float* __restrict__ oy, const float* __restrict__ oz,
-                     const float* __restrict__ dx, const float* __restrict__ dy,
-                     const float* __restrict__ dz, const int* __restrict__ plo,
-                     const int* __restrict__ phi, const float* __restrict__ t_in,
-                     const int* __restrict__ prim_in, const float* __restrict__ u_in,
-                     const float* __restrict__ v_in, const float* __restrict__ nx_in,
-                     const float* __restrict__ ny_in, const float* __restrict__ nz_in, int n,
-                     float t_min, float* __restrict__ t_out, int* __restrict__ prim_out,
-                     float* __restrict__ u_out, float* __restrict__ v_out,
-                     float* __restrict__ nx_out, float* __restrict__ ny_out,
-                     float* __restrict__ nz_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const WalkRay w = walk_ray(r);
-  Hit h;
-  h.t = t_in[i]; h.prim = prim_in[i]; h.u = u_in[i]; h.v = v_in[i];
-  h.nx = nx_in[i]; h.ny = ny_in[i]; h.nz = nz_in[i];
-  const int n_page_nodes = (int)(tc / kNode4F);
-  Pend pend = load_pend(plo, phi, i);
-  for (int p = next_page(pend); p >= 0 && p < n_pages; p = next_page(pend)) {
-    if (!page_root_slab(page_lo, page_hi, p, w, t_min, h.t)) continue;  // PAGE_CULL
-    walk_closest(page_tree + (size_t)p * tc, n_page_nodes, page_slot + (size_t)p * sc, r, t_min,
-                 gid_offset, h);
-  }
-  finish_hit(h, r, gid_offset, gid_mask);
-  store_hit(h, i, t_out, prim_out, u_out, v_out, nx_out, ny_out, nz_out);
+// The node records of page p, read as 16-byte loads (tc is a multiple of 32
+// floats, so each page starts on a 128 B boundary of a 16-byte aligned base).
+__device__ __forceinline__ Vec4Nodes<false> page_nodes(const float* __restrict__ page_tree,
+                                                       long long tc, int p) {
+  return Vec4Nodes<false>{reinterpret_cast<const float4*>(page_tree + (size_t)p * tc)};
 }
 
-// K6d (K4d): the carried occlusion verdict through each pending page, up to
-// the first hit.
-__global__ void __launch_bounds__(kPagedThreads)
-pages_any_kernel(const float* __restrict__ page_tree, long long tc,
-                 const float* __restrict__ page_slot, long long sc, int n_pages,
-                 const float* __restrict__ ox, const float* __restrict__ oy,
-                 const float* __restrict__ oz, const float* __restrict__ dx,
-                 const float* __restrict__ dy, const float* __restrict__ dz,
-                 const int* __restrict__ plo, const int* __restrict__ phi,
-                 const float* __restrict__ limit_in, const uint8_t* __restrict__ found_in, int n,
-                 float t_min, uint8_t* __restrict__ found_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool found = found_in[i] != 0;
-  if (!found) {
+// The padded slot records of page p (sc16 floats a page, 16 a slot).
+__device__ __forceinline__ Slot16Leaf page_leaf(const float* __restrict__ page_slot16,
+                                                long long sc16, int p) {
+  return Slot16Leaf{reinterpret_cast<const float4*>(page_slot16 + (size_t)p * sc16)};
+}
+
+// visit(p) for each of the lane's pending pages below n_pages, lowest index
+// first, until a visit returns true.  Stepping a warp through the union of
+// its lanes' pages together, so that its lanes read one page at a time, gives
+// the same results but took 1.23-1.44x this order's time on config 6 on an
+// H100 (PERF.md): the lanes idle through the pages that are not theirs.
+template <class Visit>
+__device__ __forceinline__ void visit_pages(Pend pend, int n_pages, Visit&& visit) {
+  for (int p = next_page(pend); p >= 0 && p < n_pages; p = next_page(pend))
+    if (visit(p)) break;
+}
+
+// K6c (K4c) for Hopper: the carried closest record of lanes [0, n) through
+// each of the lane's pending pages, the lanes taken 32 at a time from
+// `counter` (two int32, zero at the launch, left zero; finish_lanes).
+template <int kDepth>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+pages_closest_persistent(const float* __restrict__ page_tree, long long tc,
+                         const float* __restrict__ page_slot16, long long sc16,
+                         const float* __restrict__ page_lo, const float* __restrict__ page_hi,
+                         int n_pages, int gid_offset, int gid_mask, const float* __restrict__ ox,
+                         const float* __restrict__ oy, const float* __restrict__ oz,
+                         const float* __restrict__ dx, const float* __restrict__ dy,
+                         const float* __restrict__ dz, const int* __restrict__ plo,
+                         const int* __restrict__ phi, const float* __restrict__ t_in,
+                         const int* __restrict__ prim_in, const float* __restrict__ u_in,
+                         const float* __restrict__ v_in, const float* __restrict__ nx_in,
+                         const float* __restrict__ ny_in, const float* __restrict__ nz_in, int n,
+                         float t_min, float* __restrict__ t_out, int* __restrict__ prim_out,
+                         float* __restrict__ u_out, float* __restrict__ v_out,
+                         float* __restrict__ nx_out, float* __restrict__ ny_out,
+                         float* __restrict__ nz_out, int* __restrict__ counter) {
+  const int n_page_nodes = (int)(tc / kNode4F);
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
     const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-    const float limit = limit_in[i];
-    const int n_page_nodes = (int)(tc / kNode4F);
-    Pend pend = load_pend(plo, phi, i);
-    for (int p = next_page(pend); !found && p >= 0 && p < n_pages; p = next_page(pend))
-      found = walk_any(page_tree + (size_t)p * tc, n_page_nodes, page_slot + (size_t)p * sc, r,
-                       t_min, limit);
+    const WalkRay w = walk_ray(r);
+    Hit h;
+    h.t = t_in[i]; h.prim = prim_in[i]; h.u = u_in[i]; h.v = v_in[i];
+    h.nx = nx_in[i]; h.ny = ny_in[i]; h.nz = nz_in[i];
+    visit_pages(load_pend(plo, phi, i), n_pages, [&](int p) {
+      if (!page_root_slab(page_lo, page_hi, p, w, t_min, h.t)) return false;  // PAGE_CULL
+      LocalStack<stack_cap(kDepth)> stack;
+      walk_closest_with<false>(page_nodes(page_tree, tc, p), n_page_nodes,
+                               page_leaf(page_slot16, sc16, p), stack, r, t_min, gid_offset, h,
+                               nullptr);
+      return false;
+    });
+    finish_hit(h, r, gid_offset, gid_mask);
+    store_hit(h, i, t_out, prim_out, u_out, v_out, nx_out, ny_out, nz_out);
   }
-  found_out[i] = found ? 1 : 0;
+  finish_lanes(counter);
+}
+
+// K6d (K4d) for Hopper: the carried occlusion verdict of lanes [0, n) through
+// each pending page, up to the first hit; lanes as K6c takes them.
+template <int kDepth>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+pages_any_persistent(const float* __restrict__ page_tree, long long tc,
+                     const float* __restrict__ page_slot16, long long sc16, int n_pages,
+                     const float* __restrict__ ox, const float* __restrict__ oy,
+                     const float* __restrict__ oz, const float* __restrict__ dx,
+                     const float* __restrict__ dy, const float* __restrict__ dz,
+                     const int* __restrict__ plo, const int* __restrict__ phi,
+                     const float* __restrict__ limit_in, const uint8_t* __restrict__ found_in,
+                     int n, float t_min, uint8_t* __restrict__ found_out,
+                     int* __restrict__ counter) {
+  const int n_page_nodes = (int)(tc / kNode4F);
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;
+    if (i >= n) continue;
+    bool found = found_in[i] != 0;
+    if (!found) {
+      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      const float limit = limit_in[i];
+      visit_pages(load_pend(plo, phi, i), n_pages, [&](int p) {
+        LocalStack<stack_cap(kDepth)> stack;
+        found = walk_any_with<false>(page_nodes(page_tree, tc, p), n_page_nodes,
+                                     page_leaf(page_slot16, sc16, p), stack, r, t_min, limit,
+                                     nullptr);
+        return found;
+      });
+    }
+    found_out[i] = found ? 1 : 0;
+  }
+  finish_lanes(counter);
+}
+
+using ClosestKernel = decltype(&pages_closest_persistent<kMaxDepth4>);
+using AnyKernel = decltype(&pages_any_persistent<kMaxDepth4>);
+
+// The variants the wrappers pick among (ops/cuda/bvh.page_plan): one per
+// depth class; nullptr for any other class.
+inline ClosestKernel closest_variant(int depth_class) {
+  if (depth_class == kShallow4) return pages_closest_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return pages_closest_persistent<kMaxDepth4>;
+  return nullptr;
+}
+
+inline AnyKernel any_variant(int depth_class) {
+  if (depth_class == kShallow4) return pages_any_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return pages_any_persistent<kMaxDepth4>;
+  return nullptr;
+}
+
+// Resident blocks per SM of a page walk variant, into *blocks: the walks
+// stage nothing (stage and smem must be 0).
+template <class K>
+inline int walk_occupancy(K kernel, int stage, int smem, int* blocks) {
+  if (kernel == nullptr || stage != 0 || smem != 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, 0);
 }
 
 inline size_t ps_bytes(int P, int S, int Q) {
@@ -231,6 +314,7 @@ inline int blocks_for(int n) { return (n + kPagedThreads - 1) / kPagedThreads; }
 // All four launch on `stream`, allocate nothing and do not synchronise.  Each
 // returns the launch's cudaError_t (0 when the launch was accepted).  plo and
 // phi may be null in the page walks: then every lane walks page 0 alone.
+// A launch on no lanes launches nothing.
 extern "C" int ptrt_paged_top_closest(const float* top, int n_top, const float* tslot,
                                       const float* ps, int P, int S, int Q, const float* ox,
                                       const float* oy, const float* oz, const float* dx,
@@ -259,35 +343,51 @@ extern "C" int ptrt_paged_top_any(const float* top, int n_top, const float* tslo
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptrt_pages_closest(const float* page_tree, long long tc, const float* page_slot,
-                                  long long sc, const float* page_lo, const float* page_hi,
+// K6c (K4c): `grid` persistent blocks of the variant for depth_class, which
+// ptrt_pages_closest_occupancy has sized; `counter` is two int32 of scratch,
+// zero at the launch and left zero by the kernel.  page_slot16 holds sc16
+// floats a page (16 a slot), page_tree tc floats a page, both 16-byte aligned.
+extern "C" int ptrt_pages_closest(const float* page_tree, long long tc, const float* page_slot16,
+                                  long long sc16, const float* page_lo, const float* page_hi,
                                   int n_pages, int gid_offset, int gid_mask, const float* ox,
-                                  const float* oy,
-                                  const float* oz, const float* dx, const float* dy,
-                                  const float* dz, const int* plo, const int* phi,
-                                  const float* t_in, const int* prim_in, const float* u_in,
-                                  const float* v_in, const float* nx_in, const float* ny_in,
-                                  const float* nz_in, int n, float t_min, float* t, int* prim,
-                                  float* u, float* v, float* nx, float* ny, float* nz,
+                                  const float* oy, const float* oz, const float* dx,
+                                  const float* dy, const float* dz, const int* plo,
+                                  const int* phi, const float* t_in, const int* prim_in,
+                                  const float* u_in, const float* v_in, const float* nx_in,
+                                  const float* ny_in, const float* nz_in, int n, float t_min,
+                                  float* t, int* prim, float* u, float* v, float* nx, float* ny,
+                                  float* nz, int* counter, int depth_class, int grid,
                                   void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::pages_closest_kernel<<<ptrt::blocks_for(n), ptrt::kPagedThreads, 0,
-                               (cudaStream_t)stream>>>(
-      page_tree, tc, page_slot, sc, page_lo, page_hi, n_pages, gid_offset, gid_mask, ox, oy, oz,
-      dx, dy, dz, plo, phi, t_in, prim_in, u_in, v_in, nx_in, ny_in, nz_in, n, t_min, t, prim, u, v, nx, ny,
-      nz);
+  const ptrt::ClosestKernel k = ptrt::closest_variant(depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, 0, (cudaStream_t)stream>>>(
+      page_tree, tc, page_slot16, sc16, page_lo, page_hi, n_pages, gid_offset, gid_mask, ox, oy,
+      oz, dx, dy, dz, plo, phi, t_in, prim_in, u_in, v_in, nx_in, ny_in, nz_in, n, t_min, t, prim,
+      u, v, nx, ny, nz, counter);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptrt_pages_any(const float* page_tree, long long tc, const float* page_slot,
-                              long long sc, int n_pages, const float* ox, const float* oy,
+extern "C" int ptrt_pages_closest_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::closest_variant(depth_class), stage, smem, blocks);
+}
+
+// K6d (K4d): as ptrt_pages_closest.
+extern "C" int ptrt_pages_any(const float* page_tree, long long tc, const float* page_slot16,
+                              long long sc16, int n_pages, const float* ox, const float* oy,
                               const float* oz, const float* dx, const float* dy, const float* dz,
                               const int* plo, const int* phi, const float* limit,
                               const uint8_t* found_in, int n, float t_min, uint8_t* found,
-                              void* stream) {
+                              int* counter, int depth_class, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::pages_any_kernel<<<ptrt::blocks_for(n), ptrt::kPagedThreads, 0, (cudaStream_t)stream>>>(
-      page_tree, tc, page_slot, sc, n_pages, ox, oy, oz, dx, dy, dz, plo, phi, limit, found_in, n,
-      t_min, found);
+  const ptrt::AnyKernel k = ptrt::any_variant(depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, 0, (cudaStream_t)stream>>>(
+      page_tree, tc, page_slot16, sc16, n_pages, ox, oy, oz, dx, dy, dz, plo, phi, limit,
+      found_in, n, t_min, found, counter);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_pages_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::any_variant(depth_class), stage, smem, blocks);
 }

@@ -41,14 +41,16 @@
 //
 // The node records' source is a compile-time policy too.  PtrNodes reads a
 // record's floats one by one through a pointer into device memory (K4a,
-// K4c/K4d, K6, K10, K11, and the first designs of K4b and K5, kept as
-// timing twins).  Vec4Nodes reads the whole 128 B record as eight 16-byte
-// loads into registers, from device memory or from a copy of the node table
-// in shared memory (the persistent K4b and K5).  The stack is a per-thread
-// array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a port-only copy
-// of the slot records padded to 16 floats (64 B, 16-byte aligned; ops/bvh.py
-// pack_slot16), read as 16-byte loads, a batch of slots at a time.  None of
-// the policies changes a lane's arithmetic or its visit order.
+// K6a/K6b, K10, K11, and the first designs of K4b and K5, kept as timing
+// twins).  Vec4Nodes reads the whole 128 B record as eight 16-byte loads
+// into registers, from device memory or from a copy of the node table in
+// shared memory (the persistent K4b and K5; the page walks K6c/K6d and
+// K4c/K4d, from device memory).  The stack is a per-thread array in local
+// memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
+// port-only copy of the slot records padded to 16 floats (64 B, 16-byte
+// aligned; ops/bvh.py pack_slot16 and, per page, pack_page_slot16), read as
+// 16-byte loads, a batch of slots at a time.  None of the policies changes a
+// lane's arithmetic or its visit order.
 //
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
 // bvh_paged_pallas.py) adds a fourth kind of child: a page, meta

@@ -115,6 +115,9 @@ class PagedBlobs(NamedTuple):
     page_lo: torch.Tensor  # (n_pages, 3) f32 page root boxes
     page_hi: torch.Tensor  # (n_pages, 3) f32
     page_root: torch.Tensor  # (n_pages,) int64 BVH2 node of each page root (plain walks)
+    # (n_pages, SC // 13 · 16) f32 each page's slot records padded to 64 B
+    # (pack_page_slot16), read by the page walks K6c/K6d as 16-byte loads
+    page_slot16: Optional[torch.Tensor] = None
 
     @property
     def n_pages(self) -> int:
@@ -656,13 +659,23 @@ def pack_slot16(slot_rec: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(rec, (0, 16 - _SLOT_F)).reshape(-1).contiguous()
 
 
+def pack_page_slot16(page_slot: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_slot16` applied to each page's row of ``page_slot``:
+    ``(n_pages, SC // 13 · 16)``.  A row's ``SC`` floats are a multiple of
+    1,024, not of 13; the part record at its end is padding that no leaf
+    names, and is left out."""
+    whole = page_slot.shape[1] // _SLOT_F * _SLOT_F
+    return torch.stack([pack_slot16(row[:whole]) for row in page_slot])
+
+
 def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: np.ndarray,
               uid: np.ndarray = None, device="cpu") -> FlatBVH:
     """A ``build_bvh`` result and its triangles as a :class:`FlatBVH` on
     ``device``.  ``nrm`` is the compiler's stored normal (``triangles.normal``),
     so the kernels' normals equal the plain gathers'; ``uid`` packs each
     triangle's unique-material id into its slot gid.  A tree whose one-level
-    records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout;
+    records exceed ``ONE_LEVEL_LIMIT`` floats also gets the paged layout,
+    with its padded slot copy (:func:`pack_page_slot16`);
     any other gets the leaf coefficient table (``pack_leaf_mat``, 8 KB a
     leaf), which the paged walks never read."""
     v0, v1, v2 = (np.asarray(a, np.float32) for a in (v0, v1, v2))
@@ -675,6 +688,8 @@ def to_device(arrs: dict, v0: np.ndarray, v1: np.ndarray, v2: np.ndarray, nrm: n
         paged = pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, device=device)
     if paged is None:
         leaf_mat = _tensor(pack_leaf_mat(arrs, v0, v1, v2, nrm=nrm, uid=uid), device)
+    else:
+        paged = paged._replace(page_slot16=pack_page_slot16(paged.page_slot))
     slot_rec = _tensor(slot_np[0], device)
     return FlatBVH(lo=_tensor(arrs["lo"], device), hi=_tensor(arrs["hi"], device),
                    skip=_tensor(arrs["skip"], device), is_leaf=_tensor(arrs["is_leaf"], device),

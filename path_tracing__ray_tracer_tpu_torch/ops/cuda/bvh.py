@@ -109,15 +109,28 @@ class WalkPlan(NamedTuple):
     smem_bytes: int  # dynamic shared memory of a block: the staged tree, the tables
 
 
+def depth_class(depth4: int) -> int:
+    """The persistent walks' stack class of a BVH4 of depth ``depth4``."""
+    return SHALLOW4 if depth4 <= SHALLOW4 else MAX_DEPTH4
+
+
 def walk_plan(n_nodes: int, depth4: int, table_bytes: int, limit: int) -> WalkPlan:
     """The variant of a persistent walk over ``n_nodes`` BVH4 nodes of depth
     ``depth4``, whose kernel stages ``table_bytes`` of its own tables, on a
     card whose blocks may take ``limit`` bytes of dynamic shared memory
     (:func:`smem_limit`): a pure function of these sizes and the budget."""
     tree = 4 * 32 * n_nodes
-    depth_class = SHALLOW4 if depth4 <= SHALLOW4 else MAX_DEPTH4
     stage = tree <= SMEM_TREE_BYTES and tree + table_bytes <= limit
-    return WalkPlan(stage, depth_class, table_bytes + (tree if stage else 0))
+    return WalkPlan(stage, depth_class(depth4), table_bytes + (tree if stage else 0))
+
+
+def page_plan(depth4: int) -> WalkPlan:
+    """The variant of the page walks (K6c/K6d, and K4c/K4d over the whole
+    tree as one page) over trees of depth ``depth4``: its depth class, and
+    nothing in shared memory whatever the budget (a config-6 page of
+    ~800 KB is far past a block's shared memory, and staging config 5's
+    node table measured no faster)."""
+    return WalkPlan(False, depth_class(depth4), 0)
 
 
 def smem_limit(dev) -> int:

@@ -25,6 +25,13 @@ launches.
 * :func:`scene_closest_paged` / :func:`scene_any_paged`: the paged route of
   ``scene_hit`` / ``scene_hit_any``, two launches per query.
 
+The page walks are persistent walks, as K4b is: ``ops/cuda/bvh.page_plan``
+picks the variant (the stack's depth class, from the page depth or the whole
+tree's; nothing staged), ``launch_grid`` the resident blocks, whose warps
+take their lanes from ``lane_counter``.  They read the node records as
+16-byte loads and the padded slot records, ``PagedBlobs.page_slot16`` (the
+whole tree: ``FlatBVH.slot16``).
+
 ``ops/cuda/bvh.py`` sends a paged scene here.
 """
 from __future__ import annotations
@@ -44,7 +51,8 @@ from ..intersect import (
 )
 from ..v3 import V3
 from .bounce import _check
-from .bvh import MAX_DEPTH4, _fused_hit, _on, _raise_on, _rays, gid_mask
+from .bvh import (MAX_DEPTH4, _fused_hit, _on, _raise_on, _rays, gid_mask, lane_counter,
+                  launch_grid, page_plan, slot16_arg)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
@@ -58,12 +66,17 @@ def build():
     top = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
     lib.ptrt_paged_top_closest.argtypes = top + [_I, _I, _F, _F] + [_P] * 9 + [_P]
     lib.ptrt_paged_top_any.argtypes = top + [_P, _I, _F, _P, _P, _P, _P]
+    walk = [_P, _I, _I, _P]  # counter, depth class, grid, stream
     lib.ptrt_pages_closest.argtypes = ([_P, _L, _P, _L, _P, _P, _I, _I, _I] + [_P] * 6 + [_P, _P]
-                                       + [_P] * 7 + [_I, _F] + [_P] * 7 + [_P])
+                                       + [_P] * 7 + [_I, _F] + [_P] * 7 + walk)
     lib.ptrt_pages_any.argtypes = ([_P, _L, _P, _L, _I] + [_P] * 6 + [_P, _P, _P, _P, _I, _F, _P]
-                                   + [_P])
+                                   + walk)
+    occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ptrt_pages_closest_occupancy.argtypes = occupancy
+    lib.ptrt_pages_any_occupancy.argtypes = occupancy
     for fn in (lib.ptrt_paged_top_closest, lib.ptrt_paged_top_any, lib.ptrt_pages_closest,
-               lib.ptrt_pages_any):
+               lib.ptrt_pages_any, lib.ptrt_pages_closest_occupancy,
+               lib.ptrt_pages_any_occupancy):
         fn.restype = ctypes.c_int
     return built
 
@@ -104,8 +117,10 @@ def _check_2d(who, name, t, rows, device):
 
 
 def _page_args(who, cs, device, whole: bool):
-    """The page walk's records ``(tree, tc, slots, sc, lo, hi, n_pages)``:
-    the pages of ``cs.bvh.paged``, or the one-level tree as one page."""
+    """The page walk's records ``(tree, tc, slot16, sc16, lo, hi, n_pages)``
+    and its variant (``page_plan`` of their BVH4 depth): the pages of
+    ``cs.bvh.paged``, or the one-level tree as one page.  Node and padded slot records are read as 16-byte
+    loads, so each page's must start 16-byte aligned."""
     bvh = cs.bvh
     if whole:
         if bvh is None:
@@ -114,23 +129,33 @@ def _page_args(who, cs, device, whole: bool):
             raise ValueError(f"{who}: the BVH4 is {bvh.depth4} deep; the kernel's stack takes "
                              f"at most {MAX_DEPTH4}")
         _check("nodes4", bvh.nodes4, torch.float32, bvh.nodes4.shape[0], device, who)
-        _check("slot_rec", bvh.slot_rec, torch.float32, bvh.slot_rec.shape[0], device, who)
+        slot16 = slot16_arg(who, cs, device)
         lo, hi = bvh.lo[:1], bvh.hi[:1]  # the root box
-        tree, slots, tc, sc, n_pages = (bvh.nodes4, bvh.slot_rec, bvh.nodes4.shape[0],
-                                        bvh.slot_rec.shape[0], 1)
+        args = (bvh.nodes4.data_ptr(), bvh.nodes4.shape[0], slot16, bvh.slot16.shape[0])
+        n_pages, depth = 1, bvh.depth4
     else:
         pg = _paged(who, cs)
-        n_pages = pg.n_pages
+        n_pages, depth = pg.n_pages, pg.page_depth
+        if pg.page_slot16 is None:
+            raise ValueError(f"{who}: the paged BVH has no padded slot records "
+                             f"(ops/bvh.pack_page_slot16)")
         _check_2d(who, "page_tree", pg.page_tree, n_pages, device)
-        _check_2d(who, "page_slot", pg.page_slot, n_pages, device)
-        tree, slots, tc, sc = pg.page_tree, pg.page_slot, pg.page_tree.shape[1], pg.page_slot.shape[1]
+        _check_2d(who, "page_slot16", pg.page_slot16, n_pages, device)
+        if pg.page_slot16.shape[1] != pg.page_slot.shape[1] // 13 * 16:
+            raise ValueError(f"{who}: page_slot16 must hold page_slot's records padded to 16 "
+                             f"floats")
+        for name, t in (("page_tree", pg.page_tree), ("page_slot16", pg.page_slot16)):
+            if t.data_ptr() % 16 or t.shape[1] % 4:
+                raise ValueError(f"{who}: {name}'s pages do not start 16-byte aligned")
+        args = (pg.page_tree.data_ptr(), pg.page_tree.shape[1], pg.page_slot16.data_ptr(),
+                pg.page_slot16.shape[1])
         lo, hi = pg.page_lo, pg.page_hi
     for name, t in (("page_lo", lo), ("page_hi", hi)):
         if t.device != device or t.dtype != torch.float32 or tuple(t.shape) != (n_pages, 3) \
                 or not t.is_contiguous():
             raise ValueError(f"{who}: {name} must be a contiguous ({n_pages}, 3) float32 tensor "
                              f"on {device}")
-    return tree.data_ptr(), tc, slots.data_ptr(), sc, lo.data_ptr(), hi.data_ptr(), n_pages
+    return (*args, lo.data_ptr(), hi.data_ptr(), n_pages), page_plan(depth)
 
 
 def _masks(who, plo, phi, n, device):
@@ -252,10 +277,9 @@ def pages_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord, plo=Non
     (K4c), ``best.t`` the per-ray bound."""
     who = "pages_closest"
     dev = ro.x.device
-    whole = plo is None
     if not _on(who, dev):
         return pages_closest_plain(cs, ro, rd, t_min, best, plo, phi)
-    tree = _page_args(who, cs, dev, whole)
+    tree, plan = _page_args(who, cs, dev, plo is None)
     n, rays = _rays(who, ro, rd)
     masks = _masks(who, plo, phi, n, dev)
     carried = (best.t, best.prim, best.u, best.v, *best.normal)
@@ -264,12 +288,16 @@ def pages_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord, plo=Non
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
-    err = build().lib.ptrt_pages_closest(
-        *tree, _offset(cs), gid_mask(cs), *(r.data_ptr() for r in rays), *masks,
-        *(x.data_ptr() for x in carried), n, float(t_min), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), _stream(dev))
-    _raise_on(who, err)
-    pages_closest.launches += 1
+    if n > 0:
+        lib = build().lib
+        grid = launch_grid(who, lib.ptrt_pages_closest_occupancy, plan, n, dev)
+        err = lib.ptrt_pages_closest(
+            *tree, _offset(cs), gid_mask(cs), *(r.data_ptr() for r in rays), *masks,
+            *(x.data_ptr() for x in carried), n, float(t_min), t.data_ptr(), prim.data_ptr(),
+            u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+            lane_counter(dev).data_ptr(), plan.depth_class, grid, _stream(dev))
+        _raise_on(who, err)
+        pages_closest.launches += 1
     return ClosestRecord(t, prim, u, v, V3(nx, ny, nz))
 
 
@@ -282,18 +310,22 @@ def pages_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, found: torc
     dev = ro.x.device
     if not _on(who, dev):
         return pages_any_plain(cs, ro, rd, t_min, limit, found, plo, phi)
-    tree = _page_args(who, cs, dev, plo is None)
+    tree, plan = _page_args(who, cs, dev, plo is None)
     tree = tree[:4] + tree[6:]  # the occlusion walk takes no root boxes
     n, rays = _rays(who, ro, rd)
     masks = _masks(who, plo, phi, n, dev)
     _check("limit", limit, torch.float32, n, dev, who)
     _check("found", found, torch.bool, n, dev, who)
     out = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = build().lib.ptrt_pages_any(*tree, *(r.data_ptr() for r in rays), *masks,
-                                     limit.data_ptr(), found.data_ptr(), n, float(t_min),
-                                     out.data_ptr(), _stream(dev))
-    _raise_on(who, err)
-    pages_any.launches += 1
+    if n > 0:
+        lib = build().lib
+        grid = launch_grid(who, lib.ptrt_pages_any_occupancy, plan, n, dev)
+        err = lib.ptrt_pages_any(*tree, *(r.data_ptr() for r in rays), *masks, limit.data_ptr(),
+                                 found.data_ptr(), n, float(t_min), out.data_ptr(),
+                                 lane_counter(dev).data_ptr(), plan.depth_class, grid,
+                                 _stream(dev))
+        _raise_on(who, err)
+        pages_any.launches += 1
     return out
 
 

@@ -11,7 +11,10 @@ deep for the BVH4 walks; the walks through the leaf coefficient table
 (K10a-d) and the path tracer launching them on its two routes; the
 persistent K4b and K5 against their plain versions and their twins (the
 first designs), with the node table in shared memory and out of it, on
-ragged lane counts, none, and two launches back to back.
+ragged lane counts, none, and two launches back to back; the persistent
+page walks K6c and K6d (and K4c and K4d over the whole tree) against their
+plain versions in both depth classes, and K4b, K6c, K6d and K5 queued on
+one stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -472,6 +475,93 @@ def test_paged_path_tracer_launches_k6(paged_card):
     same = (out.hit == want.hit) & (out.prim == want.prim)
     assert float(same.float().mean()) >= 0.9999
     _assert_floats_close(out, want, same & out.hit & (out.killed == want.killed), FLOATS)
+
+
+def _reported_deeper(cs, depth):
+    """``cs`` with its whole tree and its pages reported ``depth`` levels
+    deep: the page walks then take the deep class's stack, which holds any
+    shallower tree too."""
+    pg = cs.bvh.paged
+    return cs._replace(bvh=cs.bvh._replace(depth4=depth, paged=pg._replace(page_depth=depth)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("n", [131072, 4096 + 37])
+def test_page_walks_match_plain(paged_card, n, deep):
+    """The persistent K6c and K6d, and K4c and K4d over the whole tree,
+    against their plain versions on the 36-page ``paged_card`` (pages past
+    31: both pending words), with lanes that pend no page, lanes already
+    found and bounds of +inf, in both depth classes (the deep one by
+    reporting the trees 20 levels deep); each launch leaves the lane
+    counter zero."""
+    dev, cs = paged_card
+    if deep:
+        cs = _reported_deeper(cs, 20)
+    for depth in (cs.bvh.depth4, cs.bvh.paged.page_depth):
+        assert bvh.page_plan(depth) == (False, 32 if deep else 8, 0)
+    o, d, _, _, _ = _inputs(n, n + 9, dev)
+    lane = torch.arange(n, device=dev)
+    bound, limit = _bounds(n, n + 9, dev)
+    bound = torch.where(lane % 11 == 0, float("inf"), bound)
+    limit = torch.where(lane % 11 == 0, float("inf"), limit)
+    idle = lane % 5 == 0  # lanes that pend no page
+    best, plo, phi = bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6)
+    top_found, alo, ahi = bvh_paged.paged_top_any(cs, o, d, 1e-3, limit)
+    plo, phi, alo, ahi = (torch.where(idle, 0, w) for w in (plo, phi, alo, ahi))
+    found = top_found | (lane % 3 == 0)  # lanes already found, some with pages pending
+    zero = torch.zeros(n, device=dev)
+    seed = plain.ClosestRecord(bound, torch.full((n,), -1, dtype=torch.int32, device=dev), zero,
+                               zero, V3(zero, zero, zero))
+    before = (bvh_paged.pages_closest.launches, bvh_paged.pages_any.launches)
+    got = {"K6c": bvh_paged.pages_closest(cs, o, d, 1e-3, best, plo, phi),
+           "K4c": bvh_paged.pages_closest(cs, o, d, 1e-3, seed)}
+    occ = {"K6d": bvh_paged.pages_any(cs, o, d, 1e-3, limit, found, alo, ahi),
+           "K4d": bvh_paged.pages_any(cs, o, d, 1e-3, limit, found)}
+    torch.cuda.synchronize()
+    assert (bvh_paged.pages_closest.launches, bvh_paged.pages_any.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert not bvh.lane_counter(dev).any()
+    want = {"K6c": bvh_paged.pages_closest_plain(cs, o, d, 1e-3, best, plo, phi),
+            "K4c": bvh_paged.pages_closest_plain(cs, o, d, 1e-3, seed)}
+    for k, rec in got.items():
+        same = rec.prim == want[k].prim
+        assert float(same.float().mean()) >= 0.9999, k
+        assert bool((rec.prim >= 0).any()) and bool((rec.prim < 0).any()), k
+        _assert_floats_close(rec, want[k], same & (rec.prim >= 0), ("t", "u", "v", "normal"))
+    for x, y in ((got["K6c"].t, best.t), (got["K6c"].prim, best.prim)):
+        assert torch.equal(x[idle], y[idle])  # no page pending: the record carried through
+    assert bool((got["K6c"].prim != best.prim).any())
+    care = limit > 0
+    want_occ = {"K6d": bvh_paged.pages_any_plain(cs, o, d, 1e-3, limit, found, alo, ahi),
+                "K4d": bvh_paged.pages_any_plain(cs, o, d, 1e-3, limit, found)}
+    for k, x in occ.items():
+        assert float((x == want_occ[k])[care].float().mean()) >= 0.9999, k
+        assert bool(x[found].all()) and bool(x[care & ~found].any()), k
+
+
+@pytest.mark.cuda
+def test_persistent_walks_share_the_lane_counter(mesh_card, paged_card):
+    """K4b, K6c, K6d and K5 queued on one stream with no sync between them
+    answer bit for bit as each does alone after a sync, which leaves the
+    stream's lane counter zero: each launch starts from lane 0."""
+    dev, mcs, tables = mesh_card
+    pcs = paged_card[1]
+    o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
+    best, plo, phi = bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6)
+    found, alo, ahi = bvh_paged.paged_top_any(pcs, o, d, 1e-3, limit)
+    calls = (lambda: bvh.scene_any(mcs, o, d, 1e-3, limit),
+             lambda: bvh_paged.pages_closest(pcs, o, d, 1e-3, best, plo, phi),
+             lambda: bvh_paged.pages_any(pcs, o, d, 1e-3, limit, found, alo, ahi),
+             lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth))
+    queued = [call() for call in calls]
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+    for call, got in zip(calls, queued):
+        alone = call()
+        torch.cuda.synchronize()
+        assert not bvh.lane_counter(dev).any()
+        _assert_twin(got, alone)
 
 
 def _bounds(n, seed, dev):

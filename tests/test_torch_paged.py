@@ -21,6 +21,11 @@ that same walk.
   ``tests/test_torch_mesh.py``, the paged plain walks spied on.
 * ``compiled_scene_from_numpy`` of a JAX scene compiled with paging forced
   carries the same paged tensors as the port's own compile.
+* ``PagedBlobs.page_slot16``, the port's padded copy of each page's slot
+  records that the page walks read as 16-byte loads: the JAX
+  ``pack_paged``'s ``page_slot`` float for float in 13 columns of 16, zeros
+  in the other 3, as ``to_device`` builds it (the soup, the mesh) and as
+  ``compiled_scene_from_numpy`` carries a JAX paged tree.
 
 The kernels K6a-d and K4c/K4d run only on a GPU: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
@@ -90,8 +95,9 @@ def force_paging(monkeypatch):
     monkeypatch.setattr(tbvh, "PAGE_BUDGET_FLOATS", 800)
 
 
-@pytest.mark.parametrize("escalate", [False, True])
-def test_pack_paged_matches_jax(monkeypatch, escalate):
+def _soup_arrays():
+    """The JAX-compiled 160-triangle soup's triangles ``(v0, v1, v2, nrm)``,
+    its ``build_bvh`` arrays and a unique-material id per triangle."""
     jcs = jp.compile_scene(_soup(jp, 160, 2), use_bvh=True)
     t = jcs.n_triangles
     v0, v1, v2, nrm = (np.stack([np.asarray(c) for c in v], -1)[:t]
@@ -99,7 +105,12 @@ def test_pack_paged_matches_jax(monkeypatch, escalate):
                                  jcs.triangles.normal))
     arrs = jbvh.build_bvh(np.minimum(np.minimum(v0, v1), v2), np.maximum(np.maximum(v0, v1), v2),
                           use_native=False)
-    uid = (np.arange(t) % 5).astype(np.int32)
+    return (v0, v1, v2, nrm), arrs, (np.arange(t) % 5).astype(np.int32)
+
+
+@pytest.mark.parametrize("escalate", [False, True])
+def test_pack_paged_matches_jax(monkeypatch, escalate):
+    (v0, v1, v2, nrm), arrs, uid = _soup_arrays()
     if escalate:  # 6 pages at 800 floats is over 4: the budget doubles to the ceiling
         for mod in (tbvh, jpaged):
             monkeypatch.setattr(mod, "PAGES_MAX", 4)
@@ -236,6 +247,45 @@ def test_compiled_scene_from_numpy_carries_paged(mesh_scene, force_paging, monke
     for k in PAGED_FIELDS + ("page_root",):
         assert torch.equal(getattr(got, k), getattr(want, k)), k
     assert (got.top_depth, got.page_depth) == (want.top_depth, want.page_depth)
+
+
+@pytest.fixture(scope="module")
+def jax_paged_mesh():
+    """The JAX compile of the ``MeshSceneBuilder(2, 1)`` mesh with paging
+    forced (``force_paging``'s budgets), its leaves as numpy arrays."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jpack, "SMEM_BLOB_LIMIT", 2600)
+        mp.setattr(jpaged, "PAGE_BUDGET_FLOATS", 800)
+        jcs = jp.compile_scene(MeshSceneBuilder(grid=2, subdivisions=1).build_scene())
+    assert jcs.bvh.paged is not None
+    return jax.tree.map(np.asarray, jcs)
+
+
+@pytest.mark.parametrize("source", ["soup", "mesh", "carried"])
+def test_page_slot16_is_the_jax_page_slot_padded(mesh_scene, jax_paged_mesh, force_paging,
+                                                 source):
+    """``page_slot16`` as ``to_device`` builds it for the soup (against the
+    JAX ``pack_paged`` of the same arrays) and for the mesh's compile, and
+    as ``compiled_scene_from_numpy`` carries the JAX compile of the mesh
+    (both against that compile's ``page_slot``)."""
+    if source == "soup":
+        (v0, v1, v2, nrm), arrs, uid = _soup_arrays()
+        got = tbvh.to_device(arrs, v0, v1, v2, nrm, uid=uid).paged
+        want = jpaged.pack_paged(arrs, v0, v1, v2, nrm=nrm, uid=uid, budget_floats=800).page_slot
+    else:
+        cs = (compile_scene(mesh_scene[0], device="cpu") if source == "mesh"
+              else compiled_scene_from_numpy(jax_paged_mesh, device="cpu"))
+        got, want = cs.bvh.paged, jax_paged_mesh.bvh.paged.page_slot
+    want = np.asarray(want)
+    n_pages, sc = want.shape
+    assert got is not None and got.n_pages == n_pages >= 2 and sc % 13  # a part record at the end
+    rec = want[:, : sc // 13 * 13].reshape(n_pages, -1, 13)
+    pad = got.page_slot16.numpy().reshape(n_pages, -1, 16)
+    assert pad.shape[1] == rec.shape[1] > 0
+    np.testing.assert_array_equal(pad[:, :, :13], rec)
+    assert not pad[:, :, 13:].any()
+    assert bool((pad[:, :, 9] < 0).any())  # the leaves' -1 padding slots carried over
+    assert got.page_slot16.is_contiguous() and got.page_slot16.data_ptr() % 16 == 0
 
 
 def test_whole_tree_page_walks_are_the_bvh_walks(mesh_scene):

@@ -6,7 +6,8 @@
 * ``ops/cuda/bvh.walk_plan`` and ``persistent_grid``: the variant (tree
   staged in shared memory or not, depth class) and the grid are pure
   functions of sizes, the budget, the card's shared memory and the SM
-  count.
+  count; ``page_plan``, the page walks' variant (K6c/K6d, K4c/K4d), takes
+  the same depth class and never stages a tree, whatever the budget.
 * The timing twins (the first designs) take the plain versions on the CPU,
   as every wrapper does.
 
@@ -56,6 +57,10 @@ def test_slot16_is_the_slot_records_padded(mesh):
     (1 << 30, 1815, 8, H100, (False, 8, C5_PS)),
     (1 << 30, 1700, 8, H100, (True, 8, 128 * 1700 + C5_PS)),
     (1 << 30, 1700, 8, SMALL, (False, 8, C5_PS)),
+    # a config-6 page (~6,250 nodes, 800 KB) under a lifted budget; the
+    # deepest tree the BVH4 walks take
+    (1 << 30, 6250, 7, H100, (False, 8, C5_PS)),
+    (1 << 30, 100, 32, H100, (True, 32, 128 * 100 + C5_PS)),
 ])
 def test_walk_plan_is_a_function_of_sizes(monkeypatch, budget, n_nodes, depth4, limit, want):
     if budget is not None:
@@ -64,6 +69,8 @@ def test_walk_plan_is_a_function_of_sizes(monkeypatch, budget, n_nodes, depth4, 
     assert tuple(plan) == want
     assert plan == bvh.walk_plan(n_nodes, depth4, C5_PS, limit)
     assert plan.smem_bytes <= limit
+    # the page walks' plan at the same sizes: the same depth class, no page staged
+    assert tuple(bvh.page_plan(depth4)) == (False, want[1], 0)
 
 
 @pytest.mark.parametrize("n,n_sms,per_sm,want", [
