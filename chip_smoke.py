@@ -47,17 +47,15 @@ It imports no JAX.
    three plain bounces on, and the persistent K5 (BVH path bounce) on the
    first chunk at depth 0 and three plain bounces on, both shadow bounds:
    each against its plain version (occlusion; hit, prim and killed, on
-   every lane) and bit for bit against its twin (the first design), with
-   the node table staged in shared memory and read from device memory; their times
-   and bounds at 131,072 rays, K4b and K5 beside their twins in turns (new,
-   twin, twin, new) on the camera rays and three bounces on, and the
-   redesign's steps (``WALK_STEPS``);
+   every lane), with the node table staged in shared memory and read from
+   device memory; their times and bounds at 131,072 rays, and K4b and K5
+   with the tree in device memory and staged, timed in turns
+   (``WALK_STEPS``);
 10. the mesh main path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``MESH_SPP``-sample group after a warm-up on
    a small frame (K5's and K4b's launch counts), then a profile of a
    one-sample frame: device operations per bounce, busy time, K5's and K4b's
-   shares, launches and device time per launch; no render may launch a
-   twin (``counts``);
+   shares, launches and device time per launch;
 11. the mesh Whitted frame: ``cuda_texture_raytracer`` at 480×270, 4 spp,
    depth 16 (K4a's and K4b's launch counts);
 12. the paged BVH of config 6 (``MeshSceneBuilder(5, 4)``, 128,000
@@ -108,7 +106,8 @@ It imports no JAX.
    within tolerance), K4e's occlusion walks on the light-sample shadow rays
    (equal on every ray that needs an answer), each K11 pass against its
    plain version and the whole multipass walk against the single-pass K4c;
-   their times (the plain walks median of ``PLAIN_REPS``) and bounds;
+   the plans of the persistent K11 and ordered closest walk; their times
+   (the plain walks median of ``PLAIN_REPS``), bounds and tree traffic;
 20. the config-5 mesh path at 1920×1080, depth 12, ``shadow_tmax="light"``,
    one ``SPLIT_SPP``-sample group, seed 0: the default route (K5), then
    ``BVH_QUAD = False`` (K4e ordered, K5 idle) and ``BVH_ATTRS = False,
@@ -136,9 +135,10 @@ It imports no JAX.
    tolerance of each other.
 
 Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
-``call_ms``: the wrapper's call time; ``twin_ms`` for K4b and K5: the
-twin's device time in turns; ``tree_ms`` for the BVH4 walks K4a-d, K5 and
-K6c/K6d: the tree traffic the plain walk counts, over the memory rate) and
+``call_ms``: the wrapper's call time; ``twin_ms`` for K10a-d: their K4
+twin's device time in turns; ``tree_ms`` for the BVH walks K4a-e, K5,
+K6c/K6d and K11: the tree traffic the plain walk counts, over the memory
+rate) and
 the card's name and power limit, then, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -374,27 +374,6 @@ def same_bits(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def check_twin(label, got, twin):
-    """A redesigned kernel's output against its twin's (the first design),
-    bit for bit on every lane: a tensor, or a record of tensors and V3s."""
-    def tensors(rec):
-        if not hasattr(rec, "_fields"):
-            return {"": rec}
-        out = {}
-        for f in rec._fields:
-            x = getattr(rec, f)
-            out.update({f"{f}.{c}": t for c, t in zip("xyz", x)} if isinstance(x, tuple)
-                       else {f: x})
-        return out
-
-    want = tensors(twin)
-    bad = [f for f, a in tensors(got).items() if not same_bits(a, want[f])]
-    print(f"[check] {label}: bit-equal to its twin on every lane: {not bad}"
-          + (f" (differ: {bad})" if bad else ""))
-    if bad:
-        raise SystemExit(f"chip_smoke: {label} differs from its twin")
-
-
 def phase_kernel_check(cs, camera, device):
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
 
@@ -449,15 +428,14 @@ C_ENTRIES = {
     "any_kernel": ("intersect", ("ptrt_any_hit",)),
     "bvh_closest_kernel": ("bvh_scene", ("ptrt_bvh_closest",)),
     "bvh_any_persistent": ("bvh_scene", ("ptrt_bvh_any",)),
-    "bvh_any_kernel": ("bvh_scene", ("ptrt_bvh_any_simple",)),
-    "bvh4_rooted_kernel": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
+    "bvh4_rooted_persistent": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
     "path_bounce_bvh_persistent": ("path_bounce_bvh", ("ptrt_path_bounce_bvh",)),
-    "path_bounce_bvh_kernel": ("path_bounce_bvh", ("ptrt_path_bounce_bvh_simple",)),
     "paged_top_closest_kernel": ("bvh_paged", ("ptrt_paged_top_closest",)),
     "paged_top_any_kernel": ("bvh_paged", ("ptrt_paged_top_any",)),
     "pages_closest_persistent": ("bvh_paged", ("ptrt_pages_closest",)),
     "pages_any_persistent": ("bvh_paged", ("ptrt_pages_any",)),
     "bvh2_closest_kernel": ("bvh2", ("ptrt_bvh2_closest",)),
+    "bvh2_closest_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
     "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
     "mat_scene_any_kernel": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
@@ -610,8 +588,6 @@ def wrappers():
             "closest_hit": intersect.closest_hit, "any_hit": intersect.any_hit,
             "scene_closest": bvh.scene_closest, "scene_any": bvh.scene_any,
             "path_bounce_bvh": bounce_bvh.path_bounce_bvh,
-            "scene_any_simple": bvh.scene_any_simple,
-            "path_bounce_bvh_simple": bounce_bvh.path_bounce_bvh_simple,
             "paged_top_closest": bvh_paged.paged_top_closest,
             "paged_top_any": bvh_paged.paged_top_any, "pages_closest": bvh_paged.pages_closest,
             "pages_any": bvh_paged.pages_any, "closest_skiplink": bvh2.closest_skiplink,
@@ -627,17 +603,9 @@ def reset_counts():
         w.launches = 0
 
 
-# the first designs of K4b and K5, kept as timing twins: no render launches them
-TWINS = ("scene_any_simple", "path_bounce_bvh_simple")
-
-
 def counts():
-    """Launches since ``reset_counts()``; fails when a timing twin launched
-    (every caller reads them after a render)."""
-    launched = {name: w.launches for name, w in wrappers().items()}
-    if any(launched[t] for t in TWINS):
-        raise SystemExit(f"chip_smoke: a render launched a timing twin: {launched}")
-    return launched
+    """Launches since ``reset_counts()``."""
+    return {name: w.launches for name, w in wrappers().items()}
 
 
 def phase_golden(device):
@@ -775,8 +743,9 @@ def sweep_flops(cs, o, d, bound, first_only, lanes=None, kinds=4):
 
 def tree_ms(c, slot_bytes):
     """The tree traffic of a walk whose plain version counted ``c``, over
-    the memory rate, in ms: a quarter of a 128 B node record a box test,
-    a slot record of ``slot_bytes`` a triangle test."""
+    the memory rate, in ms: 32 B a box test (a quarter of a 128 B BVH4
+    record, or a BVH2 record), a slot record of ``slot_bytes`` a triangle
+    test."""
     return (32 * c.get("boxes", 0) + slot_bytes * c.get("tri_tests", 0)) / PEAK_BYTES * 1e3
 
 
@@ -1254,9 +1223,9 @@ def show_plans(label, plans):
 
 def phase_mesh_check(device):
     """K4a against its plain version; K4b and K5 against their plain
-    versions and their twins (the first designs), with the node table
-    staged in shared memory (``SMEM_TREE_BYTES`` lifted) and read from
-    device memory (``SMEM_TREE_BYTES = 0``, the default):
+    versions, with the node table staged in shared memory
+    (``SMEM_TREE_BYTES`` lifted) and read from device memory
+    (``SMEM_TREE_BYTES = 0``, the default):
     K4b on the light-sample shadow rays of camera rays over the frame, of
     the frame's first chunk and of that chunk three plain bounces on (equal
     on every ray that needs an answer), K5 on the first chunk at depth 0 and
@@ -1297,8 +1266,6 @@ def phase_mesh_check(device):
                 k4b = max(k4b, check_occlusion(
                     f"{where}, {label}, one light-sample shadow ray per lane", occ,
                     scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim), lim > 0, "scene_any", True))
-                check_twin(f"scene_any, {where}, {label}", occ,
-                           bvh.scene_any_simple(cs, so, sd, 1e-3, lim))
             for label, (o, d, thr, key, depth) in states.items():
                 for shadow_light in (False, True):
                     name = f"path_bounce_bvh, {where}, {label}, shadow_light={shadow_light}"
@@ -1307,9 +1274,7 @@ def phase_mesh_check(device):
                     want = bounce.path_bounce_plain(cs, o, d, thr, key, depth,
                                                     shadow_light=shadow_light)
                     k5 = max(k5, compare(name, got, want, exact=True))
-                    check_twin(name, got, bounce_bvh.path_bounce_bvh_simple(
-                        cs, tables, o, d, thr, key, depth, shadow_light=shadow_light))
-    return cs, tables, (spread, bounced), (k4a, k4b, k5)
+    return cs, tables, spread, (k4a, k4b, k5)
 
 
 def in_turns(new, twin):
@@ -1326,25 +1291,22 @@ def in_turns(new, twin):
 
 # a tree budget that stages every node table a block can hold
 STAGE_ALL = 1 << 30
-# the redesign of K4b and K5 step by step after the twin: the budget each
-# step sets
+# K4b's and K5's two plans, timed in turns: the budget each sets
 WALK_STEPS = (
-    ("persistent, 16-byte loads, stack by depth class, tree in device memory (the default "
-     "plan)", {"SMEM_TREE_BYTES": 0}),
-    ("+ tree in shared memory (TMA)", {"SMEM_TREE_BYTES": STAGE_ALL}),
+    ("tree in device memory (the default plan)", {"SMEM_TREE_BYTES": 0}),
+    ("tree in shared memory (TMA)", {"SMEM_TREE_BYTES": STAGE_ALL}),
 )
 # float operations of K5's shading on a lane that hits (csrc/path_bounce_bvh.cu:
 # "the shading adds about 60 float operations")
 SHADE_FLOPS = 60
 
 
-def phase_mesh_timing(cs, tables, sets):
-    """K4a, K4b and K5 at N = 131,072 on the camera rays: device time per
-    launch of each kernel's own symbol (K5 alone: its wrapper's K4b launch
-    and glue belong to K4b's row and to the call time), call and plain
-    times; K4b and K5 against their twins in turns on the camera rays and on
-    the first chunk three plain bounces on; the redesign's steps on the
-    camera rays; and the bounds from the same inputs: lane bytes, each input
+def phase_mesh_timing(cs, tables, spread):
+    """K4a, K4b and K5 at N = 131,072 on the camera rays ``spread``: device
+    time per launch of each kernel's own symbol (K5 alone: its wrapper's K4b
+    launch and glue belong to K4b's row and to the call time), call and
+    plain times; K4b and K5 with the tree in device memory and staged, in
+    turns; and the bounds from the same inputs: lane bytes, each input
     read once and each output written once; operations, the plane/sphere/quad
     sweeps plus the box and triangle tests the plain skip-link walk counts
     (K5: its closest walk and its shading); beside them, the tree traffic the
@@ -1354,51 +1316,29 @@ def phase_mesh_timing(cs, tables, sets):
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import (
         scene_hit_any_bvh_plain, scene_hit_bvh_plain)
 
-    spread, bounced = sets
-
-    def calls(state):
-        o, d, thr, key, depth = state
-        so, sd, lim = mesh_shadow(cs, o, d, key, depth)
-        return {
-            "scene_any": ((lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent"),
-                          (lambda: bvh.scene_any_simple(cs, so, sd, 1e-3, lim), "bvh_any_kernel")),
-            "path_bounce_bvh": (
-                (lambda: bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
-                                                    shadow_light=True),
-                 "path_bounce_bvh_persistent"),
-                (lambda: bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth,
-                                                           shadow_light=True),
-                 "path_bounce_bvh_kernel")),
-        }, (so, sd, lim)
-
     o, d, thr, key, depth = spread
-    camera, (so, sd, lim) = calls(spread)
+    so, sd, lim = mesh_shadow(cs, o, d, key, depth)
+    walks = {
+        "scene_any": (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent"),
+        "path_bounce_bvh": (lambda: bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth,
+                                                               shadow_light=True),
+                            "path_bounce_bvh_persistent"),
+    }
     times = {
         "scene_closest": timed(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6), "bvh_closest_kernel",
                                lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)),
-        "scene_any": timed(camera["scene_any"][0][0], "bvh_any_persistent",
+        "scene_any": timed(walks["scene_any"][0], "bvh_any_persistent",
                            lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim)),
-        "path_bounce_bvh": timed(camera["path_bounce_bvh"][0][0], "path_bounce_bvh_persistent",
+        "path_bounce_bvh": timed(walks["path_bounce_bvh"][0], "path_bounce_bvh_persistent",
                                  lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth,
                                                                   shadow_light=True)),
     }
     for name, rec in times.items():
         show_time(name, rec, " (K5 alone; the call adds K4b and the glue)"
                   if name == "path_bounce_bvh" else "")
-    for label, state in (("camera rays", spread), ("first chunk, 3 plain bounces on", bounced)):
-        pairs = camera if state is spread else calls(state)[0]
-        for name, (new, twin) in pairs.items():
-            new_ms, twin_ms, each = in_turns(new, twin)
-            print(f"[turns] {name} on {label}: new {new_ms:.4f} ms, twin {twin_ms:.4f} ms per "
-                  f"launch (device; new, twin, twin, new: {', '.join(f'{x:.4f}' for x in each)})"
-                  f" -> {new_ms / twin_ms:.3f}x")
-            if state is spread:
-                times[name]["twin_ms"] = twin_ms
-    for name, (new, twin) in camera.items():
-        order = [("twin (first design)", twin, {})] + [
-            (label, new, budgets) for label, budgets in WALK_STEPS]
-        got = {label: [] for label, _, _ in order}
-        for label, call, budgets in order + order[::-1]:
+    for name, call in walks.items():
+        got = {label: [] for label, _ in WALK_STEPS}
+        for label, budgets in WALK_STEPS + WALK_STEPS[::-1]:
             with bvh_set(**budgets):
                 got[label].append(device_ms(*call)[0])
         print(f"[steps] {name} on camera rays (device ms per launch, each the mean of two "
@@ -2081,15 +2021,24 @@ def phase_split_check(device):
     plain_closest = cuda_ms(lambda: tbvh.traverse_closest(cs.bvh, tris, o, d, 1e-3, 1e6),
                             PLAIN_REPS, 1)
     plain_any = cuda_ms(lambda: tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim), PLAIN_REPS, 1)
+    plans = {"K11": (cs.bvh.depth4, bvh.rooted_plan(cs),
+                     bvh.build().lib.ptrt_bvh4_rooted_occupancy),
+             "K4e ordered closest": (cs.bvh.depth2, bvh2.closest_plan(cs),
+                                     bvh2.build().lib.ptrt_bvh2_closest_occupancy)}
+    print(f"[split] persistent plans at N={n}: " + "; ".join(
+        f"{k} depth {depth} -> class {plan.depth_class}, grid "
+        f"{bvh.launch_grid(k, occupancy, plan, n, device)} blocks of {bvh.WALK_THREADS}"
+        for k, (depth, plan, occupancy) in plans.items()))
     times = {
         "closest_skiplink": timed(lambda: bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6),
                                   "bvh2_closest_kernel"),
         "closest_ordered": timed(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6),
-                                 "bvh2_closest_kernel"),
+                                 "bvh2_closest_persistent"),
         "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
         "any_ordered": timed(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
         "closest_rooted": timed(
-            lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried], "bvh4_rooted_kernel",
+            lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried],
+            "bvh4_rooted_persistent",
             lambda: [tbvh.rooted(cs.bvh, tris, o, d, 1e-3, *c) for c in carried], PLAIN_REPS,
             per_call=len(carried)),
     }
@@ -2124,8 +2073,18 @@ def phase_split_check(device):
     bounds = {"closest_skiplink": walk_bounds["closest"],
               "closest_ordered": walk_bounds["closest"], "any_skiplink": walk_bounds["any"],
               "any_ordered": walk_bounds["any"], "closest_rooted": walk_bounds["closest_rooted"]}
+    # the tree traffic the plain walks count: a 32 B BVH2 record a box test,
+    # a slot record a triangle test (64 B from the padded copy the ordered
+    # closest walk and K11 read, else 52 B); K11's a third of three passes
+    trees = {"closest_skiplink": tree_ms(cnt["closest"], 52),
+             "closest_ordered": tree_ms(cnt["closest"], 64),
+             "any_skiplink": tree_ms(cnt["any"], 52), "any_ordered": tree_ms(cnt["any"], 52),
+             "closest_rooted": tree_ms(cnt["rooted"], 64) / 3}
+    for name, tree in trees.items():
+        times[name]["tree_ms"] = tree
     print("[bound] split walks (ms): " + "; ".join(f"{k} {v[0]:.5f} ({v[1]})"
                                                  for k, v in walk_bounds.items())
+          + "; tree traffic " + ", ".join(f"{k} {v:.5f}" for k, v in trees.items())
           + f"; tests counted by the plain walks: closest {cnt['closest']}, shadow {cnt['any']} "
           f"({int(care.sum())} rays need an answer), the three rooted passes {cnt['rooted']} "
           f"({en_lanes} lane walks)")
@@ -2784,8 +2743,8 @@ def main() -> int:
     k2_launches, w_secs, w_mrays, rmse = phase_whitted_frame(device)
     phase_whitted_profile(device, w_secs)
     oracle = phase_oracle(device)
-    mcs, tables, mstate, (k4a_err, k4b_err, k5_err) = phase_mesh_check(device)
-    mtimes, mbounds = phase_mesh_timing(mcs, tables, mstate)
+    mcs, tables, mspread, (k4a_err, k4b_err, k5_err) = phase_mesh_check(device)
+    mtimes, mbounds = phase_mesh_timing(mcs, tables, mspread)
     times.update(mtimes)
     bounds.update(mbounds)
     mesh_launched, m_secs, m_mrays, mr, mscene, mcam = phase_mesh_main(device)

@@ -1,5 +1,5 @@
-// The BVH2 walks over the triangles, one ray per thread: the closest hit
-// below a scalar or per-ray bound, and occlusion below a per-ray limit (K4e).
+// The BVH2 walks over the triangles: the closest hit below a scalar or
+// per-ray bound, and occlusion below a per-ray limit (K4e).
 //
 // Replaces the JAX package's ops/pallas/bvh_pallas.py::_bvh_closest_kernel,
 // _bvh_closest_ordered_kernel (entered there through _bvh_closest_unsorted),
@@ -25,13 +25,27 @@
 // link (the next node when the box is missed or the subtree is done), and
 // the slot base (a leaf, >= 0) or -(1 + split code) (an inner node, whose
 // left child is the next record and right child the left child's skip).
-// Slot record, 13 floats, as bvh_walk.cuh.
+// Slot record, 13 floats, as bvh_walk.cuh, or the padded 16-float copy.
 //
 // What bounds them: latency.  A ray reads 24 B (28 B with its bound) and
 // writes 8 B (1 B), against a walk of dozens of node records (32 B each)
-// and leaves of 16 slot records (52 B each), each read by a thread that
-// follows its own path.  The design keeps it simple: one thread per ray,
-// the ordered stack in local memory, the records as packed.
+// and leaves of 16 slot records, each read by a thread that follows its own
+// path.  The skip-link walks and the ordered occlusion walk keep the first
+// design: one thread per ray in blocks of 128, the records as packed, the
+// ordered stack of kStack2Cap entries in local memory.
+//
+// The ordered closest walk is designed for Hopper (bvh2_closest_persistent),
+// as bvh_walk.cuh's persistent BVH4 walks are: persistent blocks of 256
+// threads whose warps take 32 lanes at a time from the stream's lane counter
+// (next_lane); a node and its left child are consecutive 32 B records, so
+// one visit reads the node as two 16-byte loads and its right child's index
+// (the left child's skip) from a third issued with them, where the first
+// design waited for the node before it read the index; leaves from the
+// padded slot copy, four slots' loads issued together (Slot16TriLeaf); a
+// stack sized by the tree's BVH2 depth class (kShallow2 or kStack2Cap
+// entries, ops/cuda/bvh.depth2_class), where the first design carried 768 B
+// whatever the depth.  Each lane's floats and its order of tests are the
+// first design's (in git at a3bb26a), so its results are too.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,43 +61,18 @@ constexpr int kNode2F = 8;
 // that its STACK_CAP equals ptrt_bvh2_stack_cap()).  A lane whose stack would
 // overflow all the same finishes by the skip-link walk, from its running best.
 constexpr int kStack2Cap = 192;
+// the persistent ordered closest walk's smaller stack class (ops/cuda/bvh.py
+// SHALLOW2): a BVH2 of depth2 + 2 <= kShallow2 takes it, any other kStack2Cap
+constexpr int kShallow2 = 32;
 constexpr int kBvh2Threads = 128;
 
-// The leaf's slots below the running best: the first least t wins.
-__device__ __forceinline__ void leaf_closest(const float* __restrict__ slots, int base,
-                                             const Ray& r, float t_min, float& bt, int& bi) {
-  const float* s = slots + (size_t)base * kSlotF;
-  for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
-    float tt, bu, bv;
-    if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, bt, tt,
-                        bu, bv) &&
-        s[9] >= 0.0f) {
-      bt = tt;
-      bi = (int)s[9];
-    }
-  }
-}
-
-__device__ __forceinline__ bool leaf_any(const float* __restrict__ slots, int base, const Ray& r,
-                                         float t_min, float limit) {
-  const float* s = slots + (size_t)base * kSlotF;
-  for (int k = 0; k < kLeafSize; ++k, s += kSlotF) {
-    float tt, bu, bv;
-    if (moller_trumbore(s[0], s[1], s[2], s[3], s[4], s[5], s[6], s[7], s[8], r, t_min, limit,
-                        tt, bu, bv) &&
-        s[9] >= 0.0f)
-      return true;
-  }
-  return false;
-}
-
-// The walk of one ray.  Closest (kAny false): bt/bi carry the bound in and
-// the winner out, the slab's far plane the running best.  Any: returns at
-// the first hit below `bt`, the fixed limit.
-template <bool kOrdered, bool kAny>
-__device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m,
-                                      const float* __restrict__ slots, const Ray& r, float t_min,
-                                      float& bt, int& bi) {
+// The walk of one ray, its leaves visited by `leaf` (SlotLeaf,
+// Slot16TriLeaf).  Closest (kAny false): h carries the bound in and the
+// winner (t, raw gid) out, the slab's far plane the running best.  Any:
+// returns at the first hit below h.t, the fixed limit.
+template <bool kOrdered, bool kAny, class Leaf>
+__device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m, const Leaf& leaf,
+                                      const Ray& r, float t_min, Hit& h) {
   const WalkRay w = walk_ray(r);
   if constexpr (kOrdered) {
     int stack[kStack2Cap];
@@ -92,17 +81,17 @@ __device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m,
     for (int step = 0; sp > 0 && step < m + 2; ++step) {
       const int node = stack[--sp];
       const float* b = tree + (size_t)node * kNode2F;
-      if (!slab(b, w, t_min, bt)) continue;
+      if (!slab(b, w, t_min, h.t)) continue;
       const float code = b[7];
       if (code >= 0.0f) {
         if constexpr (kAny) {
-          if (leaf_any(slots, (int)code, r, t_min, bt)) return true;
+          if (leaf.any(code, r, t_min, h.t)) return true;
         } else {
-          leaf_closest(slots, (int)code, r, t_min, bt, bi);
+          leaf.closest(code, r, t_min, 0, h);
         }
         continue;
       }
-      if (sp + 2 > kStack2Cap) return walk2<false, kAny>(tree, m, slots, r, t_min, bt, bi);
+      if (sp + 2 > kStack2Cap) return walk2<false, kAny>(tree, m, leaf, r, t_min, h);
       const int left = node + 1;
       const int right = (int)tree[(size_t)left * kNode2F + 6];
       const bool left_near = near_first(-code - 1.0f, r);
@@ -113,13 +102,13 @@ __device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m,
     int cursor = 0;
     for (int step = 0; cursor < m && step <= m; ++step) {
       const float* b = tree + (size_t)cursor * kNode2F;
-      const bool hit = slab(b, w, t_min, bt);
+      const bool hit = slab(b, w, t_min, h.t);
       const float code = b[7];
       if (hit && code >= 0.0f) {
         if constexpr (kAny) {
-          if (leaf_any(slots, (int)code, r, t_min, bt)) return true;
+          if (leaf.any(code, r, t_min, h.t)) return true;
         } else {
-          leaf_closest(slots, (int)code, r, t_min, bt, bi);
+          leaf.closest(code, r, t_min, 0, h);
         }
       }
       cursor = (hit && code < 0.0f) ? cursor + 1 : (int)b[6];
@@ -128,7 +117,51 @@ __device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m,
   return false;
 }
 
-template <bool kOrdered>
+// Node `node`'s record as two 16-byte loads into b, and its right child if
+// it is an inner node: the skip of the next record (its left child), read by
+// a third load issued with the first two (none past the last record).
+__device__ __forceinline__ int load_node2(const float* __restrict__ tree, int m, int node,
+                                          float (&b)[kNode2F]) {
+  const float4* p = reinterpret_cast<const float4*>(tree + (size_t)node * kNode2F);
+  const float4 lo = __ldg(p), hi = __ldg(p + 1);
+  const float right = node + 1 < m ? __ldg(tree + (size_t)(node + 1) * kNode2F + 6) : -1.0f;
+  b[0] = lo.x; b[1] = lo.y; b[2] = lo.z; b[3] = lo.w;
+  b[4] = hi.x; b[5] = hi.y; b[6] = hi.z; b[7] = hi.w;
+  return (int)right;
+}
+
+// The ordered closest walk of walk2 with the node loads of load_node2 and a
+// stack of kCap entries; a lane whose stack would overflow finishes by the
+// skip-link walk from its running best, as walk2's does (the wrapper picks
+// a class that holds depth2 + 2, so only a tree past kStack2Cap would).
+template <int kCap, class Leaf>
+__device__ __forceinline__ void ordered_closest(const float* __restrict__ tree, int m,
+                                                const Leaf& leaf, const Ray& r, float t_min,
+                                                Hit& h) {
+  const WalkRay w = walk_ray(r);
+  LocalStack<kCap> stack;
+  stack.push(0);
+  for (int step = 0; !stack.empty() && step < m + 2; ++step) {
+    const int node = stack.pop();
+    float b[kNode2F];
+    const int right = load_node2(tree, m, node, b);
+    if (!slab(b, w, t_min, h.t)) continue;
+    const float code = b[7];
+    if (code >= 0.0f) {
+      leaf.closest(code, r, t_min, 0, h);
+      continue;
+    }
+    if (stack.sp + 2 > kCap) {
+      walk2<false, false>(tree, m, leaf, r, t_min, h);
+      return;
+    }
+    const bool left_near = near_first(-code - 1.0f, r);
+    stack.push(left_near ? right : node + 1);  // the near child is popped first
+    stack.push(left_near ? node + 1 : right);
+  }
+}
+
+// The skip-link closest walk, one lane per thread.
 __global__ void __launch_bounds__(kBvh2Threads)
 bvh2_closest_kernel(const float* __restrict__ tree, int m, const float* __restrict__ slots,
                     const float* __restrict__ ox_in, const float* __restrict__ oy_in,
@@ -138,14 +171,40 @@ bvh2_closest_kernel(const float* __restrict__ tree, int m, const float* __restri
                     float* __restrict__ t_out, int* __restrict__ tri_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Ray r;
-  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
-  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
-  float bt = bound ? bound[i] : t_max;
-  int bi = -1;
-  walk2<kOrdered, false>(tree, m, slots, r, t_min, bt, bi);
-  t_out[i] = bt;
-  tri_out[i] = decode_prim(bi, 0, gid_mask);
+  const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+  Hit h;
+  h.t = bound ? bound[i] : t_max;
+  h.prim = -1;
+  walk2<false, false>(tree, m, SlotLeaf{slots}, r, t_min, h);
+  t_out[i] = h.t;
+  tri_out[i] = decode_prim(h.prim, 0, gid_mask);
+}
+
+// The ordered closest walk for Hopper: lanes [0, n) taken 32 at a time from
+// `counter` (two int32, zero at the launch, left zero; finish_lanes).
+template <int kCap>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+bvh2_closest_persistent(const float* __restrict__ tree, int m, const float* __restrict__ slot16,
+                        const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+                        const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+                        const float* __restrict__ dy_in, const float* __restrict__ dz_in, int n,
+                        int gid_mask, float t_min, float t_max, const float* __restrict__ bound,
+                        float* __restrict__ t_out, int* __restrict__ tri_out,
+                        int* __restrict__ counter) {
+  const Slot16TriLeaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+    Hit h;
+    h.t = bound ? bound[i] : t_max;
+    h.prim = -1;
+    ordered_closest<kCap>(tree, m, leaf, r, t_min, h);
+    t_out[i] = h.t;
+    tri_out[i] = decode_prim(h.prim, 0, gid_mask);
+  }
+  finish_lanes(counter);
 }
 
 template <bool kOrdered>
@@ -158,16 +217,24 @@ bvh2_any_kernel(const float* __restrict__ tree, int m, const float* __restrict__
                 uint8_t* __restrict__ occ_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  float limit = limit_in[i];
-  if (limit <= 0.0f) {  // no answer needed: reported occluded, as the JAX kernels do
+  Hit h;
+  h.t = limit_in[i];
+  if (h.t <= 0.0f) {  // no answer needed: reported occluded, as the JAX kernels do
     occ_out[i] = 1;
     return;
   }
-  Ray r;
-  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
-  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
-  int unused = -1;
-  occ_out[i] = walk2<kOrdered, true>(tree, m, slots, r, t_min, limit, unused) ? 1 : 0;
+  const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+  occ_out[i] = walk2<kOrdered, true>(tree, m, SlotLeaf{slots}, r, t_min, h) ? 1 : 0;
+}
+
+using Closest2Kernel = decltype(&bvh2_closest_persistent<kStack2Cap>);
+
+// The ordered closest walk's variants (ops/cuda/bvh.depth2_class): one per
+// stack class; nullptr for any other class.
+inline Closest2Kernel closest2_variant(int depth_class) {
+  if (depth_class == kShallow2) return bvh2_closest_persistent<kShallow2>;
+  if (depth_class == kStack2Cap) return bvh2_closest_persistent<kStack2Cap>;
+  return nullptr;
 }
 
 inline int blocks2_for(int n) { return (n + kBvh2Threads - 1) / kBvh2Threads; }
@@ -177,24 +244,38 @@ inline int blocks2_for(int n) { return (n + kBvh2Threads - 1) / kBvh2Threads; }
 // The ordered walk's stack, in nodes (kStack2Cap).
 extern "C" int ptrt_bvh2_stack_cap() { return ptrt::kStack2Cap; }
 
-// Both launch on `stream`, allocate nothing and do not synchronise.  Each
+// Each launches on `stream`, allocates nothing and does not synchronise, and
 // returns the launch's cudaError_t (0 when the launch was accepted).
-// `bound` may be null: every ray then starts from t_max.
-extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slots, const float* ox,
-                                 const float* oy, const float* oz, const float* dx,
-                                 const float* dy, const float* dz, int n, int ordered,
-                                 int gid_mask, float t_min, float t_max, const float* bound,
-                                 float* t, int* tri, void* stream) {
+// `bound` may be null: every ray then starts from t_max.  The skip-link walk
+// (ordered 0) reads the 13-float `slots`; the ordered walk (ordered 1) the
+// padded `slot16`, `tree` 16-byte aligned, in `grid` persistent blocks of
+// the variant for depth_class (kShallow2 or kStack2Cap), which
+// ptrt_bvh2_closest_occupancy has sized, on the lane `counter` (two int32,
+// zero at the launch and left zero).
+extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slots,
+                                 const float* slot16, const float* ox, const float* oy,
+                                 const float* oz, const float* dx, const float* dy,
+                                 const float* dz, int n, int ordered, int gid_mask, float t_min,
+                                 float t_max, const float* bound, float* t, int* tri,
+                                 int* counter, int depth_class, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int blocks = ptrt::blocks2_for(n);
   cudaStream_t s = (cudaStream_t)stream;
-  if (ordered)
-    ptrt::bvh2_closest_kernel<true><<<blocks, ptrt::kBvh2Threads, 0, s>>>(
+  if (ordered) {
+    const ptrt::Closest2Kernel k = ptrt::closest2_variant(depth_class);
+    if (k == nullptr) return (int)cudaErrorInvalidValue;
+    k<<<grid, ptrt::kWalkThreads, 0, s>>>(tree, m, slot16, ox, oy, oz, dx, dy, dz, n, gid_mask,
+                                          t_min, t_max, bound, t, tri, counter);
+  } else {
+    ptrt::bvh2_closest_kernel<<<ptrt::blocks2_for(n), ptrt::kBvh2Threads, 0, s>>>(
         tree, m, slots, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, bound, t, tri);
-  else
-    ptrt::bvh2_closest_kernel<false><<<blocks, ptrt::kBvh2Threads, 0, s>>>(
-        tree, m, slots, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, bound, t, tri);
+  }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the ordered closest walk's variant for
+// depth_class, into *blocks: it stages nothing (stage and smem must be 0).
+extern "C" int ptrt_bvh2_closest_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::closest2_variant(depth_class), stage, smem, blocks);
 }
 
 extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slots, const float* ox,

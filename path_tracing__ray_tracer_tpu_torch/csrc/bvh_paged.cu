@@ -61,16 +61,6 @@ namespace ptrt {
 
 constexpr int kPagedThreads = 128;
 
-__device__ __forceinline__ Ray load_ray(const float* __restrict__ ox, const float* __restrict__ oy,
-                                        const float* __restrict__ oz, const float* __restrict__ dx,
-                                        const float* __restrict__ dy, const float* __restrict__ dz,
-                                        int i) {
-  Ray r;
-  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-  return r;
-}
-
 // The lane's next pending page (lowest index first), cleared from `pend`;
 // -1 when none is left.
 __device__ __forceinline__ int next_page(Pend& pend) {
@@ -293,14 +283,6 @@ inline AnyKernel any_variant(int depth_class) {
   if (depth_class == kShallow4) return pages_any_persistent<kShallow4>;
   if (depth_class == kMaxDepth4) return pages_any_persistent<kMaxDepth4>;
   return nullptr;
-}
-
-// Resident blocks per SM of a page walk variant, into *blocks: the walks
-// stage nothing (stage and smem must be 0).
-template <class K>
-inline int walk_occupancy(K kernel, int stage, int smem, int* blocks) {
-  if (kernel == nullptr || stage != 0 || smem != 0) return (int)cudaErrorInvalidValue;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, 0);
 }
 
 inline size_t ps_bytes(int P, int S, int Q) {

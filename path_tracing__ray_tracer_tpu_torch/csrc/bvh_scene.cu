@@ -13,21 +13,23 @@
 // reads 28 B and writes 1 B, against a walk of tens of node records and
 // leaves of 16 slot records (52 B each), read from device memory through
 // the read-only cache by threads that each follow their own path, so a
-// lane's time is its chain of dependent loads.  K4a and K11 keep the first
-// design: one thread per ray, its stack in local memory, the tree and slot
-// records as packed, and only the few non-triangle primitives staged in
-// shared memory.
+// lane's time is its chain of dependent loads.  K4a keeps the first design:
+// one thread per ray, its stack in local memory, the tree and slot records
+// as packed, and only the few non-triangle primitives staged in shared
+// memory.
 //
-// K4b is redesigned for Hopper (bvh_any_persistent): persistent blocks of
-// 256 threads, as many as are resident, whose warps take 32 lanes at a time
-// from a counter (next_lane); the BVH4 node table read from device memory,
-// or copied into each block's shared memory by one bulk copy (TMA) when it
-// fits the budget of ops/cuda/bvh.py, either way as eight 16-byte loads a
-// node; the slot records read from the padded 64 B copy as 16-byte loads; a
-// stack of 3 * depth class - 2 entries in local memory.  The wrapper picks the variant by size alone
-// (ops/cuda/bvh.walk_plan).  Each lane's arithmetic and visit order are the
-// first design's, so its verdicts are too.  The first design stays as
-// ptrt_bvh_any_simple, a timing twin that no renderer reaches.
+// K4b and K11 are redesigned for Hopper (bvh_any_persistent,
+// bvh4_rooted_persistent): persistent blocks of 256 threads, as many as are
+// resident, whose warps take 32 lanes at a time from a counter (next_lane);
+// the BVH4 node table read from device memory as eight 16-byte loads a node
+// (K4b: or copied into each block's shared memory by one bulk copy (TMA)
+// when it fits the budget of ops/cuda/bvh.py); the slot records read from
+// the padded 64 B copy as 16-byte loads; a stack of 3 * depth class - 2
+// entries in local memory.  The wrapper picks the variant by size alone
+// (ops/cuda/bvh.walk_plan, rooted_plan).  Each lane's arithmetic and visit
+// order are the first design's, so its results are too (the first designs,
+// one lane per thread in blocks of 128, are in git: K4b at edf8737, K11 at
+// a3bb26a).
 //
 // K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss; the
 // uid bits of a packed gid stripped by gid_mask), u, v
@@ -44,7 +46,10 @@
 // another; here each lane walks from its own root (roots[i]), so no sort is
 // needed, and lanes with en[i] = 0 pass their carried pair through.  The
 // triangle id comes out decoded (local, the uid stripped by gid_mask);
-// decoding a carried id again leaves it unchanged.  Bound: latency, as K4a.
+// decoding a carried id again leaves it unchanged.  Bound: latency, as K4a;
+// it reads 9 B a lane and 28 B more where en[i], writes 8 B.  Its leaves
+// keep only t and the triangle (Slot16TriLeaf), and its stack class comes
+// from the whole tree's depth: a walk from a subtree root is shallower.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -92,27 +97,6 @@ bvh_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __
   nz_out[i] = h.nz;
 }
 
-__global__ void __launch_bounds__(kBvhThreads)
-bvh_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
-               const float* __restrict__ ps_g, int P, int S, int Q,
-               const float* __restrict__ ox_in, const float* __restrict__ oy_in,
-               const float* __restrict__ oz_in, const float* __restrict__ dx_in,
-               const float* __restrict__ dy_in, const float* __restrict__ dz_in,
-               const float* __restrict__ limit_in, int n, float t_min,
-               uint8_t* __restrict__ occ_out) {
-  extern __shared__ float smem[];
-  const SceneLayout L = scene_layout(P, S, Q, 0);
-  stage_ps(smem, ps_g, L.tb);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Ray r;
-  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
-  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
-  const float limit = limit_in[i];
-  occ_out[i] = (limit <= 0.0f || any_hit(smem, L, r, t_min, limit) ||
-                walk_any(nodes, n_nodes, slots, r, t_min, limit)) ? 1 : 0;
-}
-
 // K4b for Hopper: the occlusion of lanes [0, n) taken 32 at a time from
 // `counter` (two int32, zero at the launch, left zero; finish_lanes).
 template <bool kStage, int kDepth>
@@ -154,30 +138,38 @@ bvh_any_persistent(const float* __restrict__ nodes, int n_nodes,
   finish_lanes(counter);
 }
 
-__global__ void __launch_bounds__(kBvhThreads)
-bvh4_rooted_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
-                   const float* __restrict__ ox_in, const float* __restrict__ oy_in,
-                   const float* __restrict__ oz_in, const float* __restrict__ dx_in,
-                   const float* __restrict__ dy_in, const float* __restrict__ dz_in,
-                   const int* __restrict__ roots, const uint8_t* __restrict__ en,
-                   const float* __restrict__ bt0, const int* __restrict__ bi0, int n,
-                   int gid_mask, float t_min, float* __restrict__ bt_out,
-                   int* __restrict__ bi_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Hit h;
-  h.t = bt0[i];
-  h.prim = bi0[i];
-  if (en[i]) {
-    Ray r;
-    r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
-    r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
-    h.u = h.v = h.nx = h.ny = h.nz = 0.0f;
-    walk_closest_t<false>(nodes, n_nodes, slots, r, t_min, 0, h, nullptr, roots[i]);
-    h.prim = decode_prim(h.prim, 0, gid_mask);
+// K11 for Hopper: one pass over lanes [0, n), taken 32 at a time from
+// `counter` (two int32, zero at the launch, left zero; finish_lanes).
+template <int kDepth>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+bvh4_rooted_persistent(const float* __restrict__ nodes, int n_nodes,
+                       const float* __restrict__ slot16, const float* __restrict__ ox_in,
+                       const float* __restrict__ oy_in, const float* __restrict__ oz_in,
+                       const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+                       const float* __restrict__ dz_in, const int* __restrict__ roots,
+                       const uint8_t* __restrict__ en, const float* __restrict__ bt0,
+                       const int* __restrict__ bi0, int n, int gid_mask, float t_min,
+                       float* __restrict__ bt_out, int* __restrict__ bi_out,
+                       int* __restrict__ counter) {
+  const Vec4Nodes<false> src{reinterpret_cast<const float4*>(nodes)};
+  const Slot16TriLeaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    Hit h;
+    h.t = bt0[i];
+    h.prim = bi0[i];
+    if (en[i]) {
+      const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+      LocalStack<stack_cap(kDepth)> stack;
+      walk_closest_with<false>(src, n_nodes, leaf, stack, r, t_min, 0, h, nullptr, roots[i]);
+      h.prim = decode_prim(h.prim, 0, gid_mask);
+    }
+    bt_out[i] = h.t;
+    bi_out[i] = h.prim;
   }
-  bt_out[i] = h.t;
-  bi_out[i] = h.prim;
+  finish_lanes(counter);
 }
 
 inline size_t ps_bytes(int P, int S, int Q) {
@@ -187,6 +179,7 @@ inline size_t ps_bytes(int P, int S, int Q) {
 inline int blocks_for(int n) { return (n + kBvhThreads - 1) / kBvhThreads; }
 
 using AnyKernel = decltype(&bvh_any_persistent<false, kMaxDepth4>);
+using RootedKernel = decltype(&bvh4_rooted_persistent<kMaxDepth4>);
 
 // The variants the wrapper picks among (ops/cuda/bvh.walk_plan): the tree
 // staged or not, for either depth class; nullptr for any other class.
@@ -198,9 +191,16 @@ inline AnyKernel any_variant(int stage, int depth_class) {
   return nullptr;
 }
 
+// K11's variants (ops/cuda/bvh.rooted_plan): one per depth class.
+inline RootedKernel rooted_variant(int depth_class) {
+  if (depth_class == kShallow4) return bvh4_rooted_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return bvh4_rooted_persistent<kMaxDepth4>;
+  return nullptr;
+}
+
 }  // namespace ptrt
 
-// Both launch on `stream`, allocate nothing and do not synchronise.  Each
+// Each launches on `stream`, allocates nothing and does not synchronise, and
 // returns the launch's cudaError_t (0 when the launch was accepted).
 extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* slots,
                                 const float* ps, int P, int S, int Q, const float* ox,
@@ -213,19 +213,6 @@ extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* sl
                              (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy,
                                                      oz, dx, dy, dz, n, gid_mask, t_min, t_max, t,
                                                      prim, u, v, nx, ny, nz);
-  return (int)cudaGetLastError();
-}
-
-// The first design of K4b, kept as a timing twin (no renderer reaches it).
-extern "C" int ptrt_bvh_any_simple(const float* nodes, int n_nodes, const float* slots,
-                                   const float* ps, int P, int S, int Q, const float* ox,
-                                   const float* oy, const float* oz, const float* dx,
-                                   const float* dy, const float* dz, const float* limit, int n,
-                                   float t_min, uint8_t* occluded, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  ptrt::bvh_any_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
-                         (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy, oz,
-                                                 dx, dy, dz, limit, n, t_min, occluded);
   return (int)cudaGetLastError();
 }
 
@@ -262,15 +249,27 @@ extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slot16
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptrt_bvh4_closest_rooted(const float* nodes, int n_nodes, const float* slots,
+// Resident blocks per SM of K11's variant for depth_class, into *blocks: it
+// stages nothing (stage and smem must be 0).
+extern "C" int ptrt_bvh4_rooted_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::rooted_variant(depth_class), stage, smem, blocks);
+}
+
+// K11: `grid` persistent blocks of the variant for depth_class, which
+// ptrt_bvh4_rooted_occupancy has sized; `counter` as K4b's.  `slot16`: the
+// padded slot records; `nodes` and `slot16` 16-byte aligned.
+extern "C" int ptrt_bvh4_closest_rooted(const float* nodes, int n_nodes, const float* slot16,
                                         const float* ox, const float* oy, const float* oz,
                                         const float* dx, const float* dy, const float* dz,
                                         const int* roots, const uint8_t* en, const float* bt0,
                                         const int* bi0, int n, int gid_mask, float t_min,
-                                        float* bt, int* bi, void* stream) {
+                                        float* bt, int* bi, int* counter, int depth_class,
+                                        int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::bvh4_rooted_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, 0, (cudaStream_t)stream>>>(
-      nodes, n_nodes, slots, ox, oy, oz, dx, dy, dz, roots, en, bt0, bi0, n, gid_mask, t_min, bt,
-      bi);
+  const ptrt::RootedKernel k = ptrt::rooted_variant(depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, 0, (cudaStream_t)stream>>>(nodes, n_nodes, slot16, ox, oy, oz,
+                                                           dx, dy, dz, roots, en, bt0, bi0, n,
+                                                           gid_mask, t_min, bt, bi, counter);
   return (int)cudaGetLastError();
 }

@@ -27,7 +27,8 @@
 // when packed), the stored unit normal.
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
-// records by Möller–Trumbore (K4, K5, K6, K11).  MatLeaf (K10, the JAX
+// records by Möller–Trumbore (K4a, K6a/K6b, and K4e's BVH2 walks but the
+// ordered closest one).  MatLeaf (K10, the JAX
 // package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
 // same decision quantities as linear forms of the lane's ray features
 // f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
@@ -41,15 +42,15 @@
 //
 // The node records' source is a compile-time policy too.  PtrNodes reads a
 // record's floats one by one through a pointer into device memory (K4a,
-// K6a/K6b, K10, K11, and the first designs of K4b and K5, kept as timing
-// twins).  Vec4Nodes reads the whole 128 B record as eight 16-byte loads
-// into registers, from device memory or from a copy of the node table in
-// shared memory (the persistent K4b and K5; the page walks K6c/K6d and
-// K4c/K4d, from device memory).  The stack is a per-thread array in local
-// memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
+// K6a/K6b, K10).  Vec4Nodes reads the whole 128 B record as eight 16-byte
+// loads into registers, from device memory or from a copy of the node table
+// in shared memory (the persistent K4b and K5; the page walks K6c/K6d and
+// K4c/K4d and the rooted walk K11, from device memory).  The stack is a
+// per-thread array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
 // port-only copy of the slot records padded to 16 floats (64 B, 16-byte
 // aligned; ops/bvh.py pack_slot16 and, per page, pack_page_slot16), read as
-// 16-byte loads, a batch of slots at a time.  None of the policies changes a
+// 16-byte loads, a batch of slots at a time (Slot16TriLeaf: the same, for
+// walks that keep only t and the triangle).  None of the policies changes a
 // lane's arithmetic or its visit order.
 //
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
@@ -244,10 +245,13 @@ struct SlotLeaf {
 // nz 0 0 0.  A leaf is read kSlotBatch slots at a time: their three 16-byte
 // loads each are issued together before the batch's tests, which then run
 // in slot order, so a lane waits on device memory once a batch and not once
-// a slot.  The last word is read on a win.
+// a slot.  The last word is read on a win.  kAttrs false: a win keeps only t
+// and the gid (the triangle-only walks that emit (t, tri): K11, the ordered
+// K4e), so no attribute is read or carried; the winner is the same.
 constexpr int kSlotBatch = 4;
 
-struct Slot16Leaf {
+template <bool kAttrs>
+struct Slot16LeafT {
   const float4* __restrict__ slots;
 
   __device__ __forceinline__ void load(const float4* s, float4 (&a)[kSlotBatch],
@@ -274,11 +278,13 @@ struct Slot16Leaf {
             c[j].y >= 0.0f) {
           h.t = tt;
           h.prim = (int)c[j].y + gid_offset;
-          h.u = bu;
-          h.v = bv;
-          h.nx = c[j].z;
-          h.ny = c[j].w;
-          h.nz = __ldg(&s[4 * j + 3].x);
+          if constexpr (kAttrs) {
+            h.u = bu;
+            h.v = bv;
+            h.nx = c[j].z;
+            h.ny = c[j].w;
+            h.nz = __ldg(&s[4 * j + 3].x);
+          }
         }
       }
     }
@@ -301,6 +307,9 @@ struct Slot16Leaf {
     return false;
   }
 };
+
+using Slot16Leaf = Slot16LeafT<true>;
+using Slot16TriLeaf = Slot16LeafT<false>;
 
 // The leaf's columns of the coefficient table, contracted with the lane's
 // features slot by slot (19 coefficients a slot, read as they are needed).
@@ -417,19 +426,17 @@ __device__ __forceinline__ void walk_closest_with(const Nodes& nodes, int n_node
 template <bool kPaged, class Leaf>
 __device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ nodes, int n_nodes,
                                                   const Leaf& leaf, const Ray& r, float t_min,
-                                                  int gid_offset, Hit& h, Pend* pend,
-                                                  int root = 0) {
+                                                  int gid_offset, Hit& h, Pend* pend) {
   LocalStack<kStackCap> stack;
-  walk_closest_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, gid_offset, h, pend,
-                            root);
+  walk_closest_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, gid_offset, h, pend);
 }
 
 template <bool kPaged>
 __device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
                                                const float* __restrict__ slots, const Ray& r,
                                                float t_min, int gid_offset, Hit& h,
-                                               Pend* pend, int root = 0) {
-  walk_closest_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, pend, root);
+                                               Pend* pend) {
+  walk_closest_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, pend);
 }
 
 __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
@@ -480,10 +487,15 @@ __device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int 
   return walk_any_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, limit, pend);
 }
 
-__device__ __forceinline__ bool walk_any(const float* __restrict__ nodes, int n_nodes,
-                                         const float* __restrict__ slots, const Ray& r,
-                                         float t_min, float limit) {
-  return walk_any_t<false>(nodes, n_nodes, slots, r, t_min, limit, nullptr);
+// Lane i's ray from the six component arrays.
+__device__ __forceinline__ Ray load_ray(const float* __restrict__ ox, const float* __restrict__ oy,
+                                        const float* __restrict__ oz, const float* __restrict__ dx,
+                                        const float* __restrict__ dy, const float* __restrict__ dz,
+                                        int i) {
+  Ray r;
+  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
+  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
+  return r;
 }
 
 // ---- the persistent walks' block set-up ------------------------------------
@@ -503,6 +515,14 @@ inline cudaError_t allow_smem(K kernel, int smem) {
   if (err == cudaSuccess && smem > a.maxDynamicSharedSizeBytes)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return err;
+}
+
+// Resident blocks per SM of a persistent walk that stages nothing (stage
+// and smem must be 0), into *blocks; nullptr (no such variant) is refused.
+template <class K>
+inline int walk_occupancy(K kernel, int stage, int smem, int* blocks) {
+  if (kernel == nullptr || stage != 0 || smem != 0) return (int)cudaErrorInvalidValue;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, 0);
 }
 
 // One bulk copy (TMA) of `bytes` from device memory into shared memory,

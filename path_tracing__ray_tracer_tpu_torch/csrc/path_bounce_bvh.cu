@@ -27,8 +27,8 @@
 // node either way; the padded 64 B slot records read as 16-byte loads; a
 // stack in local memory sized by the tree's depth class.
 // The lane body (bounce_lane) is the first design's, so each lane's
-// arithmetic and record are too.  The first design stays as
-// ptrt_path_bounce_bvh_simple, a timing twin that no renderer reaches.
+// arithmetic and record are too (the first design, one lane per thread in
+// blocks of 128, is in git at edf8737).
 //
 // Outputs: the (19, N) record of path_shade.cuh with w_nee not yet masked by
 // occlusion (0 where its answer is not needed); `prim` (N,) int32; the
@@ -43,8 +43,6 @@
 #include "sweep.cuh"
 
 namespace ptrt {
-
-constexpr int kBvhBounceThreads = 128;
 
 // The lane inputs and outputs of one bounce.
 struct BounceIO {
@@ -61,7 +59,7 @@ struct BounceIO {
   int shadow_light;
 };
 
-// The scene tables both designs stage in shared memory, in this order.
+// The scene tables the kernel stages in shared memory, in this order.
 struct BounceTables {
   const float* __restrict__ ps;
   int P, S, Q;
@@ -137,23 +135,6 @@ __device__ __forceinline__ void bounce_lane(int i, const float* ps, const SceneL
   io.prim[i] = decode_prim(h.prim, off);
 }
 
-// The first design: one lane per thread, 128-thread blocks, the tree and the
-// 13-float slot records read in place, a 96-entry stack in local memory.
-__global__ void __launch_bounds__(kBvhBounceThreads)
-path_bounce_bvh_kernel(const float* __restrict__ nodes, int n_nodes,
-                       const float* __restrict__ slots, const BounceTables t, const BounceIO io) {
-  extern __shared__ float smem[];
-  const SceneLayout L = scene_layout(t.P, t.S, t.Q, 0);
-  stage_tables(smem, t, L);
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= io.n) return;  // ragged tail
-  const int off = t.P + t.S + t.Q;
-  bounce_lane(i, smem, L, t, io, [&](const Ray& r, Hit& h) {
-    walk_closest(nodes, n_nodes, slots, r, io.t_min, off, h);
-  });
-}
-
 // K5 for Hopper: lanes [0, n) taken 32 at a time from `counter` (two
 // int32, zero at the launch, left zero; finish_lanes).
 template <bool kStage, int kDepth>
@@ -218,28 +199,6 @@ ptrt::BounceIO io_of(const int* depth, const float* ox, const float* oy, const f
 
 }  // namespace
 
-// Both launch on `stream`, allocate nothing and do not synchronise.  Each
-// returns the launch's cudaError_t (0 when the launch was accepted).
-
-// The first design of K5, kept as a timing twin (no renderer reaches it).
-extern "C" int ptrt_path_bounce_bvh_simple(
-    const float* nodes, int n_nodes, const float* slots, const float* ps, int P, int S, int Q,
-    const float* psuid, const float* umat, int n_umats, const float* lights, int n_lights,
-    const int* depth, const float* ox, const float* oy, const float* oz, const float* dx,
-    const float* dy, const float* dz, const float* tx, const float* ty, const float* tz,
-    const int* key, float* out, int* prim, float* shadow, int n, float t_min, float t_max,
-    int shadow_light, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  const ptrt::BounceTables t = tables_of(ps, P, S, Q, psuid, umat, n_umats, lights, n_lights);
-  const int blocks = (n + ptrt::kBvhBounceThreads - 1) / ptrt::kBvhBounceThreads;
-  ptrt::path_bounce_bvh_kernel<<<blocks, ptrt::kBvhBounceThreads, sizeof(float) * t.floats(),
-                                 (cudaStream_t)stream>>>(
-      nodes, n_nodes, slots, t,
-      io_of(depth, ox, oy, oz, dx, dy, dz, tx, ty, tz, key, out, prim, shadow, n, t_min, t_max,
-            shadow_light));
-  return (int)cudaGetLastError();
-}
-
 // Resident blocks per SM of the K5 variant (stage, depth_class) with `smem`
 // bytes of dynamic shared memory, into *blocks; first lifts the variant's
 // dynamic shared memory limit to `smem` where it is lower.
@@ -252,7 +211,9 @@ extern "C" int ptrt_path_bounce_bvh_occupancy(int stage, int depth_class, int sm
   return (int)err;
 }
 
-// K5: `grid` persistent blocks of the variant (stage, depth_class) with
+// K5 launches on `stream`, allocates nothing and does not synchronise; it
+// returns the launch's cudaError_t (0 when the launch was accepted).
+// `grid` persistent blocks of the variant (stage, depth_class) with
 // `smem` bytes of dynamic shared memory (the tree and the tables), which
 // ptrt_path_bounce_bvh_occupancy has allowed; `counter` is two int32 of
 // scratch, zero at the launch and left zero by the kernel.  `slot16`: the

@@ -21,8 +21,6 @@ zeroes ``w_nee`` where a shadow ray is occluded.
   ``ops/cuda/bounce.path_bounce_plain`` on the same scene: a CPU tensor
   takes it.  K5 is a persistent walk whose variant
   ``ops/cuda/bvh.walk_plan`` picks from sizes, as K4b's.
-* :func:`path_bounce_bvh_simple` launches the first designs of K5 and K4b,
-  kept as timing twins; no renderer reaches it.
 """
 from __future__ import annotations
 
@@ -42,8 +40,8 @@ from .bounce import (
     pack_light_blob,
     path_bounce_plain,
 )
-from .bvh import (WalkPlan, lane_counter, launch_grid, scene_any, scene_any_simple, slot16_arg,
-                  smem_limit, tree_args, walk_plan)
+from .bvh import (WalkPlan, lane_counter, launch_grid, scene_any, slot16_arg, smem_limit,
+                  tree_args, walk_plan)
 
 _N_SHADOW = 7  # rows of the shadow record: origin, direction, limit
 
@@ -90,25 +88,23 @@ def build():
     lib = built.lib
     head = ([_P, _I, _P, _P, _I, _I, _I, _P, _P, _I, _P, _I, _P] + [_P] * 9
             + [_P, _P, _P, _P, _I, _F, _F, _I])
-    lib.ptrt_path_bounce_bvh_simple.argtypes = head + [_P]
     lib.ptrt_path_bounce_bvh.argtypes = head + [_P] + [_I] * 4 + [_P]
     lib.ptrt_path_bounce_bvh_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    for fn in (lib.ptrt_path_bounce_bvh_simple, lib.ptrt_path_bounce_bvh,
-               lib.ptrt_path_bounce_bvh_occupancy):
+    for fn in (lib.ptrt_path_bounce_bvh, lib.ptrt_path_bounce_bvh_occupancy):
         fn.restype = ctypes.c_int
     return built
 
 
 def _launch(cs, tables: BvhTables, o: V3, d: V3, thr: V3, key, depth, t_min, t_max,
-            shadow_light, simple=False) -> BounceOut:
-    who = "path_bounce_bvh_simple" if simple else "path_bounce_bvh"
+            shadow_light) -> BounceOut:
+    who = "path_bounce_bvh"
     device = o.x.device
     n = int(o.x.shape[0])
     if not bounce_bvh_ok(cs):
         raise ValueError(f"{who}: the scene fails bounce_bvh_ok")
     if isinstance(depth, int):
         depth = torch.full((n,), depth, dtype=torch.int32, device=device)
-    nodes, n_nodes, slots, ps, P, S, Q = tree_args(who, cs, device)
+    nodes, n_nodes, _slots, ps, P, S, Q = tree_args(who, cs, device)
     psq = cs.n_planes + cs.n_spheres + cs.n_quads
     n_umats, n_lights = int(cs.mat_table.diffuse.shape[0]), cs.n_lights
     for name, t, size in (("psuid", tables.psuid, psq),
@@ -126,26 +122,21 @@ def _launch(cs, tables: BvhTables, o: V3, d: V3, thr: V3, key, depth, t_min, t_m
     shadow = torch.empty((_N_SHADOW, n), dtype=torch.float32, device=device)
     if n > 0:
         lib = build().lib
-        args = (nodes, n_nodes, slots if simple else slot16_arg(who, cs, device), ps, P, S, Q,
+        args = (nodes, n_nodes, slot16_arg(who, cs, device), ps, P, S, Q,
                 tables.psuid.data_ptr(), tables.umat.data_ptr(), n_umats,
                 tables.light.data_ptr(), n_lights, depth.data_ptr(),
                 *(t.data_ptr() for t in rays), key.data_ptr(), out.data_ptr(), prim.data_ptr(),
                 shadow.data_ptr(), n, float(t_min), float(t_max), int(bool(shadow_light)))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if simple:
-            err = lib.ptrt_path_bounce_bvh_simple(*args, stream)
-        else:
-            plan = bounce_plan(cs, tables, smem_limit(device))
-            grid = launch_grid(who, lib.ptrt_path_bounce_bvh_occupancy, plan, n, device)
-            err = lib.ptrt_path_bounce_bvh(*args, lane_counter(device).data_ptr(),
-                                           int(plan.stage), plan.depth_class, plan.smem_bytes,
-                                           grid, stream)
+        plan = bounce_plan(cs, tables, smem_limit(device))
+        grid = launch_grid(who, lib.ptrt_path_bounce_bvh_occupancy, plan, n, device)
+        err = lib.ptrt_path_bounce_bvh(*args, lane_counter(device).data_ptr(), int(plan.stage),
+                                       plan.depth_class, plan.smem_bytes, grid,
+                                       torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{who}: kernel launch failed with cudaError {err}")
-        (path_bounce_bvh_simple if simple else path_bounce_bvh).launches += 1
-    answer = scene_any_simple if simple else scene_any
-    occluded = answer(cs, V3(shadow[0], shadow[1], shadow[2]),
-                      V3(shadow[3], shadow[4], shadow[5]), t_min, shadow[6])
+        path_bounce_bvh.launches += 1
+    occluded = scene_any(cs, V3(shadow[0], shadow[1], shadow[2]),
+                         V3(shadow[3], shadow[4], shadow[5]), t_min, shadow[6])
     return BounceOut(
         hit=out[0] > 0.5, killed=out[1] > 0.5, w_sky=out[2],
         w_nee=torch.where(occluded, 0.0, out[3]), rr_scale=out[4], s_thr=out[5], t_thr=out[6],
@@ -170,19 +161,4 @@ def path_bounce_bvh(cs, tables: BvhTables, o: V3, d: V3, thr: V3, key, depth, t_
     raise ValueError(f"path_bounce_bvh: no kernel for device {dev}")
 
 
-def path_bounce_bvh_simple(cs, tables: BvhTables, o: V3, d: V3, thr: V3, key, depth,
-                           t_min=T_MIN, t_max=T_MAX, shadow_light: bool = False) -> BounceOut:
-    """:func:`path_bounce_bvh` through the first designs of K5 and K4b (one
-    lane per thread, the tree and 13-float slot records read in place), kept
-    to be timed and held against the persistent kernels; no renderer reaches
-    it.  Rays on the CPU take ``path_bounce_plain``."""
-    dev = o.x.device
-    if dev.type == "cuda":
-        return _launch(cs, tables, o, d, thr, key, depth, t_min, t_max, shadow_light, simple=True)
-    if dev.type == "cpu":
-        return path_bounce_plain(cs, o, d, thr, key, depth, t_min, t_max, shadow_light)
-    raise ValueError(f"path_bounce_bvh_simple: no kernel for device {dev}")
-
-
 path_bounce_bvh.launches = 0  # kernel launches; the plain version does not count
-path_bounce_bvh_simple.launches = 0

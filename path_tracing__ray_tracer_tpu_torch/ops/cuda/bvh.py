@@ -44,9 +44,10 @@ picks their variant from sizes alone, against the budget
 block's shared memory), a module global read at each call that tests and
 scripts may set; :func:`persistent_grid` launches only the resident blocks,
 which take their lanes from :func:`lane_counter`.
-They read the padded slot records ``FlatBVH.slot16``.  Their first designs
-stay as timing twins, :func:`scene_any_simple` and
-``bounce_bvh.path_bounce_bvh_simple``, which no renderer reaches.
+They read the padded slot records ``FlatBVH.slot16``.  So do K11
+(:func:`closest_rooted`, its variant :func:`rooted_plan`) and the ordered
+BVH2 closest walk (``bvh2.closest_ordered``, its stack class
+:func:`depth2_class`), which stage nothing.
 """
 from __future__ import annotations
 
@@ -86,6 +87,9 @@ BVH_MXU_LEAF = False  # leaves tested by the leaf coefficient table (K10)
 # Not a flag: the ordered BVH2 walk's stack, fixed in csrc/bvh2_walk.cu
 # (kStack2Cap); ops/cuda/bvh2.build checks that the two agree.
 STACK_CAP = 192
+# The persistent ordered BVH2 closest walk's smaller stack class
+# (csrc/bvh2_walk.cu kShallow2); a deeper tree's stack holds STACK_CAP.
+SHALLOW2 = 32
 
 # The persistent K4b and K5 (csrc/bvh_walk.cuh kWalkThreads, kShallow4): the
 # block, and the depth class whose stack holds 3·8 − 2 = 22 entries (a deeper
@@ -112,6 +116,14 @@ class WalkPlan(NamedTuple):
 def depth_class(depth4: int) -> int:
     """The persistent walks' stack class of a BVH4 of depth ``depth4``."""
     return SHALLOW4 if depth4 <= SHALLOW4 else MAX_DEPTH4
+
+
+def depth2_class(depth2: int) -> int:
+    """The persistent ordered BVH2 closest walk's stack class of a BVH2 of
+    depth ``depth2``: the entries its stack holds, at least ``depth2 + 2``
+    (the ordered walk holds at most ``depth2 + 1`` nodes) when the tree is
+    at most ``STACK_CAP − 2`` deep, as ``tri_route`` sends it."""
+    return SHALLOW2 if depth2 + 2 <= SHALLOW2 else STACK_CAP
 
 
 def walk_plan(n_nodes: int, depth4: int, table_bytes: int, limit: int) -> WalkPlan:
@@ -246,12 +258,14 @@ def build():
     lib = built.lib
     head = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
     lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
-    lib.ptrt_bvh_any_simple.argtypes = head + [_P, _I, _F, _P, _P]
     lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P] + [_I] * 4 + [_P]
-    lib.ptrt_bvh_any_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ptrt_bvh4_closest_rooted.argtypes = [_P, _I, _P] + [_P] * 10 + [_I, _I, _F, _P, _P, _P]
-    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any_simple, lib.ptrt_bvh_any,
-               lib.ptrt_bvh_any_occupancy, lib.ptrt_bvh4_closest_rooted):
+    occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ptrt_bvh_any_occupancy.argtypes = occupancy
+    lib.ptrt_bvh4_closest_rooted.argtypes = ([_P, _I, _P] + [_P] * 10 + [_I, _I, _F, _P, _P]
+                                             + [_P, _I, _I, _P])
+    lib.ptrt_bvh4_rooted_occupancy.argtypes = occupancy
+    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any, lib.ptrt_bvh_any_occupancy,
+               lib.ptrt_bvh4_closest_rooted, lib.ptrt_bvh4_rooted_occupancy):
         fn.restype = ctypes.c_int
     return built
 
@@ -454,28 +468,6 @@ def any_plan(cs, limit: int) -> WalkPlan:
                      limit)
 
 
-def scene_any_simple(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
-    """K4b's first design (one lane per thread, the tree and 13-float slot
-    records read in place), kept to be timed and held against the persistent
-    K4b; no renderer reaches it.  Rays on the CPU take the plain version."""
-    who = "scene_any_simple"
-    dev = ro.x.device
-    if not _on(who, dev):
-        return scene_hit_any_bvh_plain(cs, ro, rd, t_min, limit)
-    tree = tree_args(who, cs, dev)
-    n, rays = _rays(who, ro, rd)
-    _check("limit", limit, torch.float32, n, dev, who)
-    occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    if n == 0:
-        return occ
-    err = build().lib.ptrt_bvh_any_simple(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(),
-                                          n, float(t_min), occ.data_ptr(),
-                                          torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(who, err)
-    scene_any_simple.launches += 1
-    return occ
-
-
 def split_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, route: str) -> torch.Tensor:
     """Occlusion on the split route: the plane/sphere/quad broadcast's
     verdict, or the triangle walk's for the lanes it leaves unoccluded (the
@@ -492,27 +484,42 @@ def split_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor, route: str)
 
 
 # ---- K11: the multipass closest hit ----------------------------------------------
+def rooted_plan(cs) -> WalkPlan:
+    """K11's variant on ``cs``: the depth class of its whole BVH4 (a walk
+    from a subtree root is shallower, so its stack holds it too), nothing
+    staged, as the page walks' :func:`page_plan`."""
+    return page_plan(cs.bvh.depth4)
+
+
 def closest_rooted(cs, ro: V3, rd: V3, t_min: float, roots, en, bt0, bi0):
     """One multipass pass (K11): each lane with ``en`` walks the BVH4
     subtree from its own root ``roots`` (int32 BVH4 node ids) with its
     carried ``(bt0, bi0)`` (local triangle ids); other lanes pass them
     through.  Returns ``(bt, bi)``.  The plain version walks each root's
-    BVH2 range (``ops/bvh.rooted``)."""
+    BVH2 range (``ops/bvh.rooted``).  The kernel is a persistent walk in the
+    variant :func:`rooted_plan` picks, over ``FlatBVH.slot16``."""
     who = "closest_rooted"
     if not _on(who, ro.x.device):
         return rooted(cs.bvh, cs.triangles, ro, rd, t_min, roots, en, bt0, bi0)
     dev = ro.x.device
-    nodes, n_nodes, slots = tree_args(who, cs, dev)[:3]
+    nodes, n_nodes = tree_args(who, cs, dev)[:2]
+    slot16 = slot16_arg(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     for name, x, dtype in (("roots", roots, torch.int32), ("en", en, torch.bool),
                            ("bt0", bt0, torch.float32), ("bi0", bi0, torch.int32)):
         _check(name, x, dtype, n, dev, who)
     bt = torch.empty((n,), dtype=torch.float32, device=dev)
     bi = torch.empty((n,), dtype=torch.int32, device=dev)
-    err = build().lib.ptrt_bvh4_closest_rooted(
-        nodes, n_nodes, slots, *(r.data_ptr() for r in rays), roots.data_ptr(), en.data_ptr(),
+    if n == 0:
+        return bt, bi
+    lib = build().lib
+    plan = rooted_plan(cs)
+    grid = launch_grid(who, lib.ptrt_bvh4_rooted_occupancy, plan, n, dev)
+    err = lib.ptrt_bvh4_closest_rooted(
+        nodes, n_nodes, slot16, *(r.data_ptr() for r in rays), roots.data_ptr(), en.data_ptr(),
         bt0.data_ptr(), bi0.data_ptr(), n, gid_mask(cs), float(t_min), bt.data_ptr(),
-        bi.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        bi.data_ptr(), lane_counter(dev).data_ptr(), plan.depth_class, grid,
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
     closest_rooted.launches += 1
     return bt, bi
@@ -541,5 +548,4 @@ def multipass_closest(cs, ro: V3, rd: V3, t_min: float, bound: torch.Tensor):
 
 scene_closest.launches = 0  # kernel launches; the plain versions do not count
 scene_any.launches = 0
-scene_any_simple.launches = 0
 closest_rooted.launches = 0

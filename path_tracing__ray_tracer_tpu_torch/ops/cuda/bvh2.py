@@ -7,9 +7,13 @@ through ``_bvh_closest_unsorted``) and ``_bvh_any_kernel`` and
 ``_bvh_any_ordered_kernel`` (``_bvh_any_unsorted``).  They walk the BVH2
 node records ``FlatBVH.tree2`` and the slot records, one ray per thread:
 the skip-link walk in preorder with no stack, or the ordered walk, near
-child first, with a stack of ``STACK_CAP`` nodes.  The split route of
-``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
-(``tri_route``: ``ordered`` or ``skiplink``).
+child first, with a stack of at most ``STACK_CAP`` nodes.  The split route
+of ``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
+(``tri_route``: ``ordered`` or ``skiplink``).  The ordered closest walk is a
+persistent walk, as K4b is: its stack class ``bvh.depth2_class`` of the
+tree's BVH2 depth, ``bvh.launch_grid`` the resident blocks, whose warps take
+their lanes from ``bvh.lane_counter``; it reads the padded slot records
+``FlatBVH.slot16`` (the other three walks the 13-float ``slot_rec``).
 
 * :func:`closest_skiplink` / :func:`closest_ordered`: ``(t, tri)``, the
   closest triangle below a scalar ``t_max`` or a per-ray seed bound, as a
@@ -33,7 +37,8 @@ import torch
 from ..bvh import traverse_any, traverse_closest
 from ..v3 import V3
 from .bounce import _check
-from .bvh import STACK_CAP, _on, _raise_on, _rays, gid_mask
+from .bvh import (STACK_CAP, WalkPlan, _on, _raise_on, _rays, depth2_class, gid_mask,
+                  lane_counter, launch_grid, slot16_arg)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -44,10 +49,12 @@ def build():
 
     built = _build.load("bvh2")
     lib = built.lib
-    lib.ptrt_bvh2_closest.argtypes = [_P, _I, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P,
-                                                                 _P]
+    lib.ptrt_bvh2_closest.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P]
+                                      + [_P, _I, _I, _P])
+    lib.ptrt_bvh2_closest_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.ptrt_bvh2_any.argtypes = [_P, _I, _P] + [_P] * 6 + [_P, _I, _I, _F, _P, _P]
-    lib.ptrt_bvh2_closest.restype = lib.ptrt_bvh2_any.restype = ctypes.c_int
+    for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy, lib.ptrt_bvh2_any):
+        fn.restype = ctypes.c_int
     lib.ptrt_bvh2_stack_cap.argtypes = []
     lib.ptrt_bvh2_stack_cap.restype = ctypes.c_int
     if lib.ptrt_bvh2_stack_cap() != STACK_CAP:
@@ -70,6 +77,12 @@ def _tree_args(who, cs, device, ordered: bool):
     return bvh.tree2.data_ptr(), m, bvh.slot_rec.data_ptr()
 
 
+def closest_plan(cs) -> WalkPlan:
+    """The persistent ordered closest walk's variant on ``cs``: the stack
+    class of its BVH2 depth, nothing staged."""
+    return WalkPlan(False, depth2_class(cs.bvh.depth2), 0)
+
+
 def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
     who = wrapper.__name__
     dev = ro.x.device
@@ -82,10 +95,21 @@ def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
         _check("bound", bound, torch.float32, n, dev, who)
     t = torch.empty((n,), dtype=torch.float32, device=dev)
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
-    err = build().lib.ptrt_bvh2_closest(
-        *tree, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs), float(t_min),
-        0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None, t.data_ptr(),
-        tri.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if n == 0:
+        return t, tri
+    lib = build().lib
+    persistent = (None, None, 0, 0)  # slot16, lane counter, depth class, grid
+    if ordered:
+        if cs.bvh.tree2.data_ptr() % 16:
+            raise ValueError(f"{who}: tree2 is not 16-byte aligned")
+        plan = closest_plan(cs)
+        persistent = (slot16_arg(who, cs, dev), lane_counter(dev).data_ptr(), plan.depth_class,
+                      launch_grid(who, lib.ptrt_bvh2_closest_occupancy, plan, n, dev))
+    slot16, *walk = persistent
+    err = lib.ptrt_bvh2_closest(
+        *tree, slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
+        float(t_min), 0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None,
+        t.data_ptr(), tri.data_ptr(), *walk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
     wrapper.launches += 1
     return t, tri

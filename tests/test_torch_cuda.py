@@ -9,12 +9,14 @@ BVH route's walks, the BVH2 walks (K4e) and the rooted multipass walk
 (K11), and the path tracer launching them on a forced route or a BVH4 too
 deep for the BVH4 walks; the walks through the leaf coefficient table
 (K10a-d) and the path tracer launching them on its two routes; the
-persistent K4b and K5 against their plain versions and their twins (the
-first designs), with the node table in shared memory and out of it, on
-ragged lane counts, none, and two launches back to back; the persistent
-page walks K6c and K6d (and K4c and K4d over the whole tree) against their
-plain versions in both depth classes, and K4b, K6c, K6d and K5 queued on
-one stream, which share its lane counter.
+persistent K4b and K5 against their plain versions, with the node table in
+shared memory and out of it, on ragged lane counts, none, and two launches
+back to back; the persistent page walks K6c and K6d (and K4c and K4d over
+the whole tree) against their plain versions in both depth classes; the
+persistent K11 and ordered BVH2 closest walk against their plain versions
+in both of their classes, at a ragged lane count, K11 with most lanes
+idle; and K4b, K5, K6c, K6d, K11 and the ordered closest walk queued on one
+stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -263,7 +265,10 @@ def test_mesh_renderers_launch_their_kernels(mesh_card, name, counters):
 
 
 def _bits(x):
-    """A record's tensors by name, floats as their int32 bit patterns."""
+    """A record's tensors by name, floats as their int32 bit patterns (a
+    plain tuple's or list's by position)."""
+    if isinstance(x, (tuple, list)) and not hasattr(x, "_fields"):
+        return {f"{i}.{k}": t for i, part in enumerate(x) for k, t in _bits(part).items()}
     if not hasattr(x, "_fields"):
         return {"": x.view(torch.int32) if x.dtype == torch.float32 else x}
     out = {}
@@ -275,8 +280,8 @@ def _bits(x):
     return out
 
 
-def _assert_twin(got, twin):
-    want = _bits(twin)
+def _assert_same_bits(got, other):
+    want = _bits(other)
     for k, t in _bits(got).items():
         assert torch.equal(t, want[k]), k
 
@@ -292,11 +297,11 @@ def _persistent_inputs(n, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("staged", [True, False])
 @pytest.mark.parametrize("n", [1, 31, 33, 131089])
-def test_persistent_walks_match_plain_and_twins(mesh_card, monkeypatch, staged, n):
+def test_persistent_walks_match_plain(mesh_card, monkeypatch, staged, n):
     """The persistent K4b and K5 against their plain versions (occlusion on
-    every ray that needs an answer; hit, prim and killed on every lane) and
-    bit for bit against their twins, with the node table staged in shared
-    memory (the budget lifted) and read from device memory (no budget)."""
+    every ray that needs an answer; hit, prim and killed on every lane),
+    with the node table staged in shared memory (the budget lifted) and
+    read from device memory (no budget)."""
     dev, cs, tables = mesh_card
     monkeypatch.setattr(bvh, "SMEM_TREE_BYTES", 1 << 30 if staged else 0)
     assert bvh.any_plan(cs, bvh.smem_limit(dev)).stage == staged
@@ -311,13 +316,10 @@ def test_persistent_walks_match_plain_and_twins(mesh_card, monkeypatch, staged, 
     care = limit > 0
     want_occ = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit)
     assert torch.equal(occ[care], want_occ[care]) and bool(occ[~care].all())
-    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
     want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=True)
     assert torch.equal(got.hit, want.hit) and torch.equal(got.prim, want.prim)
     assert torch.equal(got.killed, want.killed)
     _assert_floats_close(got, want, got.hit, FLOATS)
-    _assert_twin(got, bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth,
-                                                        shadow_light=True))
 
 
 @pytest.mark.cuda
@@ -335,7 +337,6 @@ def test_occlusion_walks_with_infinite_bounds(mesh_card, grid, subdivisions):
     occ = bvh.scene_any(cs, o, d, 1e-3, limit)
     torch.cuda.synchronize()
     assert torch.equal(occ, plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit))
-    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
 
 
 @pytest.mark.cuda
@@ -352,34 +353,24 @@ def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
 
 @pytest.mark.cuda
 def test_persistent_walks_back_to_back_on_one_stream(mesh_card):
-    """Two launches queued without a sync between them (each leaves the
-    stream's lane counter zero for the next) both answer right."""
+    """Two launches of each queued without a sync between them (each leaves
+    the stream's lane counter zero for the next) answer bit for bit as each
+    does alone after a sync, and as the plain versions on every lane."""
     dev, cs, tables = mesh_card
-    o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
-    o2, d2, thr2, key2, depth2, limit2 = _persistent_inputs(4096 + 37, dev)
-    occ = bvh.scene_any(cs, o, d, 1e-3, limit)
-    occ2 = bvh.scene_any(cs, o2, d2, 1e-3, limit2)
-    got = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
-    got2 = bounce_bvh.path_bounce_bvh(cs, tables, o2, d2, thr2, key2, depth2)
+    sets = [_persistent_inputs(n, dev) for n in (131072, 4096 + 37)]
+    calls = [c for o, d, thr, key, depth, limit in sets for c in (
+        lambda o=o, d=d, limit=limit: bvh.scene_any(cs, o, d, 1e-3, limit),
+        lambda o=o, d=d, thr=thr, key=key, depth=depth: bounce_bvh.path_bounce_bvh(
+            cs, tables, o, d, thr, key, depth))]
+    queued = [call() for call in calls[::2]] + [call() for call in calls[1::2]]
     torch.cuda.synchronize()
-    _assert_twin(occ, bvh.scene_any_simple(cs, o, d, 1e-3, limit))
-    _assert_twin(occ2, bvh.scene_any_simple(cs, o2, d2, 1e-3, limit2))
-    _assert_twin(got, bounce_bvh.path_bounce_bvh_simple(cs, tables, o, d, thr, key, depth))
-    _assert_twin(got2, bounce_bvh.path_bounce_bvh_simple(cs, tables, o2, d2, thr2, key2, depth2))
     assert not bvh.lane_counter(dev).any()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", ["cuda_path_raytracer", "cuda_texture_raytracer"])
-def test_mesh_renderers_leave_the_twins_idle(mesh_card, name):
-    b = pt.MeshSceneBuilder(grid=2, subdivisions=1)
-    r = pt.RendererFactory.create(name, seed=1)
-    twins = (bvh.scene_any_simple.launches, bounce_bvh.path_bounce_bvh_simple.launches)
-    before = bvh.scene_any.launches
-    r.render_sums(b.build_scene(), b.create_camera(1.0),
-                  pt.RenderSettings(width=64, height=64, samples_per_pixel=4, max_depth=4))
-    assert bvh.scene_any.launches > before
-    assert (bvh.scene_any_simple.launches, bounce_bvh.path_bounce_bvh_simple.launches) == twins
+    for call, got in zip(calls[::2] + calls[1::2], queued):
+        _assert_same_bits(got, call())
+    for (o, d, _thr, _key, _depth, limit), occ in zip(sets, queued[:2]):
+        care = limit > 0
+        want = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit)
+        assert torch.equal(occ[care], want[care])
 
 
 @pytest.mark.cuda
@@ -542,18 +533,23 @@ def test_page_walks_match_plain(paged_card, n, deep):
 
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(mesh_card, paged_card):
-    """K4b, K6c, K6d and K5 queued on one stream with no sync between them
-    answer bit for bit as each does alone after a sync, which leaves the
-    stream's lane counter zero: each launch starts from lane 0."""
+    """K4b, K6c, K6d, K5, K11 and the ordered BVH2 closest walk queued on
+    one stream with no sync between them answer bit for bit as each does
+    alone after a sync, which leaves the stream's lane counter zero: each
+    launch starts from lane 0."""
     dev, mcs, tables = mesh_card
     pcs = paged_card[1]
     o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
     best, plo, phi = bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6)
     found, alo, ahi = bvh_paged.paged_top_any(pcs, o, d, 1e-3, limit)
+    roots, en = _rooted_pass(mcs, o, d)
+    none = torch.full_like(roots, -1)
     calls = (lambda: bvh.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_paged.pages_closest(pcs, o, d, 1e-3, best, plo, phi),
              lambda: bvh_paged.pages_any(pcs, o, d, 1e-3, limit, found, alo, ahi),
-             lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth))
+             lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth),
+             lambda: bvh.closest_rooted(mcs, o, d, 1e-3, roots, en, limit.abs(), none),
+             lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()))
     queued = [call() for call in calls]
     torch.cuda.synchronize()
     assert not bvh.lane_counter(dev).any()
@@ -561,7 +557,7 @@ def test_persistent_walks_share_the_lane_counter(mesh_card, paged_card):
         alone = call()
         torch.cuda.synchronize()
         assert not bvh.lane_counter(dev).any()
-        _assert_twin(got, alone)
+        _assert_same_bits(got, alone)
 
 
 def _bounds(n, seed, dev):
@@ -615,6 +611,7 @@ def test_bvh2_walks_match_plain_on_a_190_deep_chain(ordered):
     dev = torch.device("cuda")
     cs = chain_scene(bvh.STACK_CAP - 2, dev)
     assert cs.bvh.depth2 == bvh.STACK_CAP - 2 and bvh.tri_route(cs) == "ordered"
+    assert bvh2.closest_plan(cs).depth_class == bvh.STACK_CAP  # the largest class
     n = 4096 + 37
     o, d = (_v3_on(a, dev) for a in chain_rays(cs.bvh.depth2, n, 31))
     closest = bvh2.closest_ordered if ordered else bvh2.closest_skiplink
@@ -649,10 +646,7 @@ def test_multipass_matches_plain(mesh_card):
     n = 131072
     o, d, _, _, _ = _inputs(n, 29, dev)
     bound = torch.full((n,), 1e6, device=dev)
-    table, valid = tbvh.subtree_nodes(cs.bvh.nodes4)
-    s1, _ = tbvh.subtree_keys2(cs.bvh.nodes4, o, d)
-    en = valid[s1.clamp(0, 15).long()] & (s1 < 16)
-    roots = torch.where(en, table[s1.clamp(0, 15).long()], 0).to(torch.int32)
+    roots, en = _rooted_pass(cs, o, d)
     none = torch.full((n,), -1, dtype=torch.int32, device=dev)
     before = bvh.closest_rooted.launches
     got = bvh.closest_rooted(cs, o, d, 1e-3, roots, en, bound, none)
@@ -673,6 +667,59 @@ def test_multipass_matches_plain(mesh_card):
     same = torch.where(tri >= 0, tri + off, -1) == one.prim
     assert float(same.float().mean()) >= 0.9999 and 0.02 < float((tri >= 0).float().mean()) < 1
     torch.testing.assert_close(t[same], one.t[same], rtol=TOL, atol=TOL)
+
+
+def _rooted_pass(cs, o, d):
+    """The multipass walk's first pass ``(roots, en)``: the depth-2 subtree
+    each ray enters first."""
+    table, valid = tbvh.subtree_nodes(cs.bvh.nodes4)
+    s1, _ = tbvh.subtree_keys2(cs.bvh.nodes4, o, d)
+    en = valid[s1.clamp(0, 15).long()] & (s1 < 16)
+    return torch.where(en, table[s1.clamp(0, 15).long()], 0).to(torch.int32), en
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 + 5, 4096 + 37])
+def test_persistent_split_walks_match_plain(mesh_card, n):
+    """The persistent K11 (one pass, three lanes in four idle) and ordered
+    BVH2 closest walk (scalar and per-ray bound) against their plain
+    versions at a lane count that is no multiple of 32: misses equal on
+    every lane, the winner on ≥ 99.99% and ``t`` within 1e-4 where the
+    winners agree, K11's idle lanes carried through bit for bit; each in
+    its deep class too (the trees reported deeper), bit-equal to its
+    shallow class; the lane counter left zero."""
+    dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=20, depth2=100))
+    assert (bvh.rooted_plan(cs).depth_class, bvh2.closest_plan(cs).depth_class) == (8, 32)
+    assert (bvh.rooted_plan(deep).depth_class, bvh2.closest_plan(deep).depth_class) == (32, 192)
+    o, d, _, _, _ = _inputs(n, n + 13, dev)
+    bound, _ = _bounds(n, n + 13, dev)
+    roots, en = _rooted_pass(cs, o, d)
+    en = en & (torch.arange(n, device=dev) % 4 == 0)
+    best_i = torch.where(torch.arange(n, device=dev) % 3 == 0, 7, -1).to(torch.int32)
+
+    def check(got, want):
+        (t, tri), (wt, wi) = got, want
+        same = tri == wi
+        assert torch.equal(tri < 0, wi < 0) and float(same.float().mean()) >= 0.9999
+        torch.testing.assert_close(t[same], wt[same], rtol=TOL, atol=TOL)
+
+    before = (bvh.closest_rooted.launches, bvh2.closest_ordered.launches)
+    rooted = [bvh.closest_rooted(c, o, d, 1e-3, roots, en, bound, best_i) for c in (cs, deep)]
+    ordered = [[bvh2.closest_ordered(c, o, d, 1e-3, b) for b in (1e6, bound)] for c in (cs, deep)]
+    torch.cuda.synchronize()
+    assert (bvh.closest_rooted.launches, bvh2.closest_ordered.launches) == (
+        before[0] + 2, before[1] + 4)
+    assert not bvh.lane_counter(dev).any()
+    _assert_same_bits(rooted[0], rooted[1])
+    _assert_same_bits(ordered[0], ordered[1])
+    check(rooted[0], tbvh.rooted(cs.bvh, cs.triangles, o, d, 1e-3, roots, en, bound, best_i))
+    assert bool(en.any()) and bool((~en).any())
+    assert torch.equal(rooted[0][0][~en], bound[~en])
+    assert torch.equal(rooted[0][1][~en], best_i[~en])
+    for got, b in zip(ordered[0], (1e6, bound)):
+        check(got, tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b))
+        assert 0.02 < float((got[1] >= 0).float().mean()) < 1
 
 
 @pytest.mark.cuda

@@ -1,4 +1,5 @@
-"""The host side of the persistent BVH walks, K4b and K5, on the CPU.
+"""The host side of the persistent BVH walks (K4b, K5, K6c/K6d, K4c/K4d,
+K11 and K4e's ordered closest walk) on the CPU.
 
 * ``ops/bvh.pack_slot16``: the padded copy of the slot records that the
   persistent walks read as 16-byte loads equals the 13-float records field
@@ -8,16 +9,23 @@
   functions of sizes, the budget, the card's shared memory and the SM
   count; ``page_plan``, the page walks' variant (K6c/K6d, K4c/K4d), takes
   the same depth class and never stages a tree, whatever the budget.
-* The timing twins (the first designs) take the plain versions on the CPU,
-  as every wrapper does.
+* ``ops/cuda/bvh.rooted_plan`` (K11: the depth class of the whole BVH4)
+  and ``depth2_class`` with ``ops/cuda/bvh2.closest_plan`` (the ordered
+  BVH2 closest walk: a stack class that holds ``depth2 + 2``) are pure
+  functions of the tree's depths.
+* K11 and the ordered closest walk take their plain versions on the CPU,
+  as every wrapper does, and count no launch.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
+from types import SimpleNamespace
+
 import pytest
 import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce_bvh, bvh
+from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from torch_threads import one_torch_thread  # noqa: F401
 
@@ -82,27 +90,37 @@ def test_persistent_grid(n, n_sms, per_sm, want):
     assert bvh.persistent_grid(n, n_sms, per_sm) == want
 
 
-def test_twins_take_the_plain_versions_on_the_cpu(mesh):
+@pytest.mark.parametrize("depth4,want", [(3, 8), (6, 8), (8, 8), (9, 32), (32, 32)])
+def test_rooted_plan_is_the_depth_class_of_the_tree(depth4, want):
+    """K11 walks from subtree roots, which are shallower than the tree: the
+    whole tree's class holds every walk; nothing is staged."""
+    cs = SimpleNamespace(bvh=SimpleNamespace(depth4=depth4))
+    assert tuple(bvh.rooted_plan(cs)) == (False, want, 0)
+
+
+# config 5's BVH2 is 13 deep; the chain of tests/torch_chain.py 190, the
+# most the ordered walk takes (STACK_CAP - 2)
+@pytest.mark.parametrize("depth2,want", [(1, 32), (13, 32), (30, 32), (31, 192), (190, 192)])
+def test_depth2_class_holds_the_ordered_stack(depth2, want):
+    assert bvh.depth2_class(depth2) == want >= depth2 + 2
+    cs = SimpleNamespace(bvh=SimpleNamespace(depth2=depth2))
+    assert tuple(bvh2.closest_plan(cs)) == (False, want, 0)
+
+
+def test_split_walks_take_the_plain_versions_on_the_cpu(mesh):
     g = torch.Generator().manual_seed(3)
     n = 48
     o = V3(*(torch.rand(n, generator=g) * 8 - 4 for _ in range(3)))
     d = V3(*(torch.randn(n, generator=g) for _ in range(3))).normalized()
-    limit = torch.rand(n, generator=g) * 20 - 2
-    before = (bvh.scene_any.launches, bvh.scene_any_simple.launches,
-              bounce_bvh.path_bounce_bvh.launches, bounce_bvh.path_bounce_bvh_simple.launches)
-    assert torch.equal(bvh.scene_any_simple(mesh, o, d, 1e-3, limit),
-                       bvh.scene_any(mesh, o, d, 1e-3, limit))
-    tables = bounce_bvh.pack_bvh_tables(mesh)
-    thr = V3(*(torch.ones(n) for _ in range(3)))
-    key, depth = torch.arange(n, dtype=torch.int32) * 7919, torch.ones(n, dtype=torch.int32)
-    got = bounce_bvh.path_bounce_bvh_simple(mesh, tables, o, d, thr, key, depth)
-    want = bounce_bvh.path_bounce_bvh(mesh, tables, o, d, thr, key, depth)
-    for f in got._fields:
-        a, b = getattr(got, f), getattr(want, f)
-        if isinstance(a, tuple):
-            assert all(torch.equal(x, y) for x, y in zip(a, b)), f
-        else:
-            assert torch.equal(a, b), f
-    assert before == (bvh.scene_any.launches, bvh.scene_any_simple.launches,
-                      bounce_bvh.path_bounce_bvh.launches,
-                      bounce_bvh.path_bounce_bvh_simple.launches)
+    bound = torch.rand(n, generator=g) * 20
+    before = (bvh.closest_rooted.launches, bvh2.closest_ordered.launches)
+    roots = torch.ones(n, dtype=torch.int32)
+    en = torch.arange(n) % 3 != 0
+    none = torch.full((n,), -1, dtype=torch.int32)
+    got = bvh.closest_rooted(mesh, o, d, 1e-3, roots, en, bound, none)
+    want = tbvh.rooted(mesh.bvh, mesh.triangles, o, d, 1e-3, roots, en, bound, none)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    got = bvh2.closest_ordered(mesh, o, d, 1e-3, bound)
+    want = tbvh.traverse_closest(mesh.bvh, mesh.triangles, o, d, 1e-3, bound)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and bool((got[1] >= 0).any())
+    assert before == (bvh.closest_rooted.launches, bvh2.closest_ordered.launches)
