@@ -10,17 +10,22 @@ It imports no JAX.
 1. environment: torch/CUDA/nvcc/Triton versions and ``nvidia-smi``'s card
    name and power limit; fails when ``torch.cuda.is_available()`` is false;
 2. build: compiles every kernel library from ``csrc/``, one ``nvcc`` per
-   source, all at once (timed, with registers and spills);
+   source, all at once (timed, with each kernel's registers, stack, spills
+   and static shared memory);
 3. each kernel against its plain torch version on the card, at 131,072 rays:
    K1 (path bounce) on camera rays at depth 0 and the state after three plain
-   bounces, both shadow bounds; K3a/K3b (closest / any hit) on the Whitted
+   bounces, both shadow bounds, after the plans of the persistent K1 and K2
+   (dynamic shared memory, resident blocks an SM, grid) and the share of
+   K1's lanes whose NEE shadow ray needs a sweep (``care``; here and on the
+   main path's first chunk); K3a/K3b (closest / any hit) on the Whitted
    frame's camera rays and one light-sample shadow ray per lane with its own
    bound; K2 (Whitted bounce), both variants, on those camera rays and the
-   rays one plain bounce on.  Then at the shapes the paths launch: K2 on the
+   rays one plain bounce on, each with the share of (light, lane) pairs
+   whose shadow ray needs a sweep.  Then at the shapes the paths launch: K2 on the
    Whitted frame's first chunk (2,099,200 camera rays, both variants, and
-   the compacted second bounce), K3a/K3b on level 0 of the oracle frame's
-   first chunk (its camera rays, and the shadow rays of all 16 light
-   samples from every lane in one batch);
+   the compacted second bounce; its plan and pair shares), K3a/K3b on
+   level 0 of the oracle frame's first chunk (its camera rays, and the
+   shadow rays of all 16 light samples from every lane in one batch);
 4. timing of each kernel at 131,072 rays: its own device time per launch
    (``device_ms``: the torch profiler over 25 calls of its wrapper, the
    median of the launches of the kernel's own symbol), the call time of its
@@ -381,6 +386,13 @@ def phase_kernel_check(cs, camera, device):
     start = camera_state(cs, camera, N_RAYS, device)
     states = {"camera rays, depth 0": start, "after 3 plain bounces, depth 3-5":
               advance_plain(cs, start, 3)}
+    sweep_plans("Cornell box", cs, N_RAYS, device)
+    chunk = camera_state(cs, camera, N_RAYS, device, stride=1)
+    shares = {"the main path's first chunk, depth 0": chunk,
+              "its first chunk after 3 plain bounces": advance_plain(cs, chunk, 3),
+              **{f"spread {k}": v for k, v in states.items()}}
+    for label, state in shares.items():
+        care_shares(label, cs, k1_state=state)
     worst = 0.0
     for label, (o, d, thr, key, depth) in states.items():
         for shadow_light in (False, True):
@@ -422,8 +434,8 @@ def kernel_is(name: str, symbol: str) -> bool:
 
 # each kernel symbol's library (ops/cuda/build.KERNELS) and C entries (csrc/*.cu)
 C_ENTRIES = {
-    "path_bounce_kernel": ("path_bounce", ("ptrt_path_bounce",)),
-    "whitted_bounce_kernel": ("whitted_bounce", ("ptrt_whitted_bounce",)),
+    "path_bounce_persistent": ("path_bounce", ("ptrt_path_bounce",)),
+    "whitted_bounce_persistent": ("whitted_bounce", ("ptrt_whitted_bounce",)),
     "closest_kernel": ("intersect", ("ptrt_closest_hit",)),
     "any_kernel": ("intersect", ("ptrt_any_hit",)),
     "bvh_closest_kernel": ("bvh_scene", ("ptrt_bvh_closest",)),
@@ -563,7 +575,8 @@ def phase_timing(cs, blobs, state):
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce
 
     o, d, thr, key, depth = state
-    rec = timed(lambda: bounce.path_bounce(cs, *blobs, o, d, thr, key, depth), "path_bounce_kernel",
+    rec = timed(lambda: bounce.path_bounce(cs, *blobs, o, d, thr, key, depth),
+                "path_bounce_persistent",
                 lambda: bounce.path_bounce_plain(cs, o, d, thr, key, depth))
     show_time("path_bounce", rec)
     return rec
@@ -909,6 +922,7 @@ def phase_whitted_check(cs, blobs, camera_rays):
         states = {"camera rays, depth 0": camera_rays,
                   "one plain bounce on, depth 1": advance_whitted_plain(cs, *camera_rays, variant)}
         for label, (o, d) in states.items():
+            care_shares(f"{vname}, {label}", cs, k2_rays=(o, d), variant=variant)
             worst = max(worst, check_whitted(f"{vname}, {label}", cs, blobs, o, d, variant)[0])
     return worst
 
@@ -942,7 +956,13 @@ def phase_whitted_frame_check(device):
             o, d = grid_camera_rays(pack_camera(cam, device), chunk * n_pix, n_pix, W_WIDTH,
                                     W_HEIGHT, r.seed, 0, group, math.isqrt(group), W_DEPTH,
                                     r.jitter)
+            if chunk == 0:
+                sweep_plans(f"Whitted frame chunk 0, {vname}", cs, o.x.shape[0], device,
+                            ("whitted_bounce",))
             for bounce in range(1, W_DEPTH + 1):
+                if chunk == 0 and bounce <= 2:
+                    care_shares(f"{vname}, Whitted frame chunk 0, bounce {bounce}", cs,
+                                k2_rays=(o, d), variant=variant)
                 err, rec = check_whitted(
                     f"{vname}, Whitted frame chunk {chunk} of {n_chunks} ({n_pix} px x {group} "
                     f"cells), bounce {bounce}", cs, blobs, o, d, variant)
@@ -964,7 +984,7 @@ def phase_new_timing(cs, blobs, camera_rays, shadow):
     times = {
         "whitted_bounce": (lambda: whitted.whitted_bounce(cs, *blobs, o, d, whitted.TEXTURE),
                            lambda: whitted.whitted_bounce_plain(cs, o, d, whitted.TEXTURE),
-                           "whitted_bounce_kernel"),
+                           "whitted_bounce_persistent"),
         "closest_hit": (lambda: intersect.closest_hit(cs, blobs[0], o, d, 1e-3, 1e6),
                         lambda: intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6),
                         "closest_kernel"),
@@ -978,11 +998,10 @@ def phase_new_timing(cs, blobs, camera_rays, shadow):
     return out
 
 
-def k1_flops(cs, o, d, key, depth):
-    """Float operations of K1's sweeps on these rays: the closest sweep,
-    then the NEE shadow sweep (bound t_max = 1e6, the reference quirk) to
-    its first occluder on hit lanes facing the light with a diffuse
-    material (the kernel's ``care``)."""
+def k1_care(cs, o, d, key, depth):
+    """``(closest hit, NEE light direction, care)``: K1's ``care`` per lane
+    (``csrc/path_shade.cuh`` nee_query: a hit facing the picked light
+    sample with a diffuse material), from the plain ops."""
     import torch
 
     from path_tracing__ray_tracer_tpu_torch.ops import rng
@@ -993,6 +1012,82 @@ def k1_flops(cs, o, d, key, depth):
     ldir, _dist, _pdf = pick_light(cs, h.point, rng.uniform(key, depth, 0))
     care = h.hit & (torch.clamp(ldir.dot(h.normal), min=0.0) > 0) & (
         resolve_material(cs, h.prim)[1] > 0)
+    return h, ldir, care
+
+
+def k2_lights(cs, o, d, spec_table=True):
+    """For each light sample, ``(care, shadow origin, direction, dist)``:
+    K2's ``care`` per lane (``csrc/whitted_bounce.cu`` light_term: the
+    Lambert or Phong term is not zero whatever the occlusion), from the
+    plain ops; ``spec_table``: the texture variant's specular gate."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    h = scene_hit(cs, o, d, 1e-3, 1e6)
+    _c, diffuse, specular, _r, _t, _i, _h, _x = resolve_material(cs, h.prim)
+    nrm = h.normal
+    for li in range(cs.n_lights):
+        tl = cs.lights.at_index(li) - h.point
+        dist = tl.norm()
+        near_ok = dist > 0.001
+        ld = tl * (1.0 / torch.where(near_ok, dist, 1.0))
+        dot_nl = nrm.dot(ld)
+        diff = torch.clamp(dot_nl, min=0.0)
+        refl = V3(2.0 * dot_nl * nrm.x - ld.x, 2.0 * dot_nl * nrm.y - ld.y,
+                  2.0 * dot_nl * nrm.z - ld.z)
+        dot_rv = torch.clamp(-refl.dot(d), min=0.0)
+        spec_on = (specular > 0.01) & (diff > 0) if spec_table else specular > 0.01
+        care = h.hit & near_ok & (((diff > 0) & (diffuse > 0)) | (spec_on & (dot_rv > 0)))
+        yield care, h.point + nrm * 1e-3, ld, dist
+
+
+def care_shares(label, cs, k1_state=None, k2_rays=None, variant=None):
+    """Print the share of K1's lanes whose NEE ``care`` is set (their shadow
+    ray needs a sweep), or of K2's (light, lane) pairs whose ``care`` is set
+    (and of its lanes with any, and that hit), on these inputs."""
+    import torch
+
+    if k1_state is not None:
+        o, d, _thr, key, depth = k1_state
+        care = k1_care(cs, o, d, key, depth)[2]
+        print(f"[care] K1, {label}: {float(care.float().mean()):.4f} of {care.shape[0]} lanes "
+              f"need a NEE shadow sweep")
+    if k2_rays is not None:
+        from path_tracing__ray_tracer_tpu_torch.ops.intersect import scene_hit
+
+        hit = scene_hit(cs, *k2_rays, 1e-3, 1e6).hit
+        cares = torch.stack([c for c, *_ in k2_lights(cs, *k2_rays, variant.spec_table)])
+        print(f"[care] K2, {label}: {float(cares.float().mean()):.4f} of "
+              f"{cares.shape[0]} x {cares.shape[1]} (light, lane) pairs need a shadow sweep; "
+              f"{float(cares.any(0).float().mean()):.4f} of lanes need any, "
+              f"{float(hit.float().mean()):.4f} hit")
+
+
+def sweep_plans(label, cs, n, device, names=("path_bounce", "whitted_bounce")):
+    """Print the launch plans of K1 and K2 (those in ``names``) on ``cs``
+    for ``n`` lanes: dynamic shared memory, resident blocks an SM, grid."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bvh, whitted
+
+    plan = bounce.sweep_plan("sweep_plans", bounce.blob_layout(cs)[:4],
+                             int(cs.materials.diffuse.shape[0]), cs.n_lights,
+                             bvh.smem_limit(device))
+    occupancy = {"path_bounce": bounce.build().lib.ptrt_path_bounce_occupancy,
+                 "whitted_bounce": whitted.build().lib.ptrt_whitted_bounce_occupancy}
+    for who in names:
+        grid = bvh.launch_grid(who, occupancy[who], plan, n, device)
+        print(f"[plan] {who}, {label}: {plan.smem_bytes} B of dynamic shared memory, "
+              f"{bvh._RESIDENT[(who, device.index, plan)]} resident blocks of "
+              f"{bvh.WALK_THREADS} an SM, grid {grid} blocks at N={n}")
+
+
+def k1_flops(cs, o, d, key, depth):
+    """Float operations of K1's sweeps on these rays: the closest sweep,
+    then the NEE shadow sweep (bound t_max = 1e6, the reference quirk) to
+    its first occluder on hit lanes facing the light with a diffuse
+    material (the kernel's ``care``)."""
+    h, ldir, care = k1_care(cs, o, d, key, depth)
     return sweep_flops(cs, o, d, 1e6, False) + sweep_flops(cs, h.point + h.normal * 1e-3, ldir,
                                                            1e6, True, care)
 
@@ -1003,11 +1098,6 @@ def kernel_bounds(cs, k1_state, camera_rays, shadow):
     first occluder only where the result can change the record (the
     kernels' own ``care`` predicates); each input read once, each output
     written once."""
-    import torch
-
-    from path_tracing__ray_tracer_tpu_torch.ops.intersect import resolve_material, scene_hit
-    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
-
     n = N_RAYS
     closest = {}
     o, d, _thr, key, depth = k1_state
@@ -1016,23 +1106,9 @@ def kernel_bounds(cs, k1_state, camera_rays, shadow):
     # dist - 1e-3) per light sample whose Lambert or Phong term is not zero
     # whatever the occlusion (csrc/whitted_bounce.cu's `care`)
     wo, wd = camera_rays
-    h = scene_hit(cs, wo, wd, 1e-3, 1e6)
-    _c, diffuse, specular, _r, _t, _i, _h, _x = resolve_material(cs, h.prim)
-    nrm = h.normal
     k2 = sweep_flops(cs, wo, wd, 1e6, False)
-    for li in range(cs.n_lights):
-        tl = cs.lights.at_index(li) - h.point
-        dist = tl.norm()
-        near_ok = dist > 0.001
-        ld = tl * (1.0 / torch.where(near_ok, dist, 1.0))
-        dot_nl = nrm.dot(ld)
-        diff = torch.clamp(dot_nl, min=0.0)
-        refl = V3(2.0 * dot_nl * nrm.x - ld.x, 2.0 * dot_nl * nrm.y - ld.y,
-                  2.0 * dot_nl * nrm.z - ld.z)
-        dot_rv = torch.clamp(-refl.dot(wd), min=0.0)
-        spec_on = (specular > 0.01) & (diff > 0)
-        care = h.hit & near_ok & (((diff > 0) & (diffuse > 0)) | (spec_on & (dot_rv > 0)))
-        k2 += sweep_flops(cs, h.point + nrm * 1e-3, ld, dist - 1e-3, True, care)
+    for care, so, ld, dist in k2_lights(cs, wo, wd):
+        k2 += sweep_flops(cs, so, ld, dist - 1e-3, True, care)
     closest["whitted_bounce"] = bound_ms(k2, n * (4 * 6 + 4 * 17 + 4))
     closest["closest_hit"] = bound_ms(sweep_flops(cs, wo, wd, 1e6, False), n * (4 * 6 + 4 * 7))
     so, sd, b = shadow
@@ -2665,7 +2741,7 @@ def phase_modes_main(device, default_img, budget):
     scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
     for tag, spp, counter, kernels in (
             ("[modes] default", 4, lambda: bounce.path_bounce.launches,
-             {"K1": "path_bounce_kernel"}),
+             {"K1": "path_bounce_persistent"}),
             ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step_kernel"}),
             ("[modes] pipe", GROUP_SPP, lambda: step.path_step.launches,
              {"K7": "path_step_kernel"})):

@@ -569,6 +569,16 @@ __device__ __forceinline__ int next_lane(int* counter) {
   return __shfl_sync(0xffffffffu, base, 0) + lane;
 }
 
+// The next lane of a persistent loop whose first batch is static: a thread
+// starts at lane blockIdx.x * blockDim.x + threadIdx.x of the grid's span of
+// gridDim.x * blockDim.x lanes, and its warp takes its later batches past
+// the span from counter[0] (next_lane).  When the span covers all n lanes
+// there is no later batch and no thread touches the counter, so the kernel
+// calls finish_lanes only when span < n.
+__device__ __forceinline__ int next_batch(int* counter, int span, int n) {
+  return span < n ? span + next_lane(counter) : n + (int)(threadIdx.x & 31);
+}
+
 // Every thread of a block calls this after its persistent loop.  The last
 // block to get here zeroes counter[0] (the next lane) and counter[1] (the
 // blocks done): every other block has taken its last batch by then, and the

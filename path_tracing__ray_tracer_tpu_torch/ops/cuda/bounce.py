@@ -6,7 +6,11 @@ The kernel replaces the JAX package's
 ``path_bounce_pallas``).  This module keeps what surrounds it:
 
 * the scene packers ``pack_scene_blob`` / ``pack_mat_blob`` /
-  ``pack_light_blob`` (the JAX package's wire format, flat);
+  ``pack_light_blob`` (the JAX package's wire format, flat), and
+  ``pack_scene_rec16``, the primitive-major 16-byte records into which the
+  K1 and K2 blocks copy the blob's primitives in shared memory;
+* ``sweep_plan``, the shared memory of a K1 or K2 launch, and the grid of
+  its persistent blocks (``ops/cuda/bvh.launch_grid``);
 * the ``BounceOut`` shading-weight record, plus the winning primitive id;
 * :func:`path_bounce`, the wrapper: a CUDA tensor always goes to the kernel
   (or the wrapper raises), a CPU tensor takes the plain version;
@@ -40,7 +44,11 @@ _P_REFRACT, _P_REFLECT, _P_DIFFUSE = 0.6, 0.25, 0.15
 
 _MAT_FIELDS = 10  # r g b diffuse specular reflective refractive ior has_tex tex_id
 _N_FIELDS = 19  # rows of the kernel's output record
-_SMEM_LIMIT = 48 * 1024  # static shared-memory budget of one block
+_SMEM_LIMIT = 48 * 1024  # shared memory of a block without an attribute (K3, K7)
+# The record of each primitive type (csrc/sweep.cuh rec_layout): its fields
+# in the blob's order, then zeros to a whole number of 16-byte records.
+REC_FIELDS = (14, 4, 18, 18)  # plane, sphere, quad, triangle
+REC_WIDTHS = (16, 4, 20, 20)
 
 
 class BounceOut(NamedTuple):
@@ -99,6 +107,56 @@ def pack_scene_blob(cs) -> torch.Tensor:
     e2 = t.v2 - t.v0
     parts = _ps_parts(cs) + [*t.v0, *e1, *e2, *t.normal, *t.uv0, *t.uv1, *t.uv2]
     return torch.cat(parts).contiguous()
+
+
+class RecLayout(NamedTuple):
+    bases: tuple  # each type's first record, in floats (multiples of 4)
+    size: int  # floats of all records
+
+
+def rec_layout(counts) -> RecLayout:
+    """The records' layout for the primitive ``counts`` (P, S, Q, T)."""
+    bases, at = [], 0
+    for count, width in zip(counts, REC_WIDTHS):
+        bases.append(at)
+        at += width * count
+    return RecLayout(tuple(bases), at)
+
+
+def pack_scene_rec16(cs) -> torch.Tensor:
+    """The primitive tables as primitive-major records: primitive ``i`` of a
+    type at ``base + width·i``, its fields in ``pack_scene_blob``'s order,
+    then zeros to the type's width (16 floats a plane, 4 a sphere, 20 a quad
+    or triangle), so each record is whole 16-byte rows.  The plain version
+    of the copy each K1 and K2 block makes into its shared memory
+    (``csrc/sweep.cuh`` stage_records)."""
+    layout, blob = blob_layout(cs), pack_scene_blob(cs)
+    bases = (layout.plane_base, layout.sphere_base, layout.quad_base, layout.tri_base)
+    parts = []
+    for count, base, fields, width in zip(layout[:4], bases, REC_FIELDS, REC_WIDTHS):
+        table = blob[base:base + fields * count].view(fields, count).T
+        parts.append(torch.cat([table, table.new_zeros((count, width - fields))], 1).reshape(-1))
+    return torch.cat(parts).contiguous()
+
+
+class SweepPlan(NamedTuple):
+    smem_bytes: int  # dynamic shared memory: the records, materials and lights
+
+
+def sweep_plan(who, counts, n_mats: int, n_lights: int, limit: int) -> SweepPlan:
+    """The launch of K1 or K2 on a scene of primitive ``counts`` with
+    ``n_mats`` materials and ``n_lights`` light samples, on a card whose
+    blocks may take ``limit`` bytes of dynamic shared memory
+    (``ops/cuda/bvh.smem_limit``; neither kernel has static shared memory):
+    a pure function of these sizes.  The tables (``csrc/sweep.cuh``
+    table_floats): the records, the material table padded to whole float4s,
+    4 floats a light sample.  Raises when they do not fit."""
+    mat = -(-_MAT_FIELDS * n_mats // 4) * 4
+    smem = 4 * (rec_layout(counts).size + mat + 4 * n_lights)
+    if smem > limit:
+        raise ValueError(f"{who}: scene tables need {smem} B of shared memory, "
+                         f"more than the kernel's {limit} B")
+    return SweepPlan(smem)
 
 
 def pack_ps_blob(cs) -> torch.Tensor:
@@ -218,7 +276,7 @@ def path_bounce_plain(cs, o: V3, d: V3, thr: V3, key, depth, t_min=T_MIN, t_max=
 # ---- the kernel ------------------------------------------------------------------
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P] + [_P] * 9 + [
-    _P, _P, _P, _I, ctypes.c_float, ctypes.c_float, _I, _P]
+    _P, _P, _P, _I, ctypes.c_float, ctypes.c_float, _I, _P, _I, _I, _P]
 
 
 def build():
@@ -226,9 +284,11 @@ def build():
     from . import build as _build
 
     built = _build.load("path_bounce")
-    fn = built.lib.ptrt_path_bounce
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.ptrt_path_bounce.argtypes = _ARGTYPES
+    lib.ptrt_path_bounce_occupancy.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.ptrt_path_bounce, lib.ptrt_path_bounce_occupancy):
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -242,18 +302,19 @@ def _check(name, t, dtype, n, device, who="path_bounce"):
             f"got {tuple(t.shape)} {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _check_tables(who, cs, blob, mat_blob, light_blob, device):
+def _check_tables(who, cs, blob, mat_blob, light_blob, device, smem_limit=_SMEM_LIMIT):
     """Raise unless the packed tables are those of ``cs`` on ``device`` and
-    fit the kernels' shared memory; returns ``(layout, n_mats, n_lights)``."""
+    fit ``smem_limit`` bytes of shared memory as they are (None: the kernel
+    plans its own); returns ``(layout, n_mats, n_lights)``."""
     layout = blob_layout(cs)
     n_mats, n_lights = int(cs.materials.diffuse.shape[0]), cs.n_lights
     for name, t, size in (("blob", blob, layout.size), ("mat_blob", mat_blob, _MAT_FIELDS * n_mats),
                           ("light_blob", light_blob, 3 * n_lights)):
         _check(name, t, torch.float32, size, device, who)
     smem = 4 * (layout.size + _MAT_FIELDS * n_mats + 3 * n_lights)
-    if smem > _SMEM_LIMIT:
+    if smem_limit is not None and smem > smem_limit:
         raise ValueError(f"{who}: scene tables need {smem} B of shared memory, "
-                         f"more than the kernel's {_SMEM_LIMIT} B")
+                         f"more than the kernel's {smem_limit} B")
     return layout, n_mats, n_lights
 
 
@@ -263,24 +324,37 @@ def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, thr: V3, key, depth,
     n = int(o.x.shape[0])
     if isinstance(depth, int):
         depth = torch.full((n,), depth, dtype=torch.int32, device=device)
-    layout, n_mats, n_lights = _check_tables("path_bounce", cs, blob, mat_blob, light_blob, device)
+    from .bvh import lane_counter, launch_grid, smem_limit
+
+    who = "path_bounce"
+    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device, None)
     rays = (*o, *d, *thr)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tx", "ty", "tz"), rays):
         _check(name, t, torch.float32, n, device)
     _check("depth", depth, torch.int32, n, device)
     _check("key", key, torch.int32, n, device)
+    plan = sweep_plan(who, layout[:4], n_mats, n_lights, smem_limit(device))
 
-    fn = build().lib.ptrt_path_bounce
     out = torch.empty((_N_FIELDS, n), dtype=torch.float32, device=device)
     prim = torch.empty((n,), dtype=torch.int32, device=device)
+    if n == 0:
+        return _record(out, prim)
+    lib = build().lib
+    grid = launch_grid(who, lib.ptrt_path_bounce_occupancy, plan, n, device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(blob.data_ptr(), layout.n_planes, layout.n_spheres, layout.n_quads, layout.n_tris,
-             mat_blob.data_ptr(), n_mats, light_blob.data_ptr(), n_lights, depth.data_ptr(),
-             *(t.data_ptr() for t in rays), key.data_ptr(), out.data_ptr(), prim.data_ptr(),
-             n, float(t_min), float(t_max), int(bool(shadow_light)), stream)
+    err = lib.ptrt_path_bounce(
+        blob.data_ptr(), layout.n_planes, layout.n_spheres, layout.n_quads, layout.n_tris,
+        mat_blob.data_ptr(), n_mats, light_blob.data_ptr(), n_lights, depth.data_ptr(),
+        *(t.data_ptr() for t in rays), key.data_ptr(), out.data_ptr(), prim.data_ptr(), n,
+        float(t_min), float(t_max), int(bool(shadow_light)), lane_counter(device).data_ptr(),
+        plan.smem_bytes, grid, stream)
     if err != 0:
         raise RuntimeError(f"path_bounce: kernel launch failed with cudaError {err}")
     path_bounce.launches += 1
+    return _record(out, prim)
+
+
+def _record(out, prim) -> BounceOut:
     return BounceOut(
         hit=out[0] > 0.5, killed=out[1] > 0.5, w_sky=out[2], w_nee=out[3], rr_scale=out[4],
         s_thr=out[5], t_thr=out[6], new_org=V3(out[7], out[8], out[9]),

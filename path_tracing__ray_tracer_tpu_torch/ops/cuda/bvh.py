@@ -160,15 +160,16 @@ def persistent_grid(n: int, n_sms: int, blocks_per_sm: int) -> int:
 _RESIDENT = {}  # (kernel, device index, plan) -> resident blocks per SM
 
 
-def launch_grid(who, occupancy, plan: WalkPlan, n: int, dev) -> int:
-    """``persistent_grid`` for ``plan`` on ``dev``, with the blocks per SM
-    that the kernel's ``occupancy`` entry reports (asked once per plan; it
-    also allows the plan's shared memory, so a launch needs no attribute)."""
+def launch_grid(who, occupancy, plan, n: int, dev) -> int:
+    """``persistent_grid`` for ``plan`` (a ``WalkPlan``, or any tuple of
+    ints whose last is the dynamic shared memory) on ``dev``, with the
+    blocks per SM that the kernel's ``occupancy`` entry reports, called with
+    the plan's fields and the out pointer (asked once per plan; it also
+    allows the plan's shared memory, so a launch needs no attribute)."""
     key = (who, dev.index, plan)
     if key not in _RESIDENT:
         blocks = ctypes.c_int(0)
-        _raise_on(who, occupancy(int(plan.stage), plan.depth_class, plan.smem_bytes,
-                                 ctypes.byref(blocks)))
+        _raise_on(who, occupancy(*(int(x) for x in plan), ctypes.byref(blocks)))
         if blocks.value < 1:
             raise RuntimeError(f"{who}: no block of {plan} fits an SM")
         _RESIDENT[key] = blocks.value

@@ -38,7 +38,8 @@ import torch
 
 from ..intersect import resolve_material, scene_hit, scene_hit_any
 from ..v3 import V3
-from .bounce import _check, _check_tables
+from .bounce import _check, _check_tables, sweep_plan
+from .bvh import lane_counter, launch_grid, smem_limit
 
 T_MIN = 1e-3
 T_MAX = 1e6
@@ -173,7 +174,7 @@ def whitted_bounce_plain(cs, o: V3, d: V3, variant: WhittedVariant, t_min=T_MIN,
 # ---- the kernel ------------------------------------------------------------------
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = ([_P, _I, _I, _I, _I, _P, _I, _P, _I] + [_P] * 6 + [_P, _P, _I, _F, _F]
-             + [_I, _I, _F, _F, _I, _I] + [_P])
+             + [_I, _I, _F, _F, _I, _I] + [_P, _I, _I, _P])
 
 
 def build():
@@ -181,9 +182,11 @@ def build():
     from . import build as _build
 
     built = _build.load("whitted_bounce")
-    fn = built.lib.ptrt_whitted_bounce
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.ptrt_whitted_bounce.argtypes = _ARGTYPES
+    lib.ptrt_whitted_bounce_occupancy.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.ptrt_whitted_bounce, lib.ptrt_whitted_bounce_occupancy):
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -192,23 +195,33 @@ def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, variant: WhittedVarian
     who = "whitted_bounce"
     device = o.x.device
     n = int(o.x.shape[0])
-    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device)
+    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device, None)
     rays = (*o, *d)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
         _check(name, t, torch.float32, n, device, who)
+    plan = sweep_plan(who, layout[:4], n_mats, n_lights, smem_limit(device))
 
-    fn = build().lib.ptrt_whitted_bounce
     out = torch.empty((_N_FIELDS, n), dtype=torch.float32, device=device)
     prim = torch.empty((n,), dtype=torch.int32, device=device)
-    err = fn(blob.data_ptr(), layout.n_planes, layout.n_spheres, layout.n_quads, layout.n_tris,
-             mat_blob.data_ptr(), n_mats, light_blob.data_ptr(), n_lights,
-             *(t.data_ptr() for t in rays), out.data_ptr(), prim.data_ptr(), n, float(t_min),
-             float(t_max), int(variant.textured), int(variant.refraction),
-             float(variant.falloff_scale), float(variant.diffuse_gain), int(variant.spec_table),
-             int(variant.base_floor), torch.cuda.current_stream(device).cuda_stream)
+    if n == 0:
+        return _record(out, prim)
+    lib = build().lib
+    grid = launch_grid(who, lib.ptrt_whitted_bounce_occupancy, plan, n, device)
+    err = lib.ptrt_whitted_bounce(
+        blob.data_ptr(), layout.n_planes, layout.n_spheres, layout.n_quads, layout.n_tris,
+        mat_blob.data_ptr(), n_mats, light_blob.data_ptr(), n_lights,
+        *(t.data_ptr() for t in rays), out.data_ptr(), prim.data_ptr(), n, float(t_min),
+        float(t_max), int(variant.textured), int(variant.refraction),
+        float(variant.falloff_scale), float(variant.diffuse_gain), int(variant.spec_table),
+        int(variant.base_floor), lane_counter(device).data_ptr(), plan.smem_bytes, grid,
+        torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError {err}")
     whitted_bounce.launches += 1
+    return _record(out, prim)
+
+
+def _record(out, prim) -> WhittedBounceOut:
     return WhittedBounceOut(
         hit=out[0] > 0.5, a=out[1], w=out[2], cont=out[3] > 0.5, mult=out[4],
         new_org=V3(out[5], out[6], out[7]), new_dir=V3(out[8], out[9], out[10]), u=out[11],

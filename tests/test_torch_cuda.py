@@ -15,8 +15,10 @@ back to back; the persistent page walks K6c and K6d (and K4c and K4d over
 the whole tree) against their plain versions in both depth classes; the
 persistent K11 and ordered BVH2 closest walk against their plain versions
 in both of their classes, at a ragged lane count, K11 with most lanes
-idle; and K4b, K5, K6c, K6d, K11 and the ordered closest walk queued on one
-stream, which share its lane counter.
+idle; the persistent K1 and K2 at 131,072, 4,133 and 1 lanes (K1's hit,
+prim and killed on every lane), and none; and K4b, K5, K6c, K6d, K11, the
+ordered closest walk, K1 and K2 queued on one stream, which share its lane
+counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -159,6 +161,49 @@ def test_whitted_kernel_matches_plain(card, n, variant):
     _assert_floats_close(got, want, lanes, ("a", "w", "mult", "new_org", "new_dir", "u", "v",
                                             "tex_id", "mat_color"))
     assert 0.2 < float(got.hit.float().mean()) < 1.0 and bool(got.cont.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 4096 + 37, 1])
+def test_persistent_bounces_match_plain(card, n):
+    """The persistent K1 and K2 (primitive-major records, lanes from the
+    stream's counter) against their plain versions: K1's hit, prim and
+    killed on every lane and its floats within tolerance on the hit lanes,
+    K2 under ``test_whitted_kernel_matches_plain``'s bars; the counter left
+    zero."""
+    dev, cs, blobs = card
+    o, d, thr, key, depth = _inputs(n, n + 3, dev)
+    before = (bounce.path_bounce.launches, whitted.whitted_bounce.launches)
+    for shadow_light in (False, True):
+        got = bounce.path_bounce(cs, *blobs, o, d, thr, key, depth, shadow_light=shadow_light)
+        torch.cuda.synchronize()
+        want = bounce.path_bounce_plain(cs, o, d, thr, key, depth, shadow_light=shadow_light)
+        for f in ("hit", "prim", "killed"):
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+        _assert_floats_close(got, want, got.hit, FLOATS)
+    for var in (whitted.BASIC, whitted.TEXTURE):
+        got = whitted.whitted_bounce(cs, *blobs, o, d, var)
+        torch.cuda.synchronize()
+        want = whitted.whitted_bounce_plain(cs, o, d, var)
+        same = (got.hit == want.hit) & (got.prim == want.prim)
+        assert float(same.float().mean()) >= 0.9999
+        lanes = same & got.hit
+        assert bool((got.cont[lanes] == want.cont[lanes]).all())
+        _assert_floats_close(got, want, lanes, ("a", "w", "mult", "new_org", "new_dir", "u", "v",
+                                                "tex_id", "mat_color"))
+    assert (bounce.path_bounce.launches, whitted.whitted_bounce.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert not bvh.lane_counter(dev).any()
+
+
+@pytest.mark.cuda
+def test_persistent_bounces_launch_nothing_on_no_lanes(card):
+    dev, cs, blobs = card
+    o, d, thr, key, depth = _inputs(0, 1, dev)
+    before = (bounce.path_bounce.launches, whitted.whitted_bounce.launches)
+    assert bounce.path_bounce(cs, *blobs, o, d, thr, key, depth).prim.shape == (0,)
+    assert whitted.whitted_bounce(cs, *blobs, o, d, whitted.TEXTURE).prim.shape == (0,)
+    assert before == (bounce.path_bounce.launches, whitted.whitted_bounce.launches)
 
 
 @pytest.mark.cuda
@@ -532,14 +577,16 @@ def test_page_walks_match_plain(paged_card, n, deep):
 
 
 @pytest.mark.cuda
-def test_persistent_walks_share_the_lane_counter(mesh_card, paged_card):
-    """K4b, K6c, K6d, K5, K11 and the ordered BVH2 closest walk queued on
-    one stream with no sync between them answer bit for bit as each does
-    alone after a sync, which leaves the stream's lane counter zero: each
-    launch starts from lane 0."""
+def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
+    """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest walk, K1 and K2
+    queued on one stream with no sync between them answer bit for bit as
+    each does alone after a sync, which leaves the stream's lane counter
+    zero: each launch starts from lane 0."""
     dev, mcs, tables = mesh_card
+    ccs, blobs = card[1], card[2]
     pcs = paged_card[1]
     o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
+    co, cd, cthr, ckey, cdepth = _inputs(131072, 11, dev)
     best, plo, phi = bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6)
     found, alo, ahi = bvh_paged.paged_top_any(pcs, o, d, 1e-3, limit)
     roots, en = _rooted_pass(mcs, o, d)
@@ -549,7 +596,9 @@ def test_persistent_walks_share_the_lane_counter(mesh_card, paged_card):
              lambda: bvh_paged.pages_any(pcs, o, d, 1e-3, limit, found, alo, ahi),
              lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth),
              lambda: bvh.closest_rooted(mcs, o, d, 1e-3, roots, en, limit.abs(), none),
-             lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()))
+             lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()),
+             lambda: bounce.path_bounce(ccs, *blobs, co, cd, cthr, ckey, cdepth),
+             lambda: whitted.whitted_bounce(ccs, *blobs, co, cd, whitted.TEXTURE))
     queued = [call() for call in calls]
     torch.cuda.synchronize()
     assert not bvh.lane_counter(dev).any()
