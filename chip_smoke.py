@@ -111,7 +111,7 @@ It imports no JAX.
    within tolerance), K4e's occlusion walks on the light-sample shadow rays
    (equal on every ray that needs an answer), each K11 pass against its
    plain version and the whole multipass walk against the single-pass K4c;
-   the plans of the persistent K11 and ordered closest walk; their times
+   the plans of the persistent K11, the two ordered walks and K10c; their times
    (the plain walks median of ``PLAIN_REPS``), bounds and tree traffic;
 20. the config-5 mesh path at 1920×1080, depth 12, ``shadow_tmax="light"``,
    one ``SPLIT_SPP``-sample group, seed 0: the default route (K5), then
@@ -449,9 +449,10 @@ C_ENTRIES = {
     "bvh2_closest_kernel": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_closest_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
+    "bvh2_any_persistent": ("bvh2", ("ptrt_bvh2_any",)),
     "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
     "mat_scene_any_kernel": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
-    "mat_tri_closest_kernel": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
+    "mat_tri_closest_persistent": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
     "mat_tri_any_kernel": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
     "path_step_kernel": ("path_step", ("ptrt_path_step",)),
     "gather_rgb_kernel": ("texture_gather", ("ptrt_atlas_gather", "ptrt_mip_gather")),
@@ -554,10 +555,11 @@ def timed(fn, symbol, plain=None, plain_reps=25, per_call=1):
     """The timing record of one kernel row: ``ms``, its device time per
     launch (median, with ``ms_min``/``ms_max``; ``fn`` launches it
     ``per_call`` times); ``call_ms``, the call time of its wrapper;
-    ``plain_ms``, the call time of its plain version."""
+    ``plain_ms``, the call time of its plain version; ``symbol``, the
+    kernel's function name."""
     ms, lo, hi, per_call, method = device_ms(fn, symbol, per_call=per_call)
-    rec = {"ms": ms, "ms_min": lo, "ms_max": hi, "per_call": per_call, "ms_by": method,
-           "call_ms": cuda_ms(fn)}
+    rec = {"symbol": symbol, "ms": ms, "ms_min": lo, "ms_max": hi, "per_call": per_call,
+           "ms_by": method, "call_ms": cuda_ms(fn)}
     if plain is not None:
         rec["plain_ms"] = cuda_ms(plain, plain_reps, 1 if plain_reps < 25 else 2)
     return rec
@@ -2064,7 +2066,7 @@ def phase_split_check(device):
     import torch
 
     from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_leafmat, bvh_paged
     from path_tracing__ray_tracer_tpu_torch.ops.intersect import ClosestRecord
     from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
@@ -2099,8 +2101,12 @@ def phase_split_check(device):
     plain_any = cuda_ms(lambda: tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim), PLAIN_REPS, 1)
     plans = {"K11": (cs.bvh.depth4, bvh.rooted_plan(cs),
                      bvh.build().lib.ptrt_bvh4_rooted_occupancy),
-             "K4e ordered closest": (cs.bvh.depth2, bvh2.closest_plan(cs),
-                                     bvh2.build().lib.ptrt_bvh2_closest_occupancy)}
+             "K4e ordered closest": (cs.bvh.depth2, bvh2.ordered_plan(cs),
+                                     bvh2.build().lib.ptrt_bvh2_closest_occupancy),
+             "K4e ordered occlusion": (cs.bvh.depth2, bvh2.ordered_plan(cs),
+                                       bvh2.build().lib.ptrt_bvh2_any_occupancy),
+             "K10c": (cs.bvh.depth4, bvh_leafmat.tri_closest_plan(cs),
+                      bvh_leafmat.build().lib.ptrt_mat_tri_closest_occupancy)}
     print(f"[split] persistent plans at N={n}: " + "; ".join(
         f"{k} depth {depth} -> class {plan.depth_class}, grid "
         f"{bvh.launch_grid(k, occupancy, plan, n, device)} blocks of {bvh.WALK_THREADS}"
@@ -2111,7 +2117,8 @@ def phase_split_check(device):
         "closest_ordered": timed(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6),
                                  "bvh2_closest_persistent"),
         "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
-        "any_ordered": timed(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
+        "any_ordered": timed(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim),
+                             "bvh2_any_persistent"),
         "closest_rooted": timed(
             lambda: [bvh.closest_rooted(cs, o, d, 1e-3, *c) for c in carried],
             "bvh4_rooted_persistent",
@@ -2151,10 +2158,10 @@ def phase_split_check(device):
               "any_ordered": walk_bounds["any"], "closest_rooted": walk_bounds["closest_rooted"]}
     # the tree traffic the plain walks count: a 32 B BVH2 record a box test,
     # a slot record a triangle test (64 B from the padded copy the ordered
-    # closest walk and K11 read, else 52 B); K11's a third of three passes
+    # walks and K11 read, else 52 B); K11's a third of three passes
     trees = {"closest_skiplink": tree_ms(cnt["closest"], 52),
              "closest_ordered": tree_ms(cnt["closest"], 64),
-             "any_skiplink": tree_ms(cnt["any"], 52), "any_ordered": tree_ms(cnt["any"], 52),
+             "any_skiplink": tree_ms(cnt["any"], 52), "any_ordered": tree_ms(cnt["any"], 64),
              "closest_rooted": tree_ms(cnt["rooted"], 64) / 3}
     for name, tree in trees.items():
         times[name]["tree_ms"] = tree
@@ -2422,7 +2429,7 @@ def phase_mxu_check(device):
                           lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True),
                           (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent")),
         "tri_closest_mat": ((lambda: bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed),
-                             "mat_tri_closest_kernel"),
+                             "mat_tri_closest_persistent"),
                             lambda: pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True),
                             (lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed),
                              "pages_closest_persistent")),
@@ -2902,7 +2909,8 @@ def main() -> int:
     # in turns; tree_ms: the tree traffic the plain walk counts, over the
     # memory rate
     print(json.dumps({"kernels": [{
-        "name": name, "route": "cuda", "source": src + source, "replaces": tpu + replaces,
+        "name": name, "symbol": times[name]["symbol"], "route": "cuda", "source": src + source,
+        "replaces": tpu + replaces,
         "launches": launches, "max_abs_err": err, "ms": times[name]["ms"],
         "ms_by": times[name]["ms_by"], "call_ms": times[name]["call_ms"],
         "plain_ms": times[name]["plain_ms"],

@@ -175,8 +175,8 @@ def main(argv) -> int:
     deep = cs._replace(bvh=cs.bvh._replace(depth2=100))
     print(f"[plans] config 5: K11 depth4 {cs.bvh.depth4} -> class "
           f"{bvh.rooted_plan(cs).depth_class}; K4e depth2 {cs.bvh.depth2} -> stack class "
-          f"{bvh2.closest_plan(cs).depth_class}, reported 100 deep -> "
-          f"{bvh2.closest_plan(deep).depth_class}", flush=True)
+          f"{bvh2.ordered_plan(cs).depth_class}, reported 100 deep -> "
+          f"{bvh2.ordered_plan(deep).depth_class}", flush=True)
     ok, timed = True, {}
     n = S.N_RAYS
     for label, o, d in split_sets(cs, cam, dev):
@@ -185,7 +185,7 @@ def main(argv) -> int:
         bound = (want_t * (0.5 + u)).contiguous()  # about half of the hits lie beyond it
         rows = ordered_rows(lib2, cs, o, d, bound, label)
         for key, (new, first) in ordered_rows(lib2, deep, o, d, bound, label).items():
-            ok &= check(f"{key}, stack class {bvh2.closest_plan(deep).depth_class}", new[0],
+            ok &= check(f"{key}, stack class {bvh2.ordered_plan(deep).depth_class}", new[0],
                         first[0])
         bt = torch.full((n,), 1e6, dtype=torch.float32, device=dev)
         bi = torch.full((n,), -1, dtype=torch.int32, device=dev)
@@ -206,7 +206,7 @@ def main(argv) -> int:
     u = torch.rand(co.x.shape[0], generator=torch.Generator(device=dev).manual_seed(32),
                    device=dev)
     print(f"[chain] depth2 {chain.bvh.depth2} -> stack class "
-          f"{bvh2.closest_plan(chain).depth_class}, {co.x.shape[0]} rays")
+          f"{bvh2.ordered_plan(chain).depth_class}, {co.x.shape[0]} rays")
     for key, (new, first) in ordered_rows(lib2, chain, co, cd, (ct * (0.5 + u)).contiguous(),
                                           "190-deep chain").items():
         ok &= check(key, new[0], first[0])

@@ -30,22 +30,25 @@
 // What bounds them: latency.  A ray reads 24 B (28 B with its bound) and
 // writes 8 B (1 B), against a walk of dozens of node records (32 B each)
 // and leaves of 16 slot records, each read by a thread that follows its own
-// path.  The skip-link walks and the ordered occlusion walk keep the first
-// design: one thread per ray in blocks of 128, the records as packed, the
-// ordered stack of kStack2Cap entries in local memory.
+// path.  The skip-link walks keep the first design: one thread per ray in
+// blocks of 128, the records as packed, no stack.
 //
-// The ordered closest walk is designed for Hopper (bvh2_closest_persistent),
-// as bvh_walk.cuh's persistent BVH4 walks are: persistent blocks of 256
-// threads whose warps take 32 lanes at a time from the stream's lane counter
-// (next_lane); a node and its left child are consecutive 32 B records, so
-// one visit reads the node as two 16-byte loads and its right child's index
-// (the left child's skip) from a third issued with them, where the first
-// design waited for the node before it read the index; leaves from the
-// padded slot copy, four slots' loads issued together (Slot16TriLeaf); a
-// stack sized by the tree's BVH2 depth class (kShallow2 or kStack2Cap
-// entries, ops/cuda/bvh.depth2_class), where the first design carried 768 B
-// whatever the depth.  Each lane's floats and its order of tests are the
-// first design's (in git at a3bb26a), so its results are too.
+// The two ordered walks are designed for Hopper (bvh2_closest_persistent,
+// bvh2_any_persistent), as bvh_walk.cuh's persistent BVH4 walks are:
+// persistent blocks of 256 threads whose warps take 32 lanes at a time from
+// the stream's lane counter (next_lane); a node and its left child are
+// consecutive 32 B records, so one visit reads the node as two 16-byte loads
+// and its right child's index (the left child's skip) from a third issued
+// with them, where the first design waited for the node before it read the
+// index; leaves from the padded slot copy, four slots' loads issued together
+// (Slot16TriLeaf); a stack sized by the tree's BVH2 depth class (kShallow2
+// or kStack2Cap entries, ops/cuda/bvh.depth2_class), where the first design
+// carried 768 B whatever the depth.  Each lane's floats and its order of
+// tests are the first design's (the closest walk's in git at a3bb26a, the
+// occlusion walk's at 762ff5c), so its results are too.  Occlusion is an
+// existence test, so its verdict would not depend on the visit order; the
+// walk keeps the near-first order all the same, as the TPU kernel's
+// counterpart.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,58 +64,32 @@ constexpr int kNode2F = 8;
 // that its STACK_CAP equals ptrt_bvh2_stack_cap()).  A lane whose stack would
 // overflow all the same finishes by the skip-link walk, from its running best.
 constexpr int kStack2Cap = 192;
-// the persistent ordered closest walk's smaller stack class (ops/cuda/bvh.py
+// the persistent ordered walks' smaller stack class (ops/cuda/bvh.py
 // SHALLOW2): a BVH2 of depth2 + 2 <= kShallow2 takes it, any other kStack2Cap
 constexpr int kShallow2 = 32;
 constexpr int kBvh2Threads = 128;
 
-// The walk of one ray, its leaves visited by `leaf` (SlotLeaf,
+// The skip-link walk of one ray, its leaves visited by `leaf` (SlotLeaf,
 // Slot16TriLeaf).  Closest (kAny false): h carries the bound in and the
 // winner (t, raw gid) out, the slab's far plane the running best.  Any:
 // returns at the first hit below h.t, the fixed limit.
-template <bool kOrdered, bool kAny, class Leaf>
+template <bool kAny, class Leaf>
 __device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m, const Leaf& leaf,
                                       const Ray& r, float t_min, Hit& h) {
   const WalkRay w = walk_ray(r);
-  if constexpr (kOrdered) {
-    int stack[kStack2Cap];
-    int sp = 0;
-    stack[sp++] = 0;
-    for (int step = 0; sp > 0 && step < m + 2; ++step) {
-      const int node = stack[--sp];
-      const float* b = tree + (size_t)node * kNode2F;
-      if (!slab(b, w, t_min, h.t)) continue;
-      const float code = b[7];
-      if (code >= 0.0f) {
-        if constexpr (kAny) {
-          if (leaf.any(code, r, t_min, h.t)) return true;
-        } else {
-          leaf.closest(code, r, t_min, 0, h);
-        }
-        continue;
+  int cursor = 0;
+  for (int step = 0; cursor < m && step <= m; ++step) {
+    const float* b = tree + (size_t)cursor * kNode2F;
+    const bool hit = slab(b, w, t_min, h.t);
+    const float code = b[7];
+    if (hit && code >= 0.0f) {
+      if constexpr (kAny) {
+        if (leaf.any(code, r, t_min, h.t)) return true;
+      } else {
+        leaf.closest(code, r, t_min, 0, h);
       }
-      if (sp + 2 > kStack2Cap) return walk2<false, kAny>(tree, m, leaf, r, t_min, h);
-      const int left = node + 1;
-      const int right = (int)tree[(size_t)left * kNode2F + 6];
-      const bool left_near = near_first(-code - 1.0f, r);
-      stack[sp++] = left_near ? right : left;  // the near child is popped first
-      stack[sp++] = left_near ? left : right;
     }
-  } else {
-    int cursor = 0;
-    for (int step = 0; cursor < m && step <= m; ++step) {
-      const float* b = tree + (size_t)cursor * kNode2F;
-      const bool hit = slab(b, w, t_min, h.t);
-      const float code = b[7];
-      if (hit && code >= 0.0f) {
-        if constexpr (kAny) {
-          if (leaf.any(code, r, t_min, h.t)) return true;
-        } else {
-          leaf.closest(code, r, t_min, 0, h);
-        }
-      }
-      cursor = (hit && code < 0.0f) ? cursor + 1 : (int)b[6];
-    }
+    cursor = (hit && code < 0.0f) ? cursor + 1 : (int)b[6];
   }
   return false;
 }
@@ -130,14 +107,18 @@ __device__ __forceinline__ int load_node2(const float* __restrict__ tree, int m,
   return (int)right;
 }
 
-// The ordered closest walk of walk2 with the node loads of load_node2 and a
-// stack of kCap entries; a lane whose stack would overflow finishes by the
-// skip-link walk from its running best, as walk2's does (the wrapper picks
-// a class that holds depth2 + 2, so only a tree past kStack2Cap would).
-template <int kCap, class Leaf>
-__device__ __forceinline__ void ordered_closest(const float* __restrict__ tree, int m,
-                                                const Leaf& leaf, const Ray& r, float t_min,
-                                                Hit& h) {
+// The ordered walk, near child first (the JAX package's ordered kernels),
+// with the node loads of load_node2 and a stack of kCap entries.  Closest
+// (kAny false): h carries the bound in and the winner out, the slab's far
+// plane the running best.  Any: returns at the first hit below h.t, the
+// fixed limit.  A lane whose stack would overflow finishes by the skip-link
+// walk from its running best or with its limit, as the first design's did
+// (the wrapper picks a class that holds depth2 + 2, so only a tree past
+// kStack2Cap would).
+template <int kCap, bool kAny, class Leaf>
+__device__ __forceinline__ bool ordered_walk(const float* __restrict__ tree, int m,
+                                             const Leaf& leaf, const Ray& r, float t_min,
+                                             Hit& h) {
   const WalkRay w = walk_ray(r);
   LocalStack<kCap> stack;
   stack.push(0);
@@ -148,17 +129,19 @@ __device__ __forceinline__ void ordered_closest(const float* __restrict__ tree, 
     if (!slab(b, w, t_min, h.t)) continue;
     const float code = b[7];
     if (code >= 0.0f) {
-      leaf.closest(code, r, t_min, 0, h);
+      if constexpr (kAny) {
+        if (leaf.any(code, r, t_min, h.t)) return true;
+      } else {
+        leaf.closest(code, r, t_min, 0, h);
+      }
       continue;
     }
-    if (stack.sp + 2 > kCap) {
-      walk2<false, false>(tree, m, leaf, r, t_min, h);
-      return;
-    }
+    if (stack.sp + 2 > kCap) return walk2<kAny>(tree, m, leaf, r, t_min, h);
     const bool left_near = near_first(-code - 1.0f, r);
     stack.push(left_near ? right : node + 1);  // the near child is popped first
     stack.push(left_near ? node + 1 : right);
   }
+  return false;
 }
 
 // The skip-link closest walk, one lane per thread.
@@ -175,7 +158,7 @@ bvh2_closest_kernel(const float* __restrict__ tree, int m, const float* __restri
   Hit h;
   h.t = bound ? bound[i] : t_max;
   h.prim = -1;
-  walk2<false, false>(tree, m, SlotLeaf{slots}, r, t_min, h);
+  walk2<false>(tree, m, SlotLeaf{slots}, r, t_min, h);
   t_out[i] = h.t;
   tri_out[i] = decode_prim(h.prim, 0, gid_mask);
 }
@@ -200,14 +183,14 @@ bvh2_closest_persistent(const float* __restrict__ tree, int m, const float* __re
     Hit h;
     h.t = bound ? bound[i] : t_max;
     h.prim = -1;
-    ordered_closest<kCap>(tree, m, leaf, r, t_min, h);
+    ordered_walk<kCap, false>(tree, m, leaf, r, t_min, h);
     t_out[i] = h.t;
     tri_out[i] = decode_prim(h.prim, 0, gid_mask);
   }
   finish_lanes(counter);
 }
 
-template <bool kOrdered>
+// The skip-link occlusion walk, one lane per thread.
 __global__ void __launch_bounds__(kBvh2Threads)
 bvh2_any_kernel(const float* __restrict__ tree, int m, const float* __restrict__ slots,
                 const float* __restrict__ ox_in, const float* __restrict__ oy_in,
@@ -224,16 +207,55 @@ bvh2_any_kernel(const float* __restrict__ tree, int m, const float* __restrict__
     return;
   }
   const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
-  occ_out[i] = walk2<kOrdered, true>(tree, m, SlotLeaf{slots}, r, t_min, h) ? 1 : 0;
+  occ_out[i] = walk2<true>(tree, m, SlotLeaf{slots}, r, t_min, h) ? 1 : 0;
+}
+
+// The ordered occlusion walk for Hopper: lanes as bvh2_closest_persistent
+// takes them; a lane whose limit is <= 0 is written occluded with no walk.
+// Two resident blocks of 256 at least, as the other persistent walks: 78
+// registers, no spill (3 blocks an SM).  Fewer registers for more resident
+// warps (bounds of 3-5 blocks, batches of one or two slots) measured slower
+// on an H100 on every ray set of config 5 but the one where every ray hits
+// (PERF.md).
+template <int kCap>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+bvh2_any_persistent(const float* __restrict__ tree, int m, const float* __restrict__ slot16,
+                    const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+                    const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+                    const float* __restrict__ dy_in, const float* __restrict__ dz_in,
+                    const float* __restrict__ limit_in, int n, float t_min,
+                    uint8_t* __restrict__ occ_out, int* __restrict__ counter) {
+  const Slot16TriLeaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    Hit h;
+    h.t = limit_in[i];
+    if (h.t <= 0.0f) {  // no answer needed: reported occluded, as the JAX kernels do
+      occ_out[i] = 1;
+      continue;
+    }
+    const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+    occ_out[i] = ordered_walk<kCap, true>(tree, m, leaf, r, t_min, h) ? 1 : 0;
+  }
+  finish_lanes(counter);
 }
 
 using Closest2Kernel = decltype(&bvh2_closest_persistent<kStack2Cap>);
+using Any2Kernel = decltype(&bvh2_any_persistent<kStack2Cap>);
 
-// The ordered closest walk's variants (ops/cuda/bvh.depth2_class): one per
-// stack class; nullptr for any other class.
+// The ordered walks' variants (ops/cuda/bvh.depth2_class): one per stack
+// class; nullptr for any other class.
 inline Closest2Kernel closest2_variant(int depth_class) {
   if (depth_class == kShallow2) return bvh2_closest_persistent<kShallow2>;
   if (depth_class == kStack2Cap) return bvh2_closest_persistent<kStack2Cap>;
+  return nullptr;
+}
+
+inline Any2Kernel any2_variant(int depth_class) {
+  if (depth_class == kShallow2) return bvh2_any_persistent<kShallow2>;
+  if (depth_class == kStack2Cap) return bvh2_any_persistent<kStack2Cap>;
   return nullptr;
 }
 
@@ -278,18 +300,30 @@ extern "C" int ptrt_bvh2_closest_occupancy(int stage, int depth_class, int smem,
   return ptrt::walk_occupancy(ptrt::closest2_variant(depth_class), stage, smem, blocks);
 }
 
-extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slots, const float* ox,
-                             const float* oy, const float* oz, const float* dx, const float* dy,
-                             const float* dz, const float* limit, int n, int ordered, float t_min,
-                             uint8_t* occluded, void* stream) {
+// The skip-link walk (ordered 0) reads the 13-float `slots`; the ordered
+// walk (ordered 1) as ptrt_bvh2_closest's, its grid sized by
+// ptrt_bvh2_any_occupancy.  Lanes whose limit is <= 0 are reported occluded.
+extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slots, const float* slot16,
+                             const float* ox, const float* oy, const float* oz, const float* dx,
+                             const float* dy, const float* dz, const float* limit, int n,
+                             int ordered, float t_min, uint8_t* occluded, int* counter,
+                             int depth_class, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int blocks = ptrt::blocks2_for(n);
   cudaStream_t s = (cudaStream_t)stream;
-  if (ordered)
-    ptrt::bvh2_any_kernel<true><<<blocks, ptrt::kBvh2Threads, 0, s>>>(
+  if (ordered) {
+    const ptrt::Any2Kernel k = ptrt::any2_variant(depth_class);
+    if (k == nullptr) return (int)cudaErrorInvalidValue;
+    k<<<grid, ptrt::kWalkThreads, 0, s>>>(tree, m, slot16, ox, oy, oz, dx, dy, dz, limit, n,
+                                          t_min, occluded, counter);
+  } else {
+    ptrt::bvh2_any_kernel<<<ptrt::blocks2_for(n), ptrt::kBvh2Threads, 0, s>>>(
         tree, m, slots, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded);
-  else
-    ptrt::bvh2_any_kernel<false><<<blocks, ptrt::kBvh2Threads, 0, s>>>(
-        tree, m, slots, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded);
+  }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the ordered occlusion walk's variant for
+// depth_class, into *blocks: it stages nothing (stage and smem must be 0).
+extern "C" int ptrt_bvh2_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::any2_variant(depth_class), stage, smem, blocks);
 }

@@ -21,7 +21,21 @@
 // device memory through the read-only cache, one ray per thread).  Per ray
 // K10a reads 24 B and writes 28 B, K10b reads 28 B and writes 1 B, K10c reads
 // 52 B and writes 28 B, K10d reads 29 B and writes 1 B.  The table is 8 KB a
-// leaf (16 rows × 128 columns), ten times the leaf's slot records.
+// leaf (16 rows × 128 columns), ten times the leaf's slot records.  K10a,
+// K10b and K10d keep the first design: blocks of 128 threads, one lane
+// each, the node records read float by float (PtrNodes), a stack of
+// kStackCap entries, each slot's 19 coefficients read as separate 4-byte
+// loads from feature rows G·512 B apart (MatLeaf).
+//
+// K10c is designed for Hopper (mat_tri_closest_persistent), as the page
+// walks are (bvh_paged.cu): persistent blocks of 256 threads whose warps
+// take 32 lanes at a time from the stream's lane counter; the node records
+// as eight 16-byte loads (Vec4Nodes); a stack of 3·class − 2 entries by the
+// tree's depth class (ops/cuda/bvh.depth_class: 22 for config 5, where the
+// first design carried 96); the table read as 16-byte loads over four
+// slots, a batch of four slots' 19 loads issued together (MatQuadLeaf).
+// Each lane's floats and its order of tests are the first design's (in git
+// at 762ff5c), so its record is too.
 //
 // Outputs as bvh_scene.cu's K4a/K4b and bvh_paged.cu's whole-tree K4c/K4d:
 // records finished by finish_hit (the uid bits of a packed gid stripped by
@@ -108,37 +122,57 @@ mat_scene_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* 
                                      limit, nullptr)) ? 1 : 0;
 }
 
-// K10c: the carried record through the whole tree.
-__global__ void __launch_bounds__(kMatThreads)
-mat_tri_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
-                       long long stride, int gid_offset, int gid_mask,
-                       const float* __restrict__ ox, const float* __restrict__ oy,
-                       const float* __restrict__ oz, const float* __restrict__ dx,
-                       const float* __restrict__ dy, const float* __restrict__ dz,
-                       const float* __restrict__ t_in, const int* __restrict__ prim_in,
-                       const float* __restrict__ u_in, const float* __restrict__ v_in,
-                       const float* __restrict__ nx_in, const float* __restrict__ ny_in,
-                       const float* __restrict__ nz_in, int n, float t_min,
-                       float* __restrict__ t_out, int* __restrict__ prim_out,
-                       float* __restrict__ u_out, float* __restrict__ v_out,
-                       float* __restrict__ nx_out, float* __restrict__ ny_out,
-                       float* __restrict__ nz_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
-  Hit h;
-  h.t = t_in[i]; h.prim = prim_in[i]; h.u = u_in[i]; h.v = v_in[i];
-  h.nx = nx_in[i]; h.ny = ny_in[i]; h.nz = nz_in[i];
-  walk_closest_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min, gid_offset,
-                           h, nullptr);
-  finish_hit(h, r, gid_offset, gid_mask);
-  t_out[i] = h.t;
-  prim_out[i] = h.prim;
-  u_out[i] = h.u;
-  v_out[i] = h.v;
-  nx_out[i] = h.nx;
-  ny_out[i] = h.ny;
-  nz_out[i] = h.nz;
+// K10c for Hopper: the carried record of lanes [0, n) through the whole
+// tree, the lanes taken 32 at a time from `counter` (two int32, zero at the
+// launch, left zero; finish_lanes).
+template <int kClass>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+mat_tri_closest_persistent(const float* __restrict__ nodes, int n_nodes,
+                           const float* __restrict__ mat, long long stride, int gid_offset,
+                           int gid_mask, const float* __restrict__ ox,
+                           const float* __restrict__ oy, const float* __restrict__ oz,
+                           const float* __restrict__ dx, const float* __restrict__ dy,
+                           const float* __restrict__ dz, const float* __restrict__ t_in,
+                           const int* __restrict__ prim_in, const float* __restrict__ u_in,
+                           const float* __restrict__ v_in, const float* __restrict__ nx_in,
+                           const float* __restrict__ ny_in, const float* __restrict__ nz_in,
+                           int n, float t_min, float* __restrict__ t_out,
+                           int* __restrict__ prim_out, float* __restrict__ u_out,
+                           float* __restrict__ v_out, float* __restrict__ nx_out,
+                           float* __restrict__ ny_out, float* __restrict__ nz_out,
+                           int* __restrict__ counter) {
+  const Vec4Nodes<false> src{reinterpret_cast<const float4*>(nodes)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    Hit h;
+    h.t = t_in[i]; h.prim = prim_in[i]; h.u = u_in[i]; h.v = v_in[i];
+    h.nx = nx_in[i]; h.ny = ny_in[i]; h.nz = nz_in[i];
+    LocalStack<stack_cap(kClass)> stack;
+    walk_closest_with<false>(src, n_nodes, MatQuadLeaf(mat, (size_t)stride, r), stack, r, t_min,
+                             gid_offset, h, nullptr);
+    finish_hit(h, r, gid_offset, gid_mask);
+    t_out[i] = h.t;
+    prim_out[i] = h.prim;
+    u_out[i] = h.u;
+    v_out[i] = h.v;
+    nx_out[i] = h.nx;
+    ny_out[i] = h.ny;
+    nz_out[i] = h.nz;
+  }
+  finish_lanes(counter);
+}
+
+using MatClosestKernel = decltype(&mat_tri_closest_persistent<kMaxDepth4>);
+
+// K10c's variants (ops/cuda/bvh.depth_class): one per depth class; nullptr
+// for any other class.
+inline MatClosestKernel mat_closest_variant(int depth_class) {
+  if (depth_class == kShallow4) return mat_tri_closest_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return mat_tri_closest_persistent<kMaxDepth4>;
+  return nullptr;
 }
 
 // K10d: the carried verdict, else the walk's.
@@ -200,6 +234,10 @@ extern "C" int ptrt_mat_scene_any(const float* nodes, int n_nodes, const float* 
   return (int)cudaGetLastError();
 }
 
+// K10c: `grid` persistent blocks of the variant for depth_class, which
+// ptrt_mat_tri_closest_occupancy has sized, on the lane `counter` (two
+// int32, zero at the launch and left zero); `nodes` and `mat` 16-byte
+// aligned.
 extern "C" int ptrt_mat_tri_closest(const float* nodes, int n_nodes, const float* mat,
                                     long long stride, int gid_offset, int gid_mask,
                                     const float* ox, const float* oy, const float* oz,
@@ -208,13 +246,20 @@ extern "C" int ptrt_mat_tri_closest(const float* nodes, int n_nodes, const float
                                     const float* v_in, const float* nx_in, const float* ny_in,
                                     const float* nz_in, int n, float t_min, float* t, int* prim,
                                     float* u, float* v, float* nx, float* ny, float* nz,
-                                    void* stream) {
+                                    int* counter, int depth_class, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::mat_tri_closest_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads, 0,
-                                 (cudaStream_t)stream>>>(
+  const ptrt::MatClosestKernel k = ptrt::mat_closest_variant(depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, 0, (cudaStream_t)stream>>>(
       nodes, n_nodes, mat, stride, gid_offset, gid_mask, ox, oy, oz, dx, dy, dz, t_in, prim_in,
-      u_in, v_in, nx_in, ny_in, nz_in, n, t_min, t, prim, u, v, nx, ny, nz);
+      u_in, v_in, nx_in, ny_in, nz_in, n, t_min, t, prim, u, v, nx, ny, nz, counter);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of K10c's variant for depth_class, into *blocks:
+// it stages nothing (stage and smem must be 0).
+extern "C" int ptrt_mat_tri_closest_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::mat_closest_variant(depth_class), stage, smem, blocks);
 }
 
 extern "C" int ptrt_mat_tri_any(const float* nodes, int n_nodes, const float* mat,

@@ -27,8 +27,8 @@
 // when packed), the stored unit normal.
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
-// records by Möller–Trumbore (K4a, K6a/K6b, and K4e's BVH2 walks but the
-// ordered closest one).  MatLeaf (K10, the JAX
+// records by Möller–Trumbore (K4a, K6a/K6b, and K4e's skip-link BVH2
+// walks).  MatLeaf (K10a, K10b, K10d; the JAX
 // package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
 // same decision quantities as linear forms of the lane's ray features
 // f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
@@ -38,14 +38,17 @@
 // form adds its feature rows' products in increasing row order, as the
 // plain version does (ops/bvh.py _forms), so the two agree bit for bit;
 // the decisions are division free (with s2 = det², u ≥ 0 ⇔ u·det·det ≥ 0),
-// and t = t·det / det, u and v one division each.
+// and t = t·det / det, u and v one division each.  MatQuadLeaf (K10c) is
+// MatLeaf with the table read as 16-byte loads over four slots, a batch at
+// a time.
 //
 // The node records' source is a compile-time policy too.  PtrNodes reads a
 // record's floats one by one through a pointer into device memory (K4a,
-// K6a/K6b, K10).  Vec4Nodes reads the whole 128 B record as eight 16-byte
-// loads into registers, from device memory or from a copy of the node table
-// in shared memory (the persistent K4b and K5; the page walks K6c/K6d and
-// K4c/K4d and the rooted walk K11, from device memory).  The stack is a
+// K6a/K6b, K10a, K10b, K10d).  Vec4Nodes reads the whole 128 B record as
+// eight 16-byte loads into registers, from device memory or from a copy of
+// the node table in shared memory (the persistent K4b and K5; the page
+// walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10c, from device
+// memory).  The stack is a
 // per-thread array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
 // port-only copy of the slot records padded to 16 floats (64 B, 16-byte
 // aligned; ops/bvh.py pack_slot16 and, per page, pack_page_slot16), read as
@@ -386,6 +389,85 @@ struct MatLeaf {
       if (td > t_min * s2 && td < limit * s2) return true;
     }
     return false;
+  }
+};
+
+// MatLeaf's closest visit with the table read as 16-byte loads, each over
+// four consecutive slots of one (feature row, quantity): the row stride
+// (128·G floats) and the column offsets (128g + 16q + k, k a multiple of 4)
+// are multiples of 4 floats, so every such load is aligned.  A batch of
+// kSlotBatch = 4 slots is the 19 loads of its coefficients (det's rows 0-2,
+// u·det's and v·det's rows 0-5, t·det's rows 6-9), all issued before the
+// batch's tests, which then run in slot order; MatLeaf issues a 4-byte load
+// per coefficient as a form needs it.  The gid and the normal are read for
+// the leaf's winner only, as in MatLeaf.  Each form adds its products in
+// increasing row order and each decision is MatLeaf's, expression for
+// expression, so a lane's record is MatLeaf's bit for bit.  (A slot-major
+// copy of the 19 coefficients, 96 B a slot, 1.58 MB for config 5 against
+// the table's 8.45 MB, read as five 16-byte loads a slot, measured within
+// 3% of this on an H100 and was not kept: PERF.md.)
+struct MatQuadLeaf : MatLeaf {
+  using MatLeaf::MatLeaf;  // the table, its row stride and the lane's features
+
+  // Σ c[at + row − r0] · f[row] over rows [r0, r1), in increasing row order
+  __device__ __forceinline__ float form(const float* c, int at, int r0, int r1) const {
+    float acc = c[at] * f[r0];
+#pragma unroll
+    for (int r = r0 + 1; r < r1; ++r) acc = acc + c[at + r - r0] * f[r];
+    return acc;
+  }
+
+  // The least t in (t_min, h.t) of the leaf's slots wins, ties to the lowest
+  // slot, as MatLeaf::closest.
+  __device__ __forceinline__ void closest(float base, const Ray&, float t_min, int gid_offset,
+                                          Hit& h) const {
+    static_assert(kSlotBatch == 4, "one 16-byte load spans four slots");
+    const float* col0 = mat + (size_t)base / kLeafSize * 128;
+    int won = -1;
+    for (int k = 0; k < kLeafSize; k += kSlotBatch) {
+      // slots k..k+3 of quantity q on feature row `row`
+      const auto load = [&](int q, int row) {
+        return __ldg(reinterpret_cast<const float4*>(col0 + 16 * q + k + (size_t)row * stride));
+      };
+      float4 v[19];  // det, u·det, v·det, t·det: c[0..2], c[3..8], c[9..14], c[15..18]
+#pragma unroll
+      for (int r = 0; r < 3; ++r) v[r] = load(0, r);
+#pragma unroll
+      for (int r = 0; r < 6; ++r) {
+        v[3 + r] = load(1, r);
+        v[9 + r] = load(2, r);
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r) v[15 + r] = load(3, 6 + r);
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        float c[19];
+#pragma unroll
+        for (int x = 0; x < 19; ++x)
+          c[x] = j == 0 ? v[x].x : (j == 1 ? v[x].y : (j == 2 ? v[x].z : v[x].w));
+        const float det = form(c, 0, 0, 3);
+        const float un = form(c, 3, 0, 6);
+        const float vn = form(c, 9, 0, 6);
+        const float s2 = det * det;
+        const float ud = un * det, vd = vn * det;
+        if (!(fabsf(det) > 1e-6f && ud >= 0.0f && ud <= s2 && vd >= 0.0f && ud + vd <= s2))
+          continue;
+        const float t = form(c, 15, 6, 10) / det;
+        if (t > t_min && t < h.t) {
+          h.t = t;
+          h.u = un / det;
+          h.v = vn / det;
+          won = k + j;
+        }
+      }
+    }
+    if (won >= 0) {
+      const float* c9 = col0 + won + 9 * stride;
+      h.prim = (int)__ldg(c9 + 112) + gid_offset;
+      h.nx = __ldg(c9 + 64);
+      h.ny = __ldg(c9 + 80);
+      h.nz = __ldg(c9 + 96);
+    }
   }
 };
 

@@ -46,8 +46,8 @@ scripts may set; :func:`persistent_grid` launches only the resident blocks,
 which take their lanes from :func:`lane_counter`.
 They read the padded slot records ``FlatBVH.slot16``.  So do K11
 (:func:`closest_rooted`, its variant :func:`rooted_plan`) and the ordered
-BVH2 closest walk (``bvh2.closest_ordered``, its stack class
-:func:`depth2_class`), which stage nothing.
+BVH2 walks (``bvh2.closest_ordered`` and ``bvh2.any_ordered``, their stack
+class :func:`depth2_class`), which stage nothing.
 """
 from __future__ import annotations
 
@@ -87,8 +87,8 @@ BVH_MXU_LEAF = False  # leaves tested by the leaf coefficient table (K10)
 # Not a flag: the ordered BVH2 walk's stack, fixed in csrc/bvh2_walk.cu
 # (kStack2Cap); ops/cuda/bvh2.build checks that the two agree.
 STACK_CAP = 192
-# The persistent ordered BVH2 closest walk's smaller stack class
-# (csrc/bvh2_walk.cu kShallow2); a deeper tree's stack holds STACK_CAP.
+# The persistent ordered BVH2 walks' smaller stack class (csrc/bvh2_walk.cu
+# kShallow2); a deeper tree's stack holds STACK_CAP.
 SHALLOW2 = 32
 
 # The persistent K4b and K5 (csrc/bvh_walk.cuh kWalkThreads, kShallow4): the
@@ -119,8 +119,8 @@ def depth_class(depth4: int) -> int:
 
 
 def depth2_class(depth2: int) -> int:
-    """The persistent ordered BVH2 closest walk's stack class of a BVH2 of
-    depth ``depth2``: the entries its stack holds, at least ``depth2 + 2``
+    """The persistent ordered BVH2 walks' stack class of a BVH2 of depth
+    ``depth2``: the entries its stack holds, at least ``depth2 + 2``
     (the ordered walk holds at most ``depth2 + 1`` nodes) when the tree is
     at most ``STACK_CAP − 2`` deep, as ``tri_route`` sends it."""
     return SHALLOW2 if depth2 + 2 <= SHALLOW2 else STACK_CAP

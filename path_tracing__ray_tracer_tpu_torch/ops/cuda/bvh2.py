@@ -9,11 +9,12 @@ node records ``FlatBVH.tree2`` and the slot records, one ray per thread:
 the skip-link walk in preorder with no stack, or the ordered walk, near
 child first, with a stack of at most ``STACK_CAP`` nodes.  The split route
 of ``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
-(``tri_route``: ``ordered`` or ``skiplink``).  The ordered closest walk is a
-persistent walk, as K4b is: its stack class ``bvh.depth2_class`` of the
-tree's BVH2 depth, ``bvh.launch_grid`` the resident blocks, whose warps take
-their lanes from ``bvh.lane_counter``; it reads the padded slot records
-``FlatBVH.slot16`` (the other three walks the 13-float ``slot_rec``).
+(``tri_route``: ``ordered`` or ``skiplink``).  The two ordered walks are
+persistent walks, as K4b is: their stack class ``bvh.depth2_class`` of the
+tree's BVH2 depth (:func:`ordered_plan`), ``bvh.launch_grid`` the resident
+blocks, whose warps take their lanes from ``bvh.lane_counter``; they read
+the padded slot records ``FlatBVH.slot16`` (the skip-link walks the
+13-float ``slot_rec``).
 
 * :func:`closest_skiplink` / :func:`closest_ordered`: ``(t, tri)``, the
   closest triangle below a scalar ``t_max`` or a per-ray seed bound, as a
@@ -51,9 +52,13 @@ def build():
     lib = built.lib
     lib.ptrt_bvh2_closest.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P]
                                       + [_P, _I, _I, _P])
-    lib.ptrt_bvh2_closest_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ptrt_bvh2_any.argtypes = [_P, _I, _P] + [_P] * 6 + [_P, _I, _I, _F, _P, _P]
-    for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy, lib.ptrt_bvh2_any):
+    occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ptrt_bvh2_closest_occupancy.argtypes = occupancy
+    lib.ptrt_bvh2_any.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_P, _I, _I, _F, _P]
+                                  + [_P, _I, _I, _P])
+    lib.ptrt_bvh2_any_occupancy.argtypes = occupancy
+    for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy, lib.ptrt_bvh2_any,
+               lib.ptrt_bvh2_any_occupancy):
         fn.restype = ctypes.c_int
     lib.ptrt_bvh2_stack_cap.argtypes = []
     lib.ptrt_bvh2_stack_cap.restype = ctypes.c_int
@@ -77,10 +82,21 @@ def _tree_args(who, cs, device, ordered: bool):
     return bvh.tree2.data_ptr(), m, bvh.slot_rec.data_ptr()
 
 
-def closest_plan(cs) -> WalkPlan:
-    """The persistent ordered closest walk's variant on ``cs``: the stack
-    class of its BVH2 depth, nothing staged."""
+def ordered_plan(cs) -> WalkPlan:
+    """The variant of the persistent ordered walks, closest and occlusion,
+    on ``cs``: the stack class of its BVH2 depth, nothing staged."""
     return WalkPlan(False, depth2_class(cs.bvh.depth2), 0)
+
+
+def _persistent(who, cs, dev, occupancy, n: int):
+    """The ordered walks' launch arguments after ``tree2``: ``(slot16, lane
+    counter, depth class, grid)``, after checking the 16-byte loads'
+    alignment."""
+    if cs.bvh.tree2.data_ptr() % 16:
+        raise ValueError(f"{who}: tree2 is not 16-byte aligned")
+    plan = ordered_plan(cs)
+    return (slot16_arg(who, cs, dev), lane_counter(dev).data_ptr(), plan.depth_class,
+            launch_grid(who, occupancy, plan, n, dev))
 
 
 def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
@@ -98,14 +114,8 @@ def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
     if n == 0:
         return t, tri
     lib = build().lib
-    persistent = (None, None, 0, 0)  # slot16, lane counter, depth class, grid
-    if ordered:
-        if cs.bvh.tree2.data_ptr() % 16:
-            raise ValueError(f"{who}: tree2 is not 16-byte aligned")
-        plan = closest_plan(cs)
-        persistent = (slot16_arg(who, cs, dev), lane_counter(dev).data_ptr(), plan.depth_class,
-                      launch_grid(who, lib.ptrt_bvh2_closest_occupancy, plan, n, dev))
-    slot16, *walk = persistent
+    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_closest_occupancy, n) if ordered
+                     else (None, None, 0, 0))
     err = lib.ptrt_bvh2_closest(
         *tree, slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
         float(t_min), 0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None,
@@ -124,9 +134,14 @@ def _any(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, limit: torch.
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = build().lib.ptrt_bvh2_any(*tree, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
-                                    int(ordered), float(t_min), occ.data_ptr(),
-                                    torch.cuda.current_stream(dev).cuda_stream)
+    if n == 0:
+        return occ
+    lib = build().lib
+    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_any_occupancy, n) if ordered
+                     else (None, None, 0, 0))
+    err = lib.ptrt_bvh2_any(*tree, slot16, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
+                            int(ordered), float(t_min), occ.data_ptr(), *walk,
+                            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
     wrapper.launches += 1
     return occ

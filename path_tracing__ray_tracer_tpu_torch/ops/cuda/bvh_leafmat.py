@@ -23,6 +23,13 @@ Each launches its kernel on a CUDA tensor (or raises) and counts its
 launches; on a CPU tensor it takes its plain version, the plain walks of
 ``ops/bvh.py`` with the table (``mxu=True``): ``scene_hit_bvh_plain``,
 ``scene_hit_any_bvh_plain``, ``pages_closest_plain``, ``pages_any_plain``.
+
+K10c is a persistent walk, as the page walks are: :func:`tri_closest_plan`
+its variant (the depth class of the BVH4, nothing staged),
+``bvh.launch_grid`` the resident blocks, whose warps take their lanes from
+``bvh.lane_counter``.  It reads the node records and the table as 16-byte
+loads, the table's over four slots of one feature row and quantity (the
+table's columns and row stride are multiples of 4 floats).
 """
 from __future__ import annotations
 
@@ -34,7 +41,8 @@ from ..bvh import _SLOT_F, LEAF_SIZE
 from ..intersect import ClosestRecord, SceneHit, scene_hit_any_bvh_plain, scene_hit_bvh_plain
 from ..v3 import V3
 from .bounce import _check
-from .bvh import _fused_hit, _on, _raise_on, _rays, gid_mask, tree_args
+from .bvh import (WalkPlan, _fused_hit, _on, _raise_on, _rays, gid_mask, lane_counter,
+                  launch_grid, page_plan, tree_args)
 from .bvh_paged import pages_any_plain, pages_closest_plain
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -52,10 +60,11 @@ def build():
                                            + [_P] * 7 + [_P])
     lib.ptrt_mat_scene_any.argtypes = head + [_P, _I, _I, _I] + rays + [_P, _I, _F, _P, _P]
     lib.ptrt_mat_tri_closest.argtypes = (head + [_I, _I] + rays + [_P] * 7 + [_I, _F]
-                                         + [_P] * 7 + [_P])
+                                         + [_P] * 7 + [_P, _I, _I, _P])
+    lib.ptrt_mat_tri_closest_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.ptrt_mat_tri_any.argtypes = head + rays + [_P, _P, _I, _F, _P, _P]
     for fn in (lib.ptrt_mat_scene_closest, lib.ptrt_mat_scene_any, lib.ptrt_mat_tri_closest,
-               lib.ptrt_mat_tri_any):
+               lib.ptrt_mat_tri_closest_occupancy, lib.ptrt_mat_tri_any):
         fn.restype = ctypes.c_int
     return built
 
@@ -76,6 +85,12 @@ def table_args(who, cs, device):
                          f"tensor on {device} (one 128-column group per leaf); got "
                          f"{tuple(mat.shape)} {mat.dtype} on {mat.device}")
     return (nodes, n_nodes, mat.data_ptr(), 128 * n_leaves, *ps)
+
+
+def tri_closest_plan(cs) -> WalkPlan:
+    """K10c's variant on ``cs``: the depth class of its BVH4, nothing staged
+    (as the whole-tree page walk K4c, ``bvh.page_plan``)."""
+    return page_plan(cs.bvh.depth4)
 
 
 def _stream(dev):
@@ -122,12 +137,16 @@ def scene_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Te
 
 def tri_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord) -> ClosestRecord:
     """K10c: the record ``best`` (``best.t`` the per-ray bound) carried
-    through the whole tree's triangles."""
+    through the whole tree's triangles, in the persistent variant
+    :func:`tri_closest_plan` picks."""
     who = "leafmat.tri_closest"
     dev = ro.x.device
     if not _on(who, dev):
         return pages_closest_plain(cs, ro, rd, t_min, best, mxu=True)
     table = table_args(who, cs, dev)[:4]
+    for name, t in (("leaf_mat", cs.bvh.leaf_mat), ("nodes4", cs.bvh.nodes4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
     n, rays = _rays(who, ro, rd)
     carried = (best.t, best.prim, best.u, best.v, *best.normal)
     for name, x in zip(("t", "prim", "u", "v", "nx", "ny", "nz"), carried):
@@ -135,11 +154,17 @@ def tri_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord) -> Closes
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
+    if n == 0:
+        return ClosestRecord(t, prim, u, v, V3(nx, ny, nz))
+    lib = build().lib
+    plan = tri_closest_plan(cs)
+    grid = launch_grid(who, lib.ptrt_mat_tri_closest_occupancy, plan, n, dev)
     off = cs.n_planes + cs.n_spheres + cs.n_quads
-    err = build().lib.ptrt_mat_tri_closest(
+    err = lib.ptrt_mat_tri_closest(
         *table, off, gid_mask(cs), *(r.data_ptr() for r in rays),
         *(x.data_ptr() for x in carried), n, float(t_min), t.data_ptr(), prim.data_ptr(),
-        u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), _stream(dev))
+        u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
+        lane_counter(dev).data_ptr(), plan.depth_class, grid, _stream(dev))
     _raise_on(who, err)
     tri_closest.launches += 1
     return ClosestRecord(t, prim, u, v, V3(nx, ny, nz))

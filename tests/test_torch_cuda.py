@@ -15,9 +15,12 @@ back to back; the persistent page walks K6c and K6d (and K4c and K4d over
 the whole tree) against their plain versions in both depth classes; the
 persistent K11 and ordered BVH2 closest walk against their plain versions
 in both of their classes, at a ragged lane count, K11 with most lanes
-idle; the persistent K1 and K2 at 131,072, 4,133 and 1 lanes (K1's hit,
-prim and killed on every lane), and none; and K4b, K5, K6c, K6d, K11, the
-ordered closest walk, K1 and K2 queued on one stream, which share its lane
+idle; the persistent ordered BVH2 occlusion walk in both classes, on the
+mesh and on the 190-deep chain (whose lanes overflow the shallow class),
+and the persistent K10c in both classes, at ragged lane counts; the
+persistent K1 and K2 at 131,072, 4,133 and 1 lanes (K1's hit, prim and
+killed on every lane), and none; and K4b, K5, K6c, K6d, K11, the two
+ordered walks, K10c, K1 and K2 queued on one stream, which share its lane
 counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
@@ -31,6 +34,8 @@ lanes, ``killed`` on ≥ 99.9%, occlusion on ≥ 99.99%, float fields within
 ``atol = rtol = 1e-4`` on lanes where both hit; K7's integer and 0/1
 outputs equal on every lane, K8's and K9's colours bit for bit.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -388,12 +393,16 @@ def test_occlusion_walks_with_infinite_bounds(mesh_card, grid, subdivisions):
 def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
     dev, cs, tables = mesh_card
     o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
-    before = (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches)
+    wrappers = (bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
+                bvh_leafmat.tri_closest)
+    before = [w.launches for w in wrappers]
     assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
+    assert bvh2.any_ordered(cs, o, d, 1e-3, limit).shape == (0,)
+    assert bvh_leafmat.tri_closest(cs, o, d, 1e-3, _seed(limit)).t.shape == (0,)
     torch.cuda.synchronize()
     assert out.hit.shape == (0,) and out.prim.shape == (0,)
-    assert (bvh.scene_any.launches, bounce_bvh.path_bounce_bvh.launches) == before
+    assert [w.launches for w in wrappers] == before
 
 
 @pytest.mark.cuda
@@ -578,10 +587,10 @@ def test_page_walks_match_plain(paged_card, n, deep):
 
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
-    """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest walk, K1 and K2
-    queued on one stream with no sync between them answer bit for bit as
-    each does alone after a sync, which leaves the stream's lane counter
-    zero: each launch starts from lane 0."""
+    """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest and occlusion walks,
+    K10c, K1 and K2 queued on one stream with no sync between them answer
+    bit for bit as each does alone after a sync, which leaves the stream's
+    lane counter zero: each launch starts from lane 0."""
     dev, mcs, tables = mesh_card
     ccs, blobs = card[1], card[2]
     pcs = paged_card[1]
@@ -597,6 +606,8 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
              lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth),
              lambda: bvh.closest_rooted(mcs, o, d, 1e-3, roots, en, limit.abs(), none),
              lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()),
+             lambda: bvh2.any_ordered(mcs, o, d, 1e-3, limit),
+             lambda: bvh_leafmat.tri_closest(mcs, o, d, 1e-3, _seed(limit.abs())),
              lambda: bounce.path_bounce(ccs, *blobs, co, cd, cthr, ckey, cdepth),
              lambda: whitted.whitted_bounce(ccs, *blobs, co, cd, whitted.TEXTURE))
     queued = [call() for call in calls]
@@ -607,6 +618,18 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
         torch.cuda.synchronize()
         assert not bvh.lane_counter(dev).any()
         _assert_same_bits(got, alone)
+
+
+def _seed(bound):
+    """A carried closest record: ``bound`` and no winner, every third lane
+    carrying a winner (prim 7) with its attributes."""
+    n, dev = bound.shape[0], bound.device
+    lane = torch.arange(n, device=dev)
+    carry = lane % 3 == 0
+    prim = torch.where(carry, 7, -1).to(torch.int32)
+    u = torch.where(carry, 0.25, 0.0)
+    return plain.ClosestRecord(bound.contiguous(), prim, u, 1.0 - u - 0.5,
+                               V3(torch.where(carry, 1.0, 0.0), torch.zeros_like(u), u))
 
 
 def _bounds(n, seed, dev):
@@ -660,7 +683,7 @@ def test_bvh2_walks_match_plain_on_a_190_deep_chain(ordered):
     dev = torch.device("cuda")
     cs = chain_scene(bvh.STACK_CAP - 2, dev)
     assert cs.bvh.depth2 == bvh.STACK_CAP - 2 and bvh.tri_route(cs) == "ordered"
-    assert bvh2.closest_plan(cs).depth_class == bvh.STACK_CAP  # the largest class
+    assert bvh2.ordered_plan(cs).depth_class == bvh.STACK_CAP  # the largest class
     n = 4096 + 37
     o, d = (_v3_on(a, dev) for a in chain_rays(cs.bvh.depth2, n, 31))
     closest = bvh2.closest_ordered if ordered else bvh2.closest_skiplink
@@ -739,8 +762,8 @@ def test_persistent_split_walks_match_plain(mesh_card, n):
     shallow class; the lane counter left zero."""
     dev, cs, _ = mesh_card
     deep = cs._replace(bvh=cs.bvh._replace(depth4=20, depth2=100))
-    assert (bvh.rooted_plan(cs).depth_class, bvh2.closest_plan(cs).depth_class) == (8, 32)
-    assert (bvh.rooted_plan(deep).depth_class, bvh2.closest_plan(deep).depth_class) == (32, 192)
+    assert (bvh.rooted_plan(cs).depth_class, bvh2.ordered_plan(cs).depth_class) == (8, 32)
+    assert (bvh.rooted_plan(deep).depth_class, bvh2.ordered_plan(deep).depth_class) == (32, 192)
     o, d, _, _, _ = _inputs(n, n + 13, dev)
     bound, _ = _bounds(n, n + 13, dev)
     roots, en = _rooted_pass(cs, o, d)
@@ -769,6 +792,83 @@ def test_persistent_split_walks_match_plain(mesh_card, n):
     for got, b in zip(ordered[0], (1e6, bound)):
         check(got, tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b))
         assert 0.02 < float((got[1] >= 0).float().mean()) < 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 + 5, 4096 + 37])
+def test_persistent_ordered_occlusion_matches_plain(mesh_card, n):
+    """The persistent ordered occlusion walk (K4e) against the plain
+    skip-link walk on every ray that needs an answer (the others report
+    occluded), in both stack classes (the tree reported 100 deep), the two
+    bit-equal; then on the 190-deep chain in its class and in the shallow
+    one, where each lane's stack overflows and it finishes by the skip-link
+    walk; the lane counter left zero."""
+    dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth2=100))
+    assert (bvh2.ordered_plan(cs).depth_class, bvh2.ordered_plan(deep).depth_class) == (32, 192)
+    o, d, _, _, _ = _inputs(n, n + 17, dev)
+    _, limit = _bounds(n, n + 17, dev)
+    before = bvh2.any_ordered.launches
+    got = [bvh2.any_ordered(c, o, d, 1e-3, limit) for c in (cs, deep)]
+    torch.cuda.synchronize()
+    assert bvh2.any_ordered.launches == before + 2 and not bvh.lane_counter(dev).any()
+    assert torch.equal(got[0], got[1])
+    care = limit > 0
+    want = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, limit)
+    assert torch.equal(got[0][care], want[care]) and bool(got[0][~care].all())
+    assert 0.05 < float(got[0][care].float().mean()) < 0.95
+    from torch_chain import chain_rays, chain_scene
+
+    chain = chain_scene(bvh.STACK_CAP - 2, dev)
+    # reported 13 deep: the shallow class, whose stack the chain overflows
+    shallow = SimpleNamespace(**{**vars(chain), "bvh": chain.bvh._replace(depth2=13)})
+    assert (bvh2.ordered_plan(chain).depth_class, bvh2.ordered_plan(shallow).depth_class) == (
+        192, 32)
+    co, cd = (_v3_on(a, dev) for a in chain_rays(chain.bvh.depth2, n, 33))
+    ct, _ = tbvh.traverse_closest(chain.bvh, chain.triangles, co, cd, 1e-3, 1e6)
+    u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(34), device=dev)
+    bound = (ct * (0.5 + u)).contiguous()
+    want = tbvh.traverse_any(chain.bvh, chain.triangles, co, cd, 1e-3, bound)
+    for c in (chain, shallow):
+        assert torch.equal(bvh2.any_ordered(c, co, cd, 1e-3, bound), want)
+    assert 0.2 < float(want.float().mean()) < 0.8
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 + 5, 4096 + 37])
+def test_persistent_tri_closest_matches_plain(mesh_card, n):
+    """The persistent K10c against its plain version (``pages_closest_plain``
+    with the leaf table): the winner on ≥ 99.99% of lanes, misses equal on
+    every lane, t, u, v and the normal within tolerance where the winners
+    agree, the carried record passed through where nothing nearer is hit;
+    in both depth classes (the tree reported 20 deep), bit-equal; three
+    launches queued back to back bit-equal to the first, and the lane
+    counter zero after them."""
+    dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=20))
+    assert (bvh_leafmat.tri_closest_plan(cs).depth_class,
+            bvh_leafmat.tri_closest_plan(deep).depth_class) == (8, 32)
+    o, d, _, _, _ = _inputs(n, n + 19, dev)
+    bound, _ = _bounds(n, n + 19, dev)
+    seed = _seed(bound)
+    before = bvh_leafmat.tri_closest.launches
+    got = [bvh_leafmat.tri_closest(c, o, d, 1e-3, seed) for c in (cs, deep, cs, cs)]
+    torch.cuda.synchronize()
+    assert bvh_leafmat.tri_closest.launches == before + 4 and not bvh.lane_counter(dev).any()
+    for other in got[1:]:
+        _assert_same_bits(got[0], other)
+    want = bvh_paged.pages_closest_plain(cs, o, d, 1e-3, seed, mxu=True)
+    rec = got[0]
+    same = rec.prim == want.prim
+    assert torch.equal(rec.prim < 0, want.prim < 0) and float(same.float().mean()) >= 0.9999
+    off = cs.n_planes + cs.n_spheres + cs.n_quads
+    walked = rec.t != seed.t  # a triangle nearer than the carried record
+    tri = same & (rec.prim >= off) & walked
+    assert bool(tri.any())
+    _assert_floats_close(rec, want, tri, ("t", "normal", "u", "v"))
+    assert bool((~walked).any()) and torch.equal(rec.prim[~walked], seed.prim[~walked])
 
 
 @pytest.mark.cuda

@@ -10,7 +10,7 @@ K11 and K4e's ordered closest walk) on the CPU.
   count; ``page_plan``, the page walks' variant (K6c/K6d, K4c/K4d), takes
   the same depth class and never stages a tree, whatever the budget.
 * ``ops/cuda/bvh.rooted_plan`` (K11: the depth class of the whole BVH4)
-  and ``depth2_class`` with ``ops/cuda/bvh2.closest_plan`` (the ordered
+  and ``depth2_class`` with ``ops/cuda/bvh2.ordered_plan`` (the ordered
   BVH2 closest walk: a stack class that holds ``depth2 + 2``) are pure
   functions of the tree's depths.
 * K11 and the ordered closest walk take their plain versions on the CPU,
@@ -104,7 +104,7 @@ def test_rooted_plan_is_the_depth_class_of_the_tree(depth4, want):
 def test_depth2_class_holds_the_ordered_stack(depth2, want):
     assert bvh.depth2_class(depth2) == want >= depth2 + 2
     cs = SimpleNamespace(bvh=SimpleNamespace(depth2=depth2))
-    assert tuple(bvh2.closest_plan(cs)) == (False, want, 0)
+    assert tuple(bvh2.ordered_plan(cs)) == (False, want, 0)
 
 
 def test_split_walks_take_the_plain_versions_on_the_cpu(mesh):
