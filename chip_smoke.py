@@ -111,7 +111,7 @@ It imports no JAX.
    within tolerance), K4e's occlusion walks on the light-sample shadow rays
    (equal on every ray that needs an answer), each K11 pass against its
    plain version and the whole multipass walk against the single-pass K4c;
-   the plans of the persistent K11, the two ordered walks and K10c; their times
+   the plans of the persistent K11, the two ordered walks and K10b-d; their times
    (the plain walks median of ``PLAIN_REPS``), bounds and tree traffic;
 20. the config-5 mesh path at 1920×1080, depth 12, ``shadow_tmax="light"``,
    one ``SPLIT_SPP``-sample group, seed 0: the default route (K5), then
@@ -451,9 +451,9 @@ C_ENTRIES = {
     "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
     "bvh2_any_persistent": ("bvh2", ("ptrt_bvh2_any",)),
     "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
-    "mat_scene_any_kernel": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
+    "mat_scene_any_persistent": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
     "mat_tri_closest_persistent": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
-    "mat_tri_any_kernel": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
+    "mat_tri_any_persistent": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
     "path_step_kernel": ("path_step", ("ptrt_path_step",)),
     "gather_rgb_kernel": ("texture_gather", ("ptrt_atlas_gather", "ptrt_mip_gather")),
 }
@@ -2105,8 +2105,12 @@ def phase_split_check(device):
                                      bvh2.build().lib.ptrt_bvh2_closest_occupancy),
              "K4e ordered occlusion": (cs.bvh.depth2, bvh2.ordered_plan(cs),
                                        bvh2.build().lib.ptrt_bvh2_any_occupancy),
-             "K10c": (cs.bvh.depth4, bvh_leafmat.tri_closest_plan(cs),
-                      bvh_leafmat.build().lib.ptrt_mat_tri_closest_occupancy)}
+             "K10b": (cs.bvh.depth4, bvh_leafmat.scene_any_plan(cs),
+                      bvh_leafmat.build().lib.ptrt_mat_scene_any_occupancy),
+             "K10c": (cs.bvh.depth4, bvh_leafmat.tri_plan(cs),
+                      bvh_leafmat.build().lib.ptrt_mat_tri_closest_occupancy),
+             "K10d": (cs.bvh.depth4, bvh_leafmat.tri_plan(cs),
+                      bvh_leafmat.build().lib.ptrt_mat_tri_any_occupancy)}
     print(f"[split] persistent plans at N={n}: " + "; ".join(
         f"{k} depth {depth} -> class {plan.depth_class}, grid "
         f"{bvh.launch_grid(k, occupancy, plan, n, device)} blocks of {bvh.WALK_THREADS}"
@@ -2425,7 +2429,7 @@ def phase_mxu_check(device):
                               (lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
                                "bvh_closest_kernel")),
         "scene_any_mat": ((lambda: bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim),
-                           "mat_scene_any_kernel"),
+                           "mat_scene_any_persistent"),
                           lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True),
                           (lambda: bvh.scene_any(cs, so, sd, 1e-3, lim), "bvh_any_persistent")),
         "tri_closest_mat": ((lambda: bvh_leafmat.tri_closest(cs, o, d, 1e-3, seed),
@@ -2434,7 +2438,7 @@ def phase_mxu_check(device):
                             (lambda: bvh_paged.pages_closest(cs, o, d, 1e-3, seed),
                              "pages_closest_persistent")),
         "tri_any_mat": ((lambda: bvh_leafmat.tri_any(cs, so, sd, 1e-3, lim, unfound),
-                         "mat_tri_any_kernel"),
+                         "mat_tri_any_persistent"),
                         lambda: pages_any_plain(cs, so, sd, 1e-3, lim, unfound, mxu=True),
                         (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
                          "pages_any_persistent")),

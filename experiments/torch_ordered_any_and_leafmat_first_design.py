@@ -201,7 +201,7 @@ def main(argv) -> int:
     print(f"[plans] config 5: K4e ordered depth2 {cs.bvh.depth2} -> stack class "
           f"{bvh2.ordered_plan(cs).depth_class}, reported 100 deep -> "
           f"{bvh2.ordered_plan(deep).depth_class}; K10c depth4 {cs.bvh.depth4} -> class "
-          f"{bvh_leafmat.tri_closest_plan(cs).depth_class}; leaf table {tuple(mat.shape)} "
+          f"{bvh_leafmat.tri_plan(cs).depth_class}; leaf table {tuple(mat.shape)} "
           f"{mat.numel() * 4 / 1e6:.2f} MB", flush=True)
     ok, timed = True, {}
     twin = {}

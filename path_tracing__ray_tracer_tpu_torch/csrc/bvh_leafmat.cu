@@ -21,21 +21,25 @@
 // device memory through the read-only cache, one ray per thread).  Per ray
 // K10a reads 24 B and writes 28 B, K10b reads 28 B and writes 1 B, K10c reads
 // 52 B and writes 28 B, K10d reads 29 B and writes 1 B.  The table is 8 KB a
-// leaf (16 rows × 128 columns), ten times the leaf's slot records.  K10a,
-// K10b and K10d keep the first design: blocks of 128 threads, one lane
-// each, the node records read float by float (PtrNodes), a stack of
-// kStackCap entries, each slot's 19 coefficients read as separate 4-byte
-// loads from feature rows G·512 B apart (MatLeaf).
+// leaf (16 rows × 128 columns), ten times the leaf's slot records.  K10a
+// keeps the first design: blocks of 128 threads, one lane each, the node
+// records read float by float (PtrNodes), a stack of kStackCap entries, each
+// slot's 19 coefficients read as separate 4-byte loads from feature rows
+// G·512 B apart (MatLeaf).
 //
-// K10c is designed for Hopper (mat_tri_closest_persistent), as the page
-// walks are (bvh_paged.cu): persistent blocks of 256 threads whose warps
-// take 32 lanes at a time from the stream's lane counter; the node records
-// as eight 16-byte loads (Vec4Nodes); a stack of 3·class − 2 entries by the
-// tree's depth class (ops/cuda/bvh.depth_class: 22 for config 5, where the
-// first design carried 96); the table read as 16-byte loads over four
-// slots, a batch of four slots' 19 loads issued together (MatQuadLeaf).
-// Each lane's floats and its order of tests are the first design's (in git
-// at 762ff5c), so its record is too.
+// K10b, K10c and K10d are designed for Hopper (mat_scene_any_persistent,
+// mat_tri_closest_persistent, mat_tri_any_persistent), as the page walks are
+// (bvh_paged.cu): persistent blocks of 256 threads whose warps take 32 lanes
+// at a time from the stream's lane counter; the node records as eight
+// 16-byte loads (Vec4Nodes); a stack of 3·class − 2 entries by the tree's
+// depth class (ops/cuda/bvh.depth_class: 22 for config 5, where the first
+// design carried 96); the table read as 16-byte loads over four slots, a
+// batch of four slots' 19 loads issued together (MatQuadLeaf).  K10b copies
+// the plane/sphere/quad blob into shared memory once per resident block, as
+// the persistent K4b does (bvh_scene.cu), not once per block of 128 lanes.
+// Each lane's floats and its order of tests are the first design's (K10c's
+// in git at 762ff5c, K10b's and K10d's at 359e47e), so its record or verdict
+// is too.
 //
 // Outputs as bvh_scene.cu's K4a/K4b and bvh_paged.cu's whole-tree K4c/K4d:
 // records finished by finish_hit (the uid bits of a packed gid stripped by
@@ -52,16 +56,6 @@
 namespace ptrt {
 
 constexpr int kMatThreads = 128;
-
-__device__ __forceinline__ Ray mat_ray(const float* __restrict__ ox, const float* __restrict__ oy,
-                                       const float* __restrict__ oz, const float* __restrict__ dx,
-                                       const float* __restrict__ dy, const float* __restrict__ dz,
-                                       int i) {
-  Ray r;
-  r.ox = ox[i]; r.oy = oy[i]; r.oz = oz[i];
-  r.dx = dx[i]; r.dy = dy[i]; r.dz = dz[i];
-  return r;
-}
 
 __device__ __forceinline__ void stage_mat_ps(float* smem, const float* __restrict__ ps_g,
                                              int size) {
@@ -86,7 +80,7 @@ mat_scene_closest_kernel(const float* __restrict__ nodes, int n_nodes,
   stage_mat_ps(smem, ps_g, L.tb);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
+  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
   const int off = P + S + Q;
   Hit h = closest_hit(smem, L, r, t_min, t_max);
   walk_closest_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min, off, h,
@@ -101,25 +95,54 @@ mat_scene_closest_kernel(const float* __restrict__ nodes, int n_nodes,
   nz_out[i] = h.nz;
 }
 
-// K10b: the sweep's verdict, else the walk's.
-__global__ void __launch_bounds__(kMatThreads)
-mat_scene_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
-                     long long stride, const float* __restrict__ ps_g, int P, int S, int Q,
-                     const float* __restrict__ ox, const float* __restrict__ oy,
-                     const float* __restrict__ oz, const float* __restrict__ dx,
-                     const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ limit_in, int n, float t_min,
-                     uint8_t* __restrict__ occ_out) {
-  extern __shared__ float smem[];
+// K10b for Hopper: the sweep's verdict, else the walk's, for lanes [0, n)
+// taken 32 at a time from `counter` (two int32, zero at the launch, left
+// zero; finish_lanes).  Lanes with limit <= 0 are written occluded and read
+// no ray.
+template <int kClass>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+mat_scene_any_persistent(const float* __restrict__ nodes, int n_nodes,
+                         const float* __restrict__ mat, long long stride,
+                         const float* __restrict__ ps_g, int P, int S, int Q,
+                         const float* __restrict__ ox, const float* __restrict__ oy,
+                         const float* __restrict__ oz, const float* __restrict__ dx,
+                         const float* __restrict__ dy, const float* __restrict__ dz,
+                         const float* __restrict__ limit_in, int n, float t_min,
+                         uint8_t* __restrict__ occ_out, int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
   const SceneLayout L = scene_layout(P, S, Q, 0);
-  stage_mat_ps(smem, ps_g, L.tb);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
-  const float limit = limit_in[i];
-  occ_out[i] = (limit <= 0.0f || any_hit(smem, L, r, t_min, limit) ||
-                walk_any_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min,
-                                     limit, nullptr)) ? 1 : 0;
+  float* ps = reinterpret_cast<float*>(smem4);
+  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) ps[k] = ps_g[k];
+  __syncthreads();
+  const Vec4Nodes<false> src{reinterpret_cast<const float4*>(nodes)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const float limit = limit_in[i];
+    bool occ = limit <= 0.0f;
+    if (!occ) {
+      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      occ = any_hit(ps, L, r, t_min, limit);
+      if (!occ) {
+        LocalStack<stack_cap(kClass)> stack;
+        occ = walk_any_with<false>(src, n_nodes, MatQuadLeaf(mat, (size_t)stride, r), stack, r,
+                                   t_min, limit, nullptr);
+      }
+    }
+    occ_out[i] = occ ? 1 : 0;
+  }
+  finish_lanes(counter);
+}
+
+using MatSceneAnyKernel = decltype(&mat_scene_any_persistent<kMaxDepth4>);
+
+// K10b's variants (ops/cuda/bvh_leafmat.scene_any_plan): one per depth
+// class; nullptr for any other class.
+inline MatSceneAnyKernel mat_scene_any_variant(int depth_class) {
+  if (depth_class == kShallow4) return mat_scene_any_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return mat_scene_any_persistent<kMaxDepth4>;
+  return nullptr;
 }
 
 // K10c for Hopper: the carried record of lanes [0, n) through the whole
@@ -175,23 +198,43 @@ inline MatClosestKernel mat_closest_variant(int depth_class) {
   return nullptr;
 }
 
-// K10d: the carried verdict, else the walk's.
-__global__ void __launch_bounds__(kMatThreads)
-mat_tri_any_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ mat,
-                   long long stride, const float* __restrict__ ox, const float* __restrict__ oy,
-                   const float* __restrict__ oz, const float* __restrict__ dx,
-                   const float* __restrict__ dy, const float* __restrict__ dz,
-                   const float* __restrict__ limit_in, const uint8_t* __restrict__ found_in,
-                   int n, float t_min, uint8_t* __restrict__ found_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  bool found = found_in[i] != 0;
-  if (!found) {
-    const Ray r = mat_ray(ox, oy, oz, dx, dy, dz, i);
-    found = walk_any_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min,
-                                 limit_in[i], nullptr);
+// K10d for Hopper: the carried verdict, else the walk's, for lanes [0, n)
+// taken 32 at a time from `counter` (two int32, zero at the launch, left
+// zero; finish_lanes).  A found lane reads no ray.
+template <int kClass>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+mat_tri_any_persistent(const float* __restrict__ nodes, int n_nodes,
+                       const float* __restrict__ mat, long long stride,
+                       const float* __restrict__ ox, const float* __restrict__ oy,
+                       const float* __restrict__ oz, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ dz,
+                       const float* __restrict__ limit_in, const uint8_t* __restrict__ found_in,
+                       int n, float t_min, uint8_t* __restrict__ found_out,
+                       int* __restrict__ counter) {
+  const Vec4Nodes<false> src{reinterpret_cast<const float4*>(nodes)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    bool found = found_in[i] != 0;
+    if (!found) {
+      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      LocalStack<stack_cap(kClass)> stack;
+      found = walk_any_with<false>(src, n_nodes, MatQuadLeaf(mat, (size_t)stride, r), stack, r,
+                                   t_min, limit_in[i], nullptr);
+    }
+    found_out[i] = found ? 1 : 0;
   }
-  found_out[i] = found ? 1 : 0;
+  finish_lanes(counter);
+}
+
+using MatTriAnyKernel = decltype(&mat_tri_any_persistent<kMaxDepth4>);
+
+// K10d's variants (ops/cuda/bvh_leafmat.tri_plan): one per depth class.
+inline MatTriAnyKernel mat_tri_any_variant(int depth_class) {
+  if (depth_class == kShallow4) return mat_tri_any_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return mat_tri_any_persistent<kMaxDepth4>;
+  return nullptr;
 }
 
 inline size_t mat_ps_bytes(int P, int S, int Q) {
@@ -202,9 +245,9 @@ inline int mat_blocks(int n) { return (n + kMatThreads - 1) / kMatThreads; }
 
 }  // namespace ptrt
 
-// All four launch on `stream`, allocate nothing and do not synchronise.  Each
-// returns the launch's cudaError_t (0 when the launch was accepted).  `mat`
-// is the (16, stride) table, stride = 128 · leaves.
+// The four launch entries launch on `stream`, allocate nothing and do not
+// synchronise; each returns the launch's cudaError_t (0 when the launch was
+// accepted).  `mat` is the (16, stride) table, stride = 128 · leaves.
 extern "C" int ptrt_mat_scene_closest(const float* nodes, int n_nodes, const float* mat,
                                       long long stride, const float* ps, int P, int S, int Q,
                                       const float* ox, const float* oy, const float* oz,
@@ -220,17 +263,37 @@ extern "C" int ptrt_mat_scene_closest(const float* nodes, int n_nodes, const flo
   return (int)cudaGetLastError();
 }
 
+// Resident blocks per SM of K10b's variant for depth_class with `smem` bytes
+// of dynamic shared memory (the plane/sphere/quad blob), into *blocks; it
+// stages no tree (stage must be 0).  First lifts the variant's dynamic
+// shared memory limit to `smem` where it is lower.
+extern "C" int ptrt_mat_scene_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  const ptrt::MatSceneAnyKernel k = ptrt::mat_scene_any_variant(depth_class);
+  if (k == nullptr || stage != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = ptrt::allow_smem(k, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, ptrt::kWalkThreads, smem);
+  return (int)err;
+}
+
+// K10b: `grid` persistent blocks of the variant for depth_class with `smem`
+// bytes of dynamic shared memory, which ptrt_mat_scene_any_occupancy has
+// sized and allowed, on the lane `counter` (two int32, zero at the launch
+// and left zero); `nodes` and `mat` 16-byte aligned.
 extern "C" int ptrt_mat_scene_any(const float* nodes, int n_nodes, const float* mat,
                                   long long stride, const float* ps, int P, int S, int Q,
                                   const float* ox, const float* oy, const float* oz,
                                   const float* dx, const float* dy, const float* dz,
                                   const float* limit, int n, float t_min, uint8_t* occluded,
+                                  int* counter, int depth_class, int smem, int grid,
                                   void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::mat_scene_any_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads,
-                               ptrt::mat_ps_bytes(P, S, Q), (cudaStream_t)stream>>>(
+  const ptrt::MatSceneAnyKernel k = ptrt::mat_scene_any_variant(depth_class);
+  if (k == nullptr || (size_t)smem < ptrt::mat_ps_bytes(P, S, Q))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
       nodes, n_nodes, mat, stride, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min,
-      occluded);
+      occluded, counter);
   return (int)cudaGetLastError();
 }
 
@@ -262,13 +325,26 @@ extern "C" int ptrt_mat_tri_closest_occupancy(int stage, int depth_class, int sm
   return ptrt::walk_occupancy(ptrt::mat_closest_variant(depth_class), stage, smem, blocks);
 }
 
+// Resident blocks per SM of K10d's variant for depth_class, into *blocks:
+// it stages nothing (stage and smem must be 0).
+extern "C" int ptrt_mat_tri_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(ptrt::mat_tri_any_variant(depth_class), stage, smem, blocks);
+}
+
+// K10d: `grid` persistent blocks of the variant for depth_class, which
+// ptrt_mat_tri_any_occupancy has sized, on the lane `counter` (as K10c's);
+// `nodes` and `mat` 16-byte aligned.
 extern "C" int ptrt_mat_tri_any(const float* nodes, int n_nodes, const float* mat,
                                 long long stride, const float* ox, const float* oy,
                                 const float* oz, const float* dx, const float* dy, const float* dz,
                                 const float* limit, const uint8_t* found_in, int n, float t_min,
-                                uint8_t* found, void* stream) {
+                                uint8_t* found, int* counter, int depth_class, int grid,
+                                void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::mat_tri_any_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads, 0, (cudaStream_t)stream>>>(
-      nodes, n_nodes, mat, stride, ox, oy, oz, dx, dy, dz, limit, found_in, n, t_min, found);
+  const ptrt::MatTriAnyKernel k = ptrt::mat_tri_any_variant(depth_class);
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, 0, (cudaStream_t)stream>>>(
+      nodes, n_nodes, mat, stride, ox, oy, oz, dx, dy, dz, limit, found_in, n, t_min, found,
+      counter);
   return (int)cudaGetLastError();
 }

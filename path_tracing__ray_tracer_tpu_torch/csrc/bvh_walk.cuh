@@ -28,7 +28,7 @@
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
 // records by Möller–Trumbore (K4a, K6a/K6b, and K4e's skip-link BVH2
-// walks).  MatLeaf (K10a, K10b, K10d; the JAX
+// walks).  MatLeaf (K10a; the JAX
 // package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
 // same decision quantities as linear forms of the lane's ray features
 // f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
@@ -38,16 +38,16 @@
 // form adds its feature rows' products in increasing row order, as the
 // plain version does (ops/bvh.py _forms), so the two agree bit for bit;
 // the decisions are division free (with s2 = det², u ≥ 0 ⇔ u·det·det ≥ 0),
-// and t = t·det / det, u and v one division each.  MatQuadLeaf (K10c) is
+// and t = t·det / det, u and v one division each.  MatQuadLeaf (K10b-d) is
 // MatLeaf with the table read as 16-byte loads over four slots, a batch at
 // a time.
 //
 // The node records' source is a compile-time policy too.  PtrNodes reads a
 // record's floats one by one through a pointer into device memory (K4a,
-// K6a/K6b, K10a, K10b, K10d).  Vec4Nodes reads the whole 128 B record as
+// K6a/K6b, K10a).  Vec4Nodes reads the whole 128 B record as
 // eight 16-byte loads into registers, from device memory or from a copy of
 // the node table in shared memory (the persistent K4b and K5; the page
-// walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10c, from device
+// walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10b-d, from device
 // memory).  The stack is a
 // per-thread array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
 // port-only copy of the slot records padded to 16 floats (64 B, 16-byte
@@ -376,36 +376,28 @@ struct MatLeaf {
       h.nz = c9[96];
     }
   }
-
-  // Any slot hit with t_min·det² < t·det·det < limit·det².
-  __device__ __forceinline__ bool any(float base, const Ray&, float t_min, float limit) const {
-    const float* col0 = mat + (size_t)base / kLeafSize * 128;
-    for (int k = 0; k < kLeafSize; ++k) {
-      float det, un, vn, s2;
-      bool inside;
-      uv(col0 + k, det, un, vn, s2, inside);
-      if (!inside) continue;
-      const float td = form(col0 + k + 48, 6, 10) * det;
-      if (td > t_min * s2 && td < limit * s2) return true;
-    }
-    return false;
-  }
 };
 
-// MatLeaf's closest visit with the table read as 16-byte loads, each over
-// four consecutive slots of one (feature row, quantity): the row stride
-// (128·G floats) and the column offsets (128g + 16q + k, k a multiple of 4)
-// are multiples of 4 floats, so every such load is aligned.  A batch of
-// kSlotBatch = 4 slots is the 19 loads of its coefficients (det's rows 0-2,
-// u·det's and v·det's rows 0-5, t·det's rows 6-9), all issued before the
-// batch's tests, which then run in slot order; MatLeaf issues a 4-byte load
-// per coefficient as a form needs it.  The gid and the normal are read for
-// the leaf's winner only, as in MatLeaf.  Each form adds its products in
-// increasing row order and each decision is MatLeaf's, expression for
-// expression, so a lane's record is MatLeaf's bit for bit.  (A slot-major
-// copy of the 19 coefficients, 96 B a slot, 1.58 MB for config 5 against
-// the table's 8.45 MB, read as five 16-byte loads a slot, measured within
-// 3% of this on an H100 and was not kept: PERF.md.)
+// The leaf-table visits of K10b-d: MatLeaf's forms with the table read as
+// 16-byte loads, each over four consecutive slots of one (feature row,
+// quantity): the row stride (128·G floats) and the column offsets (128g + 16q +
+// k, k a multiple of 4) are multiples of 4 floats, so every such load is
+// aligned.  A batch of kSlotBatch = 4 slots is the 19 loads of its coefficients
+// (det's rows 0-2, u·det's and v·det's rows 0-5, t·det's rows 6-9), issued
+// before the batch's tests, which then run in slot order; MatLeaf issues a
+// 4-byte load per coefficient as a form needs it.  The closest visit (K10c)
+// issues all 19 together and reads the gid and the normal for the leaf's winner
+// only, as MatLeaf does.  The occlusion visit (K10b, K10d) issues the 15 of det,
+// u·det and v·det, runs the four slots' inside tests, and only when a slot is
+// inside issues the four of t·det; it returns at the batch's first hit.  Each
+// form adds its products in increasing row order and each decision is MatLeaf's
+// (the occlusion visit's: MatLeaf::any's, in git at 359e47e), expression for
+// expression, so a lane's record and verdict are bit for bit those of MatLeaf's
+// walks.  (Two layouts measured on an H100 were not kept, PERF.md: a slot-major
+// copy of the 19 coefficients, 96 B a slot, 1.58 MB for config 5 against the
+// table's 8.45 MB, read as five 16-byte loads a slot, within 3% of the closest
+// visit; and the occlusion visit issuing all 19 loads together, as the closest
+// visit does, 7-12% slower.)
 struct MatQuadLeaf : MatLeaf {
   using MatLeaf::MatLeaf;  // the table, its row stride and the lane's features
 
@@ -417,42 +409,72 @@ struct MatQuadLeaf : MatLeaf {
     return acc;
   }
 
+  // The loads of slots k..k+3 of the leaf whose columns start at col0, a
+  // slot's coefficients in component j of each for slot k + j: load_uv issues
+  // det's, u·det's and v·det's 15 into v[0..2], v[3..8], v[9..14]; load_t
+  // t·det's four into v[15..18].
+  __device__ __forceinline__ const float4* at(const float* col0, int k, int q, int row) const {
+    static_assert(kSlotBatch == 4, "one 16-byte load spans four slots");
+    return reinterpret_cast<const float4*>(col0 + 16 * q + k + (size_t)row * stride);
+  }
+
+  __device__ __forceinline__ void load_uv(const float* col0, int k, float4 (&v)[19]) const {
+#pragma unroll
+    for (int r = 0; r < 3; ++r) v[r] = __ldg(at(col0, k, 0, r));
+#pragma unroll
+    for (int r = 0; r < 6; ++r) {
+      v[3 + r] = __ldg(at(col0, k, 1, r));
+      v[9 + r] = __ldg(at(col0, k, 2, r));
+    }
+  }
+
+  __device__ __forceinline__ void load_t(const float* col0, int k, float4 (&v)[19]) const {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) v[15 + r] = __ldg(at(col0, k, 3, 6 + r));
+  }
+
+  // Slot j of a batch: its det, u·det, v·det and det² from v[0..14];
+  // returns MatLeaf::uv's inside test.
+  __device__ __forceinline__ bool uv_inside(const float4 (&v)[19], int j, float& det, float& un,
+                                            float& vn, float& s2) const {
+    float c[15];
+#pragma unroll
+    for (int x = 0; x < 15; ++x)
+      c[x] = j == 0 ? v[x].x : (j == 1 ? v[x].y : (j == 2 ? v[x].z : v[x].w));
+    det = form(c, 0, 0, 3);
+    un = form(c, 3, 0, 6);
+    vn = form(c, 9, 0, 6);
+    s2 = det * det;
+    const float ud = un * det, vd = vn * det;
+    return fabsf(det) > 1e-6f && ud >= 0.0f && ud <= s2 && vd >= 0.0f && ud + vd <= s2;
+  }
+
+  // Slot j's t·det from v[15..18].
+  __device__ __forceinline__ float t_det(const float4 (&v)[19], int j) const {
+    float c[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      const float4 q = v[15 + x];
+      c[x] = j == 0 ? q.x : (j == 1 ? q.y : (j == 2 ? q.z : q.w));
+    }
+    return form(c, 0, 6, 10);
+  }
+
   // The least t in (t_min, h.t) of the leaf's slots wins, ties to the lowest
-  // slot, as MatLeaf::closest.
+  // slot, as MatLeaf::closest.  A batch's 19 loads are issued together.
   __device__ __forceinline__ void closest(float base, const Ray&, float t_min, int gid_offset,
                                           Hit& h) const {
-    static_assert(kSlotBatch == 4, "one 16-byte load spans four slots");
     const float* col0 = mat + (size_t)base / kLeafSize * 128;
     int won = -1;
     for (int k = 0; k < kLeafSize; k += kSlotBatch) {
-      // slots k..k+3 of quantity q on feature row `row`
-      const auto load = [&](int q, int row) {
-        return __ldg(reinterpret_cast<const float4*>(col0 + 16 * q + k + (size_t)row * stride));
-      };
-      float4 v[19];  // det, u·det, v·det, t·det: c[0..2], c[3..8], c[9..14], c[15..18]
-#pragma unroll
-      for (int r = 0; r < 3; ++r) v[r] = load(0, r);
-#pragma unroll
-      for (int r = 0; r < 6; ++r) {
-        v[3 + r] = load(1, r);
-        v[9 + r] = load(2, r);
-      }
-#pragma unroll
-      for (int r = 0; r < 4; ++r) v[15 + r] = load(3, 6 + r);
+      float4 v[19];
+      load_uv(col0, k, v);
+      load_t(col0, k, v);
 #pragma unroll
       for (int j = 0; j < kSlotBatch; ++j) {
-        float c[19];
-#pragma unroll
-        for (int x = 0; x < 19; ++x)
-          c[x] = j == 0 ? v[x].x : (j == 1 ? v[x].y : (j == 2 ? v[x].z : v[x].w));
-        const float det = form(c, 0, 0, 3);
-        const float un = form(c, 3, 0, 6);
-        const float vn = form(c, 9, 0, 6);
-        const float s2 = det * det;
-        const float ud = un * det, vd = vn * det;
-        if (!(fabsf(det) > 1e-6f && ud >= 0.0f && ud <= s2 && vd >= 0.0f && ud + vd <= s2))
-          continue;
-        const float t = form(c, 15, 6, 10) / det;
+        float det, un, vn, s2;
+        if (!uv_inside(v, j, det, un, vn, s2)) continue;
+        const float t = t_det(v, j) / det;
         if (t > t_min && t < h.t) {
           h.t = t;
           h.u = un / det;
@@ -468,6 +490,36 @@ struct MatQuadLeaf : MatLeaf {
       h.ny = __ldg(c9 + 80);
       h.nz = __ldg(c9 + 96);
     }
+  }
+
+  // Any slot hit with t_min·det² < t·det·det < limit·det², the slots tested
+  // in order.  A batch's four t·det loads are issued only when one of its
+  // slots is inside its triangle: a batch no slot of which is inside reads
+  // 15 of its 19 loads.  An infinite limit keeps the first design's verdict:
+  // a slot inside its triangle with t·det·det > t_min·det² occludes.
+  __device__ __forceinline__ bool any(float base, const Ray&, float t_min, float limit) const {
+    const float* col0 = mat + (size_t)base / kLeafSize * 128;
+    for (int k = 0; k < kLeafSize; k += kSlotBatch) {
+      float4 v[19];
+      load_uv(col0, k, v);
+      float det[kSlotBatch], s2[kSlotBatch];
+      bool inside[kSlotBatch], some = false;
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        float un, vn;
+        inside[j] = uv_inside(v, j, det[j], un, vn, s2[j]);
+        some = some || inside[j];
+      }
+      if (!some) continue;
+      load_t(col0, k, v);
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        if (!inside[j]) continue;
+        const float td = t_det(v, j) * det[j];
+        if (td > t_min * s2[j] && td < limit * s2[j]) return true;
+      }
+    }
+    return false;
   }
 };
 

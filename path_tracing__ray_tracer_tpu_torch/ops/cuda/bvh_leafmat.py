@@ -24,12 +24,15 @@ launches; on a CPU tensor it takes its plain version, the plain walks of
 ``ops/bvh.py`` with the table (``mxu=True``): ``scene_hit_bvh_plain``,
 ``scene_hit_any_bvh_plain``, ``pages_closest_plain``, ``pages_any_plain``.
 
-K10c is a persistent walk, as the page walks are: :func:`tri_closest_plan`
-its variant (the depth class of the BVH4, nothing staged),
-``bvh.launch_grid`` the resident blocks, whose warps take their lanes from
-``bvh.lane_counter``.  It reads the node records and the table as 16-byte
-loads, the table's over four slots of one feature row and quantity (the
-table's columns and row stride are multiples of 4 floats).
+K10b, K10c and K10d are persistent walks, as the page walks are:
+:func:`scene_any_plan` and :func:`tri_plan` give their variants (the depth
+class of the BVH4, no tree staged; K10b's shared memory is the
+plane/sphere/quad blob, copied once per resident block), ``bvh.launch_grid``
+the resident blocks, whose warps take their lanes from ``bvh.lane_counter``.
+They read the node records and the table as 16-byte loads, the table's over
+four slots of one feature row and quantity (the table's columns and row
+stride are multiples of 4 floats; the wrappers check the 16-byte alignment
+of the table and the node records).  K10a keeps its first design.
 """
 from __future__ import annotations
 
@@ -41,8 +44,8 @@ from ..bvh import _SLOT_F, LEAF_SIZE
 from ..intersect import ClosestRecord, SceneHit, scene_hit_any_bvh_plain, scene_hit_bvh_plain
 from ..v3 import V3
 from .bounce import _check
-from .bvh import (WalkPlan, _fused_hit, _on, _raise_on, _rays, gid_mask, lane_counter,
-                  launch_grid, page_plan, tree_args)
+from .bvh import (WalkPlan, _fused_hit, _on, _raise_on, _rays, depth_class, gid_mask,
+                  lane_counter, launch_grid, page_plan, tree_args)
 from .bvh_paged import pages_any_plain, pages_closest_plain
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -58,13 +61,17 @@ def build():
     rays = [_P] * 6
     lib.ptrt_mat_scene_closest.argtypes = (head + [_P, _I, _I, _I] + rays + [_I, _I, _F, _F]
                                            + [_P] * 7 + [_P])
-    lib.ptrt_mat_scene_any.argtypes = head + [_P, _I, _I, _I] + rays + [_P, _I, _F, _P, _P]
+    lib.ptrt_mat_scene_any.argtypes = (head + [_P, _I, _I, _I] + rays + [_P, _I, _F, _P]
+                                       + [_P, _I, _I, _I, _P])
     lib.ptrt_mat_tri_closest.argtypes = (head + [_I, _I] + rays + [_P] * 7 + [_I, _F]
                                          + [_P] * 7 + [_P, _I, _I, _P])
-    lib.ptrt_mat_tri_closest_occupancy.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ptrt_mat_tri_any.argtypes = head + rays + [_P, _P, _I, _F, _P, _P]
+    lib.ptrt_mat_tri_any.argtypes = head + rays + [_P, _P, _I, _F, _P] + [_P, _I, _I, _P]
+    occupancy = (lib.ptrt_mat_scene_any_occupancy, lib.ptrt_mat_tri_closest_occupancy,
+                 lib.ptrt_mat_tri_any_occupancy)
+    for fn in occupancy:
+        fn.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.ptrt_mat_scene_closest, lib.ptrt_mat_scene_any, lib.ptrt_mat_tri_closest,
-               lib.ptrt_mat_tri_closest_occupancy, lib.ptrt_mat_tri_any):
+               lib.ptrt_mat_tri_any, *occupancy):
         fn.restype = ctypes.c_int
     return built
 
@@ -87,10 +94,29 @@ def table_args(who, cs, device):
     return (nodes, n_nodes, mat.data_ptr(), 128 * n_leaves, *ps)
 
 
-def tri_closest_plan(cs) -> WalkPlan:
-    """K10c's variant on ``cs``: the depth class of its BVH4, nothing staged
-    (as the whole-tree page walk K4c, ``bvh.page_plan``)."""
+def scene_any_plan(cs) -> WalkPlan:
+    """K10b's variant on ``cs``: the depth class of its BVH4, no tree staged,
+    and the plane/sphere/quad blob as its shared memory (``bvh.any_plan``
+    with no tree)."""
+    return WalkPlan(False, depth_class(cs.bvh.depth4), 4 * cs.bvh.ps_blob.numel())
+
+
+def tri_plan(cs) -> WalkPlan:
+    """The variant of K10c and K10d on ``cs``: the depth class of its BVH4,
+    nothing staged (as the whole-tree page walks K4c and K4d,
+    ``bvh.page_plan``)."""
     return page_plan(cs.bvh.depth4)
+
+
+def aligned_table_args(who, cs, device):
+    """``(nodes, n_nodes, leaf_mat, stride, ps, P, S, Q)`` as :func:`table_args`
+    gives them, after checking that the table and the node records are
+    16-byte aligned, as the persistent walks' 16-byte loads need."""
+    table = table_args(who, cs, device)
+    for name, t in (("leaf_mat", cs.bvh.leaf_mat), ("nodes4", cs.bvh.nodes4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    return table
 
 
 def _stream(dev):
@@ -118,18 +144,24 @@ def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
 
 
 def scene_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
-    """K10b: is anything hit in ``(t_min, limit)`` (per ray)?"""
+    """K10b: is anything hit in ``(t_min, limit)`` (per ray)?  In the
+    persistent variant :func:`scene_any_plan` picks."""
     who = "leafmat.scene_any"
     dev = ro.x.device
     if not _on(who, dev):
         return scene_hit_any_bvh_plain(cs, ro, rd, t_min, limit, mxu=True)
-    table = table_args(who, cs, dev)
+    table = aligned_table_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = build().lib.ptrt_mat_scene_any(*table, *(r.data_ptr() for r in rays),
-                                         limit.data_ptr(), n, float(t_min), occ.data_ptr(),
-                                         _stream(dev))
+    if n == 0:
+        return occ
+    lib = build().lib
+    plan = scene_any_plan(cs)
+    grid = launch_grid(who, lib.ptrt_mat_scene_any_occupancy, plan, n, dev)
+    err = lib.ptrt_mat_scene_any(*table, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
+                                 float(t_min), occ.data_ptr(), lane_counter(dev).data_ptr(),
+                                 plan.depth_class, plan.smem_bytes, grid, _stream(dev))
     _raise_on(who, err)
     scene_any.launches += 1
     return occ
@@ -138,15 +170,12 @@ def scene_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Te
 def tri_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord) -> ClosestRecord:
     """K10c: the record ``best`` (``best.t`` the per-ray bound) carried
     through the whole tree's triangles, in the persistent variant
-    :func:`tri_closest_plan` picks."""
+    :func:`tri_plan` picks."""
     who = "leafmat.tri_closest"
     dev = ro.x.device
     if not _on(who, dev):
         return pages_closest_plain(cs, ro, rd, t_min, best, mxu=True)
-    table = table_args(who, cs, dev)[:4]
-    for name, t in (("leaf_mat", cs.bvh.leaf_mat), ("nodes4", cs.bvh.nodes4)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{who}: {name} is not 16-byte aligned")
+    table = aligned_table_args(who, cs, dev)[:4]
     n, rays = _rays(who, ro, rd)
     carried = (best.t, best.prim, best.u, best.v, *best.normal)
     for name, x in zip(("t", "prim", "u", "v", "nx", "ny", "nz"), carried):
@@ -157,7 +186,7 @@ def tri_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord) -> Closes
     if n == 0:
         return ClosestRecord(t, prim, u, v, V3(nx, ny, nz))
     lib = build().lib
-    plan = tri_closest_plan(cs)
+    plan = tri_plan(cs)
     grid = launch_grid(who, lib.ptrt_mat_tri_closest_occupancy, plan, n, dev)
     off = cs.n_planes + cs.n_spheres + cs.n_quads
     err = lib.ptrt_mat_tri_closest(
@@ -173,19 +202,25 @@ def tri_closest(cs, ro: V3, rd: V3, t_min: float, best: ClosestRecord) -> Closes
 def tri_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor,
             found: torch.Tensor) -> torch.Tensor:
     """K10d: the found mask carried through the whole tree, up to the first
-    triangle hit in ``(t_min, limit)``."""
+    triangle hit in ``(t_min, limit)``, in the persistent variant
+    :func:`tri_plan` picks."""
     who = "leafmat.tri_any"
     dev = ro.x.device
     if not _on(who, dev):
         return pages_any_plain(cs, ro, rd, t_min, limit, found, mxu=True)
-    table = table_args(who, cs, dev)[:4]
+    table = aligned_table_args(who, cs, dev)[:4]
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     _check("found", found, torch.bool, n, dev, who)
     out = torch.empty((n,), dtype=torch.bool, device=dev)
-    err = build().lib.ptrt_mat_tri_any(*table, *(r.data_ptr() for r in rays), limit.data_ptr(),
-                                       found.data_ptr(), n, float(t_min), out.data_ptr(),
-                                       _stream(dev))
+    if n == 0:
+        return out
+    lib = build().lib
+    plan = tri_plan(cs)
+    grid = launch_grid(who, lib.ptrt_mat_tri_any_occupancy, plan, n, dev)
+    err = lib.ptrt_mat_tri_any(*table, *(r.data_ptr() for r in rays), limit.data_ptr(),
+                               found.data_ptr(), n, float(t_min), out.data_ptr(),
+                               lane_counter(dev).data_ptr(), plan.depth_class, grid, _stream(dev))
     _raise_on(who, err)
     tri_any.launches += 1
     return out

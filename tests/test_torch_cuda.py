@@ -18,10 +18,11 @@ in both of their classes, at a ragged lane count, K11 with most lanes
 idle; the persistent ordered BVH2 occlusion walk in both classes, on the
 mesh and on the 190-deep chain (whose lanes overflow the shallow class),
 and the persistent K10c in both classes, at ragged lane counts; the
-persistent K1 and K2 at 131,072, 4,133 and 1 lanes (K1's hit, prim and
-killed on every lane), and none; and K4b, K5, K6c, K6d, K11, the two
-ordered walks, K10c, K1 and K2 queued on one stream, which share its lane
-counter.
+persistent K10b and K10d in both classes, with infinite, finite and
+non-positive limits and found lanes; the persistent K1 and K2 at 131,072,
+4,133 and 1 lanes (K1's hit, prim and killed on every lane), and none; and
+K4b, K5, K6c, K6d, K11, the two ordered walks, K10b-d, K1 and K2 queued on
+one stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -394,12 +395,14 @@ def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
     dev, cs, tables = mesh_card
     o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
     wrappers = (bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
-                bvh_leafmat.tri_closest)
+                bvh_leafmat.tri_closest, bvh_leafmat.scene_any, bvh_leafmat.tri_any)
     before = [w.launches for w in wrappers]
     assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
     assert bvh2.any_ordered(cs, o, d, 1e-3, limit).shape == (0,)
     assert bvh_leafmat.tri_closest(cs, o, d, 1e-3, _seed(limit)).t.shape == (0,)
+    assert bvh_leafmat.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
+    assert bvh_leafmat.tri_any(cs, o, d, 1e-3, limit, limit > 0).shape == (0,)
     torch.cuda.synchronize()
     assert out.hit.shape == (0,) and out.prim.shape == (0,)
     assert [w.launches for w in wrappers] == before
@@ -588,7 +591,7 @@ def test_page_walks_match_plain(paged_card, n, deep):
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
     """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest and occlusion walks,
-    K10c, K1 and K2 queued on one stream with no sync between them answer
+    K10b-d, K1 and K2 queued on one stream with no sync between them answer
     bit for bit as each does alone after a sync, which leaves the stream's
     lane counter zero: each launch starts from lane 0."""
     dev, mcs, tables = mesh_card
@@ -608,6 +611,8 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
              lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()),
              lambda: bvh2.any_ordered(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_closest(mcs, o, d, 1e-3, _seed(limit.abs())),
+             lambda: bvh_leafmat.scene_any(mcs, o, d, 1e-3, limit),
+             lambda: bvh_leafmat.tri_any(mcs, o, d, 1e-3, limit, found),
              lambda: bounce.path_bounce(ccs, *blobs, co, cd, cthr, ckey, cdepth),
              lambda: whitted.whitted_bounce(ccs, *blobs, co, cd, whitted.TEXTURE))
     queued = [call() for call in calls]
@@ -848,8 +853,8 @@ def test_persistent_tri_closest_matches_plain(mesh_card, n):
     counter zero after them."""
     dev, cs, _ = mesh_card
     deep = cs._replace(bvh=cs.bvh._replace(depth4=20))
-    assert (bvh_leafmat.tri_closest_plan(cs).depth_class,
-            bvh_leafmat.tri_closest_plan(deep).depth_class) == (8, 32)
+    assert (bvh_leafmat.tri_plan(cs).depth_class,
+            bvh_leafmat.tri_plan(deep).depth_class) == (8, 32)
     o, d, _, _, _ = _inputs(n, n + 19, dev)
     bound, _ = _bounds(n, n + 19, dev)
     seed = _seed(bound)
@@ -869,6 +874,53 @@ def test_persistent_tri_closest_matches_plain(mesh_card, n):
     assert bool(tri.any())
     _assert_floats_close(rec, want, tri, ("t", "normal", "u", "v"))
     assert bool((~walked).any()) and torch.equal(rec.prim[~walked], seed.prim[~walked])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 + 5, 4096 + 37])
+def test_persistent_leafmat_occlusion_matches_plain(mesh_card, n):
+    """The persistent K10b and K10d against their plain versions (the walks
+    with the leaf table): K10b on every ray that needs an answer (the others
+    reported occluded), K10d on every lane, found lanes carried; limits
+    finite, infinite (a tenth of the lanes) and non-positive (a seventh); in
+    both depth classes (the tree reported 20 deep), bit-equal; each call one
+    launch, three queued back to back bit-equal to the first, and the lane
+    counter zero after them."""
+    dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=20))
+    assert (bvh_leafmat.scene_any_plan(cs).depth_class, bvh_leafmat.tri_plan(cs).depth_class,
+            bvh_leafmat.scene_any_plan(deep).depth_class,
+            bvh_leafmat.tri_plan(deep).depth_class) == (8, 8, 32, 32)
+    assert bvh_leafmat.scene_any_plan(cs).smem_bytes == 4 * cs.bvh.ps_blob.numel()
+    o, d, _, _, _ = _inputs(n, n + 23, dev)
+    _, limit = _bounds(n, n + 23, dev)
+    lane = torch.arange(n, device=dev)
+    limit = torch.where(lane % 10 == 3, float("inf"), limit).contiguous()
+    found = lane % 5 == 0
+    unfound = torch.zeros_like(found)
+    before = (bvh_leafmat.scene_any.launches, bvh_leafmat.tri_any.launches)
+    occ = [bvh_leafmat.scene_any(c, o, d, 1e-3, limit) for c in (cs, deep, cs, cs)]
+    tri = [bvh_leafmat.tri_any(c, o, d, 1e-3, limit, f)
+           for c, f in ((cs, found), (deep, found), (cs, found), (cs, found), (cs, unfound),
+                        (deep, unfound))]
+    torch.cuda.synchronize()
+    assert (bvh_leafmat.scene_any.launches, bvh_leafmat.tri_any.launches) == (
+        before[0] + 4, before[1] + 6)
+    assert not bvh.lane_counter(dev).any()
+    for other in occ[1:]:
+        assert torch.equal(occ[0], other)
+    for other in tri[1:4]:
+        assert torch.equal(tri[0], other)
+    assert torch.equal(tri[4], tri[5])
+    care = limit > 0
+    want = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit, mxu=True)
+    assert torch.equal(occ[0][care], want[care]) and bool(occ[0][~care].all())
+    inf = limit == float("inf")
+    assert 0.05 < float(occ[0][care].float().mean()) < 0.95 and bool(occ[0][inf].any())
+    for f, got in ((found, tri[0]), (unfound, tri[4])):
+        assert torch.equal(got, bvh_paged.pages_any_plain(cs, o, d, 1e-3, limit, f, mxu=True))
+    assert bool(tri[0][found].all()) and not bool(tri[4][~care].any())
+    assert bool(tri[4][inf].any()) and not bool(tri[4][inf].all())
 
 
 @pytest.mark.cuda

@@ -1,7 +1,7 @@
 """The host side of the persistent ordered BVH2 occlusion walk (K4e) and of
-the persistent leaf-table closest walk (K10c) on the CPU.
+the persistent leaf-table walks (K10b, K10c, K10d) on the CPU.
 
-* The 16-byte loads of K10c's leaf visit (``csrc/bvh_walk.cuh``
+* The 16-byte loads of K10b-d's leaf visit (``csrc/bvh_walk.cuh``
   ``MatQuadLeaf``): each of a batch's 19 loads lies on a 16-byte boundary
   of the ``(16, 128·G)`` table and holds one coefficient of four
   consecutive slots, on ``tests/test_mxu_leaf.py``'s 53-triangle set and
@@ -10,10 +10,17 @@ the persistent leaf-table closest walk (K10c) on the CPU.
 * The linear forms ``ops/bvh._forms`` evaluated from those loads, in the
   kernel's coefficient order, equal those from the table bit for bit on
   seeded rays.
-* ``ops/cuda/bvh2.ordered_plan`` (both ordered walks) and
-  ``ops/cuda/bvh_leafmat.tri_closest_plan`` are the depth classes of the
-  tree's BVH2 and BVH4 depths, nothing staged.
-* The two wrappers take their plain versions on CPU tensors and count no
+* The occlusion visit ``MatQuadLeaf::any`` emulated from those loads, in
+  its expression order, gives the plain table walk's verdict
+  (``ops/bvh._leaf_any_mat``) slot for slot, bit for bit, with finite,
+  infinite and non-positive limits; with an infinite limit also
+  Möller–Trumbore's (``ops/bvh._leaf_test``, and ``traverse_any`` on the
+  mesh).
+* ``ops/cuda/bvh2.ordered_plan`` (both ordered walks),
+  ``ops/cuda/bvh_leafmat.tri_plan`` (K10c and K10d) and ``scene_any_plan``
+  (K10b) are the depth classes of the tree's BVH2 and BVH4 depths, nothing
+  staged; K10b's shared memory is the plane/sphere/quad blob's bytes.
+* The wrappers take their plain versions on CPU tensors and count no
   launch.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
@@ -27,7 +34,8 @@ import torch
 import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_leafmat, bvh_paged
-from path_tracing__ray_tracer_tpu_torch.ops.intersect import ClosestRecord
+from path_tracing__ray_tracer_tpu_torch.ops.intersect import (ClosestRecord,
+                                                          scene_hit_any_bvh_plain)
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from test_torch_mxu_leaf import _tri53
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
@@ -102,6 +110,101 @@ def test_forms_from_the_table_loads_equal_the_table(mesh, case):
     assert bool((from_table[0] != 0).any())
 
 
+def _any_rays(case, mesh, n, seed):
+    """Rays from a box around the triangles, aimed at seeded points of them
+    (most hit a triangle) or anywhere (every fourth), and their features."""
+    if case == "tri53":
+        _arrs, v0, v1, v2 = _tri53()
+        v0, v1, v2 = (torch.from_numpy(v) for v in (v0, v1, v2))
+    else:
+        v0, v1, v2 = (torch.stack(tuple(v), -1) for v in (mesh.triangles.v0, mesh.triangles.v1,
+                                                          mesh.triangles.v2))
+    g = np.random.default_rng(seed)
+    lo, hi = float(v0.min()) - 2, float(v0.max()) + 2
+    o = torch.from_numpy(g.uniform(lo, hi, (n, 3)).astype(np.float32))
+    tri = torch.from_numpy(g.integers(0, v0.shape[0], n))
+    a, b = (torch.from_numpy(g.uniform(0, 0.5, n).astype(np.float32))[:, None] for _ in range(2))
+    aim = v0[tri] + a * (v1[tri] - v0[tri]) + b * (v2[tri] - v0[tri])
+    d = torch.where(torch.arange(n)[:, None] % 4 == 3,
+                    torch.from_numpy(g.normal(size=(n, 3)).astype(np.float32)), aim - o)
+    d = d / torch.linalg.norm(d, dim=1, keepdim=True)
+    ro, rd = V3(*o.T.contiguous()), V3(*d.T.contiguous())
+    return ro, rd, tbvh.leaf_features(ro, rd)
+
+
+def _limits(kind, n, seed):
+    g = np.random.default_rng(seed)
+    if kind == "finite":
+        return torch.from_numpy(g.uniform(0.5, 30, n).astype(np.float32))
+    if kind == "inf":
+        return torch.full((n,), float("inf"))
+    return torch.where(torch.arange(n) % 2 == 0, 0.0, -torch.from_numpy(
+        g.uniform(0, 5, n).astype(np.float32)))
+
+
+def _quad_any(coef, feat, t_min, limit):
+    """``MatQuadLeaf::any``'s test of each slot (rows of ``coef``, its 19
+    coefficients in the kernel's load order) against each ray (columns of
+    ``feat``), in the kernel's expression order: ``(slots, rays)``."""
+    def form(at, r0, r1):
+        acc = coef[:, at, None] * feat[r0]
+        for r in range(r0 + 1, r1):
+            acc = acc + coef[:, at + r - r0, None] * feat[r]
+        return acc
+
+    det, un, vn = form(0, 0, 3), form(3, 0, 6), form(9, 0, 6)
+    s2 = det * det
+    ud, vd = un * det, vn * det
+    inside = (torch.abs(det) > 1e-6) & (ud >= 0.0) & (ud <= s2) & (vd >= 0.0) & (ud + vd <= s2)
+    td = form(15, 6, 10) * det
+    return inside & (td > t_min * s2) & (td < limit * s2)
+
+
+@pytest.mark.parametrize("limit_kind", ["finite", "inf", "nonpositive"])
+@pytest.mark.parametrize("case", ["tri53", "mesh"])
+def test_occlusion_visit_from_the_table_loads_is_the_plain_test(mesh, case, limit_kind):
+    mat = _table(case, mesh)
+    coef = _coefficients(mat)
+    n = 96
+    ro, rd, feat = _any_rays(case, mesh, n, 11)
+    limit = _limits(limit_kind, n, 12)
+    slot = torch.arange(coef.shape[0])
+    col = slot // 16 * 128 + slot % 16
+    got = _quad_any(coef, feat, 1e-3, limit)
+    want = tbvh._leaf_any_mat(*tbvh._forms(lambda r, q: mat[r, col + 16 * q][:, None], feat),
+                              1e-3, limit)
+    assert got.shape == (coef.shape[0], n) and torch.equal(got, want)
+    padding = (coef == 0).all(1)
+    assert bool(padding.any()) and not bool(got[padding].any())
+    if limit_kind == "nonpositive":
+        assert not bool(got.any())
+        return
+    leaf_hit = got.view(-1, 16, n).any(1)  # the visit's verdict: its first hit in slot order
+    assert 0 < int(leaf_hit.sum()) < leaf_hit.numel()
+    if limit_kind != "inf":
+        return
+    # the port's semantics of an infinite limit: any slot hit beyond t_min
+    # occludes, as Möller–Trumbore with an infinite bound says
+    if case == "tri53":
+        arrs, v0, v1, v2 = _tri53()
+        tri = torch.from_numpy(arrs["slots"][arrs["is_leaf"]].reshape(-1)).long()
+        v0, v1, v2 = (torch.from_numpy(v) for v in (v0, v1, v2))
+    else:
+        tri = mesh.bvh.slots[mesh.bvh.is_leaf].reshape(-1).long()
+        v0, v1, v2 = (torch.stack(tuple(v), -1) for v in (mesh.triangles.v0,
+                                                          mesh.triangles.v1, mesh.triangles.v2))
+    real = tri >= 0
+    t = tri[real]
+    _t, mt = tbvh._leaf_test(v0[t][:, None], (v1 - v0)[t][:, None], (v2 - v0)[t][:, None],
+                             torch.stack(tuple(ro), -1)[None], torch.stack(tuple(rd), -1)[None],
+                             1e-3, limit[None])
+    assert torch.equal(got[real], mt) and bool(mt.any())
+    if case == "mesh":
+        walk = tbvh.traverse_any(mesh.bvh, mesh.triangles, ro, rd, 1e-3, limit, leaf_mat=mat)
+        assert torch.equal(walk, tbvh.traverse_any(mesh.bvh, mesh.triangles, ro, rd, 1e-3, limit))
+        assert bool(walk.any()) and not bool(walk.all())
+
+
 # config 5's BVH2 is 13 deep and its BVH4 6; the chain of tests/torch_chain.py
 # 190, the most the ordered walks take
 @pytest.mark.parametrize("depth2,depth4,want2,want4", [
@@ -110,8 +213,21 @@ def test_forms_from_the_table_loads_equal_the_table(mesh, case):
 def test_ordered_and_leafmat_plans_are_the_depth_classes(depth2, depth4, want2, want4):
     cs = SimpleNamespace(bvh=SimpleNamespace(depth2=depth2, depth4=depth4))
     assert tuple(bvh2.ordered_plan(cs)) == (False, want2, 0) and want2 >= depth2 + 2
-    assert tuple(bvh_leafmat.tri_closest_plan(cs)) == (False, want4, 0)
+    assert tuple(bvh_leafmat.tri_plan(cs)) == (False, want4, 0)
     assert want4 == bvh.depth_class(depth4) == bvh.rooted_plan(cs).depth_class
+
+
+# config 5's blob: no plane, sphere or quad; the Cornell box's 6 quads (108
+# floats); a blob past 48 KB, which the occupancy entry allows
+@pytest.mark.parametrize("depth4,want4", [(1, 8), (6, 8), (9, 32), (32, 32)])
+@pytest.mark.parametrize("blob_floats", [0, 108, 14_000])
+def test_scene_any_plan_is_the_depth_class_and_the_blob(depth4, want4, blob_floats):
+    cs = SimpleNamespace(bvh=SimpleNamespace(depth4=depth4, ps_blob=torch.zeros(blob_floats)))
+    plan = bvh_leafmat.scene_any_plan(cs)
+    assert tuple(plan) == (False, want4, 4 * blob_floats)
+    assert plan.depth_class == bvh_leafmat.tri_plan(cs).depth_class == bvh.depth_class(depth4)
+    # K4b's plan on the same tree, with no tree staged, is the same variant
+    assert bvh.walk_plan(521, depth4, 4 * blob_floats, 1 << 30) == plan
 
 
 def test_any_ordered_and_tri_closest_take_the_plain_versions_on_the_cpu(mesh):
@@ -135,3 +251,28 @@ def test_any_ordered_and_tri_closest_take_the_plain_versions_on_the_cpu(mesh):
         assert torch.equal(a, b)
     assert bool((got.prim >= 0).any())
     assert before == (bvh2.any_ordered.launches, bvh_leafmat.tri_closest.launches)
+
+
+@pytest.mark.parametrize("found_every", [0, 3])
+def test_leafmat_occlusion_takes_the_plain_versions_on_the_cpu(mesh, found_every):
+    """``scene_any`` (K10b) and ``tri_any`` (K10d) on CPU tensors: their
+    plain versions with the table, finite, infinite and non-positive
+    limits, found lanes carried; no launch counted."""
+    cs = mesh
+    n = 64
+    ro, rd, _feat = _any_rays("mesh", mesh, n, 21)
+    lane = torch.arange(n)
+    limit = torch.where(lane % 10 == 1, float("inf"), torch.where(
+        lane % 10 == 2, -1.0, torch.where(lane % 10 == 7, 0.0, _limits("finite", n, 22))))
+    found = (lane % found_every == 0) if found_every else torch.zeros(n, dtype=torch.bool)
+    before = (bvh_leafmat.scene_any.launches, bvh_leafmat.tri_any.launches)
+    occ_b = bvh_leafmat.scene_any(cs, ro, rd, 1e-3, limit)
+    occ_d = bvh_leafmat.tri_any(cs, ro, rd, 1e-3, limit, found)
+    assert before == (bvh_leafmat.scene_any.launches, bvh_leafmat.tri_any.launches)
+    assert torch.equal(occ_b, scene_hit_any_bvh_plain(cs, ro, rd, 1e-3, limit, mxu=True))
+    want_d = bvh_paged.pages_any_plain(cs, ro, rd, 1e-3, limit, found, mxu=True)
+    assert torch.equal(occ_d, want_d) and bool(occ_d[found].all())
+    walked = tbvh.traverse_any(cs.bvh, cs.triangles, ro, rd, 1e-3, limit, leaf_mat=cs.bvh.leaf_mat)
+    assert torch.equal(occ_d, found | walked)
+    assert not bool(occ_d[(limit <= 0) & ~found].any())
+    assert bool(occ_d[~found].any()) and not bool(occ_d[~found].all())
