@@ -86,16 +86,17 @@ It imports no JAX.
 15. the oracle on BVH scenes: the mesh oracle golden of ``tests/goldens/``
    and a config-5 frame (K4a's and K4b's launch counts);
 16. the path tracer's scheduler modes (``models/experimental.py``): K7 (the
-   fused step) against its plain version on the main path's first chunk
-   (131,072 lanes, 2 samples) after six plain fused steps, when retired,
-   regenerated and live lanes are all present; K8 (atlas gather) and K9
+   fused step, persistent) against its plain version on the main path's
+   first chunk (131,072 lanes, 2 samples) after six plain fused steps, when
+   retired, regenerated and live lanes are all present, the lane counter
+   left zero; K8 (atlas gather) and K9
    (mip gather) on that chunk's texel indices into the route's atlas, the
    defer64 mip and the LOD mip, bit-equal; their times, the library call ``index_select`` beside
    K8/K9, and bounds;
 17. four runs at the main path's shape (1024², depth 8, one 128-sample
    group after an 8-sample warm-up group, seed 0), each image held against
-   the default run's: (a) the pipe (``_PIPE_REGEN``, K7), within the golden
-   tolerance; (b) deferred texture ``mip_budget=64`` and (c) texture LOD
+   the default run's: (a) the pipe (``_PIPE_REGEN``, K7), bit-equal to
+   it; (b) deferred texture ``mip_budget=64`` and (c) texture LOD
    ``texture_lod=256, texture_lod_depth=2`` (K9), their RMSE/255 under
    ``DEFER_RMSE_MAX`` and ``LOD_RMSE_MAX``; (d) the
    atlas route (``ENABLED``, K8) at the largest ``texture_budget`` whose
@@ -111,7 +112,8 @@ It imports no JAX.
    within tolerance), K4e's occlusion walks on the light-sample shadow rays
    (equal on every ray that needs an answer), each K11 pass against its
    plain version and the whole multipass walk against the single-pass K4c;
-   the plans of the persistent K11, the two ordered walks and K10b-d; their times
+   the plans of the persistent K11, the three persistent K4e closest and
+   occlusion walks and K10b-d; their times
    (the plain walks median of ``PLAIN_REPS``), bounds and tree traffic;
 20. the config-5 mesh path at 1920×1080, depth 12, ``shadow_tmax="light"``,
    one ``SPLIT_SPP``-sample group, seed 0: the default route (K5), then
@@ -446,7 +448,7 @@ C_ENTRIES = {
     "paged_top_any_kernel": ("bvh_paged", ("ptrt_paged_top_any",)),
     "pages_closest_persistent": ("bvh_paged", ("ptrt_pages_closest",)),
     "pages_any_persistent": ("bvh_paged", ("ptrt_pages_any",)),
-    "bvh2_closest_kernel": ("bvh2", ("ptrt_bvh2_closest",)),
+    "bvh2_closest_skiplink_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_closest_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
     "bvh2_any_persistent": ("bvh2", ("ptrt_bvh2_any",)),
@@ -454,7 +456,7 @@ C_ENTRIES = {
     "mat_scene_any_persistent": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
     "mat_tri_closest_persistent": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
     "mat_tri_any_persistent": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
-    "path_step_kernel": ("path_step", ("ptrt_path_step",)),
+    "path_step_persistent": ("path_step", ("ptrt_path_step",)),
     "gather_rgb_kernel": ("texture_gather", ("ptrt_atlas_gather", "ptrt_mip_gather")),
 }
 
@@ -2101,6 +2103,8 @@ def phase_split_check(device):
     plain_any = cuda_ms(lambda: tbvh.traverse_any(cs.bvh, tris, so, sd, 1e-3, lim), PLAIN_REPS, 1)
     plans = {"K11": (cs.bvh.depth4, bvh.rooted_plan(cs),
                      bvh.build().lib.ptrt_bvh4_rooted_occupancy),
+             "K4e skip-link closest": (cs.bvh.depth2, bvh2.SKIPLINK_PLAN,
+                                       bvh2.build().lib.ptrt_bvh2_skiplink_occupancy),
              "K4e ordered closest": (cs.bvh.depth2, bvh2.ordered_plan(cs),
                                      bvh2.build().lib.ptrt_bvh2_closest_occupancy),
              "K4e ordered occlusion": (cs.bvh.depth2, bvh2.ordered_plan(cs),
@@ -2117,7 +2121,7 @@ def phase_split_check(device):
         for k, (depth, plan, occupancy) in plans.items()))
     times = {
         "closest_skiplink": timed(lambda: bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6),
-                                  "bvh2_closest_kernel"),
+                                  "bvh2_closest_skiplink_persistent"),
         "closest_ordered": timed(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6),
                                  "bvh2_closest_persistent"),
         "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
@@ -2571,7 +2575,7 @@ def phase_modes_check(device):
 
     import path_tracing__ray_tracer_tpu_torch as pt
     from path_tracing__ray_tracer_tpu_torch.models import experimental
-    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, step, texture
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bvh, step, texture
     from path_tracing__ray_tracer_tpu_torch.ops.texture import _unpack_rgb
 
     b = pt.CustomSceneBuilder()
@@ -2599,6 +2603,8 @@ def phase_modes_check(device):
         raise SystemExit("chip_smoke: the K7 check's chunk lacks retired, regenerated or "
                          "live lanes")
     k7_err, k7_bits = check_step("main path's first chunk", got, want)
+    if bvh.lane_counter(device).any():
+        raise SystemExit("chip_smoke: K7 left the stream's lane counter nonzero")
 
     # the record's hits again through K1: their texel indices into each table
     rec1 = bounce.path_bounce(cs, *blobs, want[1], want[2], want[3], want[5], want[6])
@@ -2655,7 +2661,7 @@ def phase_modes_check(device):
         show_time(name, times[name], f"; library index_select on (3, {planes.shape[1]}) float32 "
                   f"planes, bit-equal: {lib:.4f} ms device ({lib_by}; the packed int32 index_select "
                   f"{packed:.4f} ms, no unpack)")
-    times["path_step"] = timed(lambda: step.path_step(*args), "path_step_kernel",
+    times["path_step"] = timed(lambda: step.path_step(*args), "path_step_persistent",
                                lambda: step.path_step_plain(*args))
     show_time("path_step", times["path_step"])
     # K7 reads 29 words a lane and writes 38; its sweeps are K1's on the rays it traces
@@ -2723,9 +2729,9 @@ def phase_modes_main(device, default_img, budget):
         runs["pipe"] = mode_run(device, "a: pipe", default_img, "path_step")
     finally:
         path_tracer._PIPE_REGEN = False
-    rmse, share = runs["pipe"][4]
-    if share >= 0.01 or runs["pipe"][0].get("path_bounce"):
-        raise SystemExit("chip_smoke: the pipe run is outside the golden tolerance or ran K1")
+    if runs["pipe"][4][0] != 0.0 or runs["pipe"][0].get("path_bounce"):
+        raise SystemExit("chip_smoke: the pipe run's image is not bit-equal to the default "
+                         "image, or it ran K1")
     runs["defer"] = mode_run(device, f"b: defer, mip_budget={DEFER_MIP}", default_img,
                              "mip_gather", mip_budget=DEFER_MIP)
     runs["lod"] = mode_run(device, f"c: LOD, texture_lod={LOD_BUDGET}, depth {LOD_DEPTH}",
@@ -2753,9 +2759,9 @@ def phase_modes_main(device, default_img, budget):
     for tag, spp, counter, kernels in (
             ("[modes] default", 4, lambda: bounce.path_bounce.launches,
              {"K1": "path_bounce_persistent"}),
-            ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step_kernel"}),
+            ("[modes] pipe", 4, lambda: step.path_step.launches, {"K7": "path_step_persistent"}),
             ("[modes] pipe", GROUP_SPP, lambda: step.path_step.launches,
-             {"K7": "path_step_kernel"})):
+             {"K7": "path_step_persistent"})):
         r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
                                       chunk_rays=CHUNK_RAYS, device=device)
         r.compiled(scene)  # the scene compile stays out of the frame's time

@@ -30,8 +30,17 @@
 // What bounds them: latency.  A ray reads 24 B (28 B with its bound) and
 // writes 8 B (1 B), against a walk of dozens of node records (32 B each)
 // and leaves of 16 slot records, each read by a thread that follows its own
-// path.  The skip-link walks keep the first design: one thread per ray in
-// blocks of 128, the records as packed, no stack.
+// path.  The skip-link occlusion walk keeps the first design: one thread
+// per ray in blocks of 128, the records as packed, no stack.
+//
+// The skip-link closest walk is designed for Hopper
+// (bvh2_closest_skiplink_persistent): the ordered walks' persistent blocks
+// and lane counter; each node read as two 16-byte loads (its box, then its
+// skip link and code), where the first design read its floats one by one;
+// leaves from the padded slot copy, four slots' loads issued together
+// (Slot16TriLeaf).  No stack, and the same visit order, step guard and
+// floats as the first design (git 5d3f023), so its t and triangle are the
+// same bits on every lane, per-ray bound or not.
 //
 // The two ordered walks are designed for Hopper (bvh2_closest_persistent,
 // bvh2_any_persistent), as bvh_walk.cuh's persistent BVH4 walks are:
@@ -144,23 +153,55 @@ __device__ __forceinline__ bool ordered_walk(const float* __restrict__ tree, int
   return false;
 }
 
-// The skip-link closest walk, one lane per thread.
-__global__ void __launch_bounds__(kBvh2Threads)
-bvh2_closest_kernel(const float* __restrict__ tree, int m, const float* __restrict__ slots,
-                    const float* __restrict__ ox_in, const float* __restrict__ oy_in,
-                    const float* __restrict__ oz_in, const float* __restrict__ dx_in,
-                    const float* __restrict__ dy_in, const float* __restrict__ dz_in, int n,
-                    int gid_mask, float t_min, float t_max, const float* __restrict__ bound,
-                    float* __restrict__ t_out, int* __restrict__ tri_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
-  Hit h;
-  h.t = bound ? bound[i] : t_max;
-  h.prim = -1;
-  walk2<false>(tree, m, SlotLeaf{slots}, r, t_min, h);
-  t_out[i] = h.t;
-  tri_out[i] = decode_prim(h.prim, 0, gid_mask);
+// walk2's closest walk with each node read as two 16-byte loads: the box,
+// then the skip link and the code (an inner node's right child is not read:
+// the skip-link walk takes the next record or the skip).  h carries the
+// bound in and the winner (t, raw gid) out, the slab's far plane the
+// running best.
+template <class Leaf>
+__device__ __forceinline__ void skiplink_closest(const float* __restrict__ tree, int m,
+                                                 const Leaf& leaf, const Ray& r, float t_min,
+                                                 Hit& h) {
+  const WalkRay w = walk_ray(r);
+  int cursor = 0;
+  for (int step = 0; cursor < m && step <= m; ++step) {
+    const float4* p = reinterpret_cast<const float4*>(tree + (size_t)cursor * kNode2F);
+    const float4 lo = __ldg(p), hi = __ldg(p + 1);
+    const float b[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
+    const bool hit = slab(b, w, t_min, h.t);
+    const float code = hi.w;
+    if (hit && code >= 0.0f) leaf.closest(code, r, t_min, 0, h);
+    cursor = (hit && code < 0.0f) ? cursor + 1 : (int)hi.z;
+  }
+}
+
+// The skip-link closest walk for Hopper: lanes [0, n) taken 32 at a time
+// from `counter` (two int32, zero at the launch, left zero; finish_lanes).
+// No minimum of resident blocks: 79 registers, 3 blocks an SM; asked for 4
+// or 5 it spills and measured slower on an H100 on every ray set (PERF.md).
+__global__ void __launch_bounds__(kWalkThreads)
+bvh2_closest_skiplink_persistent(const float* __restrict__ tree, int m,
+                                 const float* __restrict__ slot16,
+                                 const float* __restrict__ ox_in, const float* __restrict__ oy_in,
+                                 const float* __restrict__ oz_in, const float* __restrict__ dx_in,
+                                 const float* __restrict__ dy_in, const float* __restrict__ dz_in,
+                                 int n, int gid_mask, float t_min, float t_max,
+                                 const float* __restrict__ bound, float* __restrict__ t_out,
+                                 int* __restrict__ tri_out, int* __restrict__ counter) {
+  const Slot16TriLeaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+    Hit h;
+    h.t = bound ? bound[i] : t_max;
+    h.prim = -1;
+    skiplink_closest(tree, m, leaf, r, t_min, h);
+    t_out[i] = h.t;
+    tri_out[i] = decode_prim(h.prim, 0, gid_mask);
+  }
+  finish_lanes(counter);
 }
 
 // The ordered closest walk for Hopper: lanes [0, n) taken 32 at a time from
@@ -268,18 +309,18 @@ extern "C" int ptrt_bvh2_stack_cap() { return ptrt::kStack2Cap; }
 
 // Each launches on `stream`, allocates nothing and does not synchronise, and
 // returns the launch's cudaError_t (0 when the launch was accepted).
-// `bound` may be null: every ray then starts from t_max.  The skip-link walk
-// (ordered 0) reads the 13-float `slots`; the ordered walk (ordered 1) the
-// padded `slot16`, `tree` 16-byte aligned, in `grid` persistent blocks of
-// the variant for depth_class (kShallow2 or kStack2Cap), which
-// ptrt_bvh2_closest_occupancy has sized, on the lane `counter` (two int32,
-// zero at the launch and left zero).
-extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slots,
-                                 const float* slot16, const float* ox, const float* oy,
-                                 const float* oz, const float* dx, const float* dy,
-                                 const float* dz, int n, int ordered, int gid_mask, float t_min,
-                                 float t_max, const float* bound, float* t, int* tri,
-                                 int* counter, int depth_class, int grid, void* stream) {
+// `bound` may be null: every ray then starts from t_max.  Both walks read
+// the padded `slot16`, `tree` 16-byte aligned, in `grid` persistent blocks
+// on the lane `counter` (two int32, zero at the launch and left zero): the
+// skip-link walk (ordered 0), sized by ptrt_bvh2_skiplink_occupancy, or the
+// ordered walk (ordered 1)'s variant for depth_class (kShallow2 or
+// kStack2Cap), sized by ptrt_bvh2_closest_occupancy.
+extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slot16, const float* ox,
+                                 const float* oy, const float* oz, const float* dx,
+                                 const float* dy, const float* dz, int n, int ordered,
+                                 int gid_mask, float t_min, float t_max, const float* bound,
+                                 float* t, int* tri, int* counter, int depth_class, int grid,
+                                 void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (ordered) {
@@ -288,8 +329,9 @@ extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slots,
     k<<<grid, ptrt::kWalkThreads, 0, s>>>(tree, m, slot16, ox, oy, oz, dx, dy, dz, n, gid_mask,
                                           t_min, t_max, bound, t, tri, counter);
   } else {
-    ptrt::bvh2_closest_kernel<<<ptrt::blocks2_for(n), ptrt::kBvh2Threads, 0, s>>>(
-        tree, m, slots, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, bound, t, tri);
+    ptrt::bvh2_closest_skiplink_persistent<<<grid, ptrt::kWalkThreads, 0, s>>>(
+        tree, m, slot16, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, bound, t, tri,
+        counter);
   }
   return (int)cudaGetLastError();
 }
@@ -298,6 +340,13 @@ extern "C" int ptrt_bvh2_closest(const float* tree, int m, const float* slots,
 // depth_class, into *blocks: it stages nothing (stage and smem must be 0).
 extern "C" int ptrt_bvh2_closest_occupancy(int stage, int depth_class, int smem, int* blocks) {
   return ptrt::walk_occupancy(ptrt::closest2_variant(depth_class), stage, smem, blocks);
+}
+
+// Resident blocks per SM of the skip-link closest walk, into *blocks: it
+// has no stack (depth_class 0) and stages nothing (stage and smem 0).
+extern "C" int ptrt_bvh2_skiplink_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::walk_occupancy(depth_class == 0 ? &ptrt::bvh2_closest_skiplink_persistent : nullptr,
+                              stage, smem, blocks);
 }
 
 // The skip-link walk (ordered 0) reads the 13-float `slots`; the ordered

@@ -105,12 +105,6 @@ path_bounce_persistent(const float* __restrict__ blob_g, int P, int S, int Q, in
   if (span < n) finish_lanes(counter);
 }
 
-// The records, materials and lights in shared memory, in bytes.
-inline size_t bounce_smem_bytes(int P, int S, int Q, int T, int n_mats, int n_lights) {
-  return sizeof(float) *
-         (size_t)table_floats(rec_layout(P, S, Q, T), kMatFields * n_mats, n_lights);
-}
-
 }  // namespace ptrt
 
 // Resident blocks per SM with `smem` bytes of dynamic shared memory, into

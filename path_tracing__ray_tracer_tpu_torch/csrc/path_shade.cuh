@@ -15,6 +15,7 @@
 // Miss lanes carry the kernels' convention: zero material, ior 1, tex -1.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 #include "sweep.cuh"
@@ -201,6 +202,13 @@ __device__ __forceinline__ Scatter scatter(uint32_t key, uint32_t depth, const R
 // The base colour's texture id on the record: -1 when untextured.
 __device__ __forceinline__ float record_tex(const Material& m) {
   return m.has_tex > 0.5f ? m.tex_id : -1.0f;
+}
+
+// The bytes of a K1 or K7 block's tables in shared memory: the records,
+// the material table and the light samples (sweep.cuh table_floats).
+inline size_t bounce_smem_bytes(int P, int S, int Q, int T, int n_mats, int n_lights) {
+  return sizeof(float) *
+         (size_t)table_floats(rec_layout(P, S, Q, T), kMatFields * n_mats, n_lights);
 }
 
 // Russian roulette, the scatter event and the record of lane `i` of `n`.

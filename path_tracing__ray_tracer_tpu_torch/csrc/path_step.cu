@@ -1,5 +1,5 @@
 // One fused step of the path tracer's regeneration scheduler, one lane per
-// thread:
+// thread, in persistent blocks:
 //     glue(previous bounce record, its gathered texel)  ->  new lane state
 //     bounce(the new rays)                              ->  next record
 //
@@ -26,10 +26,23 @@
 // record, its texel, 12 words of lane state) and writes 38 (the next
 // record, the 18-word lane state with the traced rays, the 4-word park):
 // 268 B a lane, 35.1 MB at N = 131,072, about 0.0105 ms at 3.35 TB/s; the
-// two sweeps of K1 (22 primitives on the Cornell box) come to less.  The
-// scene tables are staged in shared memory as in K1, so each primitive read
-// is a broadcast to the warp.  The lane state is written before the bounce
-// so that it holds no registers across the sweeps.
+// two sweeps of K1 (22 primitives on the Cornell box) come to less.
+// The design for Hopper, K1's (path_bounce.cu):
+//   * each resident block copies the scene into shared memory once, the
+//     primitives as primitive-major 16-byte records (sweep.cuh
+//     stage_records; both sweeps by closest_hit16 / any_hit16), then the
+//     material table and the light samples, where the first design's
+//     ceil(N / 256) blocks each copied the field-major blob;
+//   * the blocks are persistent: each warp takes its first 32 lanes by its
+//     place in the grid and later ones from the stream's lane counter
+//     (bvh_walk.cuh next_batch / finish_lanes);
+//   * the lane state and park are written before the bounce, so they hold
+//     no registers across the sweeps; the next record is written with
+//     w_nee (row 2) 0 before the NEE shadow sweep, and row 2 rewritten with
+//     the weight when the shadow ray comes back unoccluded, so the shading
+//     state is dead during that sweep.
+// Every lane's arithmetic is the first design's (git 5d3f023), expression
+// for expression, so every output row is the same bits.
 //
 // Outputs: fout (30, N) float32 rows
 //   0 hit  1 killed  2 w_nee  3 rr_scale  4 s_thr  5 t_thr  6-8 scatter origin
@@ -44,12 +57,13 @@
 
 #include <cstdint>
 
+#include "bvh_walk.cuh"
 #include "path_shade.cuh"
 #include "sweep.cuh"
 
 namespace ptrt {
 
-constexpr int kStepThreads = 256;
+constexpr int kStepThreads = kWalkThreads;
 
 // The previous record and the lane state, one pointer per (N,) input.
 struct StepIn {
@@ -69,37 +83,17 @@ struct StepConsts {
   uint32_t seed;
 };
 
-__global__ void __launch_bounds__(kStepThreads)
-path_step_kernel(const float* __restrict__ blob_g, int P, int S, int Q, int T,
-                 const float* __restrict__ mat_g, int n_mats,
-                 const float* __restrict__ light_g, int n_lights,
-                 const int* __restrict__ tex_tbl, int n_tex,
-                 const float* __restrict__ cam, StepIn in, StepConsts c,
-                 float* __restrict__ fout, int* __restrict__ iout, int n,
-                 float t_min, float t_max, int shadow_light) {
-  extern __shared__ float smem[];
-  const SceneLayout L = scene_layout(P, S, Q, T);
-  const int blob_size = L.tb + 18 * T;
-  const int mat_size = kMatFields * n_mats;
-  const int total = blob_size + mat_size + 3 * n_lights;
-  for (int k = threadIdx.x; k < total; k += blockDim.x) {
-    smem[k] = k < blob_size ? blob_g[k]
-              : k < blob_size + mat_size ? mat_g[k - blob_size]
-                                         : light_g[k - blob_size - mat_size];
-  }
-  __syncthreads();
-  const float* blob = smem;
-  const float* mat = smem + blob_size;
-  const float* light = mat + mat_size;
-
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged tail
-  const size_t N = (size_t)n;
-
-  // ---- glue: the previous record's base colour, contribution, retirement ----
-  float thx = in.thx[i], thy = in.thy[i], thz = in.thz[i];
+// The glue of lane i: its lane state and park written to rows 15-29 of fout
+// and 1-7 of iout; returns the ray it traces next, with its throughput, key
+// and depth for the bounce.
+__device__ __forceinline__ Ray step_glue(const StepIn& in, const StepConsts& c,
+                                         const float* __restrict__ cam, float* __restrict__ fout,
+                                         int* __restrict__ iout, size_t N, int i, float& thx,
+                                         float& thy, float& thz, uint32_t& key, int& depth2) {
+  // ---- the previous record's base colour, contribution, retirement ----------
+  thx = in.thx[i]; thy = in.thy[i]; thz = in.thz[i];
   float psx = in.psx[i], psy = in.psy[i], psz = in.psz[i];
-  uint32_t key = (uint32_t)in.key[i];
+  key = (uint32_t)in.key[i];
   const int depth = in.depth[i];
   const int s = in.s[i];
   int ploc = in.ploc[i], ux = in.ux[i], uy = in.uy[i];
@@ -185,7 +179,7 @@ path_step_kernel(const float* __restrict__ blob_g, int P, int S, int Q, int T,
     thx = 1.0f; thy = 1.0f; thz = 1.0f;
     key = keyn;
   }
-  const int depth2 = live ? ndepth : 0;
+  depth2 = live ? ndepth : 0;
 
   // ---- lane state and park ----------------------------------------------------
   fout[15 * N + i] = r.ox; fout[16 * N + i] = r.oy; fout[17 * N + i] = r.oz;
@@ -204,59 +198,110 @@ path_step_kernel(const float* __restrict__ blob_g, int P, int S, int Q, int T,
   iout[5 * N + i] = ux;
   iout[6 * N + i] = uy;
   iout[7 * N + i] = done ? s : c.ns;
+  return r;
+}
 
-  // ---- bounce the new rays (K1) -------------------------------------------------
-  const Hit h = closest_hit(blob, L, r, t_min, t_max);
-  const Surface sf{h.prim >= 0, r.ox + r.dx * h.t, r.oy + r.dy * h.t, r.oz + r.dz * h.t,
-                   h.nx, h.ny, h.nz, h.u, h.v};
-  const Material m = sf.hit ? material_row(mat, n_mats, h.prim) : miss_material();
-  const ShadowQuery q = nee_query(light, n_lights, key, (uint32_t)depth2, sf, m, t_max,
-                                  shadow_light);
-  const float w_nee = q.care && !any_hit(blob, L, q.ray, t_min, q.bound) ? q.w : 0.0f;
-  const Scatter sc = scatter(key, (uint32_t)depth2, r, thx, thy, thz, sf, m);
+// `counter`: two int32, zero at the launch and left zero (finish_lanes).
+__global__ void __launch_bounds__(kStepThreads)
+path_step_persistent(const float* __restrict__ blob_g, int P, int S, int Q, int T,
+                     const float* __restrict__ mat_g, int n_mats,
+                     const float* __restrict__ light_g, int n_lights,
+                     const int* __restrict__ tex_tbl, int n_tex, const float* __restrict__ cam,
+                     StepIn in, StepConsts c, float* __restrict__ fout, int* __restrict__ iout,
+                     int n, float t_min, float t_max, int shadow_light,
+                     int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  const SceneLayout L = scene_layout(P, S, Q, T);
+  const RecLayout R = rec_layout(P, S, Q, T);
+  float* smem = reinterpret_cast<float*>(smem4);
+  stage_records(smem, blob_g, L, R);
+  float* mat = smem + mat_offset(R);
+  float* light = smem + light_offset(R, kMatFields * n_mats);  // field-major, as nee_query reads
+  for (int k = threadIdx.x; k < kMatFields * n_mats; k += blockDim.x) mat[k] = mat_g[k];
+  for (int k = threadIdx.x; k < 3 * n_lights; k += blockDim.x) light[k] = light_g[k];
+  __syncthreads();
+  const float4* rec = smem4;
+  const size_t N = (size_t)n;
 
-  // the texel index of the hit (ops/texture._nearest_index), -1 untextured
-  const float tex = record_tex(m);
-  int idx = -1;
-  if (n_tex > 0 && tex >= 0.0f) {
-    const int tid = min(max((int)tex, 0), n_tex - 1);
-    const int w = tex_tbl[tid], ht = tex_tbl[n_tex + tid], off = tex_tbl[2 * n_tex + tid];
-    const float uu = fminf(fmaxf(sf.u, 0.0f), 1.0f);
-    const float vv = fminf(fmaxf(sf.v, 0.0f), 1.0f);
-    const int iu = min(max((int)(uu * (float)(w - 1)), 0), w - 1);
-    const int iv = min(max((int)((1.0f - vv) * (float)(ht - 1)), 0), ht - 1);
-    idx = off + iv * w + iu;
+  const int lane = threadIdx.x & 31;
+  const int span = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x;; i = next_batch(counter, span, n)) {
+    if (i - lane >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    float thx, thy, thz;
+    uint32_t key;
+    int depth2;
+    const Ray r = step_glue(in, c, cam, fout, iout, N, i, thx, thy, thz, key, depth2);
+
+    // ---- bounce the new rays (K1) ---------------------------------------------
+    const Hit h = closest_hit16(rec, R, r, t_min, t_max);
+    const Surface sf{h.prim >= 0, r.ox + r.dx * h.t, r.oy + r.dy * h.t, r.oz + r.dz * h.t,
+                     h.nx, h.ny, h.nz, h.u, h.v};
+    const Material m = sf.hit ? material_row(mat, n_mats, h.prim) : miss_material();
+    const ShadowQuery q = nee_query(light, n_lights, key, (uint32_t)depth2, sf, m, t_max,
+                                    shadow_light);
+    const Scatter sc = scatter(key, (uint32_t)depth2, r, thx, thy, thz, sf, m);
+
+    // the texel index of the hit (ops/texture._nearest_index), -1 untextured
+    const float tex = record_tex(m);
+    int idx = -1;
+    if (n_tex > 0 && tex >= 0.0f) {
+      const int tid = min(max((int)tex, 0), n_tex - 1);
+      const int w = tex_tbl[tid], ht = tex_tbl[n_tex + tid], off = tex_tbl[2 * n_tex + tid];
+      const float uu = fminf(fmaxf(sf.u, 0.0f), 1.0f);
+      const float vv = fminf(fmaxf(sf.v, 0.0f), 1.0f);
+      const int iu = min(max((int)(uu * (float)(w - 1)), 0), w - 1);
+      const int iv = min(max((int)((1.0f - vv) * (float)(ht - 1)), 0), ht - 1);
+      idx = off + iv * w + iu;
+    }
+
+    // ---- the next record with w_nee 0, then its weight when the shadow ray
+    // comes back unoccluded (the first occluder ends its sweep) --------------
+    iout[i] = idx;
+    fout[0 * N + i] = sf.hit ? 1.0f : 0.0f;
+    fout[1 * N + i] = sc.killed ? 1.0f : 0.0f;
+    fout[2 * N + i] = 0.0f;
+    fout[3 * N + i] = sc.rr_scale;
+    fout[4 * N + i] = sc.s_thr;
+    fout[5 * N + i] = sc.t_thr;
+    fout[6 * N + i] = sc.nox; fout[7 * N + i] = sc.noy; fout[8 * N + i] = sc.noz;
+    fout[9 * N + i] = sc.ndx; fout[10 * N + i] = sc.ndy; fout[11 * N + i] = sc.ndz;
+    fout[12 * N + i] = m.r; fout[13 * N + i] = m.g; fout[14 * N + i] = m.b;
+    if (q.care && !any_hit16(rec, R, q.ray, t_min, q.bound)) fout[2 * N + i] = q.w;
   }
-
-  iout[i] = idx;
-  fout[0 * N + i] = sf.hit ? 1.0f : 0.0f;
-  fout[1 * N + i] = sc.killed ? 1.0f : 0.0f;
-  fout[2 * N + i] = w_nee;
-  fout[3 * N + i] = sc.rr_scale;
-  fout[4 * N + i] = sc.s_thr;
-  fout[5 * N + i] = sc.t_thr;
-  fout[6 * N + i] = sc.nox; fout[7 * N + i] = sc.noy; fout[8 * N + i] = sc.noz;
-  fout[9 * N + i] = sc.ndx; fout[10 * N + i] = sc.ndy; fout[11 * N + i] = sc.ndz;
-  fout[12 * N + i] = m.r; fout[13 * N + i] = m.g; fout[14 * N + i] = m.b;
+  if (span < n) finish_lanes(counter);
 }
 
 }  // namespace ptrt
 
-// Launches on `stream`; allocates nothing and does not synchronise.  Returns
-// the launch's cudaError_t (0 when the launch was accepted).  `n_tex` is 0
-// when the scene has no textured primitive (every record untextured).
+// Resident blocks per SM with `smem` bytes of dynamic shared memory, into
+// *blocks; first lifts the kernel's dynamic shared memory limit to `smem`
+// where it is lower.
+extern "C" int ptrt_path_step_occupancy(int smem, int* blocks) {
+  cudaError_t err = ptrt::allow_smem(ptrt::path_step_persistent, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, ptrt::path_step_persistent,
+                                                        ptrt::kStepThreads, smem);
+  return (int)err;
+}
+
+// `grid` persistent blocks with `smem` bytes of dynamic shared memory (the
+// records, materials and lights of K1's tables; ops/cuda/bounce.sweep_plan),
+// which ptrt_path_step_occupancy has allowed; `counter` is two int32 of
+// scratch, zero at the launch and left zero by the kernel.  Launches on
+// `stream`; allocates nothing and does not synchronise.  Returns the
+// launch's cudaError_t (0 when the launch was accepted).  `n_tex` is 0 when
+// the scene has no textured primitive (every record untextured).
 extern "C" int ptrt_path_step(const float* blob, int P, int S, int Q, int T, const float* mat,
                               int n_mats, const float* lights, int n_lights, const int* tex_tbl,
                               int n_tex, const float* cam, ptrt::StepIn in, ptrt::StepConsts c,
                               float* fout, int* iout, int n, float t_min, float t_max,
-                              int shadow_light, void* stream) {
+                              int shadow_light, int* counter, int smem, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  const int blob_size = 14 * P + 4 * S + 18 * Q + 18 * T;
-  const size_t smem =
-      sizeof(float) * (size_t)(blob_size + ptrt::kMatFields * n_mats + 3 * n_lights);
-  const int blocks = (n + ptrt::kStepThreads - 1) / ptrt::kStepThreads;
-  ptrt::path_step_kernel<<<blocks, ptrt::kStepThreads, smem, (cudaStream_t)stream>>>(
+  if ((size_t)smem < ptrt::bounce_smem_bytes(P, S, Q, T, n_mats, n_lights))
+    return (int)cudaErrorInvalidValue;
+  ptrt::path_step_persistent<<<grid, ptrt::kStepThreads, smem, (cudaStream_t)stream>>>(
       blob, P, S, Q, T, mat, n_mats, lights, n_lights, tex_tbl, n_tex, cam, in, c, fout, iout, n,
-      t_min, t_max, shadow_light);
+      t_min, t_max, shadow_light, counter);
   return (int)cudaGetLastError();
 }

@@ -287,7 +287,7 @@ __device__ __forceinline__ void stage_records(float* __restrict__ rec,
   }
 }
 
-// The floats of a K1 or K2 block's tables in shared memory: the records,
+// The floats of a K1, K2 or K7 block's tables in shared memory: the records,
 // then the material table padded to whole float4s, then 4 floats a light
 // sample (ops/cuda/bounce.py sweep_plan).
 __host__ __device__ __forceinline__ int mat_offset(const RecLayout& R) { return 4 * R.size4; }

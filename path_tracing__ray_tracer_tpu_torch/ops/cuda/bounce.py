@@ -8,9 +8,9 @@ The kernel replaces the JAX package's
 * the scene packers ``pack_scene_blob`` / ``pack_mat_blob`` /
   ``pack_light_blob`` (the JAX package's wire format, flat), and
   ``pack_scene_rec16``, the primitive-major 16-byte records into which the
-  K1 and K2 blocks copy the blob's primitives in shared memory;
-* ``sweep_plan``, the shared memory of a K1 or K2 launch, and the grid of
-  its persistent blocks (``ops/cuda/bvh.launch_grid``);
+  K1, K2 and K7 blocks copy the blob's primitives in shared memory;
+* ``sweep_plan``, the shared memory of a K1, K2 or K7 launch, and the grid
+  of its persistent blocks (``ops/cuda/bvh.launch_grid``);
 * the ``BounceOut`` shading-weight record, plus the winning primitive id;
 * :func:`path_bounce`, the wrapper: a CUDA tensor always goes to the kernel
   (or the wrapper raises), a CPU tensor takes the plain version;
@@ -44,7 +44,7 @@ _P_REFRACT, _P_REFLECT, _P_DIFFUSE = 0.6, 0.25, 0.15
 
 _MAT_FIELDS = 10  # r g b diffuse specular reflective refractive ior has_tex tex_id
 _N_FIELDS = 19  # rows of the kernel's output record
-_SMEM_LIMIT = 48 * 1024  # shared memory of a block without an attribute (K3, K7)
+_SMEM_LIMIT = 48 * 1024  # shared memory of a block without an attribute (K3)
 # The record of each primitive type (csrc/sweep.cuh rec_layout): its fields
 # in the blob's order, then zeros to a whole number of 16-byte records.
 REC_FIELDS = (14, 4, 18, 18)  # plane, sphere, quad, triangle
@@ -128,7 +128,7 @@ def pack_scene_rec16(cs) -> torch.Tensor:
     type at ``base + width·i``, its fields in ``pack_scene_blob``'s order,
     then zeros to the type's width (16 floats a plane, 4 a sphere, 20 a quad
     or triangle), so each record is whole 16-byte rows.  The plain version
-    of the copy each K1 and K2 block makes into its shared memory
+    of the copy each K1, K2 and K7 block makes into its shared memory
     (``csrc/sweep.cuh`` stage_records)."""
     layout, blob = blob_layout(cs), pack_scene_blob(cs)
     bases = (layout.plane_base, layout.sphere_base, layout.quad_base, layout.tri_base)
@@ -144,7 +144,7 @@ class SweepPlan(NamedTuple):
 
 
 def sweep_plan(who, counts, n_mats: int, n_lights: int, limit: int) -> SweepPlan:
-    """The launch of K1 or K2 on a scene of primitive ``counts`` with
+    """The launch of K1, K2 or K7 on a scene of primitive ``counts`` with
     ``n_mats`` materials and ``n_lights`` light samples, on a card whose
     blocks may take ``limit`` bytes of dynamic shared memory
     (``ops/cuda/bvh.smem_limit``; neither kernel has static shared memory):
@@ -302,19 +302,15 @@ def _check(name, t, dtype, n, device, who="path_bounce"):
             f"got {tuple(t.shape)} {t.dtype} on {t.device} (contiguous={t.is_contiguous()})")
 
 
-def _check_tables(who, cs, blob, mat_blob, light_blob, device, smem_limit=_SMEM_LIMIT):
-    """Raise unless the packed tables are those of ``cs`` on ``device`` and
-    fit ``smem_limit`` bytes of shared memory as they are (None: the kernel
-    plans its own); returns ``(layout, n_mats, n_lights)``."""
+def _check_tables(who, cs, blob, mat_blob, light_blob, device):
+    """Raise unless the packed tables are those of ``cs`` on ``device`` (the
+    kernel plans its shared memory: ``sweep_plan``); returns ``(layout,
+    n_mats, n_lights)``."""
     layout = blob_layout(cs)
     n_mats, n_lights = int(cs.materials.diffuse.shape[0]), cs.n_lights
     for name, t, size in (("blob", blob, layout.size), ("mat_blob", mat_blob, _MAT_FIELDS * n_mats),
                           ("light_blob", light_blob, 3 * n_lights)):
         _check(name, t, torch.float32, size, device, who)
-    smem = 4 * (layout.size + _MAT_FIELDS * n_mats + 3 * n_lights)
-    if smem_limit is not None and smem > smem_limit:
-        raise ValueError(f"{who}: scene tables need {smem} B of shared memory, "
-                         f"more than the kernel's {smem_limit} B")
     return layout, n_mats, n_lights
 
 
@@ -327,7 +323,7 @@ def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, thr: V3, key, depth,
     from .bvh import lane_counter, launch_grid, smem_limit
 
     who = "path_bounce"
-    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device, None)
+    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device)
     rays = (*o, *d, *thr)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz", "tx", "ty", "tz"), rays):
         _check(name, t, torch.float32, n, device)

@@ -46,7 +46,7 @@ KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "bvh_paged": (("bvh_paged.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "bvh2": (("bvh2_walk.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "bvh_leafmat": (("bvh_leafmat.cu",), ("sweep.cuh", "bvh_walk.cuh")),
-    "path_step": (("path_step.cu",), ("sweep.cuh", "path_shade.cuh")),
+    "path_step": (("path_step.cu",), ("sweep.cuh", "bvh_walk.cuh", "path_shade.cuh")),
     "texture_gather": (("texture_gather.cu",), ()),
 }
 

@@ -9,12 +9,14 @@ node records ``FlatBVH.tree2`` and the slot records, one ray per thread:
 the skip-link walk in preorder with no stack, or the ordered walk, near
 child first, with a stack of at most ``STACK_CAP`` nodes.  The split route
 of ``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
-(``tri_route``: ``ordered`` or ``skiplink``).  The two ordered walks are
-persistent walks, as K4b is: their stack class ``bvh.depth2_class`` of the
-tree's BVH2 depth (:func:`ordered_plan`), ``bvh.launch_grid`` the resident
-blocks, whose warps take their lanes from ``bvh.lane_counter``; they read
-the padded slot records ``FlatBVH.slot16`` (the skip-link walks the
-13-float ``slot_rec``).
+(``tri_route``: ``ordered`` or ``skiplink``).  The two ordered walks and
+the skip-link closest walk are persistent walks, as K4b is: the ordered
+walks' stack class ``bvh.depth2_class`` of the tree's BVH2 depth
+(:func:`ordered_plan`; the skip-link walk has no stack,
+:data:`SKIPLINK_PLAN`), ``bvh.launch_grid`` the resident blocks, whose
+warps take their lanes from ``bvh.lane_counter``; they read the padded slot
+records ``FlatBVH.slot16`` (the skip-link occlusion walk the 13-float
+``slot_rec``).
 
 * :func:`closest_skiplink` / :func:`closest_ordered`: ``(t, tri)``, the
   closest triangle below a scalar ``t_max`` or a per-ray seed bound, as a
@@ -50,15 +52,16 @@ def build():
 
     built = _build.load("bvh2")
     lib = built.lib
-    lib.ptrt_bvh2_closest.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P]
+    lib.ptrt_bvh2_closest.argtypes = ([_P, _I, _P] + [_P] * 6 + [_I, _I, _I, _F, _F, _P, _P, _P]
                                       + [_P, _I, _I, _P])
     occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.ptrt_bvh2_closest_occupancy.argtypes = occupancy
+    lib.ptrt_bvh2_skiplink_occupancy.argtypes = occupancy
     lib.ptrt_bvh2_any.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_P, _I, _I, _F, _P]
                                   + [_P, _I, _I, _P])
     lib.ptrt_bvh2_any_occupancy.argtypes = occupancy
-    for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy, lib.ptrt_bvh2_any,
-               lib.ptrt_bvh2_any_occupancy):
+    for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy,
+               lib.ptrt_bvh2_skiplink_occupancy, lib.ptrt_bvh2_any, lib.ptrt_bvh2_any_occupancy):
         fn.restype = ctypes.c_int
     lib.ptrt_bvh2_stack_cap.argtypes = []
     lib.ptrt_bvh2_stack_cap.restype = ctypes.c_int
@@ -88,13 +91,17 @@ def ordered_plan(cs) -> WalkPlan:
     return WalkPlan(False, depth2_class(cs.bvh.depth2), 0)
 
 
-def _persistent(who, cs, dev, occupancy, n: int):
-    """The ordered walks' launch arguments after ``tree2``: ``(slot16, lane
-    counter, depth class, grid)``, after checking the 16-byte loads'
+# The persistent skip-link closest walk's launch, whatever the tree: no
+# stack (depth class 0), nothing staged.
+SKIPLINK_PLAN = WalkPlan(False, 0, 0)
+
+
+def _persistent(who, cs, dev, occupancy, plan: WalkPlan, n: int):
+    """The persistent walks' launch arguments after ``tree2``: ``(slot16,
+    lane counter, depth class, grid)``, after checking the 16-byte loads'
     alignment."""
     if cs.bvh.tree2.data_ptr() % 16:
         raise ValueError(f"{who}: tree2 is not 16-byte aligned")
-    plan = ordered_plan(cs)
     return (slot16_arg(who, cs, dev), lane_counter(dev).data_ptr(), plan.depth_class,
             launch_grid(who, occupancy, plan, n, dev))
 
@@ -114,10 +121,11 @@ def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
     if n == 0:
         return t, tri
     lib = build().lib
-    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_closest_occupancy, n) if ordered
-                     else (None, None, 0, 0))
-    err = lib.ptrt_bvh2_closest(
-        *tree, slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
+    plan, occupancy = ((ordered_plan(cs), lib.ptrt_bvh2_closest_occupancy) if ordered
+                       else (SKIPLINK_PLAN, lib.ptrt_bvh2_skiplink_occupancy))
+    slot16, *walk = _persistent(who, cs, dev, occupancy, plan, n)
+    err = lib.ptrt_bvh2_closest(  # tree2 and its node count: no 13-float slot records
+        *tree[:2], slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
         float(t_min), 0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None,
         t.data_ptr(), tri.data_ptr(), *walk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
@@ -137,8 +145,8 @@ def _any(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, limit: torch.
     if n == 0:
         return occ
     lib = build().lib
-    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_any_occupancy, n) if ordered
-                     else (None, None, 0, 0))
+    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_any_occupancy, ordered_plan(cs), n)
+                     if ordered else (None, None, 0, 0))
     err = lib.ptrt_bvh2_any(*tree, slot16, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
                             int(ordered), float(t_min), occ.data_ptr(), *walk,
                             torch.cuda.current_stream(dev).cuda_stream)
@@ -148,7 +156,7 @@ def _any(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, limit: torch.
 
 
 def closest_skiplink(cs, ro: V3, rd: V3, t_min: float, bound):
-    """Closest triangle by the stackless skip-link walk (K4e)."""
+    """Closest triangle by the stackless skip-link walk (K4e), persistent."""
     return _closest(closest_skiplink, False, cs, ro, rd, t_min, bound)
 
 

@@ -14,6 +14,10 @@ accumulator; ``models/experimental.py`` drives it.
 * :class:`StepStatics`, :class:`StepRec`, :func:`pack_tex_blob`: the
   JAX package's names for the chunk's constants, the per-lane record carried
   between calls, and the texture table;
+* :func:`step_plan`: the shared memory of a launch (K1's tables, which each
+  resident block copies once: ``bounce.sweep_plan``); the grid of its
+  persistent blocks is ``ops/cuda/bvh.launch_grid``'s, their lanes taken
+  from ``bvh.lane_counter`` as K1's are;
 * :func:`path_step`: the wrapper; a CUDA tensor goes to the kernel (or the
   wrapper raises), a CPU tensor takes :func:`path_step_plain`, the same
   function as plain torch ops (the glue of ``_path_step_kernel`` term for
@@ -36,7 +40,8 @@ from .. import rng
 from ..camera import generate_rays
 from ..texture import _unpack_rgb
 from ..v3 import V3
-from .bounce import _SKY, _check, _check_tables, path_bounce_plain
+from .bounce import (_SKY, SweepPlan, _check, _check_tables, blob_layout, path_bounce_plain,
+                     sweep_plan)
 from .texture import texel_index
 
 _JITTER = {"center": 0, "diagonal": 1, "independent": 2}
@@ -78,6 +83,16 @@ class StepRec(NamedTuple):
 def pack_tex_blob(cs) -> torch.Tensor:
     """The texture table of the step kernel: (3·T,) int32 [widths | heights | offsets]."""
     return torch.cat([cs.tex_width, cs.tex_height, cs.tex_offset]).to(torch.int32).contiguous()
+
+
+def step_plan(cs, limit: int) -> SweepPlan:
+    """The dynamic shared memory of a K7 launch on ``cs``, on a card whose
+    blocks may take ``limit`` bytes (``ops/cuda/bvh.smem_limit``): K1's
+    tables, the records, materials and light samples of ``cs``
+    (``bounce.sweep_plan``).  Raises when they do not fit."""
+    layout = blob_layout(cs)
+    return sweep_plan("path_step", layout[:4], int(cs.materials.diffuse.shape[0]), cs.n_lights,
+                      limit)
 
 
 # ---- plain version -------------------------------------------------------------
@@ -174,14 +189,18 @@ def build():
     from . import build as _build
 
     built = _build.load("path_step")
-    fn = built.lib.ptrt_path_step
-    fn.argtypes = [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _StepIn, _StepConsts,
-                   _P, _P, _I, _F, _F, _I, _P]
-    fn.restype = ctypes.c_int
+    lib = built.lib
+    lib.ptrt_path_step.argtypes = [_P, _I, _I, _I, _I, _P, _I, _P, _I, _P, _I, _P, _StepIn,
+                                   _StepConsts, _P, _P, _I, _F, _F, _I, _P, _I, _I, _P]
+    lib.ptrt_path_step_occupancy.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.ptrt_path_step, lib.ptrt_path_step_occupancy):
+        fn.restype = ctypes.c_int
     return built
 
 
 def _launch(cs, st, tables, cam12, scal, rec, texel, thr, psum, key, depth, s, ploc, ux, uy):
+    from .bvh import lane_counter, launch_grid, smem_limit
+
     device = thr.x.device
     n = int(thr.x.shape[0])
     blob, mat_blob, light_blob, tex_blob = tables
@@ -195,19 +214,30 @@ def _launch(cs, st, tables, cam12, scal, rec, texel, thr, psum, key, depth, s, p
     pix0, seed, sample_base = scal
     consts = _StepConsts(st.width, st.height, st.total, st.stride, st.n_pix, st.ns, st.max_depth,
                          _JITTER[st.jitter], int(pix0), int(sample_base), int(seed) & 0xFFFFFFFF)
+    plan = step_plan(cs, smem_limit(device))
     fout = torch.empty((30, n), dtype=torch.float32, device=device)
     iout = torch.empty((8, n), dtype=torch.int32, device=device)
-    err = build().lib.ptrt_path_step(
+    if n == 0:
+        return _outputs(fout, iout)
+    lib = build().lib
+    grid = launch_grid("path_step", lib.ptrt_path_step_occupancy, plan, n, device)
+    err = lib.ptrt_path_step(
         blob.data_ptr(), layout.n_planes, layout.n_spheres, layout.n_quads, layout.n_tris,
         mat_blob.data_ptr(), n_mats, light_blob.data_ptr(), n_lights, tex_blob.data_ptr(),
         st.n_tex if st.tex_on else 0, cam12.data_ptr(),
         _StepIn(*(t.data_ptr() for t in lanes)), consts, fout.data_ptr(), iout.data_ptr(), n,
         float(st.t_min), float(st.t_max), int(bool(st.shadow_light)),
+        lane_counter(device).data_ptr(), plan.smem_bytes, grid,
         torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"path_step: kernel launch failed with cudaError {err}")
     path_step.launches += 1
-    f, i = fout, iout
+    return _outputs(fout, iout)
+
+
+def _outputs(f, i):
+    """``path_step``'s outputs from the kernel's (30, N) float and (8, N)
+    int rows."""
     rec2 = StepRec(idx=i[0], hit=f[0], kill=f[1], wnee=f[2], rrs=f[3], sthr=f[4], tthr=f[5],
                    no=V3(f[6], f[7], f[8]), nd=V3(f[9], f[10], f[11]), mc=V3(f[12], f[13], f[14]))
     return (rec2, V3(f[15], f[16], f[17]), V3(f[18], f[19], f[20]), V3(f[21], f[22], f[23]),

@@ -195,7 +195,7 @@ def _launch(cs, blob, mat_blob, light_blob, o: V3, d: V3, variant: WhittedVarian
     who = "whitted_bounce"
     device = o.x.device
     n = int(o.x.shape[0])
-    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device, None)
+    layout, n_mats, n_lights = _check_tables(who, cs, blob, mat_blob, light_blob, device)
     rays = (*o, *d)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
         _check(name, t, torch.float32, n, device, who)

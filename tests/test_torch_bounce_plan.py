@@ -1,5 +1,5 @@
-"""The host side of the persistent path bounce (K1) and Whitted bounce (K2)
-on the CPU.
+"""The host side of the persistent path bounce (K1), Whitted bounce (K2)
+and fused pipe step (K7) on the CPU.
 
 * ``ops/cuda/bounce.pack_scene_rec16``: the primitive-major records into
   which each K1 and K2 block copies the scene blob's primitives (the plain
@@ -11,8 +11,11 @@ on the CPU.
   the shared bytes, the variant and the grid are pure functions of sizes,
   the SM count and the card's shared memory; a scene at the first design's
   48 KB limit is still accepted, and one past the card's limit is refused.
-* ``path_bounce`` and ``whitted_bounce`` take their plain versions on CPU
-  tensors and count no launch.
+* ``ops/cuda/step.step_plan``: K7's shared bytes are K1's tables (the
+  records, materials and light samples) at every size case, and its grid
+  comes from ``launch_grid`` as K1's does.
+* ``path_bounce``, ``whitted_bounce`` and ``path_step`` take their plain
+  versions on CPU tensors and count no launch.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -24,7 +27,8 @@ import pytest
 import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bvh, whitted
+from path_tracing__ray_tracer_tpu_torch.models import experimental
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bvh, step, whitted
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
@@ -162,6 +166,58 @@ def test_launch_grid_is_a_function_of_sizes_and_the_card(monkeypatch, n, n_sms, 
     assert asked == [2624] and want == bvh.persistent_grid(n, n_sms, per_sm)
 
 
+def _sizes(counts, n_mats, n_lights):
+    """What ``step_plan`` reads of a compiled scene."""
+    P, S, Q, T = counts
+    return SimpleNamespace(n_planes=P, n_spheres=S, n_quads=Q, n_triangles=T, n_lights=n_lights,
+                           materials=SimpleNamespace(diffuse=torch.zeros(n_mats)))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_step_plan_is_k1s_tables(case):
+    """K7 stages K1's tables: the records, the material table padded to
+    float4s and a float4 a light sample, on both cards; refused past them."""
+    counts, n_mats, n_lights = CASES[case]
+    cs = _sizes(counts, n_mats, n_lights)
+    for optin in (H100, SMALL):
+        limit = optin - 64
+        want = 4 * (bounce.rec_layout(counts).size + -(-10 * n_mats // 4) * 4 + 4 * n_lights)
+        if want > limit:
+            assert case == "past the card"
+            with pytest.raises(ValueError, match="path_step: scene tables need"):
+                step.step_plan(cs, limit)
+            continue
+        plan = step.step_plan(cs, limit)
+        assert tuple(plan) == (want,)
+        assert plan == bounce.sweep_plan("path_bounce", counts, n_mats, n_lights, limit)
+
+
+@pytest.mark.parametrize("n,n_sms,per_sm,want", [
+    (131072, 132, 3, 396),  # the pipe's chunk: the resident blocks
+    (131077, 132, 4, 513),  # a ragged chunk: one block a 256-lane batch, fewer than 528
+    (4133, 132, 3, 17), (1, 132, 4, 1), (33, 78, 2, 1),
+])
+def test_step_grid_is_a_function_of_sizes_and_the_card(monkeypatch, cornell, n, n_sms, per_sm,
+                                                        want):
+    """K7's grid: ``launch_grid`` with the Cornell box's step plan, the
+    occupancy entry asked once with its shared bytes (card monkeypatched)."""
+    card = SimpleNamespace(multi_processor_count=n_sms, shared_memory_per_block_optin=H100)
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda dev: card)
+    monkeypatch.setattr(bvh, "_RESIDENT", {})
+    asked = []
+
+    def occupancy(smem, blocks):
+        asked.append(smem)
+        ctypes.cast(blocks, ctypes.POINTER(ctypes.c_int))[0] = per_sm
+        return 0
+
+    dev = SimpleNamespace(index=0)
+    plan = step.step_plan(cornell, bvh.smem_limit(dev))
+    for _ in range(2):
+        assert bvh.launch_grid("path_step", occupancy, plan, n, dev) == want
+    assert asked == [2624] and want == bvh.persistent_grid(n, n_sms, per_sm)
+
+
 @pytest.fixture(scope="module")
 def cornell():
     return pt.compile_scene(pt.CustomSceneBuilder().build_scene(), device="cpu")
@@ -200,3 +256,23 @@ def test_bounces_take_their_plain_versions_on_the_cpu(cornell):
     want = whitted.whitted_bounce_plain(cornell, o, d, whitted.TEXTURE)
     assert all(_same(a, b) for a, b in zip(got, want)) and bool(got.hit.any())
     assert before == (bounce.path_bounce.launches, whitted.whitted_bounce.launches)
+
+
+def test_step_takes_its_plain_version_on_the_cpu(cornell):
+    """``path_step`` on CPU tensors is ``path_step_plain``, output for output,
+    after a plain step (some lanes retired), and counts no launch."""
+    blobs = (bounce.pack_scene_blob(cornell), bounce.pack_mat_blob(cornell),
+             bounce.pack_light_blob(cornell))
+    cam12 = pt.pack_camera(pt.CustomSceneBuilder().create_camera(2.0), "cpu")
+    st, tables, scal, lane = experimental.pipe_start(
+        cornell, blobs, cam12, 0, 3, 0, n_pix=64, width=16, height=8, n_samples=1, max_depth=2,
+        jitter="independent")
+    before = step.path_step.launches
+    for _ in range(2):
+        args = (cornell, st, tables, cam12, scal, lane[0],
+                experimental.step_texel(cornell, st, lane[0]), *lane[1:])
+        got, want = step.path_step(*args), step.path_step_plain(*args)
+        assert _same(got, want)
+        lane = (got[0],) + got[3:11]
+    assert bool((lane[5] == st.ns).any()) and bool(got[0].hit.any())
+    assert step.path_step.launches == before

@@ -20,9 +20,10 @@ mesh and on the 190-deep chain (whose lanes overflow the shallow class),
 and the persistent K10c in both classes, at ragged lane counts; the
 persistent K10b and K10d in both classes, with infinite, finite and
 non-positive limits and found lanes; the persistent K1 and K2 at 131,072,
-4,133 and 1 lanes (K1's hit, prim and killed on every lane), and none; and
-K4b, K5, K6c, K6d, K11, the two ordered walks, K10b-d, K1 and K2 queued on
-one stream, which share its lane counter.
+4,133 and 1 lanes (K1's hit, prim and killed on every lane), and none; the
+persistent K7 at 131,077 and 4,133 lanes, none, and queued with K1; and
+K4b, K5, K6c, K6d, K11, the two ordered walks, the skip-link closest walk,
+K10b-d, K1 and K2 queued on one stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -395,11 +396,13 @@ def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
     dev, cs, tables = mesh_card
     o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
     wrappers = (bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
-                bvh_leafmat.tri_closest, bvh_leafmat.scene_any, bvh_leafmat.tri_any)
+                bvh2.closest_skiplink, bvh_leafmat.tri_closest, bvh_leafmat.scene_any,
+                bvh_leafmat.tri_any)
     before = [w.launches for w in wrappers]
     assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
     assert bvh2.any_ordered(cs, o, d, 1e-3, limit).shape == (0,)
+    assert bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6)[0].shape == (0,)
     assert bvh_leafmat.tri_closest(cs, o, d, 1e-3, _seed(limit)).t.shape == (0,)
     assert bvh_leafmat.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     assert bvh_leafmat.tri_any(cs, o, d, 1e-3, limit, limit > 0).shape == (0,)
@@ -591,7 +594,7 @@ def test_page_walks_match_plain(paged_card, n, deep):
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
     """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest and occlusion walks,
-    K10b-d, K1 and K2 queued on one stream with no sync between them answer
+    the skip-link closest walk, K10b-d, K1 and K2 queued on one stream with no sync between them answer
     bit for bit as each does alone after a sync, which leaves the stream's
     lane counter zero: each launch starts from lane 0."""
     dev, mcs, tables = mesh_card
@@ -610,6 +613,7 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
              lambda: bvh.closest_rooted(mcs, o, d, 1e-3, roots, en, limit.abs(), none),
              lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()),
              lambda: bvh2.any_ordered(mcs, o, d, 1e-3, limit),
+             lambda: bvh2.closest_skiplink(mcs, o, d, 1e-3, limit.abs()),
              lambda: bvh_leafmat.tri_closest(mcs, o, d, 1e-3, _seed(limit.abs())),
              lambda: bvh_leafmat.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_any(mcs, o, d, 1e-3, limit, found),
@@ -661,6 +665,7 @@ def test_bvh2_walks_match_plain(mesh_card, n, ordered):
     occ = occluded(cs, o, d, 1e-3, limit)
     torch.cuda.synchronize()
     assert (closest.launches, occluded.launches) == (before[0] + 2, before[1] + 1)
+    assert not bvh.lane_counter(dev).any()
     for (t, tri), b in zip(got, (1e6, bound)):
         want_t, want_tri = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b)
         assert torch.equal(tri < 0, want_tri < 0) and 0.02 < float((tri >= 0).float().mean()) < 1
@@ -707,6 +712,7 @@ def test_bvh2_walks_match_plain_on_a_190_deep_chain(ordered):
     occ = occluded(cs, o, d, 1e-3, bound)
     torch.cuda.synchronize()
     assert (closest.launches, occluded.launches) == (before[0] + 2, before[1] + 1)
+    assert not bvh.lane_counter(dev).any()
     assert torch.equal(occ, tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, bound))
     assert 0.2 < float(occ.float().mean()) < 0.8
 
@@ -1024,26 +1030,40 @@ def _leaves(out):
         yield from (_leaves(x) if isinstance(x, tuple) else (x,))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("steps", [1, 6])  # fresh camera rays; retired, finishing and live lanes
-def test_step_kernel_matches_plain(card, steps):
-    """K7 on the first 131,072-lane chunk of a 512x256 frame, 2 samples,
-    after ``steps`` plain fused steps (the pipe mode's own start)."""
-    dev, cs, blobs = card
+def _step_args(cs, blobs, dev, n, steps):
+    """``path_step``'s arguments on ``n`` lanes about the middle of a
+    512x256 frame (past its 131,072 pixels the lanes' items clamp to the
+    last pixel), 2 samples, after ``steps`` plain fused steps (the pipe
+    mode's own start)."""
     cam12 = pt.pack_camera(pt.CustomSceneBuilder().create_camera(2.0), dev)
     st, tables, scal, lane = experimental.pipe_start(
-        cs, blobs, cam12, 0, 3, 0, n_pix=131072, width=512, height=256, n_samples=2,
-        max_depth=8, jitter="independent")
+        cs, blobs, cam12, max(0, (512 * 256 - n) // 2), 3, 0, n_pix=n, width=512, height=256,
+        n_samples=2, max_depth=8, jitter="independent")
     for _ in range(steps):
         out = step.path_step_plain(cs, st, tables, cam12, scal, lane[0],
                                    experimental.step_texel(cs, st, lane[0]), *lane[1:])
         lane = (out[0],) + out[3:11]
-    args = (cs, st, tables, cam12, scal, lane[0], experimental.step_texel(cs, st, lane[0]),
+    return (cs, st, tables, cam12, scal, lane[0], experimental.step_texel(cs, st, lane[0]),
             *lane[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steps", [1, 6])  # fresh camera rays; retired, finishing and live lanes
+@pytest.mark.parametrize("n", [131072 + 5, 4096 + 37])
+def test_step_kernel_matches_plain(card, n, steps):
+    """The persistent K7 on ``n`` lanes after ``steps`` plain fused steps
+    against its plain version: integer and 0/1 outputs on every lane, the
+    floats within tolerance (the next record's geometry on its hit lanes);
+    the stream's lane counter left zero; K7 and K1 queued back to back on
+    one stream answer bit for bit as each does alone."""
+    dev, cs, blobs = card
+    args = _step_args(cs, blobs, dev, n, steps)
+    st, lane = args[1], args[5:]
     before = step.path_step.launches
-    got = list(_leaves(step.path_step(*args)))
+    alone = step.path_step(*args)
     torch.cuda.synchronize()
-    assert step.path_step.launches == before + 1
+    assert step.path_step.launches == before + 1 and not bvh.lane_counter(dev).any()
+    got = list(_leaves(alone))
     want = list(_leaves(step.path_step_plain(*args)))
     assert len(got) == len(want) == 38
     hit = want[1] > 0.5
@@ -1053,10 +1073,32 @@ def test_step_kernel_matches_plain(card, steps):
         else:  # the next record's geometry is read on its hit lanes only
             m = hit if 3 <= k <= 15 else torch.ones_like(hit)
             torch.testing.assert_close(a[m], b[m], rtol=TOL, atol=TOL, msg=str(k))
-    s0, s2, item = lane[5], want[30], want[34]
+    s0, s2, item = lane[6], want[30], want[34]
     if steps > 1:
         assert bool((s0 == st.ns).any()) and bool((item < st.ns).any()) and bool((s2 < st.ns).any())
     assert bool((want[0] >= 0).any()) and 0.2 < float(hit.float().mean()) < 1.0
+    o, d, thr, key, depth = _inputs(n, n + 3, dev)
+    queued = (step.path_step(*args), bounce.path_bounce(cs, *blobs, o, d, thr, key, depth))
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+    _assert_same_bits(queued[0], alone)
+    _assert_same_bits(queued[1], bounce.path_bounce(cs, *blobs, o, d, thr, key, depth))
+
+
+@pytest.mark.cuda
+def test_step_kernel_launches_nothing_on_no_lanes(card):
+    dev, cs, blobs = card
+
+    def none_of(x):
+        return type(x)(*map(none_of, x)) if isinstance(x, tuple) else x[:0].contiguous()
+
+    args = _step_args(cs, blobs, dev, 64, 0)
+    args = args[:5] + tuple(none_of(x) for x in args[5:])
+    before = step.path_step.launches
+    out = list(_leaves(step.path_step(*args)))
+    torch.cuda.synchronize()
+    assert len(out) == 38 and all(x.shape == (0,) for x in out)
+    assert step.path_step.launches == before
 
 
 @pytest.mark.cuda

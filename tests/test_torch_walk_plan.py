@@ -1,5 +1,5 @@
 """The host side of the persistent BVH walks (K4b, K5, K6c/K6d, K4c/K4d,
-K11 and K4e's ordered closest walk) on the CPU.
+K11 and K4e's ordered and skip-link closest walks) on the CPU.
 
 * ``ops/bvh.pack_slot16``: the padded copy of the slot records that the
   persistent walks read as 16-byte loads equals the 13-float records field
@@ -13,8 +13,14 @@ K11 and K4e's ordered closest walk) on the CPU.
   and ``depth2_class`` with ``ops/cuda/bvh2.ordered_plan`` (the ordered
   BVH2 closest walk: a stack class that holds ``depth2 + 2``) are pure
   functions of the tree's depths.
-* K11 and the ordered closest walk take their plain versions on the CPU,
-  as every wrapper does, and count no launch.
+* The persistent skip-link closest walk's visit, emulated from the loads
+  it issues (each BVH2 node as two 16-byte rows of ``tree2``, the leaves
+  four slots at a time from ``slot16``, three rows a slot, the slots tested
+  in order against the running best), gives ``ops/bvh.traverse_closest``'s
+  ``t`` and triangle on every lane: on a mesh and on the 190-deep chain of
+  ``tests/torch_chain.py``, with a scalar and a per-ray bound.
+* K11, the ordered closest walk and the skip-link closest walk take their
+  plain versions on the CPU, as every wrapper does, and count no launch.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -27,6 +33,7 @@ import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+from torch_chain import chain_rays, chain_scene
 from torch_threads import one_torch_thread  # noqa: F401
 
 # config 5 (MeshSceneBuilder(3, 3)): 521 BVH4 nodes, depth 6, a 92-float
@@ -113,14 +120,89 @@ def test_split_walks_take_the_plain_versions_on_the_cpu(mesh):
     o = V3(*(torch.rand(n, generator=g) * 8 - 4 for _ in range(3)))
     d = V3(*(torch.randn(n, generator=g) for _ in range(3))).normalized()
     bound = torch.rand(n, generator=g) * 20
-    before = (bvh.closest_rooted.launches, bvh2.closest_ordered.launches)
+    before = (bvh.closest_rooted.launches, bvh2.closest_ordered.launches,
+              bvh2.closest_skiplink.launches)
     roots = torch.ones(n, dtype=torch.int32)
     en = torch.arange(n) % 3 != 0
     none = torch.full((n,), -1, dtype=torch.int32)
     got = bvh.closest_rooted(mesh, o, d, 1e-3, roots, en, bound, none)
     want = tbvh.rooted(mesh.bvh, mesh.triangles, o, d, 1e-3, roots, en, bound, none)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    got = bvh2.closest_ordered(mesh, o, d, 1e-3, bound)
     want = tbvh.traverse_closest(mesh.bvh, mesh.triangles, o, d, 1e-3, bound)
-    assert all(torch.equal(a, b) for a, b in zip(got, want)) and bool((got[1] >= 0).any())
-    assert before == (bvh.closest_rooted.launches, bvh2.closest_ordered.launches)
+    for walk in (bvh2.closest_ordered, bvh2.closest_skiplink):
+        got = walk(mesh, o, d, 1e-3, bound)
+        assert all(torch.equal(a, b) for a, b in zip(got, want)) and bool((got[1] >= 0).any())
+    assert before == (bvh.closest_rooted.launches, bvh2.closest_ordered.launches,
+                      bvh2.closest_skiplink.launches)
+
+
+def _skiplink_visit(cs, o: V3, d: V3, t_min, bound):
+    """``bvh2_closest_skiplink_persistent``'s walk of every lane, from the
+    rows it loads: node ``c`` as rows ``2c`` (lo, hi.x) and ``2c + 1`` (hi.y,
+    hi.z, skip, code) of ``tree2``; a leaf's 16 slots as four batches of four,
+    slot ``s`` as rows ``4s .. 4s + 2`` of ``slot16`` (v0 e1x | e1y e1z e2x e2y
+    | e2z gid nx ny), each slot tested in order against the running best."""
+    b = cs.bvh
+    nodes, slots = b.tree2.view(-1, 4), b.slot16.view(-1, 4)
+    m, n = b.tree2.shape[0] // 8, o.x.shape[0]
+    org, dirs = torch.stack(tuple(o), -1), torch.stack(tuple(d), -1)
+    iv = 1.0 / torch.where(torch.abs(dirs) > 1e-12, dirs, 1e-12)
+    best = torch.as_tensor(bound, dtype=torch.float32).expand(n).clone()
+    gid = torch.full((n,), -1.0)
+    cursor = torch.zeros(n, dtype=torch.int64)
+    for _step in range(m + 1):  # the kernel's step <= m guard
+        walking = cursor < m
+        if not bool(walking.any()):
+            break
+        c = torch.clamp(cursor, max=m - 1)
+        lo, hi = nodes[2 * c], nodes[2 * c + 1]
+        box_hi = torch.stack((lo[:, 3], hi[:, 0], hi[:, 1]), -1)
+        a, e = (lo[:, :3] - org) * iv, (box_hi - org) * iv
+        near, far = torch.minimum(a, e), torch.maximum(a, e)
+        enter = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                              torch.clamp(near[:, 2], min=t_min))
+        exit_ = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), torch.minimum(far[:, 2], best))
+        hit = walking & (enter <= exit_)
+        code = hi[:, 3]
+        rows = torch.nonzero(hit & (code >= 0))[:, 0]
+        if rows.numel():
+            base = code[rows].long()
+            for batch in range(0, tbvh.LEAF_SIZE, 4):  # four slots' rows loaded together
+                s = 4 * (base[:, None] + batch + torch.arange(4))
+                ra, rb, rc = slots[s], slots[s + 1], slots[s + 2]  # (k, 4, 4) each
+                e1 = torch.stack((ra[..., 3], rb[..., 0], rb[..., 1]), -1)
+                e2 = torch.stack((rb[..., 2], rb[..., 3], rc[..., 0]), -1)
+                t, inside = tbvh._leaf_test(ra[..., :3], e1, e2, org[rows, None], dirs[rows, None],
+                                            t_min, float("inf"))
+                for j in range(4):  # in slot order, strict < against the running best
+                    win = inside[:, j] & (t[:, j] < best[rows]) & (rc[:, j, 1] >= 0.0)
+                    best[rows] = torch.where(win, t[:, j], best[rows])
+                    gid[rows] = torch.where(win, rc[:, j, 1], gid[rows])
+        cursor = torch.where(walking, torch.where(hit & (code < 0), cursor + 1, hi[:, 2].long()),
+                             cursor)
+    prim = gid.to(torch.int32)
+    return best, torch.where(prim >= 0, prim & bvh.gid_mask(cs), prim)
+
+
+def _mesh_rays(n, seed):
+    g = torch.Generator().manual_seed(seed)
+    o = V3(*(torch.rand(n, generator=g) * 8 - 4 for _ in range(3)))
+    return o, V3(*(torch.randn(n, generator=g) for _ in range(3))).normalized()
+
+
+@pytest.mark.parametrize("scene", ["mesh", "190-deep chain"])
+def test_skiplink_visit_from_its_loads_is_the_plain_walk(mesh, scene):
+    if scene == "mesh":
+        cs, (o, d) = mesh, _mesh_rays(96, 5)
+    else:
+        cs = chain_scene(bvh.STACK_CAP - 2)
+        o, d = (V3(*(torch.from_numpy(a[:, i].copy()) for i in range(3)))
+                for a in chain_rays(cs.bvh.depth2, 96, 31))
+    assert cs.bvh.tree2.data_ptr() % 16 == 0 and cs.bvh.slot16.data_ptr() % 16 == 0
+    want_t, _ = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, 1e6)
+    bound = want_t * (0.5 + torch.rand(96, generator=torch.Generator().manual_seed(6)))
+    for b in (1e6, bound):
+        got = _skiplink_visit(cs, o, d, 1e-3, b)
+        want = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert 0 < int((got[1] >= 0).sum()) < 96  # hits and misses
