@@ -73,8 +73,9 @@ It imports no JAX.
    closest hit (K4c) and the whole-tree occlusion walk (K4d) against their
    plain versions; then the times and bounds
    of K6a-d and K4c/K4d (the page walks K6c/K6d and K4c/K4d with their tree
-   traffic, their plans and resident lanes a SM), and of K6, K4a/K4b and
-   K5 + K4b on the same rays;
+   traffic, their plans and resident lanes a SM; the top walks' plan: staged
+   or not, shared bytes, blocks a SM and grid), and of K6, K4a/K4b and
+   K5 + K4b on the same rays; the lane counter left zero;
 13. config 6's path: ``cuda_path_raytracer`` at 1920×1080, depth 12,
    ``shadow_tmax="light"``, one ``B_SPP``-sample group after a warm-up frame
    (K6a-d's launch counts; K5 must stay idle), then a profile of a one-sample
@@ -82,7 +83,9 @@ It imports no JAX.
 14. the 512,000-triangle scene (``MeshSceneBuilder(5, 5)``): its set-up, its
    pages (more than 32, so both pending words are used), K6 closest and
    occlusion against K4a/K4b over the whole tree, and K4a against the plain
-   walk on a slice of the rays;
+   walk on a slice of the rays; then the 48-page scene (``paged_48``), whose
+   top leaves hold triangles: K6a and K6b, staged and read from device
+   memory, against their plain versions and each other;
 15. the oracle on BVH scenes: the mesh oracle golden of ``tests/goldens/``
    and a config-5 frame (K4a's and K4b's launch counts);
 16. the path tracer's scheduler modes (``models/experimental.py``): K7 (the
@@ -444,8 +447,8 @@ C_ENTRIES = {
     "bvh_any_persistent": ("bvh_scene", ("ptrt_bvh_any",)),
     "bvh4_rooted_persistent": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
     "path_bounce_bvh_persistent": ("path_bounce_bvh", ("ptrt_path_bounce_bvh",)),
-    "paged_top_closest_kernel": ("bvh_paged", ("ptrt_paged_top_closest",)),
-    "paged_top_any_kernel": ("bvh_paged", ("ptrt_paged_top_any",)),
+    "paged_top_closest_persistent": ("bvh_paged", ("ptrt_paged_top_closest",)),
+    "paged_top_any_persistent": ("bvh_paged", ("ptrt_paged_top_any",)),
     "pages_closest_persistent": ("bvh_paged", ("ptrt_pages_closest",)),
     "pages_any_persistent": ("bvh_paged", ("ptrt_pages_any",)),
     "bvh2_closest_skiplink_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
@@ -1672,6 +1675,69 @@ def page_walk_plans(cs, n=N_RAYS):
     return out
 
 
+def top_walk_plans(cs, n=N_RAYS):
+    """The top walks' plan on ``cs`` (``ops/cuda/bvh_paged.top_walk_plan``:
+    staged or not, the stack's depth class, the shared bytes a block), each
+    kernel's resident blocks per SM and its grid for ``n`` lanes, as the
+    wrappers pick them."""
+    import ctypes
+
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh_paged
+
+    dev = torch.device("cuda", 0)
+    lib = bvh_paged.build().lib
+    plan = bvh_paged.top_walk_plan(cs, bvh_paged.smem_limit(dev))
+    out = {}
+    for name, who, occupancy in (
+            ("K6a", "paged_top_closest", lib.ptrt_paged_top_closest_occupancy),
+            ("K6b", "paged_top_any", lib.ptrt_paged_top_any_occupancy)):
+        blocks = ctypes.c_int(0)
+        bvh._raise_on(name, occupancy(*(int(x) for x in plan), ctypes.byref(blocks)))
+        out[name] = (plan, blocks.value, bvh.launch_grid(who, occupancy, plan, n, dev))
+    return out
+
+
+@contextlib.contextmanager
+def top_variant(cs, staged: bool):
+    """While it lasts, the top walks on ``cs`` take the staged variant (the
+    card's shared memory) or the one that reads the top tables from device
+    memory (a limit that holds only the primitive records): the wrappers'
+    ``smem_limit`` replaced and their plans forgotten, both put back after."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh_paged
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import rec_layout
+
+    saved = bvh_paged.smem_limit, bvh_paged._TOP_PLANS
+    rec = 4 * rec_layout((cs.n_planes, cs.n_spheres, cs.n_quads, 0)).size
+    bvh_paged.smem_limit = saved[0] if staged else (lambda dev: rec)
+    bvh_paged._TOP_PLANS = {}
+    try:
+        yield
+    finally:
+        bvh_paged.smem_limit, bvh_paged._TOP_PLANS = saved
+
+
+def show_top_plans(tag, cs, n=N_RAYS):
+    pg = cs.bvh.paged
+    print(f"{tag} top walk plans at N={n} (top tree {pg.top_tree.shape[0] // 32} nodes, depth "
+          f"{pg.top_depth}, {pg.top_slot.shape[0] // 13} top slots): " + "; ".join(
+              f"{k} stage {p.stage}, depth class {p.depth_class}, {p.smem_bytes} B of shared "
+              f"memory a block, {per_sm} blocks of 256 a SM ({256 * per_sm} lanes), grid {grid}"
+              for k, (p, per_sm, grid) in top_walk_plans(cs, n).items()))
+
+
+def check_counter(label, device):
+    """The persistent walks leave the stream's lane counter zero."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh
+
+    torch.cuda.synchronize()
+    if bvh.lane_counter(device).any():
+        raise SystemExit(f"chip_smoke: the lane counter is nonzero after {label}")
+
+
 def phase_big_check(device):
     """Config 6's paged tree: K6 and K4c against their plain versions and the
     one-level K4a/K4b, the pending-mask property, then times and bounds."""
@@ -1718,6 +1784,7 @@ def phase_big_check(device):
     o, d, so, sd, lim = rays["spread"]
     best, plo, phi = bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6)
     found, alo, ahi = bvh_paged.paged_top_any(cs, so, sd, 1e-3, lim)
+    check_counter("the top walks (K6a, K6b)", device)
     n = N_RAYS
     zero = torch.zeros(n, device=device)
     seed = ClosestRecord(lim, torch.full((n,), -1, dtype=torch.int32, device=device), zero, zero,
@@ -1737,9 +1804,9 @@ def phase_big_check(device):
         "K4d": (lambda: bvh_paged.pages_any(cs, so, sd, 1e-3, lim, unfound),
                 lambda: bvh_paged.pages_any_plain(cs, so, sd, 1e-3, lim, unfound)),
     }
-    symbols = {"paged_top_closest": "paged_top_closest_kernel",
+    symbols = {"paged_top_closest": "paged_top_closest_persistent",
                "pages_closest": "pages_closest_persistent",
-               "paged_top_any": "paged_top_any_kernel", "pages_any": "pages_any_persistent",
+               "paged_top_any": "paged_top_any_persistent", "pages_any": "pages_any_persistent",
                "K4c": "pages_closest_persistent", "K4d": "pages_any_persistent"}
     times = {name: timed(k, symbols[name], p, PLAIN_REPS) for name, (k, p) in calls.items()}
     routes = {
@@ -1805,6 +1872,8 @@ def phase_big_check(device):
         f"{k} depth {depth} -> class {p.depth_class}, stage {p.stage}, {per_sm} blocks of 256 a "
         f"SM ({256 * per_sm} lanes), grid {grid}"
         for k, (depth, p, per_sm, grid) in page_walk_plans(cs).items()))
+    show_top_plans("[big]", cs)
+    check_counter("config 6's walks", device)
     return scene, cam, times, bounds, err, route_ms
 
 
@@ -1815,6 +1884,7 @@ def phase_big_main(device, scene, cam):
     import torch
 
     import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.models.wavefront import chunk_pixels
     from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh_paged
 
     r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=B_SPP,
@@ -1838,8 +1908,9 @@ def phase_big_main(device, scene, cam):
     print(f"[big] config-6 path {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH} shadow_tmax=light, one "
           f"{B_SPP}-sample group: warm-up (compile + 256x144, 2 spp) {warm:.3f} s, timed "
           f"{secs:.3f} s -> {mrays:.2f} Mrays/s (W*H*spp*depth/t); launches {k6}, K5 "
-          f"{launched['path_bounce_bvh']}; peak device memory {peak:.0f} MiB; mean "
-          f"radiance/sample {mean}")
+          f"{launched['path_bounce_bvh']}; each on the chunk's "
+          f"{chunk_pixels(M_WIDTH * M_HEIGHT, B_SPP, CHUNK_RAYS)} lanes (chunk_pixels); peak "
+          f"device memory {peak:.0f} MiB; mean radiance/sample {mean}")
     if sums.shape != (M_WIDTH * M_HEIGHT, 3) or not np.isfinite(sums).all() or (sums < 0).any():
         raise SystemExit("chip_smoke: config-6 sums are not finite and non-negative")
     if not 0.01 < float(mean.mean()) < 20.0:
@@ -1850,8 +1921,8 @@ def phase_big_main(device, scene, cam):
     profile_frame("[big]", r, scene, cam,
                   pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bvh_paged.paged_top_closest.launches,
-                  {"K6a": "paged_top_closest_kernel", "K6c": "pages_closest_persistent",
-                   "K6b": "paged_top_any_kernel", "K6d": "pages_any_persistent"}, top=3)
+                  {"K6a": "paged_top_closest_persistent", "K6c": "pages_closest_persistent",
+                   "K6b": "paged_top_any_persistent", "K6d": "pages_any_persistent"}, top=3)
     return k6, secs, mrays
 
 
@@ -1890,6 +1961,104 @@ def phase_512k_check(device):
           "K4b": cuda_ms(lambda: bvh.scene_any(flat, so, sd, 1e-3, lim), 5)}
     print(f"[big] 512K: set-up {time.perf_counter() - t0:.2f} s (compile {compile_s:.2f} s); "
           "ms at N=131072 (median of 5): " + "; ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+    show_top_plans("[big] 512K:", cs)
+    check_counter("the 512K scene's walks", device)
+    return err
+
+
+# the 48-page scene: MeshSceneBuilder(2, 2) with paging forced by these
+# budgets (tests/test_torch_paged.py::test_pend_masks_cover_entered_pages),
+# whose top leaves hold 168 triangles; config 6's and the 512K scene's top
+# leaves hold none
+P48_ONE_LEVEL, P48_PAGE = 2600, 450
+
+
+def paged_48(device):
+    """The 48-page scene compiled on ``device``."""
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+
+    saved = tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS
+    tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = P48_ONE_LEVEL, P48_PAGE
+    try:
+        cs = pt.compile_scene(pt.MeshSceneBuilder(grid=2, subdivisions=2).build_scene(),
+                              device=device)
+    finally:
+        tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = saved
+    if cs.bvh.paged is None or cs.bvh.paged.n_pages != 48:
+        raise SystemExit("chip_smoke: the 48-page scene did not page into 48 pages")
+    return cs
+
+
+def rays_48(n, seed, device):
+    """``n`` rays from the box [-14, 14]³ in uniform directions, and their
+    limits: uniform in [0, 40), every 7th -1, every 11th +inf."""
+    import numpy as np
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
+
+    g = np.random.default_rng(seed)
+    ro = g.uniform(-14, 14, (n, 3)).astype(np.float32)
+    rd = g.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    lim = (g.uniform(0, 40, n)).astype(np.float32)
+    lane = np.arange(n)
+    lim = np.where(lane % 11 == 0, np.inf, np.where(lane % 7 == 0, -1.0, lim)).astype(np.float32)
+    o, d = (V3(*(torch.from_numpy(a[:, i].copy()).to(device) for i in range(3))) for a in (ro, rd))
+    return o, d, torch.from_numpy(lim).to(device)
+
+
+def phase_top_leaves_check(device):
+    """The 48-page scene, whose top tree has real leaves: K6a and K6b,
+    staged and read from device memory, against their plain versions (the
+    record's winner on >= 99.99% of lanes, floats within tolerance; the
+    pending words cover every page entered at the final t; occlusion on
+    every ray that needs an answer at >= 99.99%, lanes with limit <= 0
+    found), the two variants bit-equal; the lane counter left zero."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh_paged
+
+    cs = paged_48(device)
+    o, d, lim = rays_48(N_RAYS, 48, device)
+    show_top_plans("[top48]", cs)
+    out = {}
+    for staged in (True, False):
+        with top_variant(cs, staged):
+            stage = bvh_paged.top_walk_plan(cs, bvh_paged.smem_limit(device)).stage
+            out[stage] = (bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6),
+                          bvh_paged.paged_top_any(cs, o, d, 1e-3, lim))
+    check_counter("the 48-page scene's top walks", device)
+    if set(out) != {True, False}:
+        raise SystemExit("chip_smoke: the 48-page scene's top walks took one variant only")
+    def flat(x):
+        return [x] if isinstance(x, torch.Tensor) else [t for part in x for t in flat(part)]
+
+    same = all(same_bits(a, b) for a, b in zip(flat(out[True]), flat(out[False])))
+    (best, plo, phi), (found, _alo, _ahi) = out[True]
+    want, _wlo, _whi = bvh_paged.paged_top_closest_plain(cs, o, d, 1e-3, 1e6)
+    agree = best.prim == want.prim  # the floats where both hit (a miss's attributes are unset)
+    err = compare_fields("48 pages: K6a vs plain top walk", best, want, agree & (best.prim >= 0),
+                         ("t", "normal", "u", "v"), verbose=False)
+    print(f"[top48] K6a vs plain top walk: prim agree {float(agree.float().mean()):.6f} "
+          f"({int((~agree).sum())} differ), max |diff| {err:.2e} where both hit")
+    if float(agree.float().mean()) < HIT_AGREE:
+        raise SystemExit("chip_smoke: 48 pages: K6a and the plain top walk disagree")
+    top_tri = int((best.prim >= cs.n_planes + cs.n_spheres + cs.n_quads).sum())
+    final = bvh_paged.pages_closest(cs, o, d, 1e-3, best, plo, phi)
+    entered = tbvh.page_root_mask(cs.bvh.paged, o, d, 1e-3, final.t)
+    missing = int(((entered & ~tbvh.pend_mask(plo, phi)) != 0).sum())
+    want_found, _alo_p, _ahi_p = bvh_paged.paged_top_any_plain(cs, o, d, 1e-3, lim)
+    care = lim > 0
+    err = max(err, check_occ("48 pages: K6b vs plain top walk", found, want_found, care))
+    print(f"[top48] {N_RAYS} rays: {top_tri} lanes won by a top-leaf triangle; pending words "
+          f"cover the entered pages on {N_RAYS - missing} lanes ({int((phi != 0).sum())} with "
+          f"pages past 31); {int((~care).sum())} lanes with limit <= 0 found "
+          f"{bool(found[~care].all())}; staged and device-memory variants bit-equal: {same}")
+    if missing or not same or not bool(found[~care].all()) or top_tri == 0:
+        raise SystemExit("chip_smoke: the 48-page scene's top walks failed their check")
     return err
 
 
@@ -2850,6 +3019,7 @@ def main() -> int:
     del bscene, bcam
     torch.cuda.empty_cache()
     k512_err = phase_512k_check(device)
+    top48_err = phase_top_leaves_check(device)
     phase_mesh_oracle(device)
     stimes, sbounds, serr = phase_split_check(device)
     times.update(stimes)
@@ -2875,9 +3045,9 @@ def main() -> int:
         ("path_bounce_bvh", "path_bounce_bvh.cu", "bounce_bvh_pallas.py:128",
          mesh_launched["path_bounce_bvh"], k5_err),
         ("paged_top_closest", "bvh_paged.cu", "bvh_paged_pallas.py:512",
-         k6_launched["paged_top_closest"], max(berr["closest"], k512_err)),
+         k6_launched["paged_top_closest"], max(berr["closest"], k512_err, top48_err)),
         ("paged_top_any", "bvh_paged.cu", "bvh_paged_pallas.py:547", k6_launched["paged_top_any"],
-         berr["any"]),
+         max(berr["any"], top48_err)),
         ("pages_closest", "bvh_paged.cu", "bvh_paged_pallas.py:576", k6_launched["pages_closest"],
          max(berr["closest"], berr["k4c"], k512_err)),
         ("pages_any", "bvh_paged.cu", "bvh_paged_pallas.py:605", k6_launched["pages_any"],

@@ -26,9 +26,36 @@
 // What bounds them: latency, as K4a (dependent node and slot loads, one ray
 // per thread).  Per ray K6a reads 24 B and writes 36 B, K6c reads 60 B and
 // writes 28 B, K6b reads 28 B and writes 9 B, K6d reads 29 B and writes 1 B,
-// against walks of tens of 128 B node records and 64 B slot records.  K6a and
-// K6b keep the first design: a lane per thread in blocks of 128, the records
-// as packed, only the plane/sphere/quad blob in shared memory.
+// against walks of tens of 128 B node records and 64 B slot records.
+//
+// The top walks (K6a, K6b) are designed for Hopper as K1 and K7 are
+// (path_bounce.cu, path_step.cu): persistent blocks of 256 threads, as many as
+// are resident, each warp taking its first 32 lanes by its place in the grid
+// and later ones from the stream's lane counter (next_batch; a grid that
+// spans all lanes touches no counter).  Each resident block stages its tables
+// once (the first design, a block of 128 lanes each, copied the field-major
+// blob 1,024 times at 131,072 lanes): the planes, spheres and quads as
+// primitive-major 16-byte records (stage_records; swept by closest_hit16 /
+// any_hit16), then, in the staged variant, the top tree's node records and
+// the 13-float top slots, read from there by Vec4Nodes<true> and SlotLeaf;
+// the other variant reads the same records from device memory (the nodes as
+// 16-byte loads, Vec4Nodes, the slots float by float, SlotLeaf).
+// ops/cuda/bvh_paged.top_plan picks the variant from sizes (the tables staged
+// whenever they fit the block's shared memory beside the primitive records:
+// a top tree has at most 64 page children but its leaves are unbounded) and
+// the stack's depth class from the top tree's depth (22 entries for config 6
+// and the 512K scene, where the first design carried 96).  K6b loads a lane's
+// ray only where the lane's limit is positive.  Each lane's floats and its
+// order of tests are the first design's (git 86bcdb5), so its record, found
+// flag and pending words are too.  On config 6 the walk takes 34-49% of the
+// time and the sweep 18-26% (builds without either), so the redesign gains
+// most where top leaves hold triangles.  There staging gains too (0.81-0.96x
+// the device-memory variant's time on the 48-page scene); on config 6, with
+// no top leaf, it gains nothing for K6a (0.99-1.01x) and costs K6b 4-6%
+// (PERF.md).  Issuing the node and slot copies as cp.async while
+// stage_records runs, with each thread's first ray read before the block's
+// barrier, measured 1.04-1.08x this design's time on config 6 on an H100
+// and was dropped (experiments/torch_paged_top_dropped_builds.py).
 //
 // The page walks (K6c, K6d; so K4c, K4d) are designed for Hopper as K4b is
 // (bvh_scene.cu): persistent blocks of 256 threads, as many as are resident,
@@ -44,8 +71,8 @@
 // padded slot records) fit the 50 MB L2.  Each lane's floats and its order
 // of tests are the first design's, so its results are too.
 //
-// Records: the top tree and top slots as bvh_walk.cuh's, page children
-// marked by their metas; page p's BVH4 records at page_tree + p * tc, its
+// Records: the top tree as bvh_walk.cuh's, page children marked by their
+// metas; page p's BVH4 records at page_tree + p * tc, its
 // padded slot records at page_slot16 + p * sc16 (ops/bvh.py
 // pack_page_slot16); its root box at page_lo/page_hi + 3p.  Closest records
 // (t, prim, u, v, normal) are finished (finish_hit): decoded prim, triangle
@@ -58,8 +85,6 @@
 #include "sweep.cuh"
 
 namespace ptrt {
-
-constexpr int kPagedThreads = 128;
 
 // The lane's next pending page (lowest index first), cleared from `pend`;
 // -1 when none is left.
@@ -108,61 +133,181 @@ __device__ __forceinline__ void store_hit(const Hit& h, int i, float* __restrict
   nz[i] = h.nz;
 }
 
-// K6a: the plane/sphere/quad sweep seeds the walk of the top tree.
-__global__ void __launch_bounds__(kPagedThreads)
-paged_top_closest_kernel(const float* __restrict__ top, int n_top, const float* __restrict__ tslot,
+// A top walk block's tables in shared memory: the plane/sphere/quad records,
+// then (kStage) the top tree's node records and the 13-float top slots,
+// copied by the whole block as 16-byte loads and stores.  The staged variant
+// reads a node record from that copy as eight 16-byte loads (Vec4Nodes<true>)
+// and a slot's floats as its test needs them (SlotLeaf): 64 registers at
+// most, so four blocks of 256 stay resident, 1,024 lanes an SM, and 131,072
+// lanes take one wave; the other variant, reading the same records from
+// device memory, takes 64 and 56 registers and keeps four blocks too.
+// (Reading the staged node's floats one by one, PtrNodes, took 1.00-1.01x
+// this one's time on config 6 on an H100 and 1.06-1.07x on the 48-page
+// scene; slots padded to 16 floats and read four at a time, as Slot16Leaf
+// reads them, needed a padded copy and more registers, PERF.md.)
+template <bool kStage>
+struct TopTables {
+  Vec4Nodes<kStage> nodes;
+  SlotLeaf leaf;
+};
+
+template <bool kStage>
+__device__ __forceinline__ TopTables<kStage> stage_top(float4* smem4, const float* __restrict__ ps_g,
+                                                       const SceneLayout& L, const RecLayout& R,
+                                                       const float4* __restrict__ top, int n_top,
+                                                       const float4* __restrict__ tslot,
+                                                       int n_tslot) {
+  stage_records(reinterpret_cast<float*>(smem4), ps_g, L, R);
+  if constexpr (kStage) {
+    float4* node_copy = smem4 + R.size4;
+    const int nq = n_top * (kNode4F / 4);
+    for (int k = threadIdx.x; k < nq; k += blockDim.x) node_copy[k] = __ldg(top + k);
+    float4* slot_copy = node_copy + nq;
+    const int sq = n_tslot * kSlotF / 4;  // whole leaves of 16 slots: 52 float4s each
+    for (int k = threadIdx.x; k < sq; k += blockDim.x) slot_copy[k] = __ldg(tslot + k);
+    __syncthreads();
+    return TopTables<true>{Vec4Nodes<true>{node_copy},
+                           SlotLeaf{reinterpret_cast<const float*>(slot_copy)}};
+  } else {
+    __syncthreads();
+    return TopTables<false>{Vec4Nodes<false>{top},
+                            SlotLeaf{reinterpret_cast<const float*>(tslot)}};
+  }
+}
+
+// The bytes of a top walk block's tables (ops/cuda/bvh_paged.top_plan).
+__host__ __device__ inline size_t top_smem_bytes(int P, int S, int Q, int stage, int n_top,
+                                                 int n_tslot) {
+  const size_t rec = sizeof(float4) * (size_t)rec_layout(P, S, Q, 0).size4;
+  return rec + (stage ? sizeof(float) * ((size_t)n_top * kNode4F + (size_t)n_tslot * kSlotF) : 0);
+}
+
+// K6a for Hopper: the plane/sphere/quad sweep seeds the walk of the top tree,
+// for lanes [0, n); `counter`: two int32, zero at the launch and left zero.
+template <int kDepth, bool kStage>
+__global__ void __launch_bounds__(kWalkThreads)
+paged_top_closest_persistent(const float* __restrict__ top, int n_top,
+                             const float* __restrict__ tslot, int n_tslot,
+                             const float* __restrict__ ps_g, int P, int S, int Q,
+                             const float* __restrict__ ox, const float* __restrict__ oy,
+                             const float* __restrict__ oz, const float* __restrict__ dx,
+                             const float* __restrict__ dy, const float* __restrict__ dz, int n,
+                             int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
+                             int* __restrict__ prim_out, float* __restrict__ u_out,
+                             float* __restrict__ v_out, float* __restrict__ nx_out,
+                             float* __restrict__ ny_out, float* __restrict__ nz_out,
+                             int* __restrict__ plo_out, int* __restrict__ phi_out,
+                             int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  const RecLayout R = rec_layout(P, S, Q, 0);
+  const TopTables<kStage> tab =
+      stage_top<kStage>(smem4, ps_g, L, R, reinterpret_cast<const float4*>(top), n_top,
+                        reinterpret_cast<const float4*>(tslot), n_tslot);
+  const int off = P + S + Q;
+  const int lane = threadIdx.x & 31;
+  const int span = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x;; i = next_batch(counter, span, n)) {
+    if (i - lane >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    Hit h = closest_hit16(smem4, R, r, t_min, t_max);
+    Pend pend{0u, 0u};
+    LocalStack<stack_cap(kDepth)> stack;
+    walk_closest_with<true>(tab.nodes, n_top, tab.leaf, stack, r, t_min, off, h, &pend);
+    finish_hit(h, r, off, gid_mask);
+    store_hit(h, i, t_out, prim_out, u_out, v_out, nx_out, ny_out, nz_out);
+    plo_out[i] = (int)pend.lo;
+    phi_out[i] = (int)pend.hi;
+  }
+  if (span < n) finish_lanes(counter);
+}
+
+// K6b for Hopper: occlusion in (t_min, limit) by the planes/spheres/quads,
+// then the top tree, for lanes [0, n) taken as K6a takes them.  Found lanes
+// pend no page (the bits a walk set before its hit stay set); a lane with
+// limit <= 0, whose answer is not needed, is written found with no page and
+// reads no ray.
+template <int kDepth, bool kStage>
+__global__ void __launch_bounds__(kWalkThreads)
+paged_top_any_persistent(const float* __restrict__ top, int n_top,
+                         const float* __restrict__ tslot, int n_tslot,
                          const float* __restrict__ ps_g, int P, int S, int Q,
                          const float* __restrict__ ox, const float* __restrict__ oy,
                          const float* __restrict__ oz, const float* __restrict__ dx,
-                         const float* __restrict__ dy, const float* __restrict__ dz, int n,
-                         int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
-                         int* __restrict__ prim_out, float* __restrict__ u_out,
-                         float* __restrict__ v_out, float* __restrict__ nx_out,
-                         float* __restrict__ ny_out, float* __restrict__ nz_out,
-                         int* __restrict__ plo_out, int* __restrict__ phi_out) {
-  extern __shared__ float smem[];
+                         const float* __restrict__ dy, const float* __restrict__ dz,
+                         const float* __restrict__ limit_in, int n, float t_min,
+                         uint8_t* __restrict__ found_out, int* __restrict__ plo_out,
+                         int* __restrict__ phi_out, int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
   const SceneLayout L = scene_layout(P, S, Q, 0);
-  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) smem[k] = ps_g[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged tail
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const int off = P + S + Q;
-  Hit h = closest_hit(smem, L, r, t_min, t_max);
-  Pend pend{0u, 0u};
-  walk_closest_t<true>(top, n_top, tslot, r, t_min, off, h, &pend);
-  finish_hit(h, r, off, gid_mask);
-  store_hit(h, i, t_out, prim_out, u_out, v_out, nx_out, ny_out, nz_out);
-  plo_out[i] = (int)pend.lo;
-  phi_out[i] = (int)pend.hi;
+  const RecLayout R = rec_layout(P, S, Q, 0);
+  const TopTables<kStage> tab =
+      stage_top<kStage>(smem4, ps_g, L, R, reinterpret_cast<const float4*>(top), n_top,
+                        reinterpret_cast<const float4*>(tslot), n_tslot);
+  const int lane = threadIdx.x & 31;
+  const int span = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x;; i = next_batch(counter, span, n)) {
+    if (i - lane >= n) break;
+    if (i >= n) continue;
+    const float limit = limit_in[i];
+    bool found = limit <= 0.0f;
+    Pend pend{0u, 0u};
+    if (!found) {
+      const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+      found = any_hit16(smem4, R, r, t_min, limit);
+      if (!found) {
+        LocalStack<stack_cap(kDepth)> stack;
+        found = walk_any_with<true>(tab.nodes, n_top, tab.leaf, stack, r, t_min, limit, &pend);
+      }
+    }
+    found_out[i] = found ? 1 : 0;
+    plo_out[i] = (int)pend.lo;
+    phi_out[i] = (int)pend.hi;
+  }
+  if (span < n) finish_lanes(counter);
 }
 
-// K6b: occlusion in (t_min, limit) by the planes/spheres/quads, then the top
-// tree; found lanes (and lanes with limit <= 0, whose answer is not needed)
-// pend no page.
-__global__ void __launch_bounds__(kPagedThreads)
-paged_top_any_kernel(const float* __restrict__ top, int n_top, const float* __restrict__ tslot,
-                     const float* __restrict__ ps_g, int P, int S, int Q,
-                     const float* __restrict__ ox, const float* __restrict__ oy,
-                     const float* __restrict__ oz, const float* __restrict__ dx,
-                     const float* __restrict__ dy, const float* __restrict__ dz,
-                     const float* __restrict__ limit_in, int n, float t_min,
-                     uint8_t* __restrict__ found_out, int* __restrict__ plo_out,
-                     int* __restrict__ phi_out) {
-  extern __shared__ float smem[];
-  const SceneLayout L = scene_layout(P, S, Q, 0);
-  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) smem[k] = ps_g[k];
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const float limit = limit_in[i];
-  Pend pend{0u, 0u};
-  const bool found = limit <= 0.0f || any_hit(smem, L, r, t_min, limit) ||
-                     walk_any_t<true>(top, n_top, tslot, r, t_min, limit, &pend);
-  found_out[i] = found ? 1 : 0;
-  plo_out[i] = (int)pend.lo;
-  phi_out[i] = (int)pend.hi;
+using TopClosestKernel = decltype(&paged_top_closest_persistent<kMaxDepth4, false>);
+using TopAnyKernel = decltype(&paged_top_any_persistent<kMaxDepth4, false>);
+
+// The top walks' variants (ops/cuda/bvh_paged.top_plan): staged or not, one
+// per depth class; nullptr for any other stage or class.
+template <int kDepth>
+inline TopClosestKernel top_closest_of(int stage) {
+  if (stage == 1) return &paged_top_closest_persistent<kDepth, true>;
+  if (stage == 0) return &paged_top_closest_persistent<kDepth, false>;
+  return nullptr;
+}
+
+inline TopClosestKernel top_closest_variant(int stage, int depth_class) {
+  if (depth_class == kShallow4) return top_closest_of<kShallow4>(stage);
+  if (depth_class == kMaxDepth4) return top_closest_of<kMaxDepth4>(stage);
+  return nullptr;
+}
+
+template <int kDepth>
+inline TopAnyKernel top_any_of(int stage) {
+  if (stage == 1) return &paged_top_any_persistent<kDepth, true>;
+  if (stage == 0) return &paged_top_any_persistent<kDepth, false>;
+  return nullptr;
+}
+
+inline TopAnyKernel top_any_variant(int stage, int depth_class) {
+  if (depth_class == kShallow4) return top_any_of<kShallow4>(stage);
+  if (depth_class == kMaxDepth4) return top_any_of<kMaxDepth4>(stage);
+  return nullptr;
+}
+
+// Resident blocks per SM of a top walk variant with `smem` bytes of dynamic
+// shared memory, into *blocks; first lifts the kernel's limit to `smem`.
+template <class K>
+inline int top_occupancy(K kernel, int smem, int* blocks) {
+  if (kernel == nullptr || smem < 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, smem);
+  return (int)err;
 }
 
 // The node records of page p, read as 16-byte loads (tc is a multiple of 32
@@ -285,44 +430,62 @@ inline AnyKernel any_variant(int depth_class) {
   return nullptr;
 }
 
-inline size_t ps_bytes(int P, int S, int Q) {
-  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
-}
-
-inline int blocks_for(int n) { return (n + kPagedThreads - 1) / kPagedThreads; }
-
 }  // namespace ptrt
 
 // All four launch on `stream`, allocate nothing and do not synchronise.  Each
 // returns the launch's cudaError_t (0 when the launch was accepted).  plo and
 // phi may be null in the page walks: then every lane walks page 0 alone.
 // A launch on no lanes launches nothing.
+
+// K6a: `grid` persistent blocks of the variant for (stage, depth_class),
+// with `smem` bytes of dynamic shared memory (top_smem_bytes), which
+// ptrt_paged_top_closest_occupancy has sized and allowed; `counter` is two
+// int32 of scratch, zero at the launch and left zero by the kernel.  tslot
+// holds n_tslot top slots of 13 floats, n_tslot a multiple of 16; top and
+// tslot are 16-byte aligned.
 extern "C" int ptrt_paged_top_closest(const float* top, int n_top, const float* tslot,
-                                      const float* ps, int P, int S, int Q, const float* ox,
-                                      const float* oy, const float* oz, const float* dx,
-                                      const float* dy, const float* dz, int n, int gid_mask,
-                                      float t_min, float t_max, float* t, int* prim, float* u,
-                                      float* v, float* nx, float* ny, float* nz, int* plo,
-                                      int* phi, void* stream) {
+                                      int n_tslot, const float* ps, int P, int S, int Q,
+                                      const float* ox, const float* oy, const float* oz,
+                                      const float* dx, const float* dy, const float* dz, int n,
+                                      int gid_mask, float t_min, float t_max, float* t, int* prim,
+                                      float* u, float* v, float* nx, float* ny, float* nz,
+                                      int* plo, int* phi, int* counter, int stage,
+                                      int depth_class, int smem, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::paged_top_closest_kernel<<<ptrt::blocks_for(n), ptrt::kPagedThreads,
-                                   ptrt::ps_bytes(P, S, Q), (cudaStream_t)stream>>>(
-      top, n_top, tslot, ps, P, S, Q, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, t, prim,
-      u, v, nx, ny, nz, plo, phi);
+  const ptrt::TopClosestKernel k = ptrt::top_closest_variant(stage, depth_class);
+  if (k == nullptr || (size_t)smem < ptrt::top_smem_bytes(P, S, Q, stage, n_top, n_tslot))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
+      top, n_top, tslot, n_tslot, ps, P, S, Q, ox, oy, oz, dx, dy, dz, n, gid_mask,
+      t_min, t_max, t, prim, u, v, nx, ny, nz, plo, phi, counter);
   return (int)cudaGetLastError();
 }
 
-extern "C" int ptrt_paged_top_any(const float* top, int n_top, const float* tslot, const float* ps,
-                                  int P, int S, int Q, const float* ox, const float* oy,
-                                  const float* oz, const float* dx, const float* dy,
-                                  const float* dz, const float* limit, int n, float t_min,
-                                  uint8_t* found, int* plo, int* phi, void* stream) {
+extern "C" int ptrt_paged_top_closest_occupancy(int stage, int depth_class, int smem,
+                                                int* blocks) {
+  return ptrt::top_occupancy(ptrt::top_closest_variant(stage, depth_class), smem, blocks);
+}
+
+// K6b: as ptrt_paged_top_closest.
+extern "C" int ptrt_paged_top_any(const float* top, int n_top, const float* tslot,
+                                  int n_tslot, const float* ps, int P, int S, int Q,
+                                  const float* ox,
+                                  const float* oy, const float* oz, const float* dx,
+                                  const float* dy, const float* dz, const float* limit, int n,
+                                  float t_min, uint8_t* found, int* plo, int* phi, int* counter,
+                                  int stage, int depth_class, int smem, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::paged_top_any_kernel<<<ptrt::blocks_for(n), ptrt::kPagedThreads, ptrt::ps_bytes(P, S, Q),
-                               (cudaStream_t)stream>>>(top, n_top, tslot, ps, P, S, Q, ox, oy, oz,
-                                                       dx, dy, dz, limit, n, t_min, found, plo,
-                                                       phi);
+  const ptrt::TopAnyKernel k = ptrt::top_any_variant(stage, depth_class);
+  if (k == nullptr || (size_t)smem < ptrt::top_smem_bytes(P, S, Q, stage, n_top, n_tslot))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
+      top, n_top, tslot, n_tslot, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min,
+      found, plo, phi, counter);
   return (int)cudaGetLastError();
+}
+
+extern "C" int ptrt_paged_top_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::top_occupancy(ptrt::top_any_variant(stage, depth_class), smem, blocks);
 }
 
 // K6c (K4c): `grid` persistent blocks of the variant for depth_class, which

@@ -27,8 +27,9 @@
 // when packed), the stored unit normal.
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
-// records by Möller–Trumbore (K4a, K6a/K6b, and K4e's skip-link BVH2
-// walks).  MatLeaf (K10a; the JAX
+// records by Möller–Trumbore, reading each slot's floats as the test needs
+// them (K4a, the BVH2 walks' walk2, and the top walks K6a/K6b, over their
+// block's copy in shared memory or from device memory).  MatLeaf (K10a; the JAX
 // package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
 // same decision quantities as linear forms of the lane's ray features
 // f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
@@ -44,17 +45,17 @@
 //
 // The node records' source is a compile-time policy too.  PtrNodes reads a
 // record's floats one by one through a pointer into device memory (K4a,
-// K6a/K6b, K10a).  Vec4Nodes reads the whole 128 B record as
-// eight 16-byte loads into registers, from device memory or from a copy of
-// the node table in shared memory (the persistent K4b and K5; the page
-// walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10b-d, from device
-// memory).  The stack is a
-// per-thread array in local memory (LocalStack), sized by the walk.  Slot16Leaf is SlotLeaf over a
-// port-only copy of the slot records padded to 16 floats (64 B, 16-byte
-// aligned; ops/bvh.py pack_slot16 and, per page, pack_page_slot16), read as
-// 16-byte loads, a batch of slots at a time (Slot16TriLeaf: the same, for
-// walks that keep only t and the triangle).  None of the policies changes a
-// lane's arithmetic or its visit order.
+// K10a).  Vec4Nodes reads the whole 128 B record as eight 16-byte loads into
+// registers, from device memory or from a copy of the node table in shared
+// memory (the persistent K4b and K5, and the top walks K6a/K6b, either way;
+// the page walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10b-d, from
+// device memory).  The stack is a per-thread array in local memory (LocalStack),
+// sized by the walk.  Slot16Leaf is SlotLeaf over a port-only copy of the
+// slot records padded to 16 floats (64 B, 16-byte aligned; ops/bvh.py
+// pack_slot16 and, per page, pack_page_slot16), read as 16-byte loads, a
+// batch of slots at a time (Slot16TriLeaf: the same, for walks that keep
+// only t and the triangle).  None of the policies changes a lane's
+// arithmetic or its visit order.
 //
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
 // bvh_paged_pallas.py) adds a fourth kind of child: a page, meta
@@ -565,18 +566,10 @@ __device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ node
   walk_closest_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, gid_offset, h, pend);
 }
 
-template <bool kPaged>
-__device__ __forceinline__ void walk_closest_t(const float* __restrict__ nodes, int n_nodes,
-                                               const float* __restrict__ slots, const Ray& r,
-                                               float t_min, int gid_offset, Hit& h,
-                                               Pend* pend) {
-  walk_closest_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, pend);
-}
-
 __device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
                                              const float* __restrict__ slots, const Ray& r,
                                              float t_min, int gid_offset, Hit& h) {
-  walk_closest_t<false>(nodes, n_nodes, slots, r, t_min, gid_offset, h, nullptr);
+  walk_closest_leaf<false>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, nullptr);
 }
 
 // Is any triangle hit in (t_min, limit)?  Stops at the first one; the page
@@ -604,21 +597,6 @@ __device__ __forceinline__ bool walk_any_with(const Nodes& nodes, int n_nodes, c
     push_children<kPaged>(b, hit, meta, r, stack);
   }
   return false;
-}
-
-template <bool kPaged, class Leaf>
-__device__ __forceinline__ bool walk_any_leaf(const float* __restrict__ nodes, int n_nodes,
-                                              const Leaf& leaf, const Ray& r, float t_min,
-                                              float limit, Pend* pend) {
-  LocalStack<kStackCap> stack;
-  return walk_any_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, limit, pend);
-}
-
-template <bool kPaged>
-__device__ __forceinline__ bool walk_any_t(const float* __restrict__ nodes, int n_nodes,
-                                           const float* __restrict__ slots, const Ray& r,
-                                           float t_min, float limit, Pend* pend) {
-  return walk_any_leaf<kPaged>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, limit, pend);
 }
 
 // Lane i's ray from the six component arrays.

@@ -25,12 +25,23 @@ launches.
 * :func:`scene_closest_paged` / :func:`scene_any_paged`: the paged route of
   ``scene_hit`` / ``scene_hit_any``, two launches per query.
 
-The page walks are persistent walks, as K4b is: ``ops/cuda/bvh.page_plan``
-picks the variant (the stack's depth class, from the page depth or the whole
-tree's; nothing staged), ``launch_grid`` the resident blocks, whose warps
-take their lanes from ``lane_counter``.  They read the node records as
-16-byte loads and the padded slot records, ``PagedBlobs.page_slot16`` (the
-whole tree: ``FlatBVH.slot16``).
+All four are persistent walks, as K4b is: ``launch_grid`` launches the
+resident blocks of 256 threads, whose warps take their lanes from
+``lane_counter``.  The top walks (K6a, K6b) are designed as K1 and K7 are:
+each warp's first 32 lanes come from its place in the grid (a grid that
+spans all lanes touches no counter), and each resident block stages its
+tables once, the planes, spheres and quads as 16-byte records and, when
+:func:`top_plan` stages them (whenever they fit), the top tree's node records
+(read as 16-byte loads) and the 13-float top slots (read float by float);
+otherwise it reads those two from device memory in the same way.  Their
+stack holds 3·class − 2 entries, the class from the top tree's depth.  The
+page walks:
+``ops/cuda/bvh.page_plan`` picks the variant (the stack's depth class, from
+the page depth or the whole tree's; nothing staged); they read the node
+records as 16-byte loads and the padded slot records,
+``PagedBlobs.page_slot16`` (the whole tree: ``FlatBVH.slot16``).  Each
+kernel gives its first design's bits on every lane (the top walks':
+``experiments/torch_paged_top_first_design.py``).
 
 ``ops/cuda/bvh.py`` sends a paged scene here.
 """
@@ -50,34 +61,47 @@ from ..intersect import (
     closest_record,
 )
 from ..v3 import V3
-from .bounce import _check
-from .bvh import (MAX_DEPTH4, _fused_hit, _on, _raise_on, _rays, gid_mask, lane_counter,
-                  launch_grid, page_plan, slot16_arg)
+from .bounce import _check, rec_layout
+from .bvh import (MAX_DEPTH4, WalkPlan, _fused_hit, _on, _raise_on, _rays, depth_class, gid_mask,
+                  lane_counter, launch_grid, page_plan, slot16_arg, smem_limit)
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 
 
+_BOUND = {}  # library path -> the library whose entries' argument types are set
+
+
 def build():
-    """Compile (once per source hash) and load ``csrc/bvh_paged.cu``."""
+    """Compile (once per source hash) and load ``csrc/bvh_paged.cu``; its
+    entries' argument types are set once per library, since every K6a-d
+    call comes here and setting them takes longer on the host than a top
+    walk on the card (PERF.md)."""
     from . import build as _build
 
     built = _build.load("bvh_paged")
     lib = built.lib
-    top = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
-    lib.ptrt_paged_top_closest.argtypes = top + [_I, _I, _F, _F] + [_P] * 9 + [_P]
-    lib.ptrt_paged_top_any.argtypes = top + [_P, _I, _F, _P, _P, _P, _P]
+    if _BOUND.get(built.path) is lib:
+        return built
+    top = [_P, _I, _P, _I, _P, _I, _I, _I] + [_P] * 6
+    top_walk = [_P, _I, _I, _I, _I, _P]  # counter, stage, depth class, smem, grid, stream
+    lib.ptrt_paged_top_closest.argtypes = top + [_I, _I, _F, _F] + [_P] * 9 + top_walk
+    lib.ptrt_paged_top_any.argtypes = top + [_P, _I, _F, _P, _P, _P] + top_walk
     walk = [_P, _I, _I, _P]  # counter, depth class, grid, stream
     lib.ptrt_pages_closest.argtypes = ([_P, _L, _P, _L, _P, _P, _I, _I, _I] + [_P] * 6 + [_P, _P]
                                        + [_P] * 7 + [_I, _F] + [_P] * 7 + walk)
     lib.ptrt_pages_any.argtypes = ([_P, _L, _P, _L, _I] + [_P] * 6 + [_P, _P, _P, _P, _I, _F, _P]
                                    + walk)
     occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    lib.ptrt_paged_top_closest_occupancy.argtypes = occupancy
+    lib.ptrt_paged_top_any_occupancy.argtypes = occupancy
     lib.ptrt_pages_closest_occupancy.argtypes = occupancy
     lib.ptrt_pages_any_occupancy.argtypes = occupancy
     for fn in (lib.ptrt_paged_top_closest, lib.ptrt_paged_top_any, lib.ptrt_pages_closest,
-               lib.ptrt_pages_any, lib.ptrt_pages_closest_occupancy,
+               lib.ptrt_pages_any, lib.ptrt_paged_top_closest_occupancy,
+               lib.ptrt_paged_top_any_occupancy, lib.ptrt_pages_closest_occupancy,
                lib.ptrt_pages_any_occupancy):
         fn.restype = ctypes.c_int
+    _BOUND[built.path] = lib
     return built
 
 
@@ -97,16 +121,61 @@ def _paged(who, cs):
     return pg
 
 
+def top_plan(counts, n_top: int, n_slots: int, top_depth: int, limit: int) -> WalkPlan:
+    """The variant of the top walks (K6a, K6b) on a scene of ``counts``
+    planes, spheres and quads and a top tree of ``n_top`` BVH4 nodes, depth
+    ``top_depth``, over ``n_slots`` top slots, on a card whose blocks may
+    take ``limit`` bytes of dynamic shared memory (``ops/cuda/bvh.smem_limit``):
+    a pure function of these sizes.  Each block holds the primitive records
+    (``csrc/sweep.cuh`` rec_layout; raises when they do not fit) and, staged
+    whenever they fit beside them, the 128 B node records and the 52 B top
+    slots after them; the stack's depth class is the top tree's."""
+    rec = 4 * rec_layout((*counts, 0)).size
+    if rec > limit:
+        raise ValueError(f"top_plan: the primitive records need {rec} B of shared memory, "
+                         f"more than the kernel's {limit} B")
+    tables = 4 * (32 * n_top + 13 * n_slots)
+    stage = rec + tables <= limit
+    return WalkPlan(stage, depth_class(top_depth), rec + (tables if stage else 0))
+
+
+def top_walk_plan(cs, limit: int) -> WalkPlan:
+    """:func:`top_plan` of ``cs``'s paged tree."""
+    pg = cs.bvh.paged
+    return top_plan((cs.n_planes, cs.n_spheres, cs.n_quads), pg.top_tree.shape[0] // 32,
+                    pg.top_slot.shape[0] // 13, pg.top_depth, limit)
+
+
+_TOP_PLANS = {}  # (device index, the sizes top_plan reads) -> the top walks' plan
+
+
 def _top_args(who, cs, device):
-    """The top walk's launch arguments ``(top, n_top, top_slot, ps, P, S, Q)``."""
+    """The top walk's launch arguments ``(top, n_top, top_slot, n_slots,
+    ps, P, S, Q)`` and its plan (:func:`top_walk_plan` on ``device``, asked
+    once per device and sizes).  Both tables are copied as 16-byte loads,
+    so each must start 16-byte aligned."""
     pg = _paged(who, cs)
     P, S, Q = cs.n_planes, cs.n_spheres, cs.n_quads
     n_top = pg.top_tree.shape[0] // 32
+    n_slots = pg.top_slot.shape[0] // 13
     _check("top_tree", pg.top_tree, torch.float32, 32 * n_top, device, who)
-    _check("top_slot", pg.top_slot, torch.float32, pg.top_slot.shape[0], device, who)
+    _check("top_slot", pg.top_slot, torch.float32, 13 * n_slots, device, who)
+    if pg.top_tree.data_ptr() % 16 or pg.top_slot.data_ptr() % 16:
+        raise ValueError(f"{who}: top_tree and top_slot must be 16-byte aligned")
     _check("ps_blob", cs.bvh.ps_blob, torch.float32, 14 * P + 4 * S + 18 * Q, device, who)
-    return (pg.top_tree.data_ptr(), n_top, pg.top_slot.data_ptr(), cs.bvh.ps_blob.data_ptr(),
-            P, S, Q)
+    key = (device.index, P, S, Q, n_top, n_slots, pg.top_depth)
+    if key not in _TOP_PLANS:
+        _TOP_PLANS[key] = top_walk_plan(cs, smem_limit(device))
+    return ((pg.top_tree.data_ptr(), n_top, pg.top_slot.data_ptr(), n_slots,
+             cs.bvh.ps_blob.data_ptr(), P, S, Q), _TOP_PLANS[key])
+
+
+def _top_launch(who, occupancy, plan, n, dev):
+    """The trailing launch arguments of a top walk: the lane counter, the
+    plan's fields, the grid and the stream."""
+    grid = launch_grid(who, occupancy, plan, n, dev)
+    return (lane_counter(dev).data_ptr(), int(plan.stage), plan.depth_class, plan.smem_bytes,
+            grid, _stream(dev))
 
 
 def _check_2d(who, name, t, rows, device):
@@ -222,26 +291,28 @@ def pages_any_plain(cs, ro: V3, rd: V3, t_min: float, limit, found, plo=None, ph
 def paged_top_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float):
     """``(ClosestRecord, plo, phi)``: the plane/sphere/quad winner below the
     scalar ``t_max`` seeds the top tree's walk; the words hold each lane's
-    pending pages (K6a)."""
+    pending pages (K6a, in the variant :func:`top_walk_plan` picks)."""
     who = "paged_top_closest"
     dev = ro.x.device
     if not _on(who, dev):
         return paged_top_closest_plain(cs, ro, rd, t_min, t_max)
     if isinstance(t_max, torch.Tensor):
         raise TypeError(f"{who}: the kernel takes a scalar t_max")
-    top = _top_args(who, cs, dev)
+    top, plan = _top_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     ints = torch.empty((3, n), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
     prim, plo, phi = ints
-    err = build().lib.ptrt_paged_top_closest(
-        *top, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
-        t.data_ptr(),
-        prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(),
-        plo.data_ptr(), phi.data_ptr(), _stream(dev))
-    _raise_on(who, err)
-    paged_top_closest.launches += 1
+    if n > 0:
+        lib = build().lib
+        err = lib.ptrt_paged_top_closest(
+            *top, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
+            t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(),
+            ny.data_ptr(), nz.data_ptr(), plo.data_ptr(), phi.data_ptr(),
+            *_top_launch(who, lib.ptrt_paged_top_closest_occupancy, plan, n, dev))
+        _raise_on(who, err)
+        paged_top_closest.launches += 1
     return ClosestRecord(t, prim, u, v, V3(nx, ny, nz)), plo, phi
 
 
@@ -254,17 +325,20 @@ def paged_top_any(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor):
     dev = ro.x.device
     if not _on(who, dev):
         return paged_top_any_plain(cs, ro, rd, t_min, limit)
-    top = _top_args(who, cs, dev)
+    top, plan = _top_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     _check("limit", limit, torch.float32, n, dev, who)
     found = torch.empty((n,), dtype=torch.bool, device=dev)
     words = torch.empty((2, n), dtype=torch.int32, device=dev)
     plo, phi = words
-    err = build().lib.ptrt_paged_top_any(*top, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
-                                         float(t_min), found.data_ptr(), plo.data_ptr(),
-                                         phi.data_ptr(), _stream(dev))
-    _raise_on(who, err)
-    paged_top_any.launches += 1
+    if n > 0:
+        lib = build().lib
+        err = lib.ptrt_paged_top_any(
+            *top, *(r.data_ptr() for r in rays), limit.data_ptr(), n, float(t_min),
+            found.data_ptr(), plo.data_ptr(), phi.data_ptr(),
+            *_top_launch(who, lib.ptrt_paged_top_any_occupancy, plan, n, dev))
+        _raise_on(who, err)
+        paged_top_any.launches += 1
     return found, plo, phi
 
 

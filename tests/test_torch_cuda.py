@@ -21,9 +21,13 @@ and the persistent K10c in both classes, at ragged lane counts; the
 persistent K10b and K10d in both classes, with infinite, finite and
 non-positive limits and found lanes; the persistent K1 and K2 at 131,072,
 4,133 and 1 lanes (K1's hit, prim and killed on every lane), and none; the
-persistent K7 at 131,077 and 4,133 lanes, none, and queued with K1; and
-K4b, K5, K6c, K6d, K11, the two ordered walks, the skip-link closest walk,
-K10b-d, K1 and K2 queued on one stream, which share its lane counter.
+persistent K7 at 131,077 and 4,133 lanes, none, and queued with K1; the
+persistent top walks K6a and K6b on the 48-page mesh whose top leaves hold
+triangles, staged and read from device memory, in both depth classes, at
+131,077 and 4,133 lanes, staged at 262,149 (past its resident blocks), and
+none; and K4b, K5, K6a-d, K11, the two
+ordered walks, the skip-link closest walk, K10b-d, K1 and K2 queued on one
+stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -591,15 +595,126 @@ def test_page_walks_match_plain(paged_card, n, deep):
         assert bool(x[found].all()) and bool(x[care & ~found].any()), k
 
 
+@pytest.fixture(scope="module")
+def paged48_card(card):
+    """The ``MeshSceneBuilder(2, 2)`` mesh cut into 48 pages (paging forced,
+    as ``tests/test_torch_paged.py::test_pend_masks_cover_entered_pages``
+    does): its top tree's leaves hold triangles, which config 6's, the 512K
+    scene's and ``paged_card``'s do not."""
+    dev = card[0]
+    saved = tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS
+    tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = 2600, 450
+    try:
+        cs = pt.compile_scene(pt.MeshSceneBuilder(grid=2, subdivisions=2).build_scene(), device=dev)
+    finally:
+        tbvh.ONE_LEVEL_LIMIT, tbvh.PAGE_BUDGET_FLOATS = saved
+    assert cs.bvh.paged.n_pages == 48 and bool((cs.bvh.paged.top_slot.view(-1, 13)[:, 9] >= 0).any())
+    return dev, cs
+
+
+def _box_rays(n, seed, dev):
+    """Rays from [-14, 14]³ in uniform directions, and limits in [0, 40) with
+    every 7th -1 and every 11th +inf."""
+    g = np.random.default_rng(seed)
+    ro = g.uniform(-14, 14, (n, 3)).astype(np.float32)
+    rd = g.normal(size=(n, 3)).astype(np.float32)
+    rd /= np.linalg.norm(rd, axis=1, keepdims=True)
+    lane = np.arange(n)
+    lim = np.where(lane % 11 == 0, np.inf, np.where(lane % 7 == 0, -1.0, g.uniform(0, 40, n)))
+    o, d = (V3(*(torch.from_numpy(a[:, i].copy()).to(dev) for i in range(3))) for a in (ro, rd))
+    return o, d, torch.from_numpy(lim.astype(np.float32)).to(dev)
+
+
+def _top_walks(cs, o, d, limit):
+    return (bvh_paged.paged_top_closest(cs, o, d, 1e-3, 1e6),
+            bvh_paged.paged_top_any(cs, o, d, 1e-3, limit))
+
+
+def _top_variant(monkeypatch, cs, dev, staged):
+    """The top walks' plan on ``cs``, made to stage the top tables (the
+    card's shared memory) or read them from device memory (a limit that
+    holds only the primitive records): the wrappers' ``smem_limit`` replaced
+    and their plans forgotten."""
+    limit = bvh.smem_limit(dev)
+    if not staged:
+        limit = 4 * bounce.rec_layout((cs.n_planes, cs.n_spheres, cs.n_quads, 0)).size
+    monkeypatch.setattr(bvh_paged, "smem_limit", lambda dev: limit)
+    monkeypatch.setattr(bvh_paged, "_TOP_PLANS", {})
+    return bvh_paged.top_walk_plan(cs, limit)
+
+
 @pytest.mark.cuda
-def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
-    """K4b, K6c, K6d, K5, K11, the ordered BVH2 closest and occlusion walks,
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("n,staged", [(131072 + 5, True), (131072 + 5, False), (4096 + 37, True),
+                                      (4096 + 37, False), (2 * 131072 + 5, True)])
+def test_top_walks_match_plain(paged48_card, monkeypatch, n, staged, deep):
+    """The persistent K6a and K6b against their plain versions on the 48-page
+    mesh: K6a's winner on >= 99.99% of lanes (top-leaf triangles among them),
+    its floats within tolerance, its pending words covering every page
+    entered at the final ``t``; K6b's verdict on every ray that needs an
+    answer at >= 99.99%, lanes with limit <= 0 found with no page pending.
+    Staged or read from device memory, in the shallow class or the deep one
+    (the top tree reported 20 levels deep), each bit for bit the other
+    variant; 262,149 lanes outrun the staged variant's resident blocks, so
+    its warps take later batches from the lane counter; the counter is left
+    zero."""
+    dev, cs = paged48_card
+    if deep:
+        cs = cs._replace(bvh=cs.bvh._replace(paged=cs.bvh.paged._replace(top_depth=20)))
+    plan = _top_variant(monkeypatch, cs, dev, staged)
+    assert (plan.stage, plan.depth_class) == (staged, 32 if deep else 8)
+    if n > 2 * 131072:  # the resident blocks do not span the lanes
+        lib = bvh_paged.build().lib
+        for who, occupancy in (("paged_top_closest", lib.ptrt_paged_top_closest_occupancy),
+                               ("paged_top_any", lib.ptrt_paged_top_any_occupancy)):
+            assert bvh.WALK_THREADS * bvh.launch_grid(who, occupancy, plan, n, dev) < n, who
+    o, d, limit = _box_rays(n, n + 15, dev)
+    before = (bvh_paged.paged_top_closest.launches, bvh_paged.paged_top_any.launches)
+    (best, plo, phi), (found, alo, ahi) = got = _top_walks(cs, o, d, limit)
+    torch.cuda.synchronize()
+    assert (bvh_paged.paged_top_closest.launches, bvh_paged.paged_top_any.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not bvh.lane_counter(dev).any()
+    monkeypatch.undo()
+    _top_variant(monkeypatch, cs, dev, not staged)
+    _assert_same_bits(got, _top_walks(cs, o, d, limit))  # the other variant
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+    want, _, _ = bvh_paged.paged_top_closest_plain(cs, o, d, 1e-3, 1e6)
+    same = best.prim == want.prim
+    assert float(same.float().mean()) >= 0.9999
+    assert bool((best.prim >= cs.n_planes + cs.n_spheres + cs.n_quads).any())  # top leaves win
+    _assert_floats_close(best, want, same & (best.prim >= 0), ("t", "u", "v", "normal"))
+    final = bvh_paged.pages_closest(cs, o, d, 1e-3, best, plo, phi)
+    entered = tbvh.page_root_mask(cs.bvh.paged, o, d, 1e-3, final.t)
+    assert bool((entered & ~tbvh.pend_mask(plo, phi) == 0).all()) and bool((phi != 0).any())
+    care = limit > 0
+    want_found, _, _ = bvh_paged.paged_top_any_plain(cs, o, d, 1e-3, limit)
+    assert float((found == want_found)[care].float().mean()) >= 0.9999
+    assert bool(found[~care].all()) and not bool((alo[~care] | ahi[~care]).any())
+    assert bool(found[care].any()) and not bool(found[care].all())
+
+
+@pytest.mark.cuda
+def test_top_walks_launch_nothing_on_no_lanes(paged48_card):
+    dev, cs = paged48_card
+    o, d, limit = _box_rays(0, 3, dev)
+    before = (bvh_paged.paged_top_closest.launches, bvh_paged.paged_top_any.launches)
+    (best, plo, phi), (found, alo, ahi) = _top_walks(cs, o, d, limit)
+    torch.cuda.synchronize()
+    assert best.t.shape == plo.shape == found.shape == ahi.shape == (0,)
+    assert (bvh_paged.paged_top_closest.launches, bvh_paged.paged_top_any.launches) == before
+
+
+@pytest.mark.cuda
+def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, paged48_card):
+    """K4b, K6a-d, K5, K11, the ordered BVH2 closest and occlusion walks,
     the skip-link closest walk, K10b-d, K1 and K2 queued on one stream with no sync between them answer
     bit for bit as each does alone after a sync, which leaves the stream's
     lane counter zero: each launch starts from lane 0."""
     dev, mcs, tables = mesh_card
     ccs, blobs = card[1], card[2]
-    pcs = paged_card[1]
+    pcs, tcs = paged_card[1], paged48_card[1]
     o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
     co, cd, cthr, ckey, cdepth = _inputs(131072, 11, dev)
     best, plo, phi = bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6)
@@ -607,6 +722,8 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card):
     roots, en = _rooted_pass(mcs, o, d)
     none = torch.full_like(roots, -1)
     calls = (lambda: bvh.scene_any(mcs, o, d, 1e-3, limit),
+             lambda: bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6),
+             lambda: bvh_paged.paged_top_any(tcs, o, d, 1e-3, limit),
              lambda: bvh_paged.pages_closest(pcs, o, d, 1e-3, best, plo, phi),
              lambda: bvh_paged.pages_any(pcs, o, d, 1e-3, limit, found, alo, ahi),
              lambda: bounce_bvh.path_bounce_bvh(mcs, tables, o, d, thr, key, depth),

@@ -26,6 +26,12 @@ that same walk.
   ``pack_paged``'s ``page_slot`` float for float in 13 columns of 16, zeros
   in the other 3, as ``to_device`` builds it (the soup, the mesh) and as
   ``compiled_scene_from_numpy`` carries a JAX paged tree.
+* The top tables the top walks K6a/K6b copy as 16-byte loads (or read
+  from device memory, ``ops/cuda/bvh_paged.top_plan``): whole 128 B node
+  records and whole leaves of 16 top slots of 13 floats, contiguous, as
+  ``to_device`` builds them (the mesh, and the 48-page scene, which has
+  real top slots) and as ``compiled_scene_from_numpy`` carries the JAX
+  compile, float for float; the plan of their sizes.
 
 The kernels K6a-d and K4c/K4d run only on a GPU: ``tests/test_torch_cuda.py``
 holds them against these plain versions there.
@@ -286,6 +292,51 @@ def test_page_slot16_is_the_jax_page_slot_padded(mesh_scene, jax_paged_mesh, for
     assert not pad[:, :, 13:].any()
     assert bool((pad[:, :, 9] < 0).any())  # the leaves' -1 padding slots carried over
     assert got.page_slot16.is_contiguous() and got.page_slot16.data_ptr() % 16 == 0
+
+
+def _paged_48(monkeypatch):
+    """``test_pend_masks_cover_entered_pages``'s 48-page scene, compiled by
+    the port on the CPU: 21 top nodes over 192 top slots, 168 of them real."""
+    monkeypatch.setattr(tbvh, "ONE_LEVEL_LIMIT", 2600)
+    monkeypatch.setattr(tbvh, "PAGE_BUDGET_FLOATS", 450)
+    return compile_scene(pt.MeshSceneBuilder(grid=2, subdivisions=2).build_scene(), device="cpu")
+
+
+@pytest.mark.parametrize("source", ["mesh", "carried", "48 pages"])
+def test_top_tables_are_whole_records(mesh_scene, jax_paged_mesh, force_paging, monkeypatch,
+                                      source):
+    """The top tree and top slots as ``to_device`` builds them (the mesh;
+    the 48-page scene, whose top leaves hold triangles) and as
+    ``compiled_scene_from_numpy`` carries the JAX compile of the mesh (float
+    for float): whole node records and whole leaves of slots, which the top
+    walks copy as 16-byte loads; the plan of their sizes stages them on an
+    H100 and reads them from device memory under a limit one byte short."""
+    if source == "carried":
+        cs = compiled_scene_from_numpy(jax_paged_mesh, device="cpu")
+        jpg = jax_paged_mesh.bvh.paged
+        np.testing.assert_array_equal(cs.bvh.paged.top_slot.numpy(), np.asarray(jpg.top_slot)[0])
+        np.testing.assert_array_equal(cs.bvh.paged.top_tree.numpy(), np.asarray(jpg.top_tree)[0])
+    else:
+        cs = _paged_48(monkeypatch) if source == "48 pages" else compile_scene(mesh_scene[0],
+                                                                               device="cpu")
+    pg = cs.bvh.paged
+    n_top, n_slots = pg.top_tree.shape[0] // 32, pg.top_slot.shape[0] // 13
+    assert pg.top_tree.shape[0] == 32 * n_top and pg.top_slot.shape[0] == 13 * n_slots
+    assert n_slots % 16 == 0  # whole leaves: 52 float4s each
+    for t in (pg.top_tree, pg.top_slot):
+        assert t.is_contiguous() and t.dtype == torch.float32
+    real = int((pg.top_slot.view(-1, 13)[:, 9] >= 0).sum())
+    if source == "48 pages":
+        assert (pg.n_pages, n_top, pg.top_depth, real) == (48, 21, 3, 168)
+    else:
+        assert real == 0
+    limit = 232_448 - 64  # an H100's block
+    sizes = ((cs.n_planes, cs.n_spheres, cs.n_quads), n_top, n_slots, pg.top_depth)
+    plan = bvh_paged.top_walk_plan(cs, limit)
+    assert plan == bvh_paged.top_plan(*sizes, limit) and plan.stage
+    assert plan.depth_class == 8
+    short = bvh_paged.top_plan(*sizes, plan.smem_bytes - 1)
+    assert not short.stage and plan.smem_bytes - short.smem_bytes == 4 * (32 * n_top + 13 * n_slots)
 
 
 def test_whole_tree_page_walks_are_the_bvh_walks(mesh_scene):

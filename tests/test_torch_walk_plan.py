@@ -9,6 +9,11 @@ K11 and K4e's ordered and skip-link closest walks) on the CPU.
   functions of sizes, the budget, the card's shared memory and the SM
   count; ``page_plan``, the page walks' variant (K6c/K6d, K4c/K4d), takes
   the same depth class and never stages a tree, whatever the budget.
+* ``ops/cuda/bvh_paged.top_plan``, the top walks' variant (K6a/K6b): the
+  primitive records always in shared memory, the top tree's node records and
+  13-float slots staged after them whenever they fit the card's shared
+  memory, the stack's class from the top tree's depth; a pure function of
+  those sizes.
 * ``ops/cuda/bvh.rooted_plan`` (K11: the depth class of the whole BVH4)
   and ``depth2_class`` with ``ops/cuda/bvh2.ordered_plan`` (the ordered
   BVH2 closest walk: a stack class that holds ``depth2 + 2``) are pure
@@ -31,7 +36,7 @@ import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_paged
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from torch_chain import chain_rays, chain_scene
 from torch_threads import one_torch_thread  # noqa: F401
@@ -86,6 +91,40 @@ def test_walk_plan_is_a_function_of_sizes(monkeypatch, budget, n_nodes, depth4, 
     assert plan.smem_bytes <= limit
     # the page walks' plan at the same sizes: the same depth class, no page staged
     assert tuple(bvh.page_plan(depth4)) == (False, want[1], 0)
+
+
+# config 6 (MeshSceneBuilder(5, 4)): 5 planes, 1 sphere, 1 quad, whose
+# 16-byte records take 104 floats; its top tree 7 BVH4 nodes, depth 3, over
+# one leaf of 16 top slots of 13 floats; the 48-page scene of
+# tests/test_torch_paged.py 21 nodes over 192 slots
+C6_PSQ, C6_REC = (5, 1, 1), 4 * 104
+C6_TOP, P48_TOP = 4 * (32 * 7 + 13 * 16), 4 * (32 * 21 + 13 * 192)
+BIG_TOP = 4 * (32 * 64 + 13 * 3200)  # 64 nodes over 3,200 slots: 174,592 B
+
+
+@pytest.mark.parametrize("n_top,n_slots,depth,limit,want", [
+    (7, 16, 3, H100, (True, 8, C6_REC + C6_TOP)),  # config 6's tables staged
+    (21, 192, 3, H100, (True, 8, C6_REC + P48_TOP)),  # and the 48-page scene's
+    (7, 16, 9, SMALL, (True, 32, C6_REC + C6_TOP)),  # the deep class
+    (7, 16, 3, C6_REC + C6_TOP, (True, 8, C6_REC + C6_TOP)),  # just fit
+    (7, 16, 3, C6_REC + C6_TOP - 1, (False, 8, C6_REC)),  # one byte short: device memory
+    (7, 16, 3, C6_REC, (False, 8, C6_REC)),  # room for the primitive records alone
+    (64, 3200, 5, H100, (True, 8, C6_REC + BIG_TOP)),  # fits an H100's block
+    (64, 3200, 5, SMALL, (False, 8, C6_REC)),  # not a 99 KB card's
+])
+def test_top_plan_is_a_function_of_sizes(n_top, n_slots, depth, limit, want):
+    """The top tables are staged whenever they fit beside the primitive
+    records, whatever their size."""
+    plan = bvh_paged.top_plan(C6_PSQ, n_top, n_slots, depth, limit)
+    assert tuple(plan) == want
+    assert plan == bvh_paged.top_plan(C6_PSQ, n_top, n_slots, depth, limit)
+    assert plan.smem_bytes <= limit
+    assert plan.depth_class == bvh.depth_class(depth)
+
+
+def test_top_plan_refuses_records_past_the_card():
+    with pytest.raises(ValueError, match="primitive records"):
+        bvh_paged.top_plan((3000, 0, 0), 7, 16, 3, SMALL)
 
 
 @pytest.mark.parametrize("n,n_sms,per_sm,want", [
