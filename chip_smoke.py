@@ -453,7 +453,7 @@ C_ENTRIES = {
     "pages_any_persistent": ("bvh_paged", ("ptrt_pages_any",)),
     "bvh2_closest_skiplink_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_closest_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
-    "bvh2_any_kernel": ("bvh2", ("ptrt_bvh2_any",)),
+    "bvh2_any_skiplink_persistent": ("bvh2", ("ptrt_bvh2_any",)),
     "bvh2_any_persistent": ("bvh2", ("ptrt_bvh2_any",)),
     "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
     "mat_scene_any_persistent": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
@@ -2274,6 +2274,8 @@ def phase_split_check(device):
                      bvh.build().lib.ptrt_bvh4_rooted_occupancy),
              "K4e skip-link closest": (cs.bvh.depth2, bvh2.SKIPLINK_PLAN,
                                        bvh2.build().lib.ptrt_bvh2_skiplink_occupancy),
+             "K4e skip-link occlusion": (cs.bvh.depth2, bvh2.SKIPLINK_PLAN,
+                                         bvh2.build().lib.ptrt_bvh2_skiplink_any_occupancy),
              "K4e ordered closest": (cs.bvh.depth2, bvh2.ordered_plan(cs),
                                      bvh2.build().lib.ptrt_bvh2_closest_occupancy),
              "K4e ordered occlusion": (cs.bvh.depth2, bvh2.ordered_plan(cs),
@@ -2293,7 +2295,8 @@ def phase_split_check(device):
                                   "bvh2_closest_skiplink_persistent"),
         "closest_ordered": timed(lambda: bvh2.closest_ordered(cs, o, d, 1e-3, 1e6),
                                  "bvh2_closest_persistent"),
-        "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim), "bvh2_any_kernel"),
+        "any_skiplink": timed(lambda: bvh2.any_skiplink(cs, so, sd, 1e-3, lim),
+                              "bvh2_any_skiplink_persistent"),
         "any_ordered": timed(lambda: bvh2.any_ordered(cs, so, sd, 1e-3, lim),
                              "bvh2_any_persistent"),
         "closest_rooted": timed(

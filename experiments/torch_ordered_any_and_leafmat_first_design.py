@@ -16,8 +16,8 @@ from those origins aimed at random points of the mesh (every one hits).
   100 levels deep (the deep stack class); the 190-deep BVH2 chain of
   ``tests/torch_chain.py`` at 4,133 and 131,072 rays, and at 131,072 with
   the lanes shuffled (its deep rays are the first third of the lanes).
-  The skip-link occlusion walk, which keeps its first design, is held bit
-  for bit on the same sets.
+  The skip-link occlusion walk (``bvh2_any_skiplink_persistent`` since its
+  own redesign) is held bit for bit against that commit's on the same sets.
 * K10c: each set with the split route's seed record (``t_max`` 1e6, no
   winner) and with a per-ray bound about half of the hits lie beyond; then
   K10c against its redesigned twin K4c (``bvh_paged.pages_closest``) in
@@ -184,7 +184,7 @@ def any_rows(lib2, cs, o, d, limit, label):
     return {f"K4e ordered occlusion, {label}": (
         (lambda: bvh2.any_ordered(cs, o, d, T_MIN, limit), "bvh2_any_persistent"),
         (lambda: first_any(lib2, cs, o, d, limit, True), "bvh2_any_kernel"),
-        (lambda: bvh2.any_skiplink(cs, o, d, T_MIN, limit), "bvh2_any_kernel"),
+        (lambda: bvh2.any_skiplink(cs, o, d, T_MIN, limit), "bvh2_any_skiplink_persistent"),
         (lambda: first_any(lib2, cs, o, d, limit, False), "bvh2_any_kernel"))}
 
 

@@ -25,22 +25,24 @@
 // link (the next node when the box is missed or the subtree is done), and
 // the slot base (a leaf, >= 0) or -(1 + split code) (an inner node, whose
 // left child is the next record and right child the left child's skip).
-// Slot record, 13 floats, as bvh_walk.cuh, or the padded 16-float copy.
+// Slot record: the padded 16-float copy of bvh_walk.cuh's 13 floats
+// (Slot16TriLeaf), which every walk here reads.
 //
 // What bounds them: latency.  A ray reads 24 B (28 B with its bound) and
 // writes 8 B (1 B), against a walk of dozens of node records (32 B each)
 // and leaves of 16 slot records, each read by a thread that follows its own
-// path.  The skip-link occlusion walk keeps the first design: one thread
-// per ray in blocks of 128, the records as packed, no stack.
+// path.
 //
-// The skip-link closest walk is designed for Hopper
-// (bvh2_closest_skiplink_persistent): the ordered walks' persistent blocks
-// and lane counter; each node read as two 16-byte loads (its box, then its
-// skip link and code), where the first design read its floats one by one;
-// leaves from the padded slot copy, four slots' loads issued together
-// (Slot16TriLeaf).  No stack, and the same visit order, step guard and
-// floats as the first design (git 5d3f023), so its t and triangle are the
-// same bits on every lane, per-ray bound or not.
+// The two skip-link walks are designed for Hopper
+// (bvh2_closest_skiplink_persistent, bvh2_any_skiplink_persistent): the
+// ordered walks' persistent blocks and lane counter; each node read as two
+// 16-byte loads (its box, then its skip link and code), where the first
+// designs read its floats one by one; leaves from the padded slot copy,
+// four slots' loads issued together (Slot16TriLeaf).  No stack, and the
+// same visit order, step guard and floats as the first designs (the
+// closest walk's in git at 5d3f023, the occlusion walk's at f75eb47), so
+// the closest walk's t and triangle and the occlusion walk's verdict are
+// the same bits on every lane, per-ray bound or not.
 //
 // The two ordered walks are designed for Hopper (bvh2_closest_persistent,
 // bvh2_any_persistent), as bvh_walk.cuh's persistent BVH4 walks are:
@@ -76,21 +78,25 @@ constexpr int kStack2Cap = 192;
 // the persistent ordered walks' smaller stack class (ops/cuda/bvh.py
 // SHALLOW2): a BVH2 of depth2 + 2 <= kShallow2 takes it, any other kStack2Cap
 constexpr int kShallow2 = 32;
-constexpr int kBvh2Threads = 128;
 
-// The skip-link walk of one ray, its leaves visited by `leaf` (SlotLeaf,
-// Slot16TriLeaf).  Closest (kAny false): h carries the bound in and the
-// winner (t, raw gid) out, the slab's far plane the running best.  Any:
-// returns at the first hit below h.t, the fixed limit.
+// The skip-link walk of one ray, each node read as two 16-byte loads: the
+// box, then the skip link and the code (an inner node's right child is not
+// read: the walk takes the next record or the skip).  Its leaves are
+// visited by `leaf` (Slot16TriLeaf).  Closest (kAny false): h carries the
+// bound in and the winner (t, raw gid) out, the slab's far plane the
+// running best.  Any: returns at the first hit below h.t, the fixed limit.
 template <bool kAny, class Leaf>
-__device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m, const Leaf& leaf,
-                                      const Ray& r, float t_min, Hit& h) {
+__device__ __forceinline__ bool skiplink_walk(const float* __restrict__ tree, int m,
+                                              const Leaf& leaf, const Ray& r, float t_min,
+                                              Hit& h) {
   const WalkRay w = walk_ray(r);
   int cursor = 0;
   for (int step = 0; cursor < m && step <= m; ++step) {
-    const float* b = tree + (size_t)cursor * kNode2F;
+    const float4* p = reinterpret_cast<const float4*>(tree + (size_t)cursor * kNode2F);
+    const float4 lo = __ldg(p), hi = __ldg(p + 1);
+    const float b[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
     const bool hit = slab(b, w, t_min, h.t);
-    const float code = b[7];
+    const float code = hi.w;
     if (hit && code >= 0.0f) {
       if constexpr (kAny) {
         if (leaf.any(code, r, t_min, h.t)) return true;
@@ -98,7 +104,7 @@ __device__ __forceinline__ bool walk2(const float* __restrict__ tree, int m, con
         leaf.closest(code, r, t_min, 0, h);
       }
     }
-    cursor = (hit && code < 0.0f) ? cursor + 1 : (int)b[6];
+    cursor = (hit && code < 0.0f) ? cursor + 1 : (int)hi.z;
   }
   return false;
 }
@@ -145,34 +151,12 @@ __device__ __forceinline__ bool ordered_walk(const float* __restrict__ tree, int
       }
       continue;
     }
-    if (stack.sp + 2 > kCap) return walk2<kAny>(tree, m, leaf, r, t_min, h);
+    if (stack.sp + 2 > kCap) return skiplink_walk<kAny>(tree, m, leaf, r, t_min, h);
     const bool left_near = near_first(-code - 1.0f, r);
     stack.push(left_near ? right : node + 1);  // the near child is popped first
     stack.push(left_near ? node + 1 : right);
   }
   return false;
-}
-
-// walk2's closest walk with each node read as two 16-byte loads: the box,
-// then the skip link and the code (an inner node's right child is not read:
-// the skip-link walk takes the next record or the skip).  h carries the
-// bound in and the winner (t, raw gid) out, the slab's far plane the
-// running best.
-template <class Leaf>
-__device__ __forceinline__ void skiplink_closest(const float* __restrict__ tree, int m,
-                                                 const Leaf& leaf, const Ray& r, float t_min,
-                                                 Hit& h) {
-  const WalkRay w = walk_ray(r);
-  int cursor = 0;
-  for (int step = 0; cursor < m && step <= m; ++step) {
-    const float4* p = reinterpret_cast<const float4*>(tree + (size_t)cursor * kNode2F);
-    const float4 lo = __ldg(p), hi = __ldg(p + 1);
-    const float b[6] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y};
-    const bool hit = slab(b, w, t_min, h.t);
-    const float code = hi.w;
-    if (hit && code >= 0.0f) leaf.closest(code, r, t_min, 0, h);
-    cursor = (hit && code < 0.0f) ? cursor + 1 : (int)hi.z;
-  }
 }
 
 // The skip-link closest walk for Hopper: lanes [0, n) taken 32 at a time
@@ -197,7 +181,7 @@ bvh2_closest_skiplink_persistent(const float* __restrict__ tree, int m,
     Hit h;
     h.t = bound ? bound[i] : t_max;
     h.prim = -1;
-    skiplink_closest(tree, m, leaf, r, t_min, h);
+    skiplink_walk<false>(tree, m, leaf, r, t_min, h);
     t_out[i] = h.t;
     tri_out[i] = decode_prim(h.prim, 0, gid_mask);
   }
@@ -231,24 +215,35 @@ bvh2_closest_persistent(const float* __restrict__ tree, int m, const float* __re
   finish_lanes(counter);
 }
 
-// The skip-link occlusion walk, one lane per thread.
-__global__ void __launch_bounds__(kBvh2Threads)
-bvh2_any_kernel(const float* __restrict__ tree, int m, const float* __restrict__ slots,
-                const float* __restrict__ ox_in, const float* __restrict__ oy_in,
-                const float* __restrict__ oz_in, const float* __restrict__ dx_in,
-                const float* __restrict__ dy_in, const float* __restrict__ dz_in,
-                const float* __restrict__ limit_in, int n, float t_min,
-                uint8_t* __restrict__ occ_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  Hit h;
-  h.t = limit_in[i];
-  if (h.t <= 0.0f) {  // no answer needed: reported occluded, as the JAX kernels do
-    occ_out[i] = 1;
-    return;
+// The skip-link occlusion walk for Hopper: lanes as
+// bvh2_closest_skiplink_persistent takes them; a lane whose limit is <= 0 is
+// written occluded and loads no ray, as the first design did.  No minimum
+// of resident blocks: 78 registers, no spill, 3 blocks an SM; asked for 4
+// (at most 64 registers) it spills 48 B and measured slower on an H100 on
+// every ray set, 2.7x on the 190-deep chain (PERF.md).
+__global__ void __launch_bounds__(kWalkThreads)
+bvh2_any_skiplink_persistent(const float* __restrict__ tree, int m,
+                             const float* __restrict__ slot16, const float* __restrict__ ox_in,
+                             const float* __restrict__ oy_in, const float* __restrict__ oz_in,
+                             const float* __restrict__ dx_in, const float* __restrict__ dy_in,
+                             const float* __restrict__ dz_in, const float* __restrict__ limit_in,
+                             int n, float t_min, uint8_t* __restrict__ occ_out,
+                             int* __restrict__ counter) {
+  const Slot16TriLeaf leaf{reinterpret_cast<const float4*>(slot16)};
+  for (;;) {
+    const int i = next_lane(counter);
+    if (i - (int)(threadIdx.x & 31) >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    Hit h;
+    h.t = limit_in[i];
+    if (h.t <= 0.0f) {  // no answer needed: reported occluded, as the JAX kernels do
+      occ_out[i] = 1;
+      continue;
+    }
+    const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
+    occ_out[i] = skiplink_walk<true>(tree, m, leaf, r, t_min, h) ? 1 : 0;
   }
-  const Ray r = load_ray(ox_in, oy_in, oz_in, dx_in, dy_in, dz_in, i);
-  occ_out[i] = walk2<true>(tree, m, SlotLeaf{slots}, r, t_min, h) ? 1 : 0;
+  finish_lanes(counter);
 }
 
 // The ordered occlusion walk for Hopper: lanes as bvh2_closest_persistent
@@ -300,8 +295,6 @@ inline Any2Kernel any2_variant(int depth_class) {
   return nullptr;
 }
 
-inline int blocks2_for(int n) { return (n + kBvh2Threads - 1) / kBvh2Threads; }
-
 }  // namespace ptrt
 
 // The ordered walk's stack, in nodes (kStack2Cap).
@@ -349,14 +342,15 @@ extern "C" int ptrt_bvh2_skiplink_occupancy(int stage, int depth_class, int smem
                               stage, smem, blocks);
 }
 
-// The skip-link walk (ordered 0) reads the 13-float `slots`; the ordered
-// walk (ordered 1) as ptrt_bvh2_closest's, its grid sized by
-// ptrt_bvh2_any_occupancy.  Lanes whose limit is <= 0 are reported occluded.
-extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slots, const float* slot16,
-                             const float* ox, const float* oy, const float* oz, const float* dx,
-                             const float* dy, const float* dz, const float* limit, int n,
-                             int ordered, float t_min, uint8_t* occluded, int* counter,
-                             int depth_class, int grid, void* stream) {
+// The occlusion walks as ptrt_bvh2_closest's: the skip-link walk (ordered
+// 0), sized by ptrt_bvh2_skiplink_any_occupancy, or the ordered walk
+// (ordered 1)'s variant for depth_class, sized by ptrt_bvh2_any_occupancy.
+// Lanes whose limit is <= 0 are reported occluded.
+extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slot16, const float* ox,
+                             const float* oy, const float* oz, const float* dx, const float* dy,
+                             const float* dz, const float* limit, int n, int ordered, float t_min,
+                             uint8_t* occluded, int* counter, int depth_class, int grid,
+                             void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (ordered) {
@@ -365,10 +359,18 @@ extern "C" int ptrt_bvh2_any(const float* tree, int m, const float* slots, const
     k<<<grid, ptrt::kWalkThreads, 0, s>>>(tree, m, slot16, ox, oy, oz, dx, dy, dz, limit, n,
                                           t_min, occluded, counter);
   } else {
-    ptrt::bvh2_any_kernel<<<ptrt::blocks2_for(n), ptrt::kBvh2Threads, 0, s>>>(
-        tree, m, slots, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded);
+    ptrt::bvh2_any_skiplink_persistent<<<grid, ptrt::kWalkThreads, 0, s>>>(
+        tree, m, slot16, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded, counter);
   }
   return (int)cudaGetLastError();
+}
+
+// Resident blocks per SM of the skip-link occlusion walk, into *blocks: no
+// stack (depth_class 0), nothing staged (stage and smem 0).
+extern "C" int ptrt_bvh2_skiplink_any_occupancy(int stage, int depth_class, int smem,
+                                                int* blocks) {
+  return ptrt::walk_occupancy(depth_class == 0 ? &ptrt::bvh2_any_skiplink_persistent : nullptr,
+                              stage, smem, blocks);
 }
 
 // Resident blocks per SM of the ordered occlusion walk's variant for

@@ -28,7 +28,7 @@
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
 // records by Möller–Trumbore, reading each slot's floats as the test needs
-// them (K4a, the BVH2 walks' walk2, and the top walks K6a/K6b, over their
+// them (K4a and the top walks K6a/K6b, the latter over their
 // block's copy in shared memory or from device memory).  MatLeaf (K10a; the JAX
 // package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
 // same decision quantities as linear forms of the lane's ray features
@@ -250,7 +250,7 @@ struct SlotLeaf {
 // loads each are issued together before the batch's tests, which then run
 // in slot order, so a lane waits on device memory once a batch and not once
 // a slot.  The last word is read on a win.  kAttrs false: a win keeps only t
-// and the gid (the triangle-only walks that emit (t, tri): K11, the ordered
+// and the gid (the triangle-only walks that emit (t, tri) or occlusion: K11,
 // K4e), so no attribute is read or carried; the winner is the same.
 constexpr int kSlotBatch = 4;
 

@@ -9,14 +9,12 @@ node records ``FlatBVH.tree2`` and the slot records, one ray per thread:
 the skip-link walk in preorder with no stack, or the ordered walk, near
 child first, with a stack of at most ``STACK_CAP`` nodes.  The split route
 of ``ops/cuda/bvh.py`` takes them for a tree that the BVH4 walks do not
-(``tri_route``: ``ordered`` or ``skiplink``).  The two ordered walks and
-the skip-link closest walk are persistent walks, as K4b is: the ordered
-walks' stack class ``bvh.depth2_class`` of the tree's BVH2 depth
-(:func:`ordered_plan`; the skip-link walk has no stack,
-:data:`SKIPLINK_PLAN`), ``bvh.launch_grid`` the resident blocks, whose
-warps take their lanes from ``bvh.lane_counter``; they read the padded slot
-records ``FlatBVH.slot16`` (the skip-link occlusion walk the 13-float
-``slot_rec``).
+(``tri_route``: ``ordered`` or ``skiplink``).  All four are persistent
+walks, as K4b is: the ordered walks' stack class ``bvh.depth2_class`` of
+the tree's BVH2 depth (:func:`ordered_plan`; the skip-link walks have no
+stack, :data:`SKIPLINK_PLAN`), ``bvh.launch_grid`` the resident blocks,
+whose warps take their lanes from ``bvh.lane_counter``; they read the
+padded slot records ``FlatBVH.slot16``.
 
 * :func:`closest_skiplink` / :func:`closest_ordered`: ``(t, tri)``, the
   closest triangle below a scalar ``t_max`` or a per-ray seed bound, as a
@@ -57,11 +55,13 @@ def build():
     occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     lib.ptrt_bvh2_closest_occupancy.argtypes = occupancy
     lib.ptrt_bvh2_skiplink_occupancy.argtypes = occupancy
-    lib.ptrt_bvh2_any.argtypes = ([_P, _I, _P, _P] + [_P] * 6 + [_P, _I, _I, _F, _P]
+    lib.ptrt_bvh2_any.argtypes = ([_P, _I, _P] + [_P] * 6 + [_P, _I, _I, _F, _P]
                                   + [_P, _I, _I, _P])
     lib.ptrt_bvh2_any_occupancy.argtypes = occupancy
+    lib.ptrt_bvh2_skiplink_any_occupancy.argtypes = occupancy
     for fn in (lib.ptrt_bvh2_closest, lib.ptrt_bvh2_closest_occupancy,
-               lib.ptrt_bvh2_skiplink_occupancy, lib.ptrt_bvh2_any, lib.ptrt_bvh2_any_occupancy):
+               lib.ptrt_bvh2_skiplink_occupancy, lib.ptrt_bvh2_any, lib.ptrt_bvh2_any_occupancy,
+               lib.ptrt_bvh2_skiplink_any_occupancy):
         fn.restype = ctypes.c_int
     lib.ptrt_bvh2_stack_cap.argtypes = []
     lib.ptrt_bvh2_stack_cap.restype = ctypes.c_int
@@ -81,8 +81,7 @@ def _tree_args(who, cs, device, ordered: bool):
                          f"takes at most {cap - 2}")
     m = bvh.tree2.shape[0] // 8
     _check("tree2", bvh.tree2, torch.float32, 8 * m, device, who)
-    _check("slot_rec", bvh.slot_rec, torch.float32, bvh.slot_rec.shape[0], device, who)
-    return bvh.tree2.data_ptr(), m, bvh.slot_rec.data_ptr()
+    return bvh.tree2.data_ptr(), m
 
 
 def ordered_plan(cs) -> WalkPlan:
@@ -91,17 +90,23 @@ def ordered_plan(cs) -> WalkPlan:
     return WalkPlan(False, depth2_class(cs.bvh.depth2), 0)
 
 
-# The persistent skip-link closest walk's launch, whatever the tree: no
-# stack (depth class 0), nothing staged.
+# The persistent skip-link walks' launch, whatever the tree: no stack
+# (depth class 0), nothing staged.
 SKIPLINK_PLAN = WalkPlan(False, 0, 0)
 
 
-def _persistent(who, cs, dev, occupancy, plan: WalkPlan, n: int):
-    """The persistent walks' launch arguments after ``tree2``: ``(slot16,
-    lane counter, depth class, grid)``, after checking the 16-byte loads'
-    alignment."""
+def _persistent(who, cs, dev, ordered: bool, occlusion: bool, n: int):
+    """The launch arguments after ``tree2`` of the walk (ordered or skip-link,
+    closest or occlusion): ``(slot16, lane counter, depth class, grid)``,
+    after checking the 16-byte loads' alignment."""
     if cs.bvh.tree2.data_ptr() % 16:
         raise ValueError(f"{who}: tree2 is not 16-byte aligned")
+    lib = build().lib
+    plan = ordered_plan(cs) if ordered else SKIPLINK_PLAN
+    occupancy = {(True, False): lib.ptrt_bvh2_closest_occupancy,
+                 (True, True): lib.ptrt_bvh2_any_occupancy,
+                 (False, False): lib.ptrt_bvh2_skiplink_occupancy,
+                 (False, True): lib.ptrt_bvh2_skiplink_any_occupancy}[ordered, occlusion]
     return (slot16_arg(who, cs, dev), lane_counter(dev).data_ptr(), plan.depth_class,
             launch_grid(who, occupancy, plan, n, dev))
 
@@ -120,12 +125,9 @@ def _closest(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, bound):
     tri = torch.empty((n,), dtype=torch.int32, device=dev)
     if n == 0:
         return t, tri
-    lib = build().lib
-    plan, occupancy = ((ordered_plan(cs), lib.ptrt_bvh2_closest_occupancy) if ordered
-                       else (SKIPLINK_PLAN, lib.ptrt_bvh2_skiplink_occupancy))
-    slot16, *walk = _persistent(who, cs, dev, occupancy, plan, n)
-    err = lib.ptrt_bvh2_closest(  # tree2 and its node count: no 13-float slot records
-        *tree[:2], slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
+    slot16, *walk = _persistent(who, cs, dev, ordered, False, n)
+    err = build().lib.ptrt_bvh2_closest(
+        *tree, slot16, *(r.data_ptr() for r in rays), n, int(ordered), gid_mask(cs),
         float(t_min), 0.0 if per_ray else float(bound), bound.data_ptr() if per_ray else None,
         t.data_ptr(), tri.data_ptr(), *walk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
@@ -144,12 +146,10 @@ def _any(wrapper, ordered: bool, cs, ro: V3, rd: V3, t_min: float, limit: torch.
     occ = torch.empty((n,), dtype=torch.bool, device=dev)
     if n == 0:
         return occ
-    lib = build().lib
-    slot16, *walk = (_persistent(who, cs, dev, lib.ptrt_bvh2_any_occupancy, ordered_plan(cs), n)
-                     if ordered else (None, None, 0, 0))
-    err = lib.ptrt_bvh2_any(*tree, slot16, *(r.data_ptr() for r in rays), limit.data_ptr(), n,
-                            int(ordered), float(t_min), occ.data_ptr(), *walk,
-                            torch.cuda.current_stream(dev).cuda_stream)
+    slot16, *walk = _persistent(who, cs, dev, ordered, True, n)
+    err = build().lib.ptrt_bvh2_any(
+        *tree, slot16, *(r.data_ptr() for r in rays), limit.data_ptr(), n, int(ordered),
+        float(t_min), occ.data_ptr(), *walk, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(who, err)
     wrapper.launches += 1
     return occ
@@ -166,7 +166,8 @@ def closest_ordered(cs, ro: V3, rd: V3, t_min: float, bound):
 
 
 def any_skiplink(cs, ro: V3, rd: V3, t_min: float, limit: torch.Tensor) -> torch.Tensor:
-    """Occlusion by the skip-link walk, a lane stopping at its first hit (K4e)."""
+    """Occlusion by the stackless skip-link walk, a lane stopping at its
+    first hit (K4e), persistent."""
     return _any(any_skiplink, False, cs, ro, rd, t_min, limit)
 
 

@@ -400,12 +400,13 @@ def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
     dev, cs, tables = mesh_card
     o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
     wrappers = (bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
-                bvh2.closest_skiplink, bvh_leafmat.tri_closest, bvh_leafmat.scene_any,
-                bvh_leafmat.tri_any)
+                bvh2.closest_skiplink, bvh2.any_skiplink, bvh_leafmat.tri_closest,
+                bvh_leafmat.scene_any, bvh_leafmat.tri_any)
     before = [w.launches for w in wrappers]
     assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
     assert bvh2.any_ordered(cs, o, d, 1e-3, limit).shape == (0,)
+    assert bvh2.any_skiplink(cs, o, d, 1e-3, limit).shape == (0,)
     assert bvh2.closest_skiplink(cs, o, d, 1e-3, 1e6)[0].shape == (0,)
     assert bvh_leafmat.tri_closest(cs, o, d, 1e-3, _seed(limit)).t.shape == (0,)
     assert bvh_leafmat.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
@@ -709,9 +710,10 @@ def test_top_walks_launch_nothing_on_no_lanes(paged48_card):
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, paged48_card):
     """K4b, K6a-d, K5, K11, the ordered BVH2 closest and occlusion walks,
-    the skip-link closest walk, K10b-d, K1 and K2 queued on one stream with no sync between them answer
-    bit for bit as each does alone after a sync, which leaves the stream's
-    lane counter zero: each launch starts from lane 0."""
+    the skip-link closest and occlusion walks, K10b-d, K1 and K2 queued on
+    one stream with no sync between them answer bit for bit as each does
+    alone after a sync, which leaves the stream's lane counter zero: each
+    launch starts from lane 0."""
     dev, mcs, tables = mesh_card
     ccs, blobs = card[1], card[2]
     pcs, tcs = paged_card[1], paged48_card[1]
@@ -731,6 +733,7 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, pa
              lambda: bvh2.closest_ordered(mcs, o, d, 1e-3, limit.abs()),
              lambda: bvh2.any_ordered(mcs, o, d, 1e-3, limit),
              lambda: bvh2.closest_skiplink(mcs, o, d, 1e-3, limit.abs()),
+             lambda: bvh2.any_skiplink(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_closest(mcs, o, d, 1e-3, _seed(limit.abs())),
              lambda: bvh_leafmat.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_any(mcs, o, d, 1e-3, limit, found),
@@ -961,6 +964,40 @@ def test_persistent_ordered_occlusion_matches_plain(mesh_card, n):
         assert torch.equal(bvh2.any_ordered(c, co, cd, 1e-3, bound), want)
     assert 0.2 < float(want.float().mean()) < 0.8
     torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072, 131072 + 5, 2 * 131072 + 5])
+def test_persistent_skiplink_occlusion_matches_plain(mesh_card, n):
+    """The persistent skip-link occlusion walk (K4e) against the plain
+    skip-link walk on every ray that needs an answer (the others report
+    occluded), on config 5 with finite, ``+inf`` and ≤ 0 limits, then on the
+    190-deep chain; at 262,149 lanes past the resident blocks' lanes, which
+    warps take from the lane counter; the counter left zero."""
+    dev, cs, _ = mesh_card
+    o, d, _, _, _ = _inputs(n, n + 19, dev)
+    _, limit = _bounds(n, n + 19, dev)
+    limit = torch.where(torch.arange(n, device=dev) % 11 == 0, float("inf"), limit).contiguous()
+    before = bvh2.any_skiplink.launches
+    occ = bvh2.any_skiplink(cs, o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert bvh2.any_skiplink.launches == before + 1 and not bvh.lane_counter(dev).any()
+    care = limit > 0
+    want = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, limit)
+    assert torch.equal(occ[care], want[care]) and bool(occ[~care].all())
+    assert 0.05 < float(occ[care].float().mean()) < 0.95
+    from torch_chain import chain_rays, chain_scene
+
+    chain = chain_scene(bvh.STACK_CAP - 2, dev)
+    co, cd = (_v3_on(a, dev) for a in chain_rays(chain.bvh.depth2, n, 35))
+    ct, _ = tbvh.traverse_closest(chain.bvh, chain.triangles, co, cd, 1e-3, 1e6)
+    u = torch.rand(n, generator=torch.Generator(device=dev).manual_seed(36), device=dev)
+    bound = (ct * (0.5 + u)).contiguous()
+    got = bvh2.any_skiplink(chain, co, cd, 1e-3, bound)
+    torch.cuda.synchronize()
+    want = tbvh.traverse_any(chain.bvh, chain.triangles, co, cd, 1e-3, bound)
+    assert torch.equal(got, want) and 0.2 < float(want.float().mean()) < 0.8
     assert not bvh.lane_counter(dev).any()
 
 
@@ -1219,15 +1256,22 @@ def test_step_kernel_launches_nothing_on_no_lanes(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [131072, 4096 + 37])
-def test_texture_gathers_match_plain(card, n):
+@pytest.mark.parametrize("offset", [0, 1])  # idx[1:], one element past a 16-byte boundary
+@pytest.mark.parametrize("n", [131072, 4096 + 37, 1, 5])
+def test_texture_gathers_match_plain(card, n, offset):
+    """K8 and K9 against their plain version bit for bit, on indices below
+    0, past the texels and past 128·R; at 1 and 5 lanes, and on an index
+    view one element past a 16-byte boundary."""
     dev = card[0]
     cs = pt.compile_scene(pt.CustomSceneBuilder().build_scene(), texture_budget=64,
                           mip_budget=16, device=dev)
     for fn, table in ((texture.atlas_gather, cs.atlas), (texture.mip_gather, cs.mip_atlas)):
         m = int(table.shape[0])
-        idx = torch.randint(-3, m + 200, (n,), generator=torch.Generator(device=dev).manual_seed(n),
-                            device=dev, dtype=torch.int32)
+        full = torch.randint(-3, m + 200, (n + 1,),
+                             generator=torch.Generator(device=dev).manual_seed(n), device=dev,
+                             dtype=torch.int32)
+        idx = full[offset:offset + n]
+        assert idx.data_ptr() // 4 % 4 == offset
         before = fn.launches
         got = fn(table, idx)
         torch.cuda.synchronize()

@@ -13,6 +13,15 @@ package's TPU kernels, and the atlas route of the path tracer's resolve.
   ``atlas_gather`` (a CPU tensor: its plain version) and the chunk sums
   equal the default ones bit for bit; an atlas over ``MAX_ROWS`` rows
   declines the route.
+* The multi-lane gather that ``experiments/
+  torch_gather_and_skiplink_any_first_design.py`` builds beside the kernel
+  (measured no faster on an H100, so not kept), emulated thread by thread
+  (``_lanes_model``): a scalar head up to the first index at a
+  ``4·lanes``-byte boundary, groups of ``lanes`` lanes read and written as
+  rows, a scalar tail; at 2 and 4 lanes a thread, for n of 1, 3, 4, 5 and
+  131 and for an index view one element in, every lane written once and the
+  rows bit-equal to ``gather_plain``, with indices below 0, past the texels
+  and past ``128·R``.  No JAX here.
 
 The kernels themselves run only on a GPU (``tests/test_torch_cuda.py``).
 """
@@ -100,3 +109,46 @@ def test_atlas_route_of_the_resolve(budget16, monkeypatch):
     assert calls  # the route ran through atlas_gather
     monkeypatch.setattr(ttex, "MAX_ROWS", ttex.atlas_rows(tcs) - 1)
     assert not ttex.fits_mxu_atlas(tcs)
+
+
+def _lanes_model(table: torch.Tensor, idx: torch.Tensor, w: int):
+    """The multi-lane gather's threads over ``idx`` (int32, its address's
+    phase the kernel's), ``w`` lanes a thread: the rows it writes, each
+    lane's arithmetic as the kernel does it, and how many times each lane
+    was written."""
+    n = idx.numel()
+    phase = idx.data_ptr() // 4 % w
+    head = min(n, (w - phase) % w)
+    groups = (n - head) // w
+    n_texels = int(table.shape[0])
+    last = -(-n_texels // 128) * 128 - 1
+    out, written = torch.zeros((3, n), dtype=torch.float32), torch.zeros(n, dtype=torch.int32)
+
+    def write(lanes):
+        k = torch.clamp(idx[lanes], 0, last).long()
+        texel = torch.where(k < n_texels, table[torch.clamp(k, max=n_texels - 1)], 0)
+        for c in range(3):
+            out[c, lanes] = ((texel >> (8 * c)) & 0xFF).to(torch.float32) * np.float32(1 / 255)
+        written[lanes] += 1
+
+    for t in range(groups):  # one index load of w lanes, one store of w lanes a row
+        write(torch.arange(head + t * w, head + (t + 1) * w))
+    for s in range(n - groups * w):  # the head's lanes, then the tail's, one a thread
+        write(torch.tensor([s if s < head else head + groups * w + (s - head)]))
+    return out, written
+
+
+@pytest.mark.parametrize("lanes", [2, 4])
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 131])
+def test_gather_lanes_model_is_the_plain_gather(n, offset, lanes):
+    table = torch.from_numpy(np.random.default_rng(n).integers(0, 1 << 24, 300).astype(np.int32))
+    base = torch.from_numpy(_indices(n + 8, 300, n)).clone()
+    # below 0, past the 300 texels, past 128·R = 384, first
+    base[:6] = torch.tensor([-5, 300, 10**6, 391, -1, 303], dtype=torch.int32)
+    idx = base[offset:offset + n]
+    assert base.data_ptr() % 16 == 0 and idx.data_ptr() // 4 % 4 == offset
+    got, written = _lanes_model(table, idx, lanes)
+    assert torch.equal(written, torch.ones(n, dtype=torch.int32))
+    for a, b in zip(got, ttex.gather_plain(table, idx)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))

@@ -23,8 +23,13 @@ K11 and K4e's ordered and skip-link closest walks) on the CPU.
   four slots at a time from ``slot16``, three rows a slot, the slots tested
   in order against the running best), gives ``ops/bvh.traverse_closest``'s
   ``t`` and triangle on every lane: on a mesh and on the 190-deep chain of
-  ``tests/torch_chain.py``, with a scalar and a per-ray bound.
-* K11, the ordered closest walk and the skip-link closest walk take their
+  ``tests/torch_chain.py``, with a scalar and a per-ray bound.  The
+  persistent skip-link occlusion walk's visit, emulated the same way (a
+  lane done at its first hit below its limit; a limit ≤ 0 loads nothing
+  and reports occluded), gives ``ops/bvh.traverse_any``'s verdict on every
+  lane that needs one, with finite, ``+inf`` and ≤ 0 limits; its launch
+  (``bvh2.SKIPLINK_PLAN``) has no stack whatever the tree's depth.
+* K11, the ordered closest walk and the two skip-link walks take their
   plain versions on the CPU, as every wrapper does, and count no launch.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
@@ -161,6 +166,7 @@ def test_split_walks_take_the_plain_versions_on_the_cpu(mesh):
     bound = torch.rand(n, generator=g) * 20
     before = (bvh.closest_rooted.launches, bvh2.closest_ordered.launches,
               bvh2.closest_skiplink.launches)
+    any_before = bvh2.any_skiplink.launches
     roots = torch.ones(n, dtype=torch.int32)
     en = torch.arange(n) % 3 != 0
     none = torch.full((n,), -1, dtype=torch.int32)
@@ -171,8 +177,11 @@ def test_split_walks_take_the_plain_versions_on_the_cpu(mesh):
     for walk in (bvh2.closest_ordered, bvh2.closest_skiplink):
         got = walk(mesh, o, d, 1e-3, bound)
         assert all(torch.equal(a, b) for a, b in zip(got, want)) and bool((got[1] >= 0).any())
+    occ = bvh2.any_skiplink(mesh, o, d, 1e-3, bound)
+    assert torch.equal(occ, tbvh.traverse_any(mesh.bvh, mesh.triangles, o, d, 1e-3, bound))
     assert before == (bvh.closest_rooted.launches, bvh2.closest_ordered.launches,
                       bvh2.closest_skiplink.launches)
+    assert bvh2.any_skiplink.launches == any_before
 
 
 def _skiplink_visit(cs, o: V3, d: V3, t_min, bound):
@@ -245,3 +254,76 @@ def test_skiplink_visit_from_its_loads_is_the_plain_walk(mesh, scene):
         want = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, b)
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
         assert 0 < int((got[1] >= 0).sum()) < 96  # hits and misses
+
+
+def _skiplink_any_visit(cs, o: V3, d: V3, t_min, limit):
+    """``bvh2_any_skiplink_persistent``'s walk of every lane, from the rows
+    it loads, as ``_skiplink_visit``: the slab's far plane and each slot's
+    test against the lane's fixed limit, the lane done at its first slot hit
+    below it.  A lane whose limit is ≤ 0 loads no ray and reports occluded."""
+    b = cs.bvh
+    nodes, slots = b.tree2.view(-1, 4), b.slot16.view(-1, 4)
+    m, n = b.tree2.shape[0] // 8, o.x.shape[0]
+    org, dirs = torch.stack(tuple(o), -1), torch.stack(tuple(d), -1)
+    iv = 1.0 / torch.where(torch.abs(dirs) > 1e-12, dirs, 1e-12)
+    lim = torch.as_tensor(limit, dtype=torch.float32).expand(n)
+    occ = lim <= 0.0
+    cursor = torch.where(occ, m, 0)
+    for _step in range(m + 1):  # the kernel's step <= m guard
+        walking = cursor < m
+        if not bool(walking.any()):
+            break
+        c = torch.clamp(cursor, max=m - 1)
+        lo, hi = nodes[2 * c], nodes[2 * c + 1]
+        box_hi = torch.stack((lo[:, 3], hi[:, 0], hi[:, 1]), -1)
+        a, e = (lo[:, :3] - org) * iv, (box_hi - org) * iv
+        near, far = torch.minimum(a, e), torch.maximum(a, e)
+        enter = torch.maximum(torch.maximum(near[:, 0], near[:, 1]),
+                              torch.clamp(near[:, 2], min=t_min))
+        exit_ = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), torch.minimum(far[:, 2], lim))
+        hit = walking & (enter <= exit_)
+        code = hi[:, 3]
+        rows = torch.nonzero(hit & (code >= 0))[:, 0]
+        found = torch.zeros(n, dtype=torch.bool)
+        if rows.numel():
+            base = code[rows].long()
+            for batch in range(0, tbvh.LEAF_SIZE, 4):  # four slots' rows loaded together
+                s = 4 * (base[:, None] + batch + torch.arange(4))
+                ra, rb, rc = slots[s], slots[s + 1], slots[s + 2]  # (k, 4, 4) each
+                e1 = torch.stack((ra[..., 3], rb[..., 0], rb[..., 1]), -1)
+                e2 = torch.stack((rb[..., 2], rb[..., 3], rc[..., 0]), -1)
+                _t, inside = tbvh._leaf_test(ra[..., :3], e1, e2, org[rows, None],
+                                             dirs[rows, None], t_min, lim[rows, None])
+                found[rows] |= (inside & (rc[..., 1] >= 0.0)).any(-1)
+        occ |= found
+        cursor = torch.where(found, m, torch.where(
+            walking, torch.where(hit & (code < 0), cursor + 1, hi[:, 2].long()), cursor))
+    return occ
+
+
+def test_skiplink_plan_has_no_stack():
+    """Both skip-link walks launch on one plan whatever the tree: depth
+    class 0 (no stack), nothing staged, no shared memory."""
+    assert tuple(bvh2.SKIPLINK_PLAN) == (False, 0, 0)
+
+
+@pytest.mark.parametrize("scene", ["mesh", "190-deep chain"])
+def test_skiplink_any_visit_from_its_loads_is_the_plain_walk(mesh, scene):
+    n = 96
+    if scene == "mesh":
+        cs, (o, d) = mesh, _mesh_rays(n, 7)
+    else:
+        cs = chain_scene(bvh.STACK_CAP - 2)
+        o, d = (V3(*(torch.from_numpy(a[:, i].copy()) for i in range(3)))
+                for a in chain_rays(cs.bvh.depth2, n, 33))
+    want_t, _ = tbvh.traverse_closest(cs.bvh, cs.triangles, o, d, 1e-3, 1e6)
+    bound = want_t * (0.5 + torch.rand(n, generator=torch.Generator().manual_seed(8)))
+    lane = torch.arange(n)
+    mixed = torch.where(lane % 7 == 0, -1.0, torch.where(lane % 11 == 0, float("inf"), bound))
+    mixed[lane % 13 == 0] = 0.0
+    for limit in (bound, torch.full((n,), float("inf")), mixed):
+        got = _skiplink_any_visit(cs, o, d, 1e-3, limit)
+        care = limit > 0
+        want = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, limit)
+        assert torch.equal(got[care], want[care]) and bool(got[~care].all())
+        assert 0 < int(got[care].sum()) < int(care.sum())  # occluded and clear lanes
