@@ -226,7 +226,7 @@ FAULT_WIDTH, FAULT_HEIGHT, FAULT_SPP = 480, 270, 4
 # 5's path on the two routes they serve and the scalar twin of the second
 MXU_FUSED, MXU_QUAD = "BVH_MXU_LEAF = True", "BVH_MXU_LEAF = True, BVH_ATTRS = False"
 SCALAR_QUAD = "BVH_ATTRS = False"
-# float operations every slot visit of csrc/bvh_walk.cuh's MatLeaf makes (the
+# float operations every slot visit of csrc/bvh_walk.cuh's MatQuadLeaf makes (the
 # forms det, u·det and v·det, det², u·det·det, v·det·det and the inside test);
 # the t form and its tests run only on slots inside the triangle
 MAT_UV_FLOPS = 37
@@ -443,7 +443,7 @@ C_ENTRIES = {
     "whitted_bounce_persistent": ("whitted_bounce", ("ptrt_whitted_bounce",)),
     "closest_kernel": ("intersect", ("ptrt_closest_hit",)),
     "any_kernel": ("intersect", ("ptrt_any_hit",)),
-    "bvh_closest_kernel": ("bvh_scene", ("ptrt_bvh_closest",)),
+    "bvh_closest_persistent": ("bvh_scene", ("ptrt_bvh_closest",)),
     "bvh_any_persistent": ("bvh_scene", ("ptrt_bvh_any",)),
     "bvh4_rooted_persistent": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
     "path_bounce_bvh_persistent": ("path_bounce_bvh", ("ptrt_path_bounce_bvh",)),
@@ -455,7 +455,7 @@ C_ENTRIES = {
     "bvh2_closest_persistent": ("bvh2", ("ptrt_bvh2_closest",)),
     "bvh2_any_skiplink_persistent": ("bvh2", ("ptrt_bvh2_any",)),
     "bvh2_any_persistent": ("bvh2", ("ptrt_bvh2_any",)),
-    "mat_scene_closest_kernel": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
+    "mat_scene_closest_persistent": ("bvh_leafmat", ("ptrt_mat_scene_closest",)),
     "mat_scene_any_persistent": ("bvh_leafmat", ("ptrt_mat_scene_any",)),
     "mat_tri_closest_persistent": ("bvh_leafmat", ("ptrt_mat_tri_closest",)),
     "mat_tri_any_persistent": ("bvh_leafmat", ("ptrt_mat_tri_any",)),
@@ -1328,6 +1328,10 @@ def phase_mesh_check(device):
     spread = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH)
     chunk = camera_state(cs, cam, N_RAYS, device, M_WIDTH, M_HEIGHT, M_DEPTH, stride=1)
     bounced = advance_plain(cs, chunk, 3)
+    plan = bvh.closest_plan(cs)
+    grid = bvh.launch_grid("K4a", bvh.build().lib.ptrt_bvh_closest_occupancy, plan, N_RAYS, device)
+    print(f"[mesh] K4a: depth class {plan.depth_class}, {plan.smem_bytes} B of shared memory a "
+          f"block, {grid} blocks of {bvh.WALK_THREADS} threads at {N_RAYS} lanes")
     k4a = k4b = k5 = 0.0
     for label, (o, d, _t, _key, _depth) in (("131,072 rays over the 1920x1080 frame", spread),
                                             ("the frame's first chunk", chunk)):
@@ -1408,7 +1412,8 @@ def phase_mesh_timing(cs, tables, spread):
                             "path_bounce_bvh_persistent"),
     }
     times = {
-        "scene_closest": timed(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6), "bvh_closest_kernel",
+        "scene_closest": timed(lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
+                               "bvh_closest_persistent",
                                lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6)),
         "scene_any": timed(walks["scene_any"][0], "bvh_any_persistent",
                            lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim)),
@@ -2280,6 +2285,8 @@ def phase_split_check(device):
                                      bvh2.build().lib.ptrt_bvh2_closest_occupancy),
              "K4e ordered occlusion": (cs.bvh.depth2, bvh2.ordered_plan(cs),
                                        bvh2.build().lib.ptrt_bvh2_any_occupancy),
+             "K10a": (cs.bvh.depth4, bvh_leafmat.scene_any_plan(cs),
+                      bvh_leafmat.build().lib.ptrt_mat_scene_closest_occupancy),
              "K10b": (cs.bvh.depth4, bvh_leafmat.scene_any_plan(cs),
                       bvh_leafmat.build().lib.ptrt_mat_scene_any_occupancy),
              "K10c": (cs.bvh.depth4, bvh_leafmat.tri_plan(cs),
@@ -2600,10 +2607,10 @@ def phase_mxu_check(device):
     unfound = torch.zeros(n, dtype=torch.bool, device=device)
     calls = {  # kernel, plain version, K4 twin (the K4b twin is the persistent K4b)
         "scene_closest_mat": ((lambda: bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6),
-                               "mat_scene_closest_kernel"),
+                               "mat_scene_closest_persistent"),
                               lambda: scene_hit_bvh_plain(cs, o, d, 1e-3, 1e6, mxu=True),
                               (lambda: bvh.scene_closest(cs, o, d, 1e-3, 1e6),
-                               "bvh_closest_kernel")),
+                               "bvh_closest_persistent")),
         "scene_any_mat": ((lambda: bvh_leafmat.scene_any(cs, so, sd, 1e-3, lim),
                            "mat_scene_any_persistent"),
                           lambda: scene_hit_any_bvh_plain(cs, so, sd, 1e-3, lim, mxu=True),

@@ -21,11 +21,13 @@ those origins aimed at random points of the mesh (every one hits).
 
 K10d runs each set twice: with no lane found, and with the found mask the
 ``quad`` route gives it (the plane/sphere/quad broadcast, ``_ps_any``).
-K10a, which keeps its first design, is held bit for bit against it on the
-camera, secondary and aimed rays.  Then K10b against its redesigned twin,
-the persistent K4b (``bvh._fused_any``), and K10d against the redesigned
-K4d (``bvh_paged.pages_any`` over the whole tree), in turns, on the first
-three sets: the leaf table against Möller–Trumbore on the same walk.  And
+K10a (the kept kernel, through its wrapper; redesigned since, see
+``torch_scene_closest_first_design.py``) is held bit for bit against the
+K10a of this commit on the camera, secondary and aimed rays.  Then K10b
+against its redesigned twin, the persistent K4b (``bvh._fused_any``), and
+K10d against the redesigned K4d (``bvh_paged.pages_any`` over the whole
+tree), in turns, on the first three sets: the leaf table against
+Möller–Trumbore on the same walk.  And
 on every set, the kept leaf visit, which issues a batch's four t·det loads
 only when one of its slots lies inside its triangle, against the visit that
 issues all 19 loads together (``ALL_LOADS_ANY``, built from the current
@@ -67,6 +69,7 @@ from path_tracing__ray_tracer_tpu_torch.ops.cuda import (  # noqa: E402
     build, bvh, bvh_leafmat, bvh_paged)
 from path_tracing__ray_tracer_tpu_torch.ops.intersect import _CANDIDATES, _ps_any  # noqa: E402
 from torch_ordered_any_and_leafmat_first_design import half_bound, leaf_sets  # noqa: E402
+from torch_scene_closest_first_design import raw_fields  # noqa: E402
 from torch_split_walks_first_design import in_turns  # noqa: E402
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
@@ -139,7 +142,8 @@ def build_libs(src: Path):
                                          + [_P, _I, _F, _P, _P])
     first.ptrt_mat_tri_any.argtypes = [_P, _I, _P, _L] + [_P] * 6 + [_P, _P, _I, _F, _P, _P]
     kept = bvh_leafmat.build().lib
-    first.ptrt_mat_scene_closest.argtypes = kept.ptrt_mat_scene_closest.argtypes  # unchanged
+    first.ptrt_mat_scene_closest.argtypes = ([_P, _I, _P, _L, _P, _I, _I, _I] + [_P] * 6
+                                             + [_I, _I, _F, _F] + [_P] * 7 + [_P])
     for fn in (first.ptrt_mat_scene_any, first.ptrt_mat_tri_any, first.ptrt_mat_scene_closest):
         fn.restype = ctypes.c_int
     for name in ("ptrt_mat_scene_any", "ptrt_mat_scene_any_occupancy", "ptrt_mat_tri_any",
@@ -192,7 +196,8 @@ def first_tri_any(lib, cs, o, d, limit, found):
 
 
 def scene_closest_raw(lib, cs, o, d):
-    """K10a's seven output fields from ``lib``'s C entry (t_max 1e6)."""
+    """K10a's seven output fields from the first design's C entry in ``lib``
+    (t_max 1e6)."""
     n = o.x.shape[0]
     out = torch.empty((6, n), dtype=torch.float32, device=o.x.device)
     prim = torch.empty((n,), dtype=torch.int32, device=o.x.device)
@@ -276,8 +281,9 @@ def main(argv) -> int:
           f"{-(-S.N_RAYS // 128)} of 128)", flush=True)
     ok = True
     timed, twins, visit_rows = {}, {}, {}
-    for label, o, d, _key, _depth in leaf_sets(cs, cam, dev):  # K10a keeps its first design
-        got = scene_closest_raw(lib, cs, o, d)
+    for label, o, d, _key, _depth in leaf_sets(cs, cam, dev):
+        with raw_fields():
+            got = bvh_leafmat.scene_closest(cs, o, d, T_MIN, 1e6)
         want = scene_closest_raw(first, cs, o, d)
         eq = all(S.same_bits(a, b) for a, b in zip(got, want))
         print(f"[bits] K10a, {label}, t_max 1e6: all seven fields bit-equal to the first design "

@@ -181,9 +181,22 @@ def _swap(*pairs):
     return edit
 
 
+# The node source of the PtrNodes build (the port's headers no longer carry
+# it): a record's floats read one by one through a pointer.
+_PTR_NODES = """struct PtrNodes {
+  const float* __restrict__ nodes;
+
+  __device__ __forceinline__ const float* rec(int node, float (&)[kNode4F]) const {
+    return nodes + (size_t)node * kNode4F;
+  }
+};
+
+"""
+
 # name -> (the source edit, whether its outputs are the first design's)
 VARIANTS = {
-    "PtrNodes": (_swap(("struct TopTables {\n  Vec4Nodes<kStage> nodes;",
+    "PtrNodes": (_swap(("namespace ptrt {\n", "namespace ptrt {\n\n" + _PTR_NODES),
+                       ("struct TopTables {\n  Vec4Nodes<kStage> nodes;",
                         "struct TopTables {\n  std::conditional_t<kStage, PtrNodes, "
                         "Vec4Nodes<false>> nodes;"),
                        ("Vec4Nodes<true>{node_copy}",

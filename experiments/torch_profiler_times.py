@@ -10,13 +10,13 @@ phases runs first thing in a process of its own, with the same inputs and
 the same ``chip_smoke.timed`` / ``device_ms``:
 
 * ``mesh``: ``phase_mesh_check`` then ``phase_mesh_timing`` on config 5's
-  131,072 camera rays over the 1920x1080 frame (K4a ``bvh_closest_kernel``,
+  131,072 camera rays over the 1920x1080 frame (K4a ``bvh_closest_persistent``,
   K4b, K5 ``path_bounce_bvh_persistent``);
 * ``modes``: ``phase_modes_check`` on the main path's first chunk (K7, K8,
   K9 ``gather_rgb_kernel`` on the defer mip, and the library
   ``index_select`` beside K8/K9);
 * ``mxu``: ``phase_mxu_check`` on config 5's three ray sets, timed on the
-  camera rays (K10a ``mat_scene_closest_kernel``, K10b-d, their K4 twins).
+  camera rays (K10a ``mat_scene_closest_persistent``, K10b-d, their K4 twins).
 
 A row that still falls back to events is also given the median of the
 launches one more trace kept, and their count.  Run with no argument, it

@@ -11,35 +11,34 @@
 // K4a-K4d with each 16-triangle leaf tested as one (128, W) × (16, W) MXU
 // product of its table slice and the block's ray features, then sign tests.
 // Here there is no matrix unit to feed: each thread walks its own ray with
-// bvh_walk.cuh's walk and evaluates the same linear forms in FP32, slot by
-// slot (MatLeaf): 19 coefficients and about 40 operations a slot, against
-// Möller–Trumbore's 13 floats of slot record.  The features are computed
-// once per walk in registers.  No tensor core: lanes of one warp visit
-// different leaves.
+// bvh_walk.cuh's walk and evaluates the same linear forms in FP32 (MatQuadLeaf):
+// 19 coefficients and about 40 operations a slot, against Möller–Trumbore's
+// 13 floats of slot record.  The features are computed once per walk in
+// registers.  No tensor core: lanes of one warp visit different leaves.
 //
 // What bounds them: latency, as K4a-K4d (dependent node and table loads from
 // device memory through the read-only cache, one ray per thread).  Per ray
 // K10a reads 24 B and writes 28 B, K10b reads 28 B and writes 1 B, K10c reads
 // 52 B and writes 28 B, K10d reads 29 B and writes 1 B.  The table is 8 KB a
-// leaf (16 rows × 128 columns), ten times the leaf's slot records.  K10a
-// keeps the first design: blocks of 128 threads, one lane each, the node
-// records read float by float (PtrNodes), a stack of kStackCap entries, each
-// slot's 19 coefficients read as separate 4-byte loads from feature rows
-// G·512 B apart (MatLeaf).
+// leaf (16 rows × 128 columns), ten times the leaf's slot records.
 //
-// K10b, K10c and K10d are designed for Hopper (mat_scene_any_persistent,
-// mat_tri_closest_persistent, mat_tri_any_persistent), as the page walks are
-// (bvh_paged.cu): persistent blocks of 256 threads whose warps take 32 lanes
-// at a time from the stream's lane counter; the node records as eight
-// 16-byte loads (Vec4Nodes); a stack of 3·class − 2 entries by the tree's
-// depth class (ops/cuda/bvh.depth_class: 22 for config 5, where the first
-// design carried 96); the table read as 16-byte loads over four slots, a
-// batch of four slots' 19 loads issued together (MatQuadLeaf).  K10b copies
-// the plane/sphere/quad blob into shared memory once per resident block, as
-// the persistent K4b does (bvh_scene.cu), not once per block of 128 lanes.
-// Each lane's floats and its order of tests are the first design's (K10c's
-// in git at 762ff5c, K10b's and K10d's at 359e47e), so its record or verdict
-// is too.
+// All four are designed for Hopper (mat_scene_closest_persistent,
+// mat_scene_any_persistent, mat_tri_closest_persistent,
+// mat_tri_any_persistent), as the page walks are (bvh_paged.cu): persistent
+// blocks of 256 threads whose warps take 32 lanes at a time from the stream's
+// lane counter (K10a: a static first batch, then next_batch, as its twin K4a
+// in bvh_scene.cu, through the same body, scene_closest_lanes); the node
+// records as eight 16-byte loads (Vec4Nodes); a stack of 3·class − 2 entries
+// by the tree's depth class (ops/cuda/bvh.depth_class: 22 for config 5, where
+// the first designs carried 96); the table read as 16-byte loads over four
+// slots, a batch at a time (MatQuadLeaf).  K10a and K10b copy the
+// plane/sphere/quad blob into shared memory once per resident block, as
+// K4a and K4b do, not once per block of 128 lanes.  Each lane's floats and
+// its order of tests are the first design's (K10c's in git at 762ff5c, K10b's
+// and K10d's at 359e47e, K10a's at 41c504a: one thread a lane in blocks of
+// 128, the node records read float by float, each slot's 19 coefficients as
+// separate 4-byte loads from feature rows G·512 B apart), so its record or
+// verdict is too.
 //
 // Outputs as bvh_scene.cu's K4a/K4b and bvh_paged.cu's whole-tree K4c/K4d:
 // records finished by finish_hit (the uid bits of a packed gid stripped by
@@ -55,44 +54,39 @@
 
 namespace ptrt {
 
-constexpr int kMatThreads = 128;
-
-__device__ __forceinline__ void stage_mat_ps(float* smem, const float* __restrict__ ps_g,
-                                             int size) {
-  for (int k = threadIdx.x; k < size; k += blockDim.x) smem[k] = ps_g[k];
-  __syncthreads();
+// K10a for Hopper: the sweep's record, then the walk's, for lanes [0, n)
+// (scene_closest_lanes), each lane's leaves tested by its own features.
+template <int kClass>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+mat_scene_closest_persistent(const float* __restrict__ nodes, int n_nodes,
+                             const float* __restrict__ mat, long long stride,
+                             const float* __restrict__ ps_g, int P, int S, int Q,
+                             const float* __restrict__ ox, const float* __restrict__ oy,
+                             const float* __restrict__ oz, const float* __restrict__ dx,
+                             const float* __restrict__ dy, const float* __restrict__ dz, int n,
+                             int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
+                             int* __restrict__ prim_out, float* __restrict__ u_out,
+                             float* __restrict__ v_out, float* __restrict__ nx_out,
+                             float* __restrict__ ny_out, float* __restrict__ nz_out,
+                             int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  float* ps = reinterpret_cast<float*>(smem4);
+  const SceneLayout L = scene_layout(P, S, Q, 0);
+  stage_blob(ps, ps_g, L.tb);
+  scene_closest_lanes<kClass>(
+      ps, L, Vec4Nodes<false>{reinterpret_cast<const float4*>(nodes)}, n_nodes,
+      [&](const Ray& r) { return MatQuadLeaf(mat, (size_t)stride, r); }, ox, oy, oz, dx, dy, dz,
+      n, gid_mask, t_min, t_max, t_out, prim_out, u_out, v_out, nx_out, ny_out, nz_out, counter);
 }
 
-// K10a: the plane/sphere/quad sweep seeds the walk.
-__global__ void __launch_bounds__(kMatThreads)
-mat_scene_closest_kernel(const float* __restrict__ nodes, int n_nodes,
-                         const float* __restrict__ mat, long long stride,
-                         const float* __restrict__ ps_g, int P, int S, int Q,
-                         const float* __restrict__ ox, const float* __restrict__ oy,
-                         const float* __restrict__ oz, const float* __restrict__ dx,
-                         const float* __restrict__ dy, const float* __restrict__ dz, int n,
-                         int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
-                         int* __restrict__ prim_out, float* __restrict__ u_out,
-                         float* __restrict__ v_out, float* __restrict__ nx_out,
-                         float* __restrict__ ny_out, float* __restrict__ nz_out) {
-  extern __shared__ float smem[];
-  const SceneLayout L = scene_layout(P, S, Q, 0);
-  stage_mat_ps(smem, ps_g, L.tb);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
-  const int off = P + S + Q;
-  Hit h = closest_hit(smem, L, r, t_min, t_max);
-  walk_closest_leaf<false>(nodes, n_nodes, MatLeaf(mat, (size_t)stride, r), r, t_min, off, h,
-                           nullptr);
-  finish_hit(h, r, off, gid_mask);
-  t_out[i] = h.t;
-  prim_out[i] = h.prim;
-  u_out[i] = h.u;
-  v_out[i] = h.v;
-  nx_out[i] = h.nx;
-  ny_out[i] = h.ny;
-  nz_out[i] = h.nz;
+using MatSceneClosestKernel = decltype(&mat_scene_closest_persistent<kMaxDepth4>);
+
+// K10a's variants (ops/cuda/bvh_leafmat.scene_any_plan, as K10b's): one per
+// depth class; nullptr for any other class.
+inline MatSceneClosestKernel mat_scene_closest_variant(int depth_class) {
+  if (depth_class == kShallow4) return mat_scene_closest_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return mat_scene_closest_persistent<kMaxDepth4>;
+  return nullptr;
 }
 
 // K10b for Hopper: the sweep's verdict, else the walk's, for lanes [0, n)
@@ -112,8 +106,7 @@ mat_scene_any_persistent(const float* __restrict__ nodes, int n_nodes,
   extern __shared__ float4 smem4[];
   const SceneLayout L = scene_layout(P, S, Q, 0);
   float* ps = reinterpret_cast<float*>(smem4);
-  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) ps[k] = ps_g[k];
-  __syncthreads();
+  stage_blob(ps, ps_g, L.tb);
   const Vec4Nodes<false> src{reinterpret_cast<const float4*>(nodes)};
   for (;;) {
     const int i = next_lane(counter);
@@ -237,29 +230,40 @@ inline MatTriAnyKernel mat_tri_any_variant(int depth_class) {
   return nullptr;
 }
 
-inline size_t mat_ps_bytes(int P, int S, int Q) {
-  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
-}
-
-inline int mat_blocks(int n) { return (n + kMatThreads - 1) / kMatThreads; }
-
 }  // namespace ptrt
 
 // The four launch entries launch on `stream`, allocate nothing and do not
 // synchronise; each returns the launch's cudaError_t (0 when the launch was
 // accepted).  `mat` is the (16, stride) table, stride = 128 · leaves.
+
+// Resident blocks per SM of K10a's variant for depth_class with `smem` bytes
+// of dynamic shared memory (the plane/sphere/quad blob), into *blocks; it
+// stages no tree (stage must be 0).  First lifts the variant's dynamic
+// shared memory limit to `smem` where it is lower.
+extern "C" int ptrt_mat_scene_closest_occupancy(int stage, int depth_class, int smem,
+                                                int* blocks) {
+  return ptrt::table_occupancy(ptrt::mat_scene_closest_variant(depth_class), stage, smem, blocks);
+}
+
+// K10a: `grid` persistent blocks of the variant for depth_class with `smem`
+// bytes of dynamic shared memory, which ptrt_mat_scene_closest_occupancy has
+// sized and allowed, on the lane `counter` (two int32, zero at the launch
+// and left zero); `nodes` and `mat` 16-byte aligned.
 extern "C" int ptrt_mat_scene_closest(const float* nodes, int n_nodes, const float* mat,
                                       long long stride, const float* ps, int P, int S, int Q,
                                       const float* ox, const float* oy, const float* oz,
                                       const float* dx, const float* dy, const float* dz, int n,
                                       int gid_mask, float t_min, float t_max, float* t, int* prim,
                                       float* u, float* v, float* nx, float* ny, float* nz,
+                                      int* counter, int depth_class, int smem, int grid,
                                       void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::mat_scene_closest_kernel<<<ptrt::mat_blocks(n), ptrt::kMatThreads,
-                                   ptrt::mat_ps_bytes(P, S, Q), (cudaStream_t)stream>>>(
+  const ptrt::MatSceneClosestKernel k = ptrt::mat_scene_closest_variant(depth_class);
+  if (k == nullptr || (size_t)smem < ptrt::blob_bytes(P, S, Q))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
       nodes, n_nodes, mat, stride, ps, P, S, Q, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max,
-      t, prim, u, v, nx, ny, nz);
+      t, prim, u, v, nx, ny, nz, counter);
   return (int)cudaGetLastError();
 }
 
@@ -268,12 +272,7 @@ extern "C" int ptrt_mat_scene_closest(const float* nodes, int n_nodes, const flo
 // stages no tree (stage must be 0).  First lifts the variant's dynamic
 // shared memory limit to `smem` where it is lower.
 extern "C" int ptrt_mat_scene_any_occupancy(int stage, int depth_class, int smem, int* blocks) {
-  const ptrt::MatSceneAnyKernel k = ptrt::mat_scene_any_variant(depth_class);
-  if (k == nullptr || stage != 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = ptrt::allow_smem(k, smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, ptrt::kWalkThreads, smem);
-  return (int)err;
+  return ptrt::table_occupancy(ptrt::mat_scene_any_variant(depth_class), stage, smem, blocks);
 }
 
 // K10b: `grid` persistent blocks of the variant for depth_class with `smem`
@@ -289,7 +288,7 @@ extern "C" int ptrt_mat_scene_any(const float* nodes, int n_nodes, const float* 
                                   void* stream) {
   if (n <= 0) return (int)cudaSuccess;
   const ptrt::MatSceneAnyKernel k = ptrt::mat_scene_any_variant(depth_class);
-  if (k == nullptr || (size_t)smem < ptrt::mat_ps_bytes(P, S, Q))
+  if (k == nullptr || (size_t)smem < ptrt::blob_bytes(P, S, Q))
     return (int)cudaErrorInvalidValue;
   k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
       nodes, n_nodes, mat, stride, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min,

@@ -11,25 +11,27 @@
 //
 // What bounds them: latency.  Per ray K4a reads 24 B and writes 28 B, K4b
 // reads 28 B and writes 1 B, against a walk of tens of node records and
-// leaves of 16 slot records (52 B each), read from device memory through
-// the read-only cache by threads that each follow their own path, so a
-// lane's time is its chain of dependent loads.  K4a keeps the first design:
-// one thread per ray, its stack in local memory, the tree and slot records
-// as packed, and only the few non-triangle primitives staged in shared
-// memory.
+// leaves of 16 slot records, read from device memory through the read-only
+// cache by threads that each follow their own path, so a lane's time is its
+// chain of dependent loads.
 //
-// K4b and K11 are redesigned for Hopper (bvh_any_persistent,
-// bvh4_rooted_persistent): persistent blocks of 256 threads, as many as are
-// resident, whose warps take 32 lanes at a time from a counter (next_lane);
-// the BVH4 node table read from device memory as eight 16-byte loads a node
-// (K4b: or copied into each block's shared memory by one bulk copy (TMA)
-// when it fits the budget of ops/cuda/bvh.py); the slot records read from
-// the padded 64 B copy as 16-byte loads; a stack of 3 * depth class - 2
-// entries in local memory.  The wrapper picks the variant by size alone
-// (ops/cuda/bvh.walk_plan, rooted_plan).  Each lane's arithmetic and visit
-// order are the first design's, so its results are too (the first designs,
-// one lane per thread in blocks of 128, are in git: K4b at edf8737, K11 at
-// a3bb26a).
+// All three are designed for Hopper (bvh_closest_persistent,
+// bvh_any_persistent, bvh4_rooted_persistent): persistent blocks of 256
+// threads, as many as are resident, whose warps take 32 lanes at a time from
+// a counter (K4a: a static first batch, then next_batch; K4b, K11:
+// next_lane); the plane/sphere/quad blob copied into shared memory once per
+// resident block (K4a, K4b); the BVH4 node table read from device memory as
+// eight 16-byte loads a node (K4b: or copied into each block's shared memory
+// by one bulk copy (TMA) when it fits the budget of ops/cuda/bvh.py); the slot
+// records read from the padded 64 B copy as 16-byte loads, four slots a
+// batch; a stack of 3 * depth class - 2 entries in local memory.  The
+// wrapper picks the variant by size alone (ops/cuda/bvh.closest_plan,
+// walk_plan, rooted_plan).  Each lane's arithmetic and visit order are the
+// first design's, so its results are too (the first designs, one lane per
+// thread in blocks of 128 with a stack of 96 entries: K4b at edf8737, K11 at
+// a3bb26a, K4a, which read the 13-float slot records float by float, at
+// 41c504a).  K4a's first batch is static, so a launch whose grid spans its
+// lanes (the mesh Whitted frame's compacted later bounces) touches no counter.
 //
 // K4a outputs: t (the bound on a miss), prim (global id, -1 on a miss; the
 // uid bits of a packed gid stripped by gid_mask), u, v
@@ -59,42 +61,29 @@
 
 namespace ptrt {
 
-constexpr int kBvhThreads = 128;
-
-__device__ __forceinline__ void stage_ps(float* smem, const float* __restrict__ ps_g, int size) {
-  for (int k = threadIdx.x; k < size; k += blockDim.x) smem[k] = ps_g[k];
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(kBvhThreads)
-bvh_closest_kernel(const float* __restrict__ nodes, int n_nodes, const float* __restrict__ slots,
-                   const float* __restrict__ ps_g, int P, int S, int Q,
-                   const float* __restrict__ ox_in, const float* __restrict__ oy_in,
-                   const float* __restrict__ oz_in, const float* __restrict__ dx_in,
-                   const float* __restrict__ dy_in, const float* __restrict__ dz_in, int n,
-                   int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
-                   int* __restrict__ prim_out, float* __restrict__ u_out,
-                   float* __restrict__ v_out, float* __restrict__ nx_out,
-                   float* __restrict__ ny_out, float* __restrict__ nz_out) {
-  extern __shared__ float smem[];
+// K4a for Hopper: the sweep's record, then the walk's, for lanes [0, n)
+// (scene_closest_lanes).
+template <int kClass>
+__global__ void __launch_bounds__(kWalkThreads, 2)
+bvh_closest_persistent(const float* __restrict__ nodes, int n_nodes,
+                       const float* __restrict__ slot16, const float* __restrict__ ps_g, int P,
+                       int S, int Q, const float* __restrict__ ox, const float* __restrict__ oy,
+                       const float* __restrict__ oz, const float* __restrict__ dx,
+                       const float* __restrict__ dy, const float* __restrict__ dz, int n,
+                       int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
+                       int* __restrict__ prim_out, float* __restrict__ u_out,
+                       float* __restrict__ v_out, float* __restrict__ nx_out,
+                       float* __restrict__ ny_out, float* __restrict__ nz_out,
+                       int* __restrict__ counter) {
+  extern __shared__ float4 smem4[];
+  float* ps = reinterpret_cast<float*>(smem4);
   const SceneLayout L = scene_layout(P, S, Q, 0);
-  stage_ps(smem, ps_g, L.tb);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;  // ragged tail
-  Ray r;
-  r.ox = ox_in[i]; r.oy = oy_in[i]; r.oz = oz_in[i];
-  r.dx = dx_in[i]; r.dy = dy_in[i]; r.dz = dz_in[i];
-  const int off = P + S + Q;
-  Hit h = closest_hit(smem, L, r, t_min, t_max);
-  walk_closest(nodes, n_nodes, slots, r, t_min, off, h);
-  finish_hit(h, r, off, gid_mask);  // slot normals are stored unflipped
-  t_out[i] = h.t;
-  prim_out[i] = h.prim;
-  u_out[i] = h.u;
-  v_out[i] = h.v;
-  nx_out[i] = h.nx;
-  ny_out[i] = h.ny;
-  nz_out[i] = h.nz;
+  stage_blob(ps, ps_g, L.tb);
+  const Slot16Leaf leaf{reinterpret_cast<const float4*>(slot16)};
+  scene_closest_lanes<kClass>(ps, L, Vec4Nodes<false>{reinterpret_cast<const float4*>(nodes)},
+                              n_nodes, [&](const Ray&) { return leaf; }, ox, oy, oz, dx, dy, dz,
+                              n, gid_mask, t_min, t_max, t_out, prim_out, u_out, v_out, nx_out,
+                              ny_out, nz_out, counter);
 }
 
 // K4b for Hopper: the occlusion of lanes [0, n) taken 32 at a time from
@@ -115,8 +104,7 @@ bvh_any_persistent(const float* __restrict__ nodes, int n_nodes,
   float* ps = tree + tree_smem_bytes(kStage, n_nodes) / sizeof(float);
   if (kStage && threadIdx.x == 0)
     bulk_copy_start(tree, nodes, (uint32_t)tree_smem_bytes(kStage, n_nodes), &bar);
-  for (int k = threadIdx.x; k < L.tb; k += blockDim.x) ps[k] = ps_g[k];
-  __syncthreads();
+  stage_blob(ps, ps_g, L.tb);
   if (kStage) bulk_copy_wait(&bar);
   const Vec4Nodes<kStage> src{reinterpret_cast<const float4*>(kStage ? tree : nodes)};
   const Slot16Leaf leaf{reinterpret_cast<const float4*>(slot16)};
@@ -172,12 +160,7 @@ bvh4_rooted_persistent(const float* __restrict__ nodes, int n_nodes,
   finish_lanes(counter);
 }
 
-inline size_t ps_bytes(int P, int S, int Q) {
-  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
-}
-
-inline int blocks_for(int n) { return (n + kBvhThreads - 1) / kBvhThreads; }
-
+using ClosestKernel = decltype(&bvh_closest_persistent<kMaxDepth4>);
 using AnyKernel = decltype(&bvh_any_persistent<false, kMaxDepth4>);
 using RootedKernel = decltype(&bvh4_rooted_persistent<kMaxDepth4>);
 
@@ -188,6 +171,14 @@ inline AnyKernel any_variant(int stage, int depth_class) {
     return stage ? bvh_any_persistent<true, kShallow4> : bvh_any_persistent<false, kShallow4>;
   if (depth_class == kMaxDepth4)
     return stage ? bvh_any_persistent<true, kMaxDepth4> : bvh_any_persistent<false, kMaxDepth4>;
+  return nullptr;
+}
+
+// K4a's variants (ops/cuda/bvh.closest_plan): one per depth class; nullptr
+// for any other class.
+inline ClosestKernel closest_variant(int depth_class) {
+  if (depth_class == kShallow4) return bvh_closest_persistent<kShallow4>;
+  if (depth_class == kMaxDepth4) return bvh_closest_persistent<kMaxDepth4>;
   return nullptr;
 }
 
@@ -202,17 +193,34 @@ inline RootedKernel rooted_variant(int depth_class) {
 
 // Each launches on `stream`, allocates nothing and does not synchronise, and
 // returns the launch's cudaError_t (0 when the launch was accepted).
-extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* slots,
+
+// Resident blocks per SM of K4a's variant for depth_class with `smem` bytes
+// of dynamic shared memory (the plane/sphere/quad blob), into *blocks; it
+// stages no tree (stage must be 0).  First lifts the variant's dynamic
+// shared memory limit to `smem` where it is lower.
+extern "C" int ptrt_bvh_closest_occupancy(int stage, int depth_class, int smem, int* blocks) {
+  return ptrt::table_occupancy(ptrt::closest_variant(depth_class), stage, smem, blocks);
+}
+
+// K4a: `grid` persistent blocks of the variant for depth_class with `smem`
+// bytes of dynamic shared memory, which ptrt_bvh_closest_occupancy has sized
+// and allowed, on the lane `counter` (two int32, zero at the launch and left
+// zero).  `slot16`: the padded slot records; `nodes` and `slot16` 16-byte
+// aligned.
+extern "C" int ptrt_bvh_closest(const float* nodes, int n_nodes, const float* slot16,
                                 const float* ps, int P, int S, int Q, const float* ox,
                                 const float* oy, const float* oz, const float* dx,
                                 const float* dy, const float* dz, int n, int gid_mask,
                                 float t_min, float t_max, float* t, int* prim, float* u, float* v,
-                                float* nx, float* ny, float* nz, void* stream) {
+                                float* nx, float* ny, float* nz, int* counter, int depth_class,
+                                int smem, int grid, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  ptrt::bvh_closest_kernel<<<ptrt::blocks_for(n), ptrt::kBvhThreads, ptrt::ps_bytes(P, S, Q),
-                             (cudaStream_t)stream>>>(nodes, n_nodes, slots, ps, P, S, Q, ox, oy,
-                                                     oz, dx, dy, dz, n, gid_mask, t_min, t_max, t,
-                                                     prim, u, v, nx, ny, nz);
+  const ptrt::ClosestKernel k = ptrt::closest_variant(depth_class);
+  if (k == nullptr || (size_t)smem < ptrt::blob_bytes(P, S, Q))
+    return (int)cudaErrorInvalidValue;
+  k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
+      nodes, n_nodes, slot16, ps, P, S, Q, ox, oy, oz, dx, dy, dz, n, gid_mask, t_min, t_max, t,
+      prim, u, v, nx, ny, nz, counter);
   return (int)cudaGetLastError();
 }
 
@@ -241,7 +249,7 @@ extern "C" int ptrt_bvh_any(const float* nodes, int n_nodes, const float* slot16
   if (n <= 0) return (int)cudaSuccess;
   const ptrt::AnyKernel k = ptrt::any_variant(stage, depth_class);
   if (k == nullptr ||
-      (size_t)smem < ptrt::tree_smem_bytes(stage, n_nodes) + ptrt::ps_bytes(P, S, Q))
+      (size_t)smem < ptrt::tree_smem_bytes(stage, n_nodes) + ptrt::blob_bytes(P, S, Q))
     return (int)cudaErrorInvalidValue;
   k<<<grid, ptrt::kWalkThreads, smem, (cudaStream_t)stream>>>(
       nodes, n_nodes, slot16, ps, P, S, Q, ox, oy, oz, dx, dy, dz, limit, n, t_min, occluded,

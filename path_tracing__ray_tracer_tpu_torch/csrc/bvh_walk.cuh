@@ -28,34 +28,32 @@
 //
 // The leaf visit is a compile-time policy.  SlotLeaf tests the 16 slot
 // records by Möller–Trumbore, reading each slot's floats as the test needs
-// them (K4a and the top walks K6a/K6b, the latter over their
-// block's copy in shared memory or from device memory).  MatLeaf (K10a; the JAX
-// package's MXU leaf visit _leaf_closest_mxu / _leaf_any_mxu) evaluates the
-// same decision quantities as linear forms of the lane's ray features
-// f = [d, m = o×d, o, 1] over the leaf's columns of the coefficient table
-// (ops/bvh.py pack_leaf_mat: 16 feature rows of stride G·128 floats; leaf g
-// at column 128g, quantity q at +16q, slot k at +k: det | u·det | v·det |
-// t·det | nx | ny | nz | gid, the last four on the constant row 9).  Each
-// form adds its feature rows' products in increasing row order, as the
-// plain version does (ops/bvh.py _forms), so the two agree bit for bit;
-// the decisions are division free (with s2 = det², u ≥ 0 ⇔ u·det·det ≥ 0),
-// and t = t·det / det, u and v one division each.  MatQuadLeaf (K10b-d) is
-// MatLeaf with the table read as 16-byte loads over four slots, a batch at
-// a time.
-//
-// The node records' source is a compile-time policy too.  PtrNodes reads a
-// record's floats one by one through a pointer into device memory (K4a,
-// K10a).  Vec4Nodes reads the whole 128 B record as eight 16-byte loads into
-// registers, from device memory or from a copy of the node table in shared
-// memory (the persistent K4b and K5, and the top walks K6a/K6b, either way;
-// the page walks K6c/K6d and K4c/K4d, the rooted walk K11 and K10b-d, from
-// device memory).  The stack is a per-thread array in local memory (LocalStack),
-// sized by the walk.  Slot16Leaf is SlotLeaf over a port-only copy of the
+// them (the top walks K6a/K6b, over their block's copy in shared memory or
+// from device memory).  Slot16Leaf is SlotLeaf over a port-only copy of the
 // slot records padded to 16 floats (64 B, 16-byte aligned; ops/bvh.py
 // pack_slot16 and, per page, pack_page_slot16), read as 16-byte loads, a
-// batch of slots at a time (Slot16TriLeaf: the same, for walks that keep
-// only t and the triangle).  None of the policies changes a lane's
-// arithmetic or its visit order.
+// batch of slots at a time (K4a, K4b, K5, K6c/K6d, K4c/K4d; Slot16TriLeaf:
+// the same, for walks that keep only t and the triangle).  MatQuadLeaf
+// (K10a-d; the JAX package's MXU leaf visit _leaf_closest_mxu /
+// _leaf_any_mxu) evaluates the same decision quantities as linear forms of
+// the lane's ray features f = [d, m = o×d, o, 1] (MatLeaf) over the leaf's
+// columns of the coefficient table (ops/bvh.py pack_leaf_mat: 16 feature
+// rows of stride G·128 floats; leaf g at column 128g, quantity q at +16q,
+// slot k at +k: det | u·det | v·det | t·det | nx | ny | nz | gid, the last
+// four on the constant row 9), read as 16-byte loads over four slots, a
+// batch at a time.  Each form adds its feature rows' products in increasing
+// row order, as the plain version does (ops/bvh.py _forms), so the two
+// agree bit for bit; the decisions are division free (with s2 = det²,
+// u ≥ 0 ⇔ u·det·det ≥ 0), and t = t·det / det, u and v one division each.
+//
+// The node records' source is a compile-time policy too.  Vec4Nodes reads
+// the whole 128 B record as eight 16-byte loads into registers, from device
+// memory or from a copy of the node table in shared memory (K4b and K5, and
+// the top walks K6a/K6b, either way; K4a, the page walks K6c/K6d and
+// K4c/K4d, the rooted walk K11 and K10a-d, from device memory).  The stack
+// is a per-thread array in local memory (LocalStack), sized by the walk's
+// depth class.  None of the policies changes a lane's arithmetic or its
+// visit order.
 //
 // The paged layout's top tree (ops/bvh.py pack_paged; the JAX package's
 // bvh_paged_pallas.py) adds a fourth kind of child: a page, meta
@@ -77,7 +75,6 @@ constexpr int kLeafSize = 16;
 // deepest BVH4 the walk takes: the stack never holds more than 3 * depth - 2
 // nodes (ops/cuda/bvh.py checks the depth before it launches)
 constexpr int kMaxDepth4 = 32;
-constexpr int kStackCap = 3 * kMaxDepth4;
 // the persistent walks' block (ops/cuda/bvh.py WALK_THREADS) and their two
 // depth classes: a BVH4 at most kShallow4 deep takes a stack of
 // 3 * kShallow4 - 2 entries, any other one 3 * kMaxDepth4 - 2
@@ -144,16 +141,8 @@ __device__ __forceinline__ void pend_pages(const bool* hit, const float* meta, P
 }
 
 // ---- node sources --------------------------------------------------------
-// rec(node, buf) returns the node's 32 floats: a pointer into the records
-// (PtrNodes), or buf filled by eight 16-byte loads (Vec4Nodes).
-struct PtrNodes {
-  const float* __restrict__ nodes;
-
-  __device__ __forceinline__ const float* rec(int node, float (&)[kNode4F]) const {
-    return nodes + (size_t)node * kNode4F;
-  }
-};
-
+// rec(node, buf) returns the node's 32 floats: buf filled by eight 16-byte
+// loads.
 template <bool kShared>
 struct Vec4Nodes {
   const float4* q;  // device memory (read through the read-only cache) or shared memory
@@ -315,8 +304,9 @@ struct Slot16LeafT {
 using Slot16Leaf = Slot16LeafT<true>;
 using Slot16TriLeaf = Slot16LeafT<false>;
 
-// The leaf's columns of the coefficient table, contracted with the lane's
-// features slot by slot (19 coefficients a slot, read as they are needed).
+// The lane's ray features over the leaf coefficient table: f = [d, m = o × d,
+// o, 1], the table's feature rows (ops/bvh.py leaf_features), computed once a
+// walk in registers.
 struct MatLeaf {
   const float* __restrict__ mat;
   size_t stride;  // G · 128, the floats of one feature row
@@ -330,75 +320,30 @@ struct MatLeaf {
     f[5] = r.ox * r.dy - r.oy * r.dx;
     f[6] = r.ox; f[7] = r.oy; f[8] = r.oz; f[9] = 1.0f;
   }
-
-  // Σ col[row · stride] · f[row] over rows [r0, r1), in increasing row order
-  __device__ __forceinline__ float form(const float* col, int r0, int r1) const {
-    float acc = col[r0 * stride] * f[r0];
-    for (int r = r0 + 1; r < r1; ++r) acc = acc + col[r * stride] * f[r];
-    return acc;
-  }
-
-  // the slot's det, u·det, v·det; *inside: |det| > 1e-6 and (u, v) in the triangle
-  __device__ __forceinline__ void uv(const float* col, float& det, float& un, float& vn,
-                                     float& s2, bool& inside) const {
-    det = form(col, 0, 3);
-    un = form(col + 16, 0, 6);
-    vn = form(col + 32, 0, 6);
-    s2 = det * det;
-    const float ud = un * det, vd = vn * det;
-    inside = fabsf(det) > 1e-6f && ud >= 0.0f && ud <= s2 && vd >= 0.0f && ud + vd <= s2;
-  }
-
-  // The least t in (t_min, h.t) of the leaf's slots wins, ties to the lowest
-  // slot: _leaf_closest_mxu's per-visit minimum kept below the running best,
-  // which the sequential strict-`<` scan gives.
-  __device__ __forceinline__ void closest(float base, const Ray&, float t_min, int gid_offset,
-                                          Hit& h) const {
-    const float* col0 = mat + (size_t)base / kLeafSize * 128;
-    int won = -1;
-    for (int k = 0; k < kLeafSize; ++k) {
-      float det, un, vn, s2;
-      bool inside;
-      uv(col0 + k, det, un, vn, s2, inside);
-      if (!inside) continue;
-      const float t = form(col0 + k + 48, 6, 10) / det;
-      if (t > t_min && t < h.t) {
-        h.t = t;
-        h.u = un / det;
-        h.v = vn / det;
-        won = k;
-      }
-    }
-    if (won >= 0) {
-      const float* c9 = col0 + won + 9 * stride;
-      h.prim = (int)c9[112] + gid_offset;
-      h.nx = c9[64];
-      h.ny = c9[80];
-      h.nz = c9[96];
-    }
-  }
 };
 
-// The leaf-table visits of K10b-d: MatLeaf's forms with the table read as
-// 16-byte loads, each over four consecutive slots of one (feature row,
-// quantity): the row stride (128·G floats) and the column offsets (128g + 16q +
-// k, k a multiple of 4) are multiples of 4 floats, so every such load is
-// aligned.  A batch of kSlotBatch = 4 slots is the 19 loads of its coefficients
-// (det's rows 0-2, u·det's and v·det's rows 0-5, t·det's rows 6-9), issued
-// before the batch's tests, which then run in slot order; MatLeaf issues a
-// 4-byte load per coefficient as a form needs it.  The closest visit (K10c)
-// issues all 19 together and reads the gid and the normal for the leaf's winner
-// only, as MatLeaf does.  The occlusion visit (K10b, K10d) issues the 15 of det,
-// u·det and v·det, runs the four slots' inside tests, and only when a slot is
-// inside issues the four of t·det; it returns at the batch's first hit.  Each
-// form adds its products in increasing row order and each decision is MatLeaf's
-// (the occlusion visit's: MatLeaf::any's, in git at 359e47e), expression for
-// expression, so a lane's record and verdict are bit for bit those of MatLeaf's
-// walks.  (Two layouts measured on an H100 were not kept, PERF.md: a slot-major
-// copy of the 19 coefficients, 96 B a slot, 1.58 MB for config 5 against the
-// table's 8.45 MB, read as five 16-byte loads a slot, within 3% of the closest
-// visit; and the occlusion visit issuing all 19 loads together, as the closest
-// visit does, 7-12% slower.)
+// The leaf-table visits of K10a-d: the forms over MatLeaf's features with the
+// table read as 16-byte loads, each over four consecutive slots of one
+// (feature row, quantity): the row stride (128·G floats) and the column
+// offsets (128g + 16q + k, k a multiple of 4) are multiples of 4 floats, so
+// every such load is aligned.  A batch of kSlotBatch = 4 slots is the 19 loads
+// of its coefficients (det's rows 0-2, u·det's and v·det's rows 0-5, t·det's
+// rows 6-9), issued before the batch's tests, which then run in slot order;
+// the first designs' visit issued a 4-byte load per coefficient as a form
+// needed it (in git at 41c504a, MatLeaf::closest).  Both visits issue a
+// batch's 15 loads of det, u·det and v·det, run its four slots' inside tests,
+// and only when a slot is inside issue the four of t·det.  The closest visit
+// (K10a, K10c) then tests the inside slots in order against the running best
+// and reads the gid and the normal for the leaf's winner only; the occlusion
+// visit (K10b, K10d) returns at the batch's first hit.  Each form adds its
+// products in increasing row order and each decision is the first designs'
+// (MatLeaf::closest at 41c504a, MatLeaf::any at 359e47e), expression for
+// expression, so a lane's record and verdict are bit for bit theirs.  (Measured
+// on an H100 and not kept, PERF.md: a slot-major copy of the 19 coefficients,
+// 96 B a slot, 1.58 MB for config 5 against the table's 8.45 MB, read as five
+// 16-byte loads a slot, within 3% of the closest visit; and either visit
+// issuing all 19 loads of a batch together, the occlusion visit 7-12% slower
+// and the closest visit 8-14%.)
 struct MatQuadLeaf : MatLeaf {
   using MatLeaf::MatLeaf;  // the table, its row stride and the lane's features
 
@@ -435,7 +380,7 @@ struct MatQuadLeaf : MatLeaf {
   }
 
   // Slot j of a batch: its det, u·det, v·det and det² from v[0..14];
-  // returns MatLeaf::uv's inside test.
+  // returns the inside test: |det| > 1e-6 and (u, v) in the triangle.
   __device__ __forceinline__ bool uv_inside(const float4 (&v)[19], int j, float& det, float& un,
                                             float& vn, float& s2) const {
     float c[15];
@@ -462,7 +407,9 @@ struct MatQuadLeaf : MatLeaf {
   }
 
   // The least t in (t_min, h.t) of the leaf's slots wins, ties to the lowest
-  // slot, as MatLeaf::closest.  A batch's 19 loads are issued together.
+  // slot: _leaf_closest_mxu's per-visit minimum kept below the running best,
+  // which the sequential strict-`<` scan gives.  A batch's four t·det loads
+  // are issued only when one of its slots is inside its triangle.
   __device__ __forceinline__ void closest(float base, const Ray&, float t_min, int gid_offset,
                                           Hit& h) const {
     const float* col0 = mat + (size_t)base / kLeafSize * 128;
@@ -470,16 +417,24 @@ struct MatQuadLeaf : MatLeaf {
     for (int k = 0; k < kLeafSize; k += kSlotBatch) {
       float4 v[19];
       load_uv(col0, k, v);
+      float det[kSlotBatch], un[kSlotBatch], vn[kSlotBatch];
+      bool inside[kSlotBatch], some = false;
+#pragma unroll
+      for (int j = 0; j < kSlotBatch; ++j) {
+        float s2;
+        inside[j] = uv_inside(v, j, det[j], un[j], vn[j], s2);
+        some = some || inside[j];
+      }
+      if (!some) continue;
       load_t(col0, k, v);
 #pragma unroll
       for (int j = 0; j < kSlotBatch; ++j) {
-        float det, un, vn, s2;
-        if (!uv_inside(v, j, det, un, vn, s2)) continue;
-        const float t = t_det(v, j) / det;
+        if (!inside[j]) continue;
+        const float t = t_det(v, j) / det[j];
         if (t > t_min && t < h.t) {
           h.t = t;
-          h.u = un / det;
-          h.v = vn / det;
+          h.u = un[j] / det[j];
+          h.v = vn[j] / det[j];
           won = k + j;
         }
       }
@@ -531,7 +486,7 @@ struct MatQuadLeaf : MatLeaf {
 // tree, whose page children set bits of `pend` instead of being walked.
 // `root`: the node the walk starts from (a subtree's, in a multipass pass).
 // `nodes`, `leaf`, `stack`: the node source, the leaf visit (SlotLeaf,
-// Slot16Leaf or MatLeaf) and an empty stack.
+// Slot16Leaf or MatQuadLeaf) and an empty stack.
 template <bool kPaged, class Nodes, class Leaf, class Stack>
 __device__ __forceinline__ void walk_closest_with(const Nodes& nodes, int n_nodes,
                                                   const Leaf& leaf, Stack& stack, const Ray& r,
@@ -556,20 +511,6 @@ __device__ __forceinline__ void walk_closest_with(const Nodes& nodes, int n_node
     if constexpr (kPaged) pend_pages(hit, meta, *pend);
     push_children<kPaged>(b, hit, meta, r, stack);
   }
-}
-
-template <bool kPaged, class Leaf>
-__device__ __forceinline__ void walk_closest_leaf(const float* __restrict__ nodes, int n_nodes,
-                                                  const Leaf& leaf, const Ray& r, float t_min,
-                                                  int gid_offset, Hit& h, Pend* pend) {
-  LocalStack<kStackCap> stack;
-  walk_closest_with<kPaged>(PtrNodes{nodes}, n_nodes, leaf, stack, r, t_min, gid_offset, h, pend);
-}
-
-__device__ __forceinline__ void walk_closest(const float* __restrict__ nodes, int n_nodes,
-                                             const float* __restrict__ slots, const Ray& r,
-                                             float t_min, int gid_offset, Hit& h) {
-  walk_closest_leaf<false>(nodes, n_nodes, SlotLeaf{slots}, r, t_min, gid_offset, h, nullptr);
 }
 
 // Is any triangle hit in (t_min, limit)?  Stops at the first one; the page
@@ -635,6 +576,31 @@ template <class K>
 inline int walk_occupancy(K kernel, int stage, int smem, int* blocks) {
   if (kernel == nullptr || stage != 0 || smem != 0) return (int)cudaErrorInvalidValue;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, 0);
+}
+
+// Resident blocks per SM of a persistent walk that stages no tree, only
+// `smem` bytes of its own tables (stage must be 0), into *blocks; first
+// lifts the kernel's dynamic shared memory limit to `smem` where it is lower.
+// nullptr (no such variant) is refused.
+template <class K>
+inline int table_occupancy(K kernel, int stage, int smem, int* blocks) {
+  if (kernel == nullptr || stage != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kWalkThreads, smem);
+  return (int)err;
+}
+
+// The plane/sphere/quad blob's bytes (sweep.cuh's layout with no triangles).
+inline size_t blob_bytes(int P, int S, int Q) {
+  return sizeof(float) * (size_t)(14 * P + 4 * S + 18 * Q);
+}
+
+// Copy the plane/sphere/quad blob (`size` floats, 14P + 4S + 18Q) into the
+// block's shared memory `ps`, once per resident block, and wait for it.
+__device__ __forceinline__ void stage_blob(float* ps, const float* __restrict__ ps_g, int size) {
+  for (int k = threadIdx.x; k < size; k += blockDim.x) ps[k] = ps_g[k];
+  __syncthreads();
 }
 
 // One bulk copy (TMA) of `bytes` from device memory into shared memory,
@@ -722,6 +688,44 @@ __device__ __forceinline__ void finish_hit(Hit& h, const Ray& r, int gid_offset,
   if (h.prim >= gid_offset && h.nx * r.dx + h.ny * r.dy + h.nz * r.dz > 0.0f) {
     h.nx = -h.nx; h.ny = -h.ny; h.nz = -h.nz;
   }
+}
+
+// The whole-scene closest walks' lanes (K4a, K10a), one lane a thread: the
+// plane/sphere/quad sweep over the block's copy of the blob `ps` seeds the
+// BVH4 walk (nodes by `nodes`, leaves by `leaf_of(ray)`, a stack of the depth
+// class kClass), then the record is finished and written.  Lanes [0, n): a
+// static first batch, later ones from `counter` (next_batch; two int32, zero
+// at the launch, left zero).  Each lane's floats and visit order are the
+// first designs' (one thread a lane in blocks of 128; in git at 41c504a).
+template <int kClass, class Nodes, class LeafOf>
+__device__ __forceinline__ void scene_closest_lanes(
+    const float* ps, const SceneLayout& L, const Nodes& nodes, int n_nodes, const LeafOf& leaf_of,
+    const float* __restrict__ ox, const float* __restrict__ oy, const float* __restrict__ oz,
+    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
+    int n, int gid_mask, float t_min, float t_max, float* __restrict__ t_out,
+    int* __restrict__ prim_out, float* __restrict__ u_out, float* __restrict__ v_out,
+    float* __restrict__ nx_out, float* __restrict__ ny_out, float* __restrict__ nz_out,
+    int* __restrict__ counter) {
+  const int off = L.P + L.S + L.Q;
+  const int lane = threadIdx.x & 31;
+  const int span = gridDim.x * blockDim.x;
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x;; i = next_batch(counter, span, n)) {
+    if (i - lane >= n) break;  // the warp's batch is past the end
+    if (i >= n) continue;
+    const Ray r = load_ray(ox, oy, oz, dx, dy, dz, i);
+    Hit h = closest_hit(ps, L, r, t_min, t_max);
+    LocalStack<stack_cap(kClass)> stack;
+    walk_closest_with<false>(nodes, n_nodes, leaf_of(r), stack, r, t_min, off, h, nullptr);
+    finish_hit(h, r, off, gid_mask);  // slot normals are stored unflipped
+    t_out[i] = h.t;
+    prim_out[i] = h.prim;
+    u_out[i] = h.u;
+    v_out[i] = h.v;
+    nx_out[i] = h.nx;
+    ny_out[i] = h.ny;
+    nz_out[i] = h.nz;
+  }
+  if (span < n) finish_lanes(counter);
 }
 
 }  // namespace ptrt

@@ -38,12 +38,13 @@ tensor it takes its plain version, so the CPU runs the same route.  The
 occlusion kernels report lanes whose bound is ≤ 0 as occluded (their answer
 is not needed; the plain versions say not occluded).
 
-K4b and K5 are persistent walks (``csrc/bvh_walk.cuh``): :func:`walk_plan`
-picks their variant from sizes alone, against the budget
+K4a, K4b and K5 are persistent walks (``csrc/bvh_walk.cuh``): :func:`walk_plan`
+picks K4b's and K5's variant from sizes alone, against the budget
 ``SMEM_TREE_BYTES`` (a node table at most this large is copied into each
 block's shared memory), a module global read at each call that tests and
-scripts may set; :func:`persistent_grid` launches only the resident blocks,
-which take their lanes from :func:`lane_counter`.
+scripts may set; K4a's, :func:`closest_plan`, stages no tree whatever the
+budget; :func:`persistent_grid` launches only the resident blocks, which
+take their lanes from :func:`lane_counter`.
 They read the padded slot records ``FlatBVH.slot16``.  So do K11
 (:func:`closest_rooted`, its variant :func:`rooted_plan`) and the ordered
 BVH2 walks (``bvh2.closest_ordered`` and ``bvh2.any_ordered``, their stack
@@ -258,15 +259,17 @@ def build():
     built = _build.load("bvh_scene")
     lib = built.lib
     head = [_P, _I, _P, _P, _I, _I, _I] + [_P] * 6
-    lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P]
+    lib.ptrt_bvh_closest.argtypes = head + [_I, _I, _F, _F] + [_P] * 7 + [_P, _I, _I, _I, _P]
     lib.ptrt_bvh_any.argtypes = head + [_P, _I, _F, _P, _P] + [_I] * 4 + [_P]
     occupancy = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
-    lib.ptrt_bvh_any_occupancy.argtypes = occupancy
     lib.ptrt_bvh4_closest_rooted.argtypes = ([_P, _I, _P] + [_P] * 10 + [_I, _I, _F, _P, _P]
                                              + [_P, _I, _I, _P])
-    lib.ptrt_bvh4_rooted_occupancy.argtypes = occupancy
-    for fn in (lib.ptrt_bvh_closest, lib.ptrt_bvh_any, lib.ptrt_bvh_any_occupancy,
-               lib.ptrt_bvh4_closest_rooted, lib.ptrt_bvh4_rooted_occupancy):
+    entries = (lib.ptrt_bvh_closest, lib.ptrt_bvh_any, lib.ptrt_bvh4_closest_rooted)
+    occupancies = (lib.ptrt_bvh_closest_occupancy, lib.ptrt_bvh_any_occupancy,
+                   lib.ptrt_bvh4_rooted_occupancy)
+    for fn in occupancies:
+        fn.argtypes = occupancy
+    for fn in entries + occupancies:
         fn.restype = ctypes.c_int
     return built
 
@@ -360,21 +363,36 @@ def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max) -> SceneHit:
 
 
 def _fused_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
-    """K4a: the plane/sphere/quad sweep seeds the BVH4 walk, one launch."""
+    """K4a: the plane/sphere/quad sweep seeds the BVH4 walk, one launch, in
+    the persistent variant :func:`closest_plan` picks."""
     who = "scene_closest"
     dev = ro.x.device
-    tree = tree_args(who, cs, dev)
+    nodes, n_nodes, _slots, ps, P, S, Q = tree_args(who, cs, dev)
+    slot16 = slot16_arg(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
-    err = build().lib.ptrt_bvh_closest(
-        *tree, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(),
-        nz.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(who, err)
-    scene_closest.launches += 1
+    if n:
+        lib = build().lib
+        plan = closest_plan(cs)
+        grid = launch_grid(who, lib.ptrt_bvh_closest_occupancy, plan, n, dev)
+        err = lib.ptrt_bvh_closest(
+            nodes, n_nodes, slot16, ps, P, S, Q, *(r.data_ptr() for r in rays), n, gid_mask(cs),
+            float(t_min), float(t_max), t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(),
+            nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), lane_counter(dev).data_ptr(),
+            plan.depth_class, plan.smem_bytes, grid, torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(who, err)
+        scene_closest.launches += 1
     return _fused_hit(cs, ro, rd, t, prim, u, v, V3(nx, ny, nz))
+
+
+def closest_plan(cs) -> WalkPlan:
+    """The persistent K4a's variant on ``cs`` (K10a's and K10b's too,
+    ``bvh_leafmat.scene_any_plan``): the depth class of its BVH4, no tree
+    staged whatever ``SMEM_TREE_BYTES`` is (staging measured ±3-4% on K4b
+    and K5), and the plane/sphere/quad blob as its shared memory."""
+    return WalkPlan(False, depth_class(cs.bvh.depth4), 4 * cs.bvh.ps_blob.numel())
 
 
 def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneHit:

@@ -24,15 +24,15 @@ launches; on a CPU tensor it takes its plain version, the plain walks of
 ``ops/bvh.py`` with the table (``mxu=True``): ``scene_hit_bvh_plain``,
 ``scene_hit_any_bvh_plain``, ``pages_closest_plain``, ``pages_any_plain``.
 
-K10b, K10c and K10d are persistent walks, as the page walks are:
-:func:`scene_any_plan` and :func:`tri_plan` give their variants (the depth
-class of the BVH4, no tree staged; K10b's shared memory is the
-plane/sphere/quad blob, copied once per resident block), ``bvh.launch_grid``
-the resident blocks, whose warps take their lanes from ``bvh.lane_counter``.
-They read the node records and the table as 16-byte loads, the table's over
-four slots of one feature row and quantity (the table's columns and row
-stride are multiples of 4 floats; the wrappers check the 16-byte alignment
-of the table and the node records).  K10a keeps its first design.
+All four are persistent walks, as the page walks are: :func:`scene_any_plan`
+(K10a and K10b) and :func:`tri_plan` (K10c and K10d) give their variants (the
+depth class of the BVH4, no tree staged; K10a's and K10b's shared memory is
+the plane/sphere/quad blob, copied once per resident block),
+``bvh.launch_grid`` the resident blocks, whose warps take their lanes from
+``bvh.lane_counter``.  They read the node records and the table as 16-byte
+loads, the table's over four slots of one feature row and quantity (the
+table's columns and row stride are multiples of 4 floats; the wrappers check
+the 16-byte alignment of the table and the node records).
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ from ..bvh import _SLOT_F, LEAF_SIZE
 from ..intersect import ClosestRecord, SceneHit, scene_hit_any_bvh_plain, scene_hit_bvh_plain
 from ..v3 import V3
 from .bounce import _check
-from .bvh import (WalkPlan, _fused_hit, _on, _raise_on, _rays, depth_class, gid_mask,
+from .bvh import (WalkPlan, _fused_hit, _on, _raise_on, _rays, closest_plan, gid_mask,
                   lane_counter, launch_grid, page_plan, tree_args)
 from .bvh_paged import pages_any_plain, pages_closest_plain
 
@@ -60,14 +60,14 @@ def build():
     head = [_P, _I, _P, _L]
     rays = [_P] * 6
     lib.ptrt_mat_scene_closest.argtypes = (head + [_P, _I, _I, _I] + rays + [_I, _I, _F, _F]
-                                           + [_P] * 7 + [_P])
+                                           + [_P] * 7 + [_P, _I, _I, _I, _P])
     lib.ptrt_mat_scene_any.argtypes = (head + [_P, _I, _I, _I] + rays + [_P, _I, _F, _P]
                                        + [_P, _I, _I, _I, _P])
     lib.ptrt_mat_tri_closest.argtypes = (head + [_I, _I] + rays + [_P] * 7 + [_I, _F]
                                          + [_P] * 7 + [_P, _I, _I, _P])
     lib.ptrt_mat_tri_any.argtypes = head + rays + [_P, _P, _I, _F, _P] + [_P, _I, _I, _P]
-    occupancy = (lib.ptrt_mat_scene_any_occupancy, lib.ptrt_mat_tri_closest_occupancy,
-                 lib.ptrt_mat_tri_any_occupancy)
+    occupancy = (lib.ptrt_mat_scene_closest_occupancy, lib.ptrt_mat_scene_any_occupancy,
+                 lib.ptrt_mat_tri_closest_occupancy, lib.ptrt_mat_tri_any_occupancy)
     for fn in occupancy:
         fn.argtypes = [_I] * 3 + [ctypes.POINTER(ctypes.c_int)]
     for fn in (lib.ptrt_mat_scene_closest, lib.ptrt_mat_scene_any, lib.ptrt_mat_tri_closest,
@@ -76,29 +76,11 @@ def build():
     return built
 
 
-def table_args(who, cs, device):
-    """``(nodes, n_nodes, leaf_mat, stride, ps, P, S, Q)`` after checking the
-    records (``bvh.tree_args``) and the table: a contiguous ``(16, 128·G)``
-    float32 tensor on ``device`` with one group per leaf of the tree (``G``
-    from its slot records)."""
-    nodes, n_nodes, _slots, *ps = tree_args(who, cs, device)
-    mat = cs.bvh.leaf_mat
-    n_leaves = cs.bvh.slot_rec.shape[0] // (_SLOT_F * LEAF_SIZE)
-    if mat is None:
-        raise ValueError(f"{who}: the BVH carries no leaf coefficient table")
-    if (mat.device != device or mat.dtype != torch.float32 or mat.dim() != 2
-            or tuple(mat.shape) != (16, 128 * n_leaves) or not mat.is_contiguous()):
-        raise ValueError(f"{who}: leaf_mat must be a contiguous (16, {128 * n_leaves}) float32 "
-                         f"tensor on {device} (one 128-column group per leaf); got "
-                         f"{tuple(mat.shape)} {mat.dtype} on {mat.device}")
-    return (nodes, n_nodes, mat.data_ptr(), 128 * n_leaves, *ps)
-
-
 def scene_any_plan(cs) -> WalkPlan:
-    """K10b's variant on ``cs``: the depth class of its BVH4, no tree staged,
-    and the plane/sphere/quad blob as its shared memory (``bvh.any_plan``
-    with no tree)."""
-    return WalkPlan(False, depth_class(cs.bvh.depth4), 4 * cs.bvh.ps_blob.numel())
+    """The variant of K10a and K10b on ``cs``: their twin K4a's
+    (``bvh.closest_plan``), the depth class of its BVH4, no tree staged,
+    and the plane/sphere/quad blob as its shared memory."""
+    return closest_plan(cs)
 
 
 def tri_plan(cs) -> WalkPlan:
@@ -109,14 +91,25 @@ def tri_plan(cs) -> WalkPlan:
 
 
 def aligned_table_args(who, cs, device):
-    """``(nodes, n_nodes, leaf_mat, stride, ps, P, S, Q)`` as :func:`table_args`
-    gives them, after checking that the table and the node records are
-    16-byte aligned, as the persistent walks' 16-byte loads need."""
-    table = table_args(who, cs, device)
-    for name, t in (("leaf_mat", cs.bvh.leaf_mat), ("nodes4", cs.bvh.nodes4)):
+    """``(nodes, n_nodes, leaf_mat, stride, ps, P, S, Q)`` after checking the
+    records (``bvh.tree_args``) and the table: a contiguous ``(16, 128·G)``
+    float32 tensor on ``device`` with one group per leaf of the tree (``G``
+    from its slot records); the table and the node records 16-byte aligned,
+    as the walks' 16-byte loads need."""
+    nodes, n_nodes, _slots, *ps = tree_args(who, cs, device)
+    mat = cs.bvh.leaf_mat
+    n_leaves = cs.bvh.slot_rec.shape[0] // (_SLOT_F * LEAF_SIZE)
+    if mat is None:
+        raise ValueError(f"{who}: the BVH carries no leaf coefficient table")
+    if (mat.device != device or mat.dtype != torch.float32 or mat.dim() != 2
+            or tuple(mat.shape) != (16, 128 * n_leaves) or not mat.is_contiguous()):
+        raise ValueError(f"{who}: leaf_mat must be a contiguous (16, {128 * n_leaves}) float32 "
+                         f"tensor on {device} (one 128-column group per leaf); got "
+                         f"{tuple(mat.shape)} {mat.dtype} on {mat.device}")
+    for name, t in (("leaf_mat", mat), ("nodes4", cs.bvh.nodes4)):
         if t.data_ptr() % 16:
             raise ValueError(f"{who}: {name} is not 16-byte aligned")
-    return table
+    return (nodes, n_nodes, mat.data_ptr(), 128 * n_leaves, *ps)
 
 
 def _stream(dev):
@@ -124,22 +117,28 @@ def _stream(dev):
 
 
 def scene_closest(cs, ro: V3, rd: V3, t_min: float, t_max: float) -> SceneHit:
-    """K10a: the closest hit on the whole scene below the scalar ``t_max``."""
+    """K10a: the closest hit on the whole scene below the scalar ``t_max``,
+    in the persistent variant :func:`scene_any_plan` picks."""
     who = "leafmat.scene_closest"
     dev = ro.x.device
     if not _on(who, dev):
         return scene_hit_bvh_plain(cs, ro, rd, t_min, t_max, mxu=True)
-    table = table_args(who, cs, dev)
+    table = aligned_table_args(who, cs, dev)
     n, rays = _rays(who, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
     prim = torch.empty((n,), dtype=torch.int32, device=dev)
     t, u, v, nx, ny, nz = out
-    err = build().lib.ptrt_mat_scene_closest(
-        *table, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(), ny.data_ptr(),
-        nz.data_ptr(), _stream(dev))
-    _raise_on(who, err)
-    scene_closest.launches += 1
+    if n:
+        lib = build().lib
+        plan = scene_any_plan(cs)
+        grid = launch_grid(who, lib.ptrt_mat_scene_closest_occupancy, plan, n, dev)
+        err = lib.ptrt_mat_scene_closest(
+            *table, *(r.data_ptr() for r in rays), n, gid_mask(cs), float(t_min), float(t_max),
+            t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), nx.data_ptr(),
+            ny.data_ptr(), nz.data_ptr(), lane_counter(dev).data_ptr(), plan.depth_class,
+            plan.smem_bytes, grid, _stream(dev))
+        _raise_on(who, err)
+        scene_closest.launches += 1
     return _fused_hit(cs, ro, rd, t, prim, u, v, V3(nx, ny, nz))
 
 

@@ -25,8 +25,9 @@ persistent K7 at 131,077 and 4,133 lanes, none, and queued with K1; the
 persistent top walks K6a and K6b on the 48-page mesh whose top leaves hold
 triangles, staged and read from device memory, in both depth classes, at
 131,077 and 4,133 lanes, staged at 262,149 (past its resident blocks), and
-none; and K4b, K5, K6a-d, K11, the two
-ordered walks, the skip-link closest walk, K10b-d, K1 and K2 queued on one
+none; the persistent K4a and K10a at 262,149 lanes, with t_max 1e30 and
++inf, in both classes, and none; and K4a, K4b, K5, K6a-d, K11, the two
+ordered walks, the skip-link walks, K10a-d, K1 and K2 queued on one
 stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
@@ -262,9 +263,15 @@ def mesh_card(card):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [131072, 4096 + 37])
+@pytest.mark.parametrize("n", [131072, 4096 + 37, 2 * 131072 + 5])
 def test_bvh_scene_kernels_match_plain(mesh_card, n):
+    """K4a and K4b against their plain versions, 262,149 lanes past the
+    resident ones; K4a also with t_max 1e30 and +inf, each bound's record
+    bit-equal with the tree reported 20 deep (stack class 32); the lane
+    counter left zero."""
     dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=20))
+    assert (bvh.closest_plan(cs).depth_class, bvh.closest_plan(deep).depth_class) == (8, 32)
     o, d, _, _, _ = _inputs(n, n + 3, dev)
     before = (bvh.scene_closest.launches, bvh.scene_any.launches)
     got = bvh.scene_closest(cs, o, d, 1e-3, 1e6)
@@ -282,6 +289,17 @@ def test_bvh_scene_kernels_match_plain(mesh_card, n):
     want_occ = plain.scene_hit_any_bvh_plain(cs, o, d, 1e-3, limit)
     assert float((occ == want_occ)[care].float().mean()) >= 0.9999
     assert bool(occ[~care].all()) and 0.05 < float(occ[care].float().mean()) < 0.95
+    for t_max in (1e30, float("inf")):
+        got = bvh.scene_closest(cs, o, d, 1e-3, t_max)
+        want = plain.scene_hit_bvh_plain(cs, o, d, 1e-3, t_max)
+        same = got.prim == want.prim
+        assert float(same.float().mean()) >= 0.9999 and bool(got.hit.any())
+        _assert_floats_close(got, want, same & got.hit, ("t", "normal", "u", "v"))
+    for t_max in (1e6, 1e30, float("inf")):
+        _assert_same_bits(bvh.scene_closest(deep, o, d, 1e-3, t_max),
+                          bvh.scene_closest(cs, o, d, 1e-3, t_max))
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
 
 
 @pytest.mark.cuda
@@ -399,10 +417,12 @@ def test_occlusion_walks_with_infinite_bounds(mesh_card, grid, subdivisions):
 def test_persistent_walks_launch_nothing_on_no_lanes(mesh_card):
     dev, cs, tables = mesh_card
     o, d, thr, key, depth, limit = _persistent_inputs(0, dev)
-    wrappers = (bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
-                bvh2.closest_skiplink, bvh2.any_skiplink, bvh_leafmat.tri_closest,
-                bvh_leafmat.scene_any, bvh_leafmat.tri_any)
+    wrappers = (bvh.scene_closest, bvh.scene_any, bounce_bvh.path_bounce_bvh, bvh2.any_ordered,
+                bvh2.closest_skiplink, bvh2.any_skiplink, bvh_leafmat.scene_closest,
+                bvh_leafmat.tri_closest, bvh_leafmat.scene_any, bvh_leafmat.tri_any)
     before = [w.launches for w in wrappers]
+    assert bvh.scene_closest(cs, o, d, 1e-3, 1e6).t.shape == (0,)
+    assert bvh_leafmat.scene_closest(cs, o, d, 1e-3, 1e6).prim.shape == (0,)
     assert bvh.scene_any(cs, o, d, 1e-3, limit).shape == (0,)
     out = bounce_bvh.path_bounce_bvh(cs, tables, o, d, thr, key, depth)
     assert bvh2.any_ordered(cs, o, d, 1e-3, limit).shape == (0,)
@@ -709,8 +729,8 @@ def test_top_walks_launch_nothing_on_no_lanes(paged48_card):
 
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, paged48_card):
-    """K4b, K6a-d, K5, K11, the ordered BVH2 closest and occlusion walks,
-    the skip-link closest and occlusion walks, K10b-d, K1 and K2 queued on
+    """K4a, K4b, K6a-d, K5, K11, the ordered BVH2 closest and occlusion walks,
+    the skip-link closest and occlusion walks, K10a-d, K1 and K2 queued on
     one stream with no sync between them answer bit for bit as each does
     alone after a sync, which leaves the stream's lane counter zero: each
     launch starts from lane 0."""
@@ -723,7 +743,8 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, pa
     found, alo, ahi = bvh_paged.paged_top_any(pcs, o, d, 1e-3, limit)
     roots, en = _rooted_pass(mcs, o, d)
     none = torch.full_like(roots, -1)
-    calls = (lambda: bvh.scene_any(mcs, o, d, 1e-3, limit),
+    calls = (lambda: bvh.scene_closest(mcs, o, d, 1e-3, 1e6),
+             lambda: bvh.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6),
              lambda: bvh_paged.paged_top_any(tcs, o, d, 1e-3, limit),
              lambda: bvh_paged.pages_closest(pcs, o, d, 1e-3, best, plo, phi),
@@ -734,6 +755,7 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, pa
              lambda: bvh2.any_ordered(mcs, o, d, 1e-3, limit),
              lambda: bvh2.closest_skiplink(mcs, o, d, 1e-3, limit.abs()),
              lambda: bvh2.any_skiplink(mcs, o, d, 1e-3, limit),
+             lambda: bvh_leafmat.scene_closest(mcs, o, d, 1e-3, 1e30),
              lambda: bvh_leafmat.tri_closest(mcs, o, d, 1e-3, _seed(limit.abs())),
              lambda: bvh_leafmat.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_any(mcs, o, d, 1e-3, limit, found),
@@ -1115,12 +1137,17 @@ def test_split_route_path_tracer_launches(mesh_card, monkeypatch, route):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n", [131072, 4096 + 37])
+@pytest.mark.parametrize("n", [131072, 4096 + 37, 2 * 131072 + 5])
 def test_leafmat_walks_match_plain(mesh_card, n):
     """K10a-d against their plain versions (the walks of ``ops/bvh.py`` with
     the leaf table): K10a and K10c's records, K10b and K10d's verdicts on
-    every ray that needs an answer (K10b reports the others occluded)."""
+    every ray that needs an answer (K10b reports the others occluded); K10a
+    also with t_max 1e30 and +inf, each bound's record bit-equal with the
+    tree reported 20 deep (stack class 32); the lane counter left zero."""
     dev, cs, _ = mesh_card
+    deep = cs._replace(bvh=cs.bvh._replace(depth4=20))
+    assert (bvh_leafmat.scene_any_plan(cs).depth_class,
+            bvh_leafmat.scene_any_plan(deep).depth_class) == (8, 32)
     assert cs.bvh.leaf_mat is not None
     o, d, _, _, _ = _inputs(n, n + 5, dev)
     g = torch.Generator(device=dev).manual_seed(n + 5)
@@ -1151,6 +1178,17 @@ def test_leafmat_walks_match_plain(mesh_card, n):
     assert 0.05 < float(occ_b[care].float().mean()) < 0.95
     want_d = bvh_paged.pages_any_plain(cs, o, d, 1e-3, limit, found, mxu=True)
     assert torch.equal(occ_d, want_d) and bool(occ_d[found].all())
+    for t_max in (1e30, float("inf")):
+        got = bvh_leafmat.scene_closest(cs, o, d, 1e-3, t_max)
+        want = plain.scene_hit_bvh_plain(cs, o, d, 1e-3, t_max, mxu=True)
+        same = got.prim == want.prim
+        assert float(same.float().mean()) >= 0.9999 and bool(got.hit.any())
+        _assert_floats_close(got, want, same & got.hit, ("t", "normal", "u", "v"))
+    for t_max in (1e6, 1e30, float("inf")):
+        _assert_same_bits(bvh_leafmat.scene_closest(deep, o, d, 1e-3, t_max),
+                          bvh_leafmat.scene_closest(cs, o, d, 1e-3, t_max))
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
 
 
 @pytest.mark.cuda

@@ -16,6 +16,12 @@ the persistent leaf-table walks (K10b, K10c, K10d) on the CPU.
   infinite and non-positive limits; with an infinite limit also
   Möller–Trumbore's (``ops/bvh._leaf_test``, and ``traverse_any`` on the
   mesh).
+* The closest visit ``MatQuadLeaf::closest`` (K10a, K10c) emulated from
+  those loads, a batch's inside tests first, then its inside slots in order
+  against the running best, the winner's gid and normal read last, gives the plain table leaf's
+  (``ops/bvh._forms`` and ``_leaf_closest_mat``, the first least t) t, gid,
+  u, v and normal bit for bit on config 5's leaves, with bounds 1e6, 1e30
+  and ``+inf``.
 * ``ops/cuda/bvh2.ordered_plan`` (both ordered walks),
   ``ops/cuda/bvh_leafmat.tri_plan`` (K10c and K10d) and ``scene_any_plan``
   (K10b) are the depth classes of the tree's BVH2 and BVH4 depths, nothing
@@ -203,6 +209,94 @@ def test_occlusion_visit_from_the_table_loads_is_the_plain_test(mesh, case, limi
         walk = tbvh.traverse_any(mesh.bvh, mesh.triangles, ro, rd, 1e-3, limit, leaf_mat=mat)
         assert torch.equal(walk, tbvh.traverse_any(mesh.bvh, mesh.triangles, ro, rd, 1e-3, limit))
         assert bool(walk.any()) and not bool(walk.all())
+
+
+@pytest.fixture(scope="module")
+def config5():
+    """Config 5 and its table's coefficients as the kernel's loads give them."""
+    cs = pt.compile_scene(pt.MeshSceneBuilder(grid=3, subdivisions=3).build_scene(),
+                          device="cpu", use_bvh=True)
+    return cs, _coefficients(_table("mesh", cs))
+
+
+def _quad_closest(coef, feat, t_min, bound, mat):
+    """``MatQuadLeaf::closest`` of every leaf (``coef``'s rows, 16 slots a
+    leaf, each slot's 19 coefficients in the kernel's load order) against
+    every ray (columns of ``feat``), in its expression order: a batch's four
+    inside tests from its 15 det, u·det and v·det loads, then its inside
+    slots (the only ones whose t·det loads it issues) in order, strict ``<``
+    against the running best (seeded with ``bound``), ``t = t·det / det``
+    and ``u``, ``v`` one division each; then the winner's gid and normal
+    read from the table's row 9.  ``(t, gid, u, v, nx, ny, nz)``, each
+    ``(leaves, rays)``."""
+    n_leaves = coef.shape[0] // 16
+    c = coef.view(n_leaves, 16, 19)
+    shape = (n_leaves, feat.shape[1])
+    best = torch.full(shape, float(bound))
+    u, v = torch.zeros(shape), torch.zeros(shape)
+    won = torch.full(shape, -1)
+
+    def form(ck, at, r0, r1):
+        acc = ck[:, at, None] * feat[r0]
+        for r in range(r0 + 1, r1):
+            acc = acc + ck[:, at + r - r0, None] * feat[r]
+        return acc
+
+    for batch in range(0, 16, 4):
+        tests = []
+        for k in range(batch, batch + 4):
+            ck = c[:, k]
+            det, un, vn = form(ck, 0, 0, 3), form(ck, 3, 0, 6), form(ck, 9, 0, 6)
+            s2 = det * det
+            ud, vd = un * det, vn * det
+            tests.append((k, ck, det, un, vn, (torch.abs(det) > 1e-6) & (ud >= 0.0)
+                          & (ud <= s2) & (vd >= 0.0) & (ud + vd <= s2)))
+        for k, ck, det, un, vn, inside in tests:
+            t = form(ck, 15, 6, 10) / det
+            win = inside & (t > t_min) & (t < best)
+            best = torch.where(win, t, best)
+            u, v = torch.where(win, un / det, u), torch.where(win, vn / det, v)
+            won = torch.where(win, k, won)
+    col = 128 * torch.arange(n_leaves)[:, None] + won.clamp(min=0)  # row 9's columns
+    read = [torch.where(won >= 0, mat[9][col + 16 * q], miss)
+            for q, miss in ((7, -1.0), (4, 0.0), (5, 0.0), (6, 0.0))]
+    return (best, read[0], u, v, *read[1:])
+
+
+def _forms_closest(cs, mat, feat, t_min, bound):
+    """The plain table leaf (``ops/bvh._walk`` with the table): every slot's
+    forms by ``_forms``, ``_leaf_closest_mat`` below ``bound`` on the leaves'
+    real slots, the first least t wins; its ``u·det / det``, ``v·det / det``
+    and the table's gid and normal; ``bound``, −1 and zeros where none hits."""
+    slot = torch.arange(mat.shape[1] // 8)
+    col = slot // 16 * 128 + slot % 16
+    det, un, vn, tn = tbvh._forms(lambda r, q: mat[r, col + 16 * q][:, None], feat)
+    t, hit = tbvh._leaf_closest_mat(det, un, vn, tn, t_min, bound)
+    real = (cs.bvh.slots[cs.bvh.is_leaf].reshape(-1) >= 0)[:, None]
+    n_leaves = slot.numel() // 16
+    t = torch.where(hit & real, t, torch.inf).view(n_leaves, 16, -1)
+    k = torch.argmin(t, dim=1, keepdim=True)
+    take = torch.isfinite(torch.gather(t, 1, k))[:, 0]
+    rays = feat.shape[1]
+    fields = (t, un / det, vn / det, *(mat[9, col + 16 * q][:, None].expand(-1, rays)
+                                       for q in (7, 4, 5, 6)))
+    t_, u, v, gid, nx, ny, nz = (torch.gather(x.reshape(n_leaves, 16, rays), 1, k)[:, 0]
+                                 for x in fields)
+    return tuple(torch.where(take, x, miss) for x, miss in (
+        (t_, float(bound)), (gid, -1.0), (u, 0.0), (v, 0.0), (nx, 0.0), (ny, 0.0), (nz, 0.0)))
+
+
+@pytest.mark.parametrize("bound", [1e6, 1e30, float("inf")])
+def test_closest_visit_from_the_table_loads_is_the_plain_leaf(config5, bound):
+    cs, coef = config5
+    mat = cs.bvh.leaf_mat
+    _ro, _rd, feat = _any_rays("mesh", cs, 48, 13)
+    got = _quad_closest(coef, feat, 1e-3, bound, mat)
+    want = _forms_closest(cs, mat, feat, 1e-3, bound)
+    for name, a, w in zip(("t", "gid", "u", "v", "nx", "ny", "nz"), got, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32)), name
+    won = got[1] >= 0
+    assert 0 < int(won.sum()) < won.numel() and int(won.any(0).sum()) >= 32  # most rays hit
 
 
 # config 5's BVH2 is 13 deep and its BVH4 6; the chain of tests/torch_chain.py

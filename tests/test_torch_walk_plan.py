@@ -31,6 +31,14 @@ K11 and K4e's ordered and skip-link closest walks) on the CPU.
   (``bvh2.SKIPLINK_PLAN``) has no stack whatever the tree's depth.
 * K11, the ordered closest walk and the two skip-link walks take their
   plain versions on the CPU, as every wrapper does, and count no launch.
+* The persistent K4a's leaf visit (``Slot16Leaf`` with attributes),
+  emulated from the loads it issues (four slots a batch, three 16-byte rows
+  of ``slot16`` a slot, the slots tested in order against the running best,
+  the fourth row's word read on a win), gives the plain Möller–Trumbore
+  leaf's t, gid, u, v and normal bit for bit on config 5's leaves, with
+  bounds 1e6, 1e30 and ``+inf``; ``ops/cuda/bvh.closest_plan`` (K4a, and
+  K10a/K10b through ``bvh_leafmat.scene_any_plan``) is the depth class and
+  the plane/sphere/quad blob, never a staged tree, whatever the budget.
 
 The kernels themselves run only on the card (``tests/test_torch_cuda.py``).
 """
@@ -41,7 +49,7 @@ import torch
 
 import path_tracing__ray_tracer_tpu_torch as pt
 from path_tracing__ray_tracer_tpu_torch.ops import bvh as tbvh
-from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_paged
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh, bvh2, bvh_leafmat, bvh_paged
 from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 from torch_chain import chain_rays, chain_scene
 from torch_threads import one_torch_thread  # noqa: F401
@@ -327,3 +335,115 @@ def test_skiplink_any_visit_from_its_loads_is_the_plain_walk(mesh, scene):
         want = tbvh.traverse_any(cs.bvh, cs.triangles, o, d, 1e-3, limit)
         assert torch.equal(got[care], want[care]) and bool(got[~care].all())
         assert 0 < int(got[care].sum()) < int(care.sum())  # occluded and clear lanes
+
+
+@pytest.mark.parametrize("budget", [0, TREE, 1 << 30])
+@pytest.mark.parametrize("depth4,want", [(C5_DEPTH, 8), (20, 32)])
+def test_closest_plan_is_the_depth_class_and_the_blob(monkeypatch, budget, depth4, want):
+    monkeypatch.setattr(bvh, "SMEM_TREE_BYTES", budget)
+    cs = SimpleNamespace(bvh=SimpleNamespace(depth4=depth4, ps_blob=torch.zeros(C5_PS // 4),
+                                             nodes4=torch.zeros(32 * C5_NODES)))
+    plan = bvh.closest_plan(cs)
+    assert tuple(plan) == (False, want, C5_PS) and want == bvh.depth_class(depth4)
+    assert bvh_leafmat.scene_any_plan(cs) == plan
+
+
+@pytest.fixture(scope="module")
+def config5():
+    b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    return pt.compile_scene(b.build_scene(), device="cpu", use_bvh=True)
+
+
+def _mt_uv(v0, e1, e2, o, d):
+    """Möller–Trumbore's raw barycentrics ``(u, v)``, expression for
+    expression as ``csrc/sweep.cuh`` ``moller_trumbore`` (and
+    ``ops/bvh._leaf_test``) compute them; ``(..., 3)`` operands."""
+    h = torch.stack((d[..., 1] * e2[..., 2] - d[..., 2] * e2[..., 1],
+                     d[..., 2] * e2[..., 0] - d[..., 0] * e2[..., 2],
+                     d[..., 0] * e2[..., 1] - d[..., 1] * e2[..., 0]), -1)
+    det = e1[..., 0] * h[..., 0] + e1[..., 1] * h[..., 1] + e1[..., 2] * h[..., 2]
+    inv_det = 1.0 / torch.where(torch.abs(det) > 1e-6, det, 1.0)
+    s = o - v0
+    q = torch.stack((s[..., 1] * e1[..., 2] - s[..., 2] * e1[..., 1],
+                     s[..., 2] * e1[..., 0] - s[..., 0] * e1[..., 2],
+                     s[..., 0] * e1[..., 1] - s[..., 1] * e1[..., 0]), -1)
+    return (inv_det * (s[..., 0] * h[..., 0] + s[..., 1] * h[..., 1] + s[..., 2] * h[..., 2]),
+            inv_det * (d[..., 0] * q[..., 0] + d[..., 1] * q[..., 1] + d[..., 2] * q[..., 2]))
+
+
+def _slot16_visit(slot16, n_leaves, o, d, t_min, bound):
+    """``Slot16Leaf::closest`` (K4a) of every leaf against every ray, from the
+    rows it loads: slot ``s`` as rows ``4s .. 4s + 3`` of ``slot16`` (v0 e1x |
+    e1y e1z e2x e2y | e2z gid nx ny | nz 0 0 0), a batch's four slots' first
+    three rows loaded together, the slots tested in order (strict ``<``
+    against the running best, seeded with ``bound``), the fourth row's first
+    word read on a win.  ``(t, gid, u, v, nx, ny, nz)``, each ``(leaves, rays)``."""
+    rows = slot16.view(-1, 4)
+    shape = (n_leaves, o.shape[0])
+    best = torch.full(shape, float(bound))
+    gid = torch.full(shape, -1.0)
+    u, v, nx, ny, nz = (torch.zeros(shape) for _ in range(5))
+    first = 16 * torch.arange(n_leaves)
+    for batch in range(0, tbvh.LEAF_SIZE, 4):
+        s = first[:, None] + batch + torch.arange(4)  # (leaves, 4)
+        ra, rb, rc = rows[4 * s], rows[4 * s + 1], rows[4 * s + 2]  # (leaves, 4, 4) each
+        for j in range(4):
+            v0 = ra[:, j, None, :3]
+            e1 = torch.stack((ra[:, j, 3], rb[:, j, 0], rb[:, j, 1]), -1)[:, None]
+            e2 = torch.stack((rb[:, j, 2], rb[:, j, 3], rc[:, j, 0]), -1)[:, None]
+            t, inside = tbvh._leaf_test(v0, e1, e2, o[None], d[None], t_min, best)
+            win = inside & (rc[:, j, None, 1] >= 0.0)
+            bu, bv = _mt_uv(v0, e1, e2, o[None], d[None])
+            nz_word = rows[4 * s[:, j] + 3][:, None, 0]  # read on a win
+            for acc, x in ((best, t), (gid, rc[:, j, None, 1]), (u, bu), (v, bv),
+                           (nx, rc[:, j, None, 2]), (ny, rc[:, j, None, 3]), (nz, nz_word)):
+                acc.copy_(torch.where(win, x, acc))
+    return best, gid, u, v, nx, ny, nz
+
+
+def _slot_rec_leaf(slot_rec, n_leaves, o, d, t_min, bound):
+    """The plain Möller–Trumbore leaf over the 13-float slot records (v0, e1,
+    e2, gid, normal), as ``ops/bvh._walk`` decides it: every slot tested at
+    once by ``_leaf_test`` below ``bound``, the first slot with the least t
+    wins; its barycentrics and record's gid and normal, ``bound`` and −1 (and
+    zeros) where no slot hits."""
+    rec = slot_rec.view(n_leaves, tbvh.LEAF_SIZE, 1, 13)  # (leaves, slot, 1, 13)
+    v0, e1, e2 = rec[..., 0:3], rec[..., 3:6], rec[..., 6:9]
+    t, hit = tbvh._leaf_test(v0, e1, e2, o[None, None], d[None, None], t_min, bound)
+    hit = hit & (rec[..., 9] >= 0.0)  # (leaves, slot, rays)
+    t = torch.where(hit, t, torch.inf)
+    k = torch.argmin(t, dim=1, keepdim=True)  # the first least t
+    take = torch.isfinite(torch.gather(t, 1, k))[:, 0]
+    bu, bv = _mt_uv(v0, e1, e2, o[None, None], d[None, None])
+    gid, nx, ny, nz = (rec[..., c].expand(-1, -1, o.shape[0]) for c in (9, 10, 11, 12))
+    return tuple(torch.where(take, torch.gather(x, 1, k)[:, 0], miss) for x, miss in (
+        (t, float(bound)), (gid, -1.0), (bu, 0.0), (bv, 0.0), (nx, 0.0), (ny, 0.0), (nz, 0.0)))
+
+
+def _aimed_rays(cs, n, seed):
+    """``(n, 3)`` origins in a box around the triangles and unit directions
+    aimed at seeded points of seeded triangles (every third anywhere)."""
+    v0, v1, v2 = (torch.stack(tuple(v), -1) for v in (cs.triangles.v0, cs.triangles.v1,
+                                                      cs.triangles.v2))
+    g = torch.Generator().manual_seed(seed)
+    lo, hi = float(v0.min()) - 2, float(v0.max()) + 2
+    o = lo + (hi - lo) * torch.rand((n, 3), generator=g)
+    tri = torch.randint(0, v0.shape[0], (n,), generator=g)
+    a, b = (0.5 * torch.rand((n, 1), generator=g) for _ in range(2))
+    d = v0[tri] + a * (v1[tri] - v0[tri]) + b * (v2[tri] - v0[tri]) - o
+    d = torch.where(torch.arange(n)[:, None] % 3 == 2, torch.randn((n, 3), generator=g), d)
+    return o, d / torch.linalg.norm(d, dim=1, keepdim=True)
+
+
+@pytest.mark.parametrize("bound", [1e6, 1e30, float("inf")])
+def test_attribute_leaf_visit_from_its_loads_is_the_plain_leaf(config5, bound):
+    b = config5.bvh
+    assert b.slot16.data_ptr() % 16 == 0 and b.paged is None
+    n_leaves = b.slot_rec.shape[0] // (13 * tbvh.LEAF_SIZE)
+    org, dirs = _aimed_rays(config5, 48, 17)
+    got = _slot16_visit(b.slot16, n_leaves, org, dirs, 1e-3, bound)
+    want = _slot_rec_leaf(b.slot_rec, n_leaves, org, dirs, 1e-3, bound)
+    for name, a, w in zip(("t", "gid", "u", "v", "nx", "ny", "nz"), got, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32)), name
+    won = got[1] >= 0
+    assert 0 < int(won.sum()) < won.numel() and int(won.any(0).sum()) >= 32  # most rays hit
