@@ -19,29 +19,46 @@ It imports no JAX.
    K1's lanes whose NEE shadow ray needs a sweep (``care``; here and on the
    main path's first chunk); K3a/K3b (closest / any hit) on the Whitted
    frame's camera rays and one light-sample shadow ray per lane with its own
-   bound; K2 (Whitted bounce), both variants, on those camera rays and the
+   bound, also at 131,077 and 262,149 lanes (past the resident blocks; the
+   lane counter left zero); K2 (Whitted bounce), both variants, on those camera rays and the
    rays one plain bounce on, each with the share of (light, lane) pairs
    whose shadow ray needs a sweep.  Then at the shapes the paths launch: K2 on the
    Whitted frame's first chunk (2,099,200 camera rays, both variants, and
    the compacted second bounce; its plan and pair shares), K3a/K3b on
-   level 0 of the oracle frame's first chunk (its camera rays, and the
-   shadow rays of all 16 light samples from every lane in one batch);
+   level 0 of the oracle frame's first chunk (its 262,144 camera rays, and
+   the 4,194,304 shadow rays of all 16 light samples from every lane in one
+   batch) and of the CLI default frame's first and middle chunks through
+   the oracle (25,600 camera rays, 409,600 shadow rays), occlusion on
+   every shadow ray;
 4. timing of each kernel at 131,072 rays: its own device time per launch
    (``device_ms``: the torch profiler over 25 calls of its wrapper, the
    median of the launches of the kernel's own symbol), the call time of its
    wrapper and the call time of its plain version (``cuda_ms``: CUDA events
    around one call, median of 25; host and device), and each kernel's bound
    (the least time the card could take for the same work) from this run's
-   inputs;
+   inputs; K3a and K3b also at the oracle's launch shapes above, with their
+   bounds' three terms (bytes, operations at the FP32 peak, operations one
+   an issue slot);
 5. the four golden renders of ``tests/goldens/`` on the card, each failing
    if its kernel did not launch;
 6. the path tracer's main path at bench size: 1024², depth 8, one
-   128-sample group after a warm-up group (K1's launch count);
+   128-sample group after a warm-up group (K1's launch count); then the
+   CLI (``path_tracing__ray_tracer_tpu_torch/main.py``) on that shape,
+   ``-r cuda_path_raytracer -w 1024 --height 1024 --path-samples 128 -d 8
+   --progressive 64 --checkpoint ...``: its PNG within the golden tolerance
+   of the warm-up group's image (the same samples; the channels that differ
+   printed), and a fresh CLI run resuming from a checkpoint that holds only
+   the first batch, bit-equal to it;
 7. the Whitted CLI default: ``cuda_texture_raytracer`` at 2000×1500, 25 spp,
    depth 16, a warm-up render then a timed one, with its RMSE/255 against
    ``reference_artifacts/output_RayTracer.png`` (K2's launch count); then
    the torch profiler over the same frame: device operations per Whitted
-   bounce, device busy time and K2's share of it;
+   bounce, device busy time and K2's share of it; the CLI at its defaults
+   (``-o`` a temporary file, ``--no-show``): its PNG bit-equal to that
+   frame's image, its RMSE within the limit; and ``python -m
+   path_tracing__ray_tracer_tpu_torch`` in a fresh process on a 160x120
+   frame with ``--trace-dir``, whose trace must name one of the port's
+   kernels;
 8. the oracle ``cpu_raytracer`` at 320×240, 4 spp, depth 6 (K3a/K3b's
    launch counts);
 9. the BVH mesh scene of BASELINE.json config 5 (``MeshSceneBuilder(3, 3)``,
@@ -148,7 +165,8 @@ Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
 ``call_ms``: the wrapper's call time; ``twin_ms`` for K10a-d: their K4
 twin's device time in turns; ``tree_ms`` for the BVH walks K4a-e, K5,
 K6c/K6d and K11: the tree traffic the plain walk counts, over the memory
-rate) and
+rate; ``bound_terms`` and ``shapes`` for K3a/K3b: their bound's terms, and
+their device time, bound and terms at the oracle's launch shapes) and
 the card's name and power limit, then, as its last line,
 ``{"ok": true, "device": {...}}``.
 """
@@ -441,8 +459,8 @@ def kernel_is(name: str, symbol: str) -> bool:
 C_ENTRIES = {
     "path_bounce_persistent": ("path_bounce", ("ptrt_path_bounce",)),
     "whitted_bounce_persistent": ("whitted_bounce", ("ptrt_whitted_bounce",)),
-    "closest_kernel": ("intersect", ("ptrt_closest_hit",)),
-    "any_kernel": ("intersect", ("ptrt_any_hit",)),
+    "closest_hit_persistent": ("intersect", ("ptrt_closest_hit",)),
+    "any_hit_persistent": ("intersect", ("ptrt_any_hit",)),
     "bvh_closest_persistent": ("bvh_scene", ("ptrt_bvh_closest",)),
     "bvh_any_persistent": ("bvh_scene", ("ptrt_bvh_any",)),
     "bvh4_rooted_persistent": ("bvh_scene", ("ptrt_bvh4_closest_rooted",)),
@@ -666,7 +684,7 @@ def phase_main_path(device):
     r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
                                   chunk_rays=CHUNK_RAYS, texture_budget=0, device=device)
     t0 = time.perf_counter()
-    r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
+    warm_sums = r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -688,7 +706,7 @@ def phase_main_path(device):
         raise SystemExit(f"chip_smoke: implausible mean radiance {mean}")
     if launches == 0:
         raise SystemExit("chip_smoke: the main path never launched the bounce kernel")
-    return launches, secs, mrays, image_of(sums, GROUP_SPP)
+    return launches, secs, mrays, image_of(sums, GROUP_SPP), image_of(warm_sums, GROUP_SPP)
 
 
 def image_of(sums, spp):
@@ -836,25 +854,33 @@ def phase_intersect_check(cs, camera, device):
     from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import pack_scene_blob
 
     blob = pack_scene_blob(cs)
-    o, d = whitted_camera_rays(cs, camera, N_RAYS, device)
-    worst_a = check_closest("Whitted camera rays", intersect.closest_hit(cs, blob, o, d, 1e-3, 1e6),
-                            intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6))
-    lane = torch.arange(N_RAYS, device=device)
-    so, sd, bound = light_sample_rays(cs, o, d, lane % cs.n_lights)
-    worst_b = check_occlusion(
-        "one light-sample shadow ray per lane (bound dist - 1e-3)",
-        intersect.any_hit(cs, blob, so, sd, 1e-3, bound),
-        intersect.any_hit_plain(cs, so, sd, 1e-3, bound), torch.ones_like(lane, dtype=torch.bool))
-    return (o, d), (so, sd, bound), worst_a, worst_b
+    worst_a = worst_b = 0.0
+    for n in (N_RAYS, N_RAYS + 5, 2 * N_RAYS + 5):  # then past the resident blocks
+        o, d = whitted_camera_rays(cs, camera, n, device)
+        worst_a = max(worst_a, check_closest(
+            f"{n} Whitted camera rays", intersect.closest_hit(cs, blob, o, d, 1e-3, 1e6),
+            intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6)))
+        lane = torch.arange(n, device=device)
+        so, sd, bound = light_sample_rays(cs, o, d, lane % cs.n_lights)
+        worst_b = max(worst_b, check_occlusion(
+            f"{n} rays, one light-sample shadow ray per lane (bound dist - 1e-3)",
+            intersect.any_hit(cs, blob, so, sd, 1e-3, bound),
+            intersect.any_hit_plain(cs, so, sd, 1e-3, bound),
+            torch.ones_like(lane, dtype=torch.bool)))
+        check_counter(f"K3a/K3b at {n} lanes", device)
+        if n == N_RAYS:
+            timed_sets = (o, d), (so, sd, bound)
+    return (*timed_sets, worst_a, worst_b)
 
 
-def phase_oracle_check(device):
-    """K3a and K3b against their plain versions on the launches of level 0
-    of the oracle frame's first chunk, as the renderer makes them (host
-    conventions): its camera rays with the bound 1e30, then the shadow rays
-    of all 16 light samples from every lane in one batch, each bounded at
-    its light's distance.  Occlusion is compared where level 0 hit: the
-    renderer discards the shading of a miss."""
+def oracle_level0(device, width, height, spp, depth, chunk_rays=None, middle=False):
+    """``(cs, blob, (o, d), (so, sd, dist), hit)``: the K3a and K3b launches
+    of level 0 of the first chunk (``middle``: the middle one) of an oracle
+    frame, as the renderer makes them (host conventions): its camera rays
+    (bound 1e30), and the shadow rays of all light samples from every lane
+    in one batch, light-major, each bounded at its light's distance;
+    ``hit``: the shadow rays whose lane hit at level 0 (the renderer
+    discards a miss's shading)."""
     import math
 
     import path_tracing__ray_tracer_tpu_torch as pt
@@ -865,26 +891,98 @@ def phase_oracle_check(device):
     from path_tracing__ray_tracer_tpu_torch.ops.v3 import V3
 
     b = pt.CustomSceneBuilder()
-    scene, cam = b.build_scene(), b.create_camera(O_WIDTH / O_HEIGHT)
-    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=device)
+    scene, cam = b.build_scene(), b.create_camera(width / height)
+    kw = {} if chunk_rays is None else {"chunk_rays": chunk_rays}
+    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=device, **kw)
     cs = r.compiled(scene)
-    blob = r.blobs(cs)[0]
-    n_pix, group = r._plan(O_WIDTH, O_HEIGHT, O_SPP, O_DEPTH)
-    o, d = grid_camera_rays(pack_camera(cam, device), 0, n_pix, O_WIDTH, O_HEIGHT, r.seed, 0,
-                            group, math.isqrt(group), min(O_DEPTH, wo.ORACLE_MAX_DEPTH), r.jitter)
-    label = f"oracle level 0, first chunk ({o.x.shape[0]} rays, t_max {wo._T_FAR:g})"
+    n_pix, group = r._plan(width, height, spp, depth)
+    pix0 = -(-width * height // n_pix) // 2 * n_pix if middle else 0
+    o, d = grid_camera_rays(pack_camera(cam, device), pix0, n_pix, width, height, r.seed, 0,
+                            group, math.isqrt(group), min(depth, wo.ORACLE_MAX_DEPTH), r.jitter)
     want = intersect.closest_hit_plain(cs, o, d, wo._T_MIN, wo._T_FAR)
-    worst_a = check_closest(label, intersect.closest_hit(cs, blob, o, d, wo._T_MIN, wo._T_FAR),
-                            want)
     so, sd, dist = wo.shadow_rays(cs, *wo.surface(o, d, want))
-    so, sd, dist = (V3(*(c.reshape(-1) for c in so)), V3(*(c.reshape(-1) for c in sd)),
-                    dist.reshape(-1))
-    worst_b = check_occlusion(
-        f"oracle level 0 shadow batch ({cs.n_lights} lights x {o.x.shape[0]} lanes, bound dist)",
-        intersect.any_hit(cs, blob, so, sd, wo._T_MIN, dist),
-        intersect.any_hit_plain(cs, so, sd, wo._T_MIN, dist),
-        want.hit.expand(cs.n_lights, -1).reshape(-1))
-    return worst_a, worst_b
+    shadow = (V3(*(c.reshape(-1) for c in so)), V3(*(c.reshape(-1) for c in sd)),
+              dist.reshape(-1))
+    return cs, r.blobs(cs)[0], (o, d), shadow, want.hit.expand(cs.n_lights, -1).reshape(-1)
+
+
+# the oracle's launch shapes that phase_oracle_check checks and
+# phase_oracle_timing times: level 0 of the first chunk of the oracle frame
+# and of the CLI default frame through the oracle (depth clamped to 12; its
+# first chunk, the bottom row, hits nothing, so its middle chunk too)
+ORACLE_SHAPES = {
+    "oracle frame": (O_WIDTH, O_HEIGHT, O_SPP, O_DEPTH, None),
+    "CLI default through the oracle": (W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH, W_CHUNK),
+    "CLI default through the oracle, middle chunk": (W_WIDTH, W_HEIGHT, W_SPP, W_DEPTH, W_CHUNK,
+                                                     True)}
+
+
+def phase_oracle_check(device):
+    """K3a and K3b against their plain versions on the launches of level 0
+    of each ``ORACLE_SHAPES`` chunk (``oracle_level0``); occlusion compared
+    on every shadow ray (the share where level 0 hit printed too).  Returns
+    the max errors and the launches' inputs."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.models import whitted_oracle as wo
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect
+
+    worst_a = worst_b = 0.0
+    shapes = {}
+    for name, shape in ORACLE_SHAPES.items():
+        cs, blob, (o, d), (so, sd, dist), hit = shapes[name] = oracle_level0(device, *shape)
+        label = f"{name} level 0, first chunk ({o.x.shape[0]} rays, t_max {wo._T_FAR:g})"
+        worst_a = max(worst_a, check_closest(
+            label, intersect.closest_hit(cs, blob, o, d, wo._T_MIN, wo._T_FAR),
+            intersect.closest_hit_plain(cs, o, d, wo._T_MIN, wo._T_FAR)))
+        occ = intersect.any_hit(cs, blob, so, sd, wo._T_MIN, dist)
+        want = intersect.any_hit_plain(cs, so, sd, wo._T_MIN, dist)
+        label = f"{name} level 0 shadow batch ({cs.n_lights} lights x {o.x.shape[0]} lanes"
+        worst_b = max(worst_b, check_occlusion(f"{label}, bound dist)", occ, want,
+                                               torch.ones_like(hit)))
+        if hit.any():
+            check_occlusion(f"{label}, where level 0 hit)", occ, want, hit)
+        check_counter(f"K3a/K3b on the {name}", device)
+    return worst_a, worst_b, shapes
+
+
+def k3_bound(flops, n_bytes):
+    """``(bound_ms, bound_by, terms)`` of K3a or K3b: ``bound_ms`` as every
+    row's (``bound_ms``), and its terms: bytes over the memory rate, the
+    operations over the 67 TFLOP/s FP32 peak (which counts a fused
+    multiply-add as two), and the operations one an issue slot (the kernels
+    build with ``--fmad=false``, so no multiply fuses with an add: half that
+    rate)."""
+    ms, by = bound_ms(flops, n_bytes)
+    return ms, by, {"bytes_ms": n_bytes / PEAK_BYTES * 1e3, "ops_ms": flops / PEAK_FLOPS * 1e3,
+                    "issue_ms": flops / (PEAK_FLOPS / 2) * 1e3}
+
+
+def phase_oracle_timing(shapes):
+    """K3a's and K3b's device time a launch, bound and bound terms at each
+    ``ORACLE_SHAPES`` launch: ``{kernel: [row, ...]}``."""
+    from path_tracing__ray_tracer_tpu_torch.models import whitted_oracle as wo
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import intersect
+
+    rows = {"closest_hit": [], "any_hit": []}
+    for name, (cs, blob, (o, d), (so, sd, dist), _hit) in shapes.items():
+        n, m = o.x.shape[0], so.x.shape[0]
+        for kernel, fn, symbol, lanes, (ms_b, by, terms) in (
+                ("closest_hit", lambda: intersect.closest_hit(cs, blob, o, d, wo._T_MIN,
+                                                              wo._T_FAR),
+                 "closest_hit_persistent", n,
+                 k3_bound(sweep_flops(cs, o, d, wo._T_FAR, False), n * (4 * 6 + 4 * 7))),
+                ("any_hit", lambda: intersect.any_hit(cs, blob, so, sd, wo._T_MIN, dist),
+                 "any_hit_persistent", m,
+                 k3_bound(sweep_flops(cs, so, sd, dist, True), m * (4 * 7 + 1)))):
+            ms, lo, hi, _per, method = device_ms(fn, symbol)
+            rows[kernel].append({"shape": name, "lanes": lanes, "ms": ms, "ms_by": method,
+                                 "bound_ms": ms_b, "bound_by": by, **terms})
+            print(f"[time] {kernel} on the {name}'s level 0, {lanes} lanes: device {ms:.4f} ms "
+                  f"(min {lo:.4f}, max {hi:.4f}; {method}); bound {ms_b:.5f} ms ({by}; bytes "
+                  f"{terms['bytes_ms']:.5f}, ops {terms['ops_ms']:.5f}, issue slots "
+                  f"{terms['issue_ms']:.5f})")
+    return rows
 
 
 def advance_whitted_plain(cs, o, d, variant):
@@ -994,9 +1092,10 @@ def phase_new_timing(cs, blobs, camera_rays, shadow):
                            "whitted_bounce_persistent"),
         "closest_hit": (lambda: intersect.closest_hit(cs, blobs[0], o, d, 1e-3, 1e6),
                         lambda: intersect.closest_hit_plain(cs, o, d, 1e-3, 1e6),
-                        "closest_kernel"),
+                        "closest_hit_persistent"),
         "any_hit": (lambda: intersect.any_hit(cs, blobs[0], so, sd, 1e-3, bound),
-                    lambda: intersect.any_hit_plain(cs, so, sd, 1e-3, bound), "any_kernel"),
+                    lambda: intersect.any_hit_plain(cs, so, sd, 1e-3, bound),
+                    "any_hit_persistent"),
     }
     out = {}
     for name, (kernel, plain, symbol) in times.items():
@@ -1100,7 +1199,8 @@ def k1_flops(cs, o, d, key, depth):
 
 
 def kernel_bounds(cs, k1_state, camera_rays, shadow):
-    """``{name: (bound_ms, bound_by)}`` for K1, K2, K3a, K3b on the inputs
+    """``{name: (bound_ms, bound_by)}`` for K1, K2, K3a, K3b (with their
+    terms, ``k3_bound``) on the inputs
     they were timed on: full closest sweeps, and shadow sweeps to their
     first occluder only where the result can change the record (the
     kernels' own ``care`` predicates); each input read once, each output
@@ -1117,11 +1217,11 @@ def kernel_bounds(cs, k1_state, camera_rays, shadow):
     for care, so, ld, dist in k2_lights(cs, wo, wd):
         k2 += sweep_flops(cs, so, ld, dist - 1e-3, True, care)
     closest["whitted_bounce"] = bound_ms(k2, n * (4 * 6 + 4 * 17 + 4))
-    closest["closest_hit"] = bound_ms(sweep_flops(cs, wo, wd, 1e6, False), n * (4 * 6 + 4 * 7))
+    closest["closest_hit"] = k3_bound(sweep_flops(cs, wo, wd, 1e6, False), n * (4 * 6 + 4 * 7))
     so, sd, b = shadow
-    closest["any_hit"] = bound_ms(sweep_flops(cs, so, sd, b, True), n * (4 * 7 + 1))
-    for name, (ms, by) in closest.items():
-        print(f"[bound] {name}: {ms:.5f} ms ({by})")
+    closest["any_hit"] = k3_bound(sweep_flops(cs, so, sd, b, True), n * (4 * 7 + 1))
+    for name, (ms, by, *terms) in closest.items():
+        print(f"[bound] {name}: {ms:.5f} ms ({by})" + (f"; terms {terms[0]}" if terms else ""))
     return closest
 
 
@@ -1162,7 +1262,145 @@ def phase_whitted_frame(device):
         raise SystemExit(f"chip_smoke: Whitted frame RMSE {rmse} above {RMSE_LIMIT}/255")
     if launched["whitted_bounce"] == 0:
         raise SystemExit("chip_smoke: the Whitted frame never launched the Whitted kernel")
-    return launched["whitted_bounce"], secs, mrays, rmse
+    return launched["whitted_bounce"], secs, mrays, rmse, img
+
+
+# ---- the CLI: python -m path_tracing__ray_tracer_tpu_torch ------------------------
+def cli_run(argv, kernels):
+    """``main(argv)`` of the port's CLI in this process, on the card; raises
+    unless it returned 0 and launched each of ``kernels``.  Returns its
+    seconds and the launches."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch import main as cli
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(argv)
+    secs = time.perf_counter() - t0
+    launched = {k: counts()[k] for k in kernels}
+    print(f"[cli] {' '.join(argv)}: rc {rc}, {secs:.3f} s, launches {launched}")
+    if rc != 0 or not all(launched.values()):
+        raise SystemExit(f"chip_smoke: the CLI run {argv} failed or did not launch {kernels}")
+    return secs, launched
+
+
+def png(path):
+    import numpy as np
+    from PIL import Image
+
+    return np.asarray(Image.open(path).convert("RGB"))
+
+
+def phase_cli_default(whitted_img):
+    """The CLI at its defaults (the Whitted CLI frame: 2000x1500, 25 spp,
+    depth 16, ``cuda_texture_raytracer``), saving to a temporary file: its
+    PNG bit-equal to ``phase_whitted_frame``'s image, its RMSE against the
+    reference's render within ``RMSE_LIMIT``."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from path_tracing__ray_tracer_tpu_torch.utils.assets import reference_render_path
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = f"{tmp}/output.png"
+        secs, _ = cli_run(["-o", out, "--no-show"], ("whitted_bounce",))
+        img = png(out)
+    ref = np.asarray(Image.open(reference_render_path()).convert("RGB")).astype(np.float64)
+    rmse = float(np.sqrt(((img.astype(np.float64) - ref) ** 2).mean()))
+    same = img.shape == whitted_img.shape and bool((img == whitted_img).all())
+    print(f"[cli] default frame: bit-equal to the Whitted frame's image: {same}; RMSE "
+          f"{rmse:.4f}/255 against output_RayTracer.png")
+    if not same or not rmse <= RMSE_LIMIT:
+        raise SystemExit("chip_smoke: the CLI's default frame is not the Whitted frame")
+    return secs, rmse
+
+
+def phase_cli_progressive(oneshot_img):
+    """The CLI on the main path's shape, progressive with a checkpoint
+    (``-r cuda_path_raytracer -w 1024 --height 1024 --path-samples 128 -d 8
+    --progressive 64 --checkpoint ...``): its image within the golden
+    tolerance of the one-shot image of the same 128 samples
+    (``phase_main_path``'s first group), with the channels that differ; then
+    a fresh CLI run resuming from a checkpoint that holds only the first
+    batch (a copy of the file the first run saved after it), bit-equal to
+    the uninterrupted progressive image."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from path_tracing__ray_tracer_tpu_torch.parallel import progressive
+
+    shape = ["-r", "cuda_path_raytracer", "-w", str(WIDTH), "--height", str(HEIGHT),
+             "--path-samples", str(GROUP_SPP), "-d", str(DEPTH), "--progressive",
+             str(GROUP_SPP // 2), "--no-show"]
+    with tempfile.TemporaryDirectory() as tmp:
+        first_batch = f"{tmp}/first_batch.npz"
+        save = progressive.save_state
+
+        def keep_first_batch(path, sums, samples_done, fp):
+            save(path, sums, samples_done, fp)
+            if samples_done == GROUP_SPP // 2:
+                shutil.copy(path, first_batch)
+
+        progressive.save_state = keep_first_batch
+        try:
+            secs, _ = cli_run(shape + ["--checkpoint", f"{tmp}/acc.npz", "-o", f"{tmp}/p.png"],
+                              ("path_bounce",))
+        finally:
+            progressive.save_state = save
+        prog = png(f"{tmp}/p.png")
+        with np.load(first_batch) as ckpt:
+            done = int(ckpt["samples_done"])
+        r_secs, _ = cli_run(shape + ["--checkpoint", first_batch, "-o", f"{tmp}/r.png"],
+                            ("path_bounce",))
+        resumed = png(f"{tmp}/r.png")
+    # phase_main_path's image is bottom-up (H*W, 3); the PNG top-down
+    want = np.flip(oneshot_img.reshape(HEIGHT, WIDTH, 3), axis=0)
+    diff = np.abs(prog.astype(np.int32) - want.astype(np.int32))
+    share = float((diff > 2).mean())
+    bits = bool((resumed == prog).all())
+    print(f"[cli] progressive {WIDTH}x{HEIGHT} {GROUP_SPP} spp in batches of {GROUP_SPP // 2}: "
+          f"{secs:.3f} s; against the one-shot image of the same samples "
+          f"{int((diff > 0).sum())} of {diff.size} channels differ ({share:.6f} by >2/255, max "
+          f"{int(diff.max())}); the resumed run ({done} samples in its checkpoint, "
+          f"{r_secs:.3f} s) bit-equal to the uninterrupted one: {bits}")
+    if share >= 0.01 or done != GROUP_SPP // 2:
+        raise SystemExit("chip_smoke: the progressive CLI image is outside the golden tolerance")
+    if not bits:
+        raise SystemExit("chip_smoke: the resumed progressive render differs from the "
+                         "uninterrupted one")
+    return secs, int((diff > 0).sum()), share
+
+
+def phase_cli_trace():
+    """``python -m path_tracing__ray_tracer_tpu_torch`` in a fresh process on a
+    small Whitted frame (160x120, 4 spp, depth 4) with ``--trace-dir``: the
+    Chrome trace it writes must name one of the port's kernels."""
+    import glob
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, "-m", "path_tracing__ray_tracer_tpu_torch", "-w", "160",
+               "--height", "120", "-s", "4", "-d", "4", "-o", f"{tmp}/t.png", "--no-show",
+               "--trace-dir", f"{tmp}/trace"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300, cwd=ROOT,
+                              env={**os.environ, "PYTHONPATH": str(ROOT)})
+        secs = time.perf_counter() - t0
+        traces = glob.glob(f"{tmp}/trace/trace_*.json")
+        text = "".join(Path(t).read_text() for t in traces)
+    named = sorted(sym for sym in C_ENTRIES if sym in text)
+    print(f"[cli] {' '.join(cmd[1:4])} ... --trace-dir: rc {proc.returncode}, {secs:.1f} s, "
+          f"{len(traces)} trace(s), {len(text)} bytes, kernels named: {named}")
+    if proc.returncode != 0 or not named:
+        print(proc.stdout[-2000:], proc.stderr[-2000:])
+        raise SystemExit("chip_smoke: the CLI's trace names none of the port's kernels")
 
 
 def phase_whitted_profile(device, frame_secs):
@@ -3000,19 +3238,25 @@ def main() -> int:
         cs, b.create_camera(W_WIDTH / W_HEIGHT), device)
     k2_err = phase_whitted_check(cs, blobs, camera_rays)
     k2_err = max(k2_err, phase_whitted_frame_check(device))
-    o_err_a, o_err_b = phase_oracle_check(device)
+    o_err_a, o_err_b, oracle_shapes = phase_oracle_check(device)
     k3a_err, k3b_err = max(k3a_err, o_err_a), max(k3b_err, o_err_b)
     times = phase_new_timing(cs, blobs, camera_rays, shadow)
+    for name, rows in phase_oracle_timing(oracle_shapes).items():
+        times[name]["shapes"] = rows
+    del oracle_shapes
     times["path_bounce"] = k1_times
     bounds = kernel_bounds(cs, state, camera_rays, shadow)
     phase_golden(device)
-    k1_launches, secs, mrays, default_img = phase_main_path(device)
+    k1_launches, secs, mrays, default_img, first_group_img = phase_main_path(device)
+    cli_prog = phase_cli_progressive(first_group_img)
     budget, merrs, k7_bits, mtimes, mbounds = phase_modes_check(device)
     times.update(mtimes)
     bounds.update(mbounds)
     runs = phase_modes_main(device, default_img, budget)
     phase_modes_property(device)
-    k2_launches, w_secs, w_mrays, rmse = phase_whitted_frame(device)
+    k2_launches, w_secs, w_mrays, rmse, whitted_img = phase_whitted_frame(device)
+    cli_secs, cli_rmse = phase_cli_default(whitted_img)
+    phase_cli_trace()
     phase_whitted_profile(device, w_secs)
     oracle = phase_oracle(device)
     mcs, tables, mspread, (k4a_err, k4b_err, k5_err) = phase_mesh_check(device)
@@ -3106,13 +3350,17 @@ def main() -> int:
         "plain_ms": times[name]["plain_ms"],
         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
         "library_ms": times[name].get("library_ms"),
-        **{k: times[name][k] for k in ("twin_ms", "tree_ms") if k in times[name]},
+        **{k: times[name][k] for k in ("twin_ms", "tree_ms", "shapes") if k in times[name]},
+        **({"bound_terms": bounds[name][2]} if len(bounds[name]) > 2 else {}),
     } for name, source, replaces, launches, err in rows]}))
     print(f"build {build_s:.2f} s; main path {mrays:.2f} Mrays/s ({secs:.3f} s per 128-sample "
           f"group at 1024x1024 depth 8); its modes: pipe {runs['pipe'][2]:.2f} (K7 bit-equal "
           f"{k7_bits}), defer {runs['defer'][2]:.2f}, LOD {runs['lod'][2]:.2f}, atlas route "
           f"{runs['atlas'][2]:.2f} Mrays/s (budget {budget}); Whitted frame {w_secs:.3f} s "
-          f"({w_mrays:.2f} Mrays/s, RMSE {rmse:.4f}/255); mesh path {m_mrays:.2f} Mrays/s "
+          f"({w_mrays:.2f} Mrays/s, RMSE {rmse:.4f}/255; through the CLI {cli_secs:.3f} s, "
+          f"bit-equal, RMSE {cli_rmse:.4f}/255); the CLI's progressive main path "
+          f"{cli_prog[0]:.3f} s ({cli_prog[1]} channels off the one-shot image, "
+          f"{cli_prog[2]:.6f} by >2/255; resume bit-equal); mesh path {m_mrays:.2f} Mrays/s "
           f"({m_secs:.3f} s per {MESH_SPP}-sample group at {M_WIDTH}x{M_HEIGHT} depth "
           f"{M_DEPTH}); config-6 path {b_mrays:.2f} Mrays/s ({b_secs:.3f} s per {B_SPP}-sample "
           f"group); config 5's split route at {SPLIT_SPP} spp: default {split_runs['default'][1]:.2f}, "

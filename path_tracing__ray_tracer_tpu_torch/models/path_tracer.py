@@ -321,7 +321,7 @@ class PathTracer(WavefrontRenderer):
             "path_tracing", "global_illumination", "monte_carlo",
             "next_event_estimation", "russian_roulette", "soft_shadows", "caustics",
             "reflection", "refraction", "textures", "aces_tonemapping",
-            "cuda_acceleration",
+            "cuda_acceleration", "progressive_rendering",
         ]
 
     def _samples_per_group(self, spp: int) -> int:

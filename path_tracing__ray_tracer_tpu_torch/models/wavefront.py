@@ -26,6 +26,7 @@ from ..ops.cuda.bounce import pack_light_blob, pack_mat_blob, pack_scene_blob
 from ..ops.cuda.bounce_bvh import bounce_bvh_ok, pack_bvh_tables
 from ..ops.tonemap import quantize_u8
 from ..ops.v3 import V3
+from ..utils import debug
 from ..utils.image import assemble_image
 from ..utils.logging import log_event
 from ..utils.profiling import Timer, mrays_per_sec
@@ -66,18 +67,35 @@ class WavefrontRenderer(BaseRenderer):
         texture_budget: int = 0,  # 0 = reference-exact full-res atlas
         device="cuda",
         compile_overrides: Optional[dict] = None,  # extra compile_scene kwargs (use_bvh)
+        reseed_per_render: bool = False,  # the reference's frame_count reseed quirk
     ):
         super().__init__(name)
         if jitter not in ("diagonal", "independent", "center"):
             raise ValueError(f"jitter must be diagonal, independent or center, not {jitter!r}")
         self.chunk_rays = int(chunk_rays)
         self.seed = int(seed)
+        # Opt-in parity with the reference's per-render RNG advance: its
+        # frame_count reseeds the kernel at each render() call
+        # (cuda_path_tracer.py:28,739,809), so back-to-back renders differ.
+        # Off by default: renders stay deterministic per (seed, settings);
+        # progressive accumulation (parallel/progressive.py) is the better
+        # replacement.
+        self.reseed_per_render = bool(reseed_per_render)
+        self.frame_count = 0  # renders done (the reference's frame_count)
         self.jitter = jitter
         self.texture_budget = int(texture_budget)
         self.device = torch.device(device)
         self.compile_overrides = dict(compile_overrides or {})
         self._scene_cache: Dict[Tuple, CompiledScene] = {}
         self._blobs: Dict[int, object] = {}  # blobs() by id of the compiled scene
+
+    def _run_seed(self) -> int:
+        """The seed of this render: ``seed + frame_count`` (mod 2^32) when the
+        reseed quirk is opted in (``rng.ray_key`` hashes the seed, so +1 is
+        an independent stream), else ``seed``."""
+        if self.reseed_per_render:
+            return (self.seed + self.frame_count) & 0xFFFFFFFF
+        return self.seed
 
     # -- scene compilation (cached) -----------------------------------------
     def compiled(self, scene: Scene) -> CompiledScene:
@@ -124,6 +142,12 @@ class WavefrontRenderer(BaseRenderer):
         """(3, H*W) radiance sums → display-ready [0,1] image, on the device."""
         raise NotImplementedError
 
+    def _finalize(self, sums: np.ndarray, spp_total: int, settings: RenderSettings) -> np.ndarray:
+        """Host ``(H*W, 3)`` radiance sums → the ``(H*W, 3)`` [0,1] image
+        (``_finalize_dev`` on the renderer's device)."""
+        dev = torch.from_numpy(np.ascontiguousarray(sums)).to(self.device).T
+        return self._finalize_dev(dev, spp_total, settings).T.cpu().numpy()
+
     # -- chunk plan ----------------------------------------------------------
     def _plan(self, w: int, h: int, spp: int, max_depth: int) -> Tuple[int, int]:
         """``(n_pix, group)``: lanes per chunk and samples per chunk call
@@ -150,13 +174,16 @@ class WavefrontRenderer(BaseRenderer):
         )
         # padded to whole chunks: out-of-frame lanes land past H*W and are cut
         sums = torch.zeros((3, len(pix0_list) * n_pix), dtype=torch.float32, device=self.device)
-        for pix0 in pix0_list:
+        seed = self._run_seed()
+        for c, pix0 in enumerate(pix0_list):
             for s0 in range(sample_offset, sample_offset + n_samples, group):
                 self._chunk(
-                    cs, cam12, sums, pix0, self.seed, s0, n_pix=n_pix, width=w,
+                    cs, cam12, sums, pix0, seed, s0, n_pix=n_pix, width=w,
                     height=h, n_samples=min(group, sample_offset + n_samples - s0),
                     max_depth=settings.max_depth,
                 )
+            if debug.nans_checked():
+                debug.check_chunk(sums[:, pix0:pix0 + n_pix], c, pix0, n_pix)
         return sums[:, : w * h]
 
     def render_sums(self, scene: Scene, camera: Camera, settings: RenderSettings,
@@ -176,6 +203,7 @@ class WavefrontRenderer(BaseRenderer):
             img = self._finalize_dev(sums, settings.samples_per_pixel, settings)
             rgb = quantize_u8(V3(img[0], img[1], img[2])).to_array()
             arr = rgb.cpu().numpy()  # the one transfer: the uint8 image
+        self.frame_count += 1
         log_event(
             "render_done", renderer=self.name, seconds=round(t.seconds, 3),
             mrays_per_sec=round(mrays_per_sec(settings.width, settings.height,

@@ -44,7 +44,7 @@ _P_REFRACT, _P_REFLECT, _P_DIFFUSE = 0.6, 0.25, 0.15
 
 _MAT_FIELDS = 10  # r g b diffuse specular reflective refractive ior has_tex tex_id
 _N_FIELDS = 19  # rows of the kernel's output record
-_SMEM_LIMIT = 48 * 1024  # shared memory of a block without an attribute (K3)
+_SMEM_LIMIT = 48 * 1024  # shared memory of a block without an attribute (first designs)
 # The record of each primitive type (csrc/sweep.cuh rec_layout): its fields
 # in the blob's order, then zeros to a whole number of 16-byte records.
 REC_FIELDS = (14, 4, 18, 18)  # plane, sphere, quad, triangle
@@ -145,12 +145,13 @@ class SweepPlan(NamedTuple):
 
 def sweep_plan(who, counts, n_mats: int, n_lights: int, limit: int) -> SweepPlan:
     """The launch of K1, K2 or K7 on a scene of primitive ``counts`` with
-    ``n_mats`` materials and ``n_lights`` light samples, on a card whose
-    blocks may take ``limit`` bytes of dynamic shared memory
-    (``ops/cuda/bvh.smem_limit``; neither kernel has static shared memory):
-    a pure function of these sizes.  The tables (``csrc/sweep.cuh``
-    table_floats): the records, the material table padded to whole float4s,
-    4 floats a light sample.  Raises when they do not fit."""
+    ``n_mats`` materials and ``n_lights`` light samples, or of K3a/K3b (no
+    materials, no lights), on a card whose blocks may take ``limit`` bytes
+    of dynamic shared memory (``ops/cuda/bvh.smem_limit``; none of these
+    kernels has static shared memory): a pure function of these sizes.  The
+    tables (``csrc/sweep.cuh`` table_floats): the records, the material
+    table padded to whole float4s, 4 floats a light sample.  Raises when
+    they do not fit."""
     mat = -(-_MAT_FIELDS * n_mats // 4) * 4
     smem = 4 * (rec_layout(counts).size + mat + 4 * n_lights)
     if smem > limit:

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
 # library name -> (sources, headers), all under csrc/
 KERNELS: Dict[str, Tuple[Tuple[str, ...], Tuple[str, ...]]] = {
     "path_bounce": (("path_bounce.cu",), ("sweep.cuh", "bvh_walk.cuh", "path_shade.cuh")),
-    "intersect": (("intersect.cu",), ("sweep.cuh",)),
+    "intersect": (("intersect.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "whitted_bounce": (("whitted_bounce.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "bvh_scene": (("bvh_scene.cu",), ("sweep.cuh", "bvh_walk.cuh")),
     "path_bounce_bvh": (("path_bounce_bvh.cu",), ("sweep.cuh", "bvh_walk.cuh", "path_shade.cuh")),

@@ -16,6 +16,12 @@ the bounce kernels stay plain on the card too.
 * :func:`any_hit` returns a bool occlusion mask for a per-ray (or scalar)
   ``t_max``.
 
+Both kernels run in persistent blocks that copy the scene into shared
+memory once, as the 16-byte records of ``bounce.pack_scene_rec16``
+(``bounce.sweep_plan`` with no materials or lights sizes them), and take
+their later lanes from the stream's lane counter
+(``ops/cuda/bvh.lane_counter``, ``launch_grid``).
+
 A CUDA tensor goes to the kernel (the wrapper raises on what the kernel
 does not take); a CPU tensor takes the plain version.
 """
@@ -28,7 +34,7 @@ import torch
 
 from ..intersect import scene_hit, scene_hit_any
 from ..v3 import V3
-from .bounce import _SMEM_LIMIT, _check, blob_layout
+from .bounce import _check, blob_layout, sweep_plan
 
 
 class ClosestRecord(NamedTuple):
@@ -66,10 +72,15 @@ def build():
     from . import build as _build
 
     built = _build.load("intersect")
-    built.lib.ptrt_closest_hit.argtypes = (
-        [_P, _I, _I, _I, _I] + [_P] * 6 + [_I, _F, _F] + [_P] * 7 + [_P])
-    built.lib.ptrt_any_hit.argtypes = [_P, _I, _I, _I, _I] + [_P] * 7 + [_I, _F, _P, _P]
-    built.lib.ptrt_closest_hit.restype = built.lib.ptrt_any_hit.restype = ctypes.c_int
+    lib = built.lib
+    lib.ptrt_closest_hit.argtypes = (
+        [_P, _I, _I, _I, _I] + [_P] * 6 + [_I, _F, _F] + [_P] * 7 + [_P, _I, _I, _P])
+    lib.ptrt_any_hit.argtypes = [_P, _I, _I, _I, _I] + [_P] * 7 + [_I, _F, _P, _P, _I, _I, _P]
+    for occupancy in (lib.ptrt_closest_hit_occupancy, lib.ptrt_any_hit_occupancy):
+        occupancy.argtypes = [_I, ctypes.POINTER(ctypes.c_int)]
+    for fn in (lib.ptrt_closest_hit, lib.ptrt_any_hit, lib.ptrt_closest_hit_occupancy,
+               lib.ptrt_any_hit_occupancy):
+        fn.restype = ctypes.c_int
     return built
 
 
@@ -78,18 +89,28 @@ def _checked_rays(who, cs, blob, ro: V3, rd: V3):
     n = int(ro.x.shape[0])
     layout = blob_layout(cs)
     _check("blob", blob, torch.float32, layout.size, device, who)
-    if 4 * layout.size > _SMEM_LIMIT:
-        raise ValueError(f"{who}: the scene blob needs {4 * layout.size} B of shared memory, "
-                         f"more than the kernel's {_SMEM_LIMIT} B")
+    from .bvh import smem_limit
+
+    plan = sweep_plan(who, layout[:4], 0, 0, smem_limit(device))  # the records alone
     rays = (*ro, *rd)
     for name, t in zip(("ox", "oy", "oz", "dx", "dy", "dz"), rays):
         _check(name, t, torch.float32, n, device, who)
-    return device, n, layout, rays
+    return device, n, layout, plan, rays
 
 
 def _raise_on(who, err):
     if err != 0:
         raise RuntimeError(f"{who}: kernel launch failed with cudaError {err}")
+
+
+def _launch_args(who, occupancy, plan, n, device):
+    """The trailing arguments of a launch: lane counter, shared bytes, grid
+    and stream."""
+    from .bvh import lane_counter, launch_grid
+
+    grid = launch_grid(who, occupancy, plan, n, device)
+    return (lane_counter(device).data_ptr(), plan.smem_bytes, grid,
+            torch.cuda.current_stream(device).cuda_stream)
 
 
 def closest_hit(cs, blob, ro: V3, rd: V3, t_min: float, t_max: float) -> ClosestRecord:
@@ -104,15 +125,18 @@ def closest_hit(cs, blob, ro: V3, rd: V3, t_min: float, t_max: float) -> Closest
         return closest_hit_plain(cs, ro, rd, t_min, t_max)
     if dev.type != "cuda":
         raise ValueError(f"closest_hit: no kernel for device {dev}")
-    device, n, L, rays = _checked_rays("closest_hit", cs, blob, ro, rd)
-    fn = build().lib.ptrt_closest_hit
+    device, n, L, plan, rays = _checked_rays("closest_hit", cs, blob, ro, rd)
     out = torch.empty((6, n), dtype=torch.float32, device=device)
     prim = torch.empty((n,), dtype=torch.int32, device=device)
     t, nx, ny, nz, u, v = out
-    err = fn(blob.data_ptr(), L.n_planes, L.n_spheres, L.n_quads, L.n_tris,
-             *(r.data_ptr() for r in rays), n, float(t_min), float(t_max), t.data_ptr(),
-             prim.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), u.data_ptr(),
-             v.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    if n == 0:
+        return ClosestRecord(t=t, prim=prim, normal=V3(nx, ny, nz), u=u, v=v)
+    lib = build().lib
+    err = lib.ptrt_closest_hit(
+        blob.data_ptr(), L.n_planes, L.n_spheres, L.n_quads, L.n_tris,
+        *(r.data_ptr() for r in rays), n, float(t_min), float(t_max), t.data_ptr(),
+        prim.data_ptr(), nx.data_ptr(), ny.data_ptr(), nz.data_ptr(), u.data_ptr(), v.data_ptr(),
+        *_launch_args("closest_hit", lib.ptrt_closest_hit_occupancy, plan, n, device))
     _raise_on("closest_hit", err)
     closest_hit.launches += 1
     return ClosestRecord(t=t, prim=prim, normal=V3(nx, ny, nz), u=u, v=v)
@@ -130,15 +154,18 @@ def any_hit(cs, blob, ro: V3, rd: V3, t_min: float, t_max) -> torch.Tensor:
         return any_hit_plain(cs, ro, rd, t_min, t_max)
     if dev.type != "cuda":
         raise ValueError(f"any_hit: no kernel for device {dev}")
-    device, n, L, rays = _checked_rays("any_hit", cs, blob, ro, rd)
+    device, n, L, plan, rays = _checked_rays("any_hit", cs, blob, ro, rd)
     if not isinstance(t_max, torch.Tensor):
         t_max = torch.full((n,), float(t_max), dtype=torch.float32, device=device)
     _check("t_max", t_max, torch.float32, n, device, "any_hit")
-    fn = build().lib.ptrt_any_hit
     occ = torch.empty((n,), dtype=torch.bool, device=device)
-    err = fn(blob.data_ptr(), L.n_planes, L.n_spheres, L.n_quads, L.n_tris,
-             *(r.data_ptr() for r in rays), t_max.data_ptr(), n, float(t_min), occ.data_ptr(),
-             torch.cuda.current_stream(device).cuda_stream)
+    if n == 0:
+        return occ
+    lib = build().lib
+    err = lib.ptrt_any_hit(
+        blob.data_ptr(), L.n_planes, L.n_spheres, L.n_quads, L.n_tris,
+        *(r.data_ptr() for r in rays), t_max.data_ptr(), n, float(t_min), occ.data_ptr(),
+        *_launch_args("any_hit", lib.ptrt_any_hit_occupancy, plan, n, device))
     _raise_on("any_hit", err)
     any_hit.launches += 1
     return occ

@@ -11,6 +11,8 @@ and fused pipe step (K7) on the CPU.
   the shared bytes, the variant and the grid are pure functions of sizes,
   the SM count and the card's shared memory; a scene at the first design's
   48 KB limit is still accepted, and one past the card's limit is refused.
+* K3a's and K3b's plan (``sweep_plan`` with no materials or lights): the
+  records', within the card's limit, for every blob the first design took.
 * ``ops/cuda/step.step_plan``: K7's shared bytes are K1's tables (the
   records, materials and light samples) at every size case, and its grid
   comes from ``launch_grid`` as K1's does.
@@ -138,6 +140,35 @@ def test_sweep_plan_is_a_function_of_sizes(case):
         assert want == 4 * (372 + 220 + 64)
 
 
+# (P, S, Q, T) of K3's scenes: the Cornell box; blobs that fill the first
+# design's 48 KB, mostly planes and mostly triangles; one past the H100's limit
+ISECT_CASES = {"cornell": (5, 3, 13, 1), "48 KB of planes": (874, 1, 1, 1),
+               "48 KB of triangles": (1, 1, 1, 680), "past the card": (1, 1, 1, 3000)}
+
+
+@pytest.mark.parametrize("case", list(ISECT_CASES))
+def test_intersect_plan_is_the_records(case):
+    """K3a's and K3b's shared bytes (``sweep_plan`` with no materials or
+    lights) are the records' (``csrc/sweep.cuh`` rec_layout); a scene whose
+    blob the first design took under 48 KB still fits, though its records
+    pass 48 KB; one past the card's limit is refused."""
+    counts = ISECT_CASES[case]
+    want = 4 * bounce.rec_layout(counts).size
+    for optin in (H100, SMALL):
+        limit = optin - 64  # ops/cuda/bvh.smem_limit
+        if want > limit:
+            assert case == "past the card"
+            with pytest.raises(ValueError, match="shared memory"):
+                bounce.sweep_plan("k", counts, 0, 0, limit)
+            continue
+        assert tuple(bounce.sweep_plan("k", counts, 0, 0, limit)) == (want,)
+    if case.startswith("48 KB"):
+        first = 4 * (14 * counts[0] + 4 * counts[1] + 18 * counts[2] + 18 * counts[3])
+        assert first <= bounce._SMEM_LIMIT < want
+    if case == "cornell":
+        assert want == 4 * 372
+
+
 @pytest.mark.parametrize("n,n_sms,per_sm,want", [
     (131072, 132, 3, 396),  # the main path's chunk: the resident blocks
     (2_099_200, 132, 3, 396),  # the Whitted frame's chunk
@@ -190,6 +221,35 @@ def test_step_plan_is_k1s_tables(case):
         plan = step.step_plan(cs, limit)
         assert tuple(plan) == (want,)
         assert plan == bounce.sweep_plan("path_bounce", counts, n_mats, n_lights, limit)
+
+
+# (P, S, Q, T) of K3's scenes: the Cornell box; blobs that fill the first
+# design's 48 KB, mostly planes and mostly triangles; one past the H100's limit
+ISECT_CASES = {"cornell": (5, 3, 13, 1), "48 KB of planes": (874, 1, 1, 1),
+               "48 KB of triangles": (1, 1, 1, 680), "past the card": (1, 1, 1, 3000)}
+
+
+@pytest.mark.parametrize("case", list(ISECT_CASES))
+def test_intersect_plan_is_the_records(case):
+    """K3a's and K3b's shared bytes (``sweep_plan`` with no materials or
+    lights) are the records' (``csrc/sweep.cuh`` rec_layout); a scene whose
+    blob the first design took under 48 KB still fits, though its records
+    pass 48 KB; one past the card's limit is refused."""
+    counts = ISECT_CASES[case]
+    want = 4 * bounce.rec_layout(counts).size
+    for optin in (H100, SMALL):
+        limit = optin - 64  # ops/cuda/bvh.smem_limit
+        if want > limit:
+            assert case == "past the card"
+            with pytest.raises(ValueError, match="shared memory"):
+                bounce.sweep_plan("k", counts, 0, 0, limit)
+            continue
+        assert tuple(bounce.sweep_plan("k", counts, 0, 0, limit)) == (want,)
+    if case.startswith("48 KB"):
+        first = 4 * (14 * counts[0] + 4 * counts[1] + 18 * counts[2] + 18 * counts[3])
+        assert first <= bounce._SMEM_LIMIT < want
+    if case == "cornell":
+        assert want == 4 * 372
 
 
 @pytest.mark.parametrize("n,n_sms,per_sm,want", [

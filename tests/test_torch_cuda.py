@@ -26,9 +26,11 @@ persistent top walks K6a and K6b on the 48-page mesh whose top leaves hold
 triangles, staged and read from device memory, in both depth classes, at
 131,077 and 4,133 lanes, staged at 262,149 (past its resident blocks), and
 none; the persistent K4a and K10a at 262,149 lanes, with t_max 1e30 and
-+inf, in both classes, and none; and K4a, K4b, K5, K6a-d, K11, the two
-ordered walks, the skip-link walks, K10a-d, K1 and K2 queued on one
-stream, which share its lane counter.
++inf, in both classes, and none; the persistent K3a and K3b at 131,077
+and 262,149 lanes (past their resident blocks) and on the oracle frame's
+level 0 (262,144 camera rays and their 4,194,304 shadow rays); and K4a,
+K4b, K5, K6a-d, K11, the two ordered walks, the skip-link walks, K10a-d,
+K1, K2, K3a and K3b queued on one stream, which share its lane counter.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -237,6 +239,69 @@ def test_intersect_kernels_match_plain(card, n):
     want_occ = intersect.any_hit_plain(cs, o, d, 1e-3, t_max)
     assert float((occ == want_occ).float().mean()) >= 0.9999
     assert 0.1 < float(occ.float().mean()) < 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [131072 + 5, 2 * 131072 + 5])  # past the resident blocks
+def test_persistent_intersect_kernels_match_plain(card, n):
+    """The persistent K3a (t_max 1e6, 1e30, +inf) and K3b (per-ray bounds, a
+    seventh of them -1, a seventh +inf) against their plain versions, the
+    lane counter left zero."""
+    dev, cs, blobs = card
+    o, d, _, _, _, limit = _persistent_inputs(n, dev)
+    limit = torch.where(torch.arange(n, device=dev) % 7 == 3, float("inf"), limit)
+    for t_max in (1e6, 1e30, float("inf")):
+        got = intersect.closest_hit(cs, blobs[0], o, d, 1e-3, t_max)
+        torch.cuda.synchronize()
+        assert not bvh.lane_counter(dev).any()
+        want = intersect.closest_hit_plain(cs, o, d, 1e-3, t_max)
+        same = got.prim == want.prim
+        assert float(same.float().mean()) >= 0.9999
+        _assert_floats_close(got, want, same, ("t", "normal", "u", "v"))
+    occ = intersect.any_hit(cs, blobs[0], o, d, 1e-3, limit)
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+    want_occ = intersect.any_hit_plain(cs, o, d, 1e-3, limit)
+    assert float((occ == want_occ).float().mean()) >= 0.9999
+    assert not occ[limit < 0].any()
+
+
+@pytest.mark.cuda
+def test_intersect_kernels_on_the_oracle_shadow_batch(card):
+    """K3a on level 0 of the oracle frame's first chunk (320x240, 4 spp,
+    depth 6: 262,144 camera rays, t_max 1e30) and K3b on its shadow batch
+    (16 light samples x 262,144 lanes = 4,194,304 rays, each bounded at its
+    light), as the renderer makes them; occlusion compared where level 0
+    hit (the renderer discards a miss's shading)."""
+    import math
+
+    from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
+    from path_tracing__ray_tracer_tpu_torch.models import whitted_oracle as wo
+    from path_tracing__ray_tracer_tpu_torch.models.whitted import grid_camera_rays
+
+    dev = card[0]
+    b = pt.CustomSceneBuilder()
+    r = pt.RendererFactory.create("cpu_raytracer", seed=0, device=dev)
+    cs = r.compiled(b.build_scene())
+    blob = r.blobs(cs)[0]
+    n_pix, group = r._plan(320, 240, 4, 6)
+    o, d = grid_camera_rays(pack_camera(b.create_camera(4 / 3), dev), 0, n_pix, 320, 240, 0, 0,
+                            group, math.isqrt(group), 6, r.jitter)
+    got = intersect.closest_hit(cs, blob, o, d, wo._T_MIN, wo._T_FAR)
+    want = intersect.closest_hit_plain(cs, o, d, wo._T_MIN, wo._T_FAR)
+    same = got.prim == want.prim
+    assert float(same.float().mean()) >= 0.9999
+    _assert_floats_close(got, want, same, ("t", "normal", "u", "v"))
+    so, sd, dist = wo.shadow_rays(cs, *wo.surface(o, d, want))
+    so, sd = (V3(*(c.reshape(-1) for c in v)) for v in (so, sd))
+    dist = dist.reshape(-1)
+    assert dist.shape == (4_194_304,)
+    occ = intersect.any_hit(cs, blob, so, sd, wo._T_MIN, dist)
+    torch.cuda.synchronize()
+    assert not bvh.lane_counter(dev).any()
+    lanes = want.hit.expand(cs.n_lights, -1).reshape(-1)
+    want_occ = intersect.any_hit_plain(cs, so, sd, wo._T_MIN, dist)
+    assert float((occ == want_occ)[lanes].float().mean()) >= 0.9999
 
 
 @pytest.mark.cuda
@@ -730,8 +795,8 @@ def test_top_walks_launch_nothing_on_no_lanes(paged48_card):
 @pytest.mark.cuda
 def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, paged48_card):
     """K4a, K4b, K6a-d, K5, K11, the ordered BVH2 closest and occlusion walks,
-    the skip-link closest and occlusion walks, K10a-d, K1 and K2 queued on
-    one stream with no sync between them answer bit for bit as each does
+    the skip-link closest and occlusion walks, K10a-d, K1, K2, K3a and K3b
+    queued on one stream with no sync between them answer bit for bit as each does
     alone after a sync, which leaves the stream's lane counter zero: each
     launch starts from lane 0."""
     dev, mcs, tables = mesh_card
@@ -739,6 +804,7 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, pa
     pcs, tcs = paged_card[1], paged48_card[1]
     o, d, thr, key, depth, limit = _persistent_inputs(131072, dev)
     co, cd, cthr, ckey, cdepth = _inputs(131072, 11, dev)
+    wo, wd, _, _, _, wlimit = _persistent_inputs(2 * 131072 + 5, dev)  # K3 past its blocks
     best, plo, phi = bvh_paged.paged_top_closest(pcs, o, d, 1e-3, 1e6)
     found, alo, ahi = bvh_paged.paged_top_any(pcs, o, d, 1e-3, limit)
     roots, en = _rooted_pass(mcs, o, d)
@@ -760,7 +826,9 @@ def test_persistent_walks_share_the_lane_counter(card, mesh_card, paged_card, pa
              lambda: bvh_leafmat.scene_any(mcs, o, d, 1e-3, limit),
              lambda: bvh_leafmat.tri_any(mcs, o, d, 1e-3, limit, found),
              lambda: bounce.path_bounce(ccs, *blobs, co, cd, cthr, ckey, cdepth),
-             lambda: whitted.whitted_bounce(ccs, *blobs, co, cd, whitted.TEXTURE))
+             lambda: whitted.whitted_bounce(ccs, *blobs, co, cd, whitted.TEXTURE),
+             lambda: intersect.closest_hit(ccs, blobs[0], wo, wd, 1e-3, 1e30),
+             lambda: intersect.any_hit(ccs, blobs[0], wo, wd, 1e-3, wlimit))
     queued = [call() for call in calls]
     torch.cuda.synchronize()
     assert not bvh.lane_counter(dev).any()
