@@ -159,7 +159,14 @@ It imports no JAX.
    tolerance of the default route's, the kernels each replaces idle;
 24. config 5's mesh Whitted frame (as phase 11) on the default route and
    with ``BVH_MXU_LEAF`` (K10a + K10b, K4a/K4b idle), within the golden
-   tolerance of each other.
+   tolerance of each other;
+25. ``[mesh]``, the (tile × sample) split on a (2, 2) mesh of four entries
+   of the one card (``phase_mesh``): ``graft_entry``'s dry run (four
+   sub-checks against their single-device renders, the launches of K1; K5
+   and K4b; K2; K6a-d), the main path at full width through the split
+   against phase 6's first group, the CLI's ``--devices 1`` (bit-equal to
+   no flag) and ``--devices <cards + 1>`` (exits non-zero), and
+   ``graft_entry.entry()`` bit-equal to ``PathTracer.device_sums``.
 
 Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
 ``call_ms``: the wrapper's call time; ``twin_ms`` for K10a-d: their K4
@@ -234,10 +241,11 @@ DEFER_MIP, LOD_BUDGET, LOD_DEPTH = 64, 256, 2
 # HBM3 at 700 W (PERF.md); the samples are seeded, so the numbers repeat
 DEFER_RMSE_MAX, LOD_RMSE_MAX = 5.6, 3.4
 MODE_WARM_SPP = 8
-# the split route on config 5: one 16-sample group of its full-width path on
-# each forced route (the plain bounce glue runs each bounce), and the
-# frame of the 33-deep tree's render
-SPLIT_SPP = 16
+# the split route on config 5: one 8-sample group of its full-width path on
+# each forced route (the plain bounce glue runs each bounce; 16 samples
+# until the [mesh] phase needed the time), and the frame of the 33-deep
+# tree's render
+SPLIT_SPP = 8
 SPLIT_QUAD, SPLIT_MP = "BVH_QUAD = False", "BVH_ATTRS = False, BVH_MULTIPASS = True"
 FAULT_WIDTH, FAULT_HEIGHT, FAULT_SPP = 480, 270, 4
 # the K10 walks (the leaf coefficient table, ops/cuda/bvh.BVH_MXU_LEAF): config
@@ -706,7 +714,8 @@ def phase_main_path(device):
         raise SystemExit(f"chip_smoke: implausible mean radiance {mean}")
     if launches == 0:
         raise SystemExit("chip_smoke: the main path never launched the bounce kernel")
-    return launches, secs, mrays, image_of(sums, GROUP_SPP), image_of(warm_sums, GROUP_SPP)
+    return (launches, secs, mrays, image_of(sums, GROUP_SPP), image_of(warm_sums, GROUP_SPP),
+            warm_sums)
 
 
 def image_of(sums, spp):
@@ -3222,6 +3231,125 @@ def phase_modes_property(device):
             raise SystemExit(f"chip_smoke: {label} with mip == atlas is off the default render")
 
 
+# ---- [mesh]: the (tile x sample) split and the entry points -------------------
+MESH_ENTRIES = 4  # a (2, 2) mesh, every entry the one card
+SUB_CHECK_KERNELS = {  # the kernels each dry-run sub-check must launch
+    "path/cornell": ("path_bounce",),
+    "path/bvh-mesh": ("path_bounce_bvh", "scene_any"),
+    "whitted/cornell": ("whitted_bounce",),
+    "path/paged-mesh": ("paged_top_closest", "paged_top_any", "pages_closest", "pages_any"),
+}
+CLI_MESH_SHAPE = ["-r", "cuda_path_raytracer", "-w", "160", "--height", "120",
+                  "--path-samples", "16", "-d", "4", "--no-show"]
+
+
+def phase_mesh(device, oneshot_sums, single_secs):
+    """The split across a mesh and the entry points, on a ``(2, 2)`` mesh of
+    four entries of the one card (four entries of one card are one card: no
+    speed-up is measured here):
+
+    (a) ``graft_entry.dryrun_multichip``'s four sub-checks, each sharded
+        render within ``atol=1e-5`` of the single-device one, with the
+        launches of each (sharded and single render); fails if a kernel of
+        the sub-check never launched;
+    (b) the main path at full width through the split (1024², depth 8, one
+        128-sample group): its image within the golden tolerance of
+        ``phase_main_path``'s first group (``oneshot_sums``, the same
+        samples), with the channels that differ, the largest difference of
+        the radiance sums and its seconds beside the single-device group's
+        (``single_secs``);
+    (c) the CLI with ``--devices 1``, bit-equal to the same run without the
+        flag, and ``python -m ... --devices <cards + 1>`` in a fresh process,
+        which must exit non-zero with ``make_mesh``'s message;
+    (d) ``graft_entry.entry()``: finite ``(3, 4096)`` sums, bit-equal to
+        ``PathTracer.device_sums`` of the same chunk."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch import graft_entry
+    from path_tracing__ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(MESH_ENTRIES, sample_parallel=2, devices=[device] * MESH_ENTRIES)
+    t0 = time.perf_counter()
+    reset_counts()
+    for label in graft_entry.sub_checks(mesh):
+        launched = {k: counts()[k] for k in SUB_CHECK_KERNELS[label]}
+        reset_counts()
+        print(f"[mesh] (a) {label}: launches {launched}")
+        if not all(launched.values()):
+            raise SystemExit(f"chip_smoke: dry-run sub-check {label} did not launch "
+                             f"{SUB_CHECK_KERNELS[label]}")
+    print(f"[mesh] (a) dryrun_multichip OK: mesh={mesh.shape} (4/4 sub-checks), "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
+    settings = pt.RenderSettings(width=WIDTH, height=HEIGHT, samples_per_pixel=GROUP_SPP,
+                                 max_depth=DEPTH)
+    r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
+                                  chunk_rays=CHUNK_RAYS, texture_budget=0, mesh=mesh)
+    r.compiled(scene, device)  # one compile: the four entries share the card
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
+    secs = time.perf_counter() - t0
+    launched = counts()["path_bounce"]
+    img, want = image_of(sums, GROUP_SPP), image_of(oneshot_sums, GROUP_SPP)
+    diff = np.abs(img.astype(np.int32) - want.astype(np.int32))
+    share = float((diff > 2).mean())
+    print(f"[mesh] (b) {WIDTH}x{HEIGHT} depth {DEPTH}, one {GROUP_SPP}-sample group on "
+          f"{mesh.shape}: {secs:.3f} s (single device: {single_secs:.3f} s), K1 launches "
+          f"{launched}; against the single-device render of the same samples "
+          f"{int((diff > 0).sum())} of {diff.size} channels differ ({share:.6f} by >2/255, "
+          f"max {int(diff.max())}), radiance sums differ by at most "
+          f"{float(np.abs(sums - oneshot_sums).max()):.6g}")
+    if not np.isfinite(sums).all() or img.shape != want.shape or share >= 0.01:
+        raise SystemExit("chip_smoke: the split main path is outside the golden tolerance")
+    if launched == 0:
+        raise SystemExit("chip_smoke: the split main path never launched K1")
+    del sums
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_run(CLI_MESH_SHAPE + ["-o", f"{tmp}/one.png"], ("path_bounce",))
+        cli_run(CLI_MESH_SHAPE + ["--devices", "1", "-o", f"{tmp}/mesh1.png"], ("path_bounce",))
+        same = bool((png(f"{tmp}/one.png") == png(f"{tmp}/mesh1.png")).all())
+        too_many = torch.cuda.device_count() + 1
+        proc = subprocess.run(
+            [sys.executable, "-m", "path_tracing__ray_tracer_tpu_torch", "--devices",
+             str(too_many), "-w", "16", "--height", "12", "-o", f"{tmp}/x.png", "--no-show"],
+            capture_output=True, text=True, timeout=300, cwd=ROOT,
+            env={**os.environ, "PYTHONPATH": str(ROOT)})
+    refused = "make_mesh" in proc.stderr
+    print(f"[mesh] (c) CLI --devices 1 bit-equal to no flag: {same}; --devices {too_many}: rc "
+          f"{proc.returncode}, {proc.stderr.strip().splitlines()[-1:]}")
+    if not same:
+        raise SystemExit("chip_smoke: the CLI's --devices 1 image differs from the one-device run")
+    if proc.returncode == 0 or not refused:
+        raise SystemExit(f"chip_smoke: the CLI's --devices {too_many} did not fail in make_mesh")
+
+    fn, args = graft_entry.entry(device)
+    reset_counts()
+    out = fn(*args)
+    launched = counts()["path_bounce"]
+    ref = pt.RendererFactory.create("cuda_path_raytracer", seed=0, sample_group=4,
+                                    device=device).device_sums(
+        *graft_entry._example_scene(), pt.RenderSettings(64, 64, 4, 4))
+    bits = out.shape == ref.shape and bool(torch.equal(out, ref))
+    print(f"[mesh] (d) entry(): shape {tuple(out.shape)}, finite "
+          f"{bool(torch.isfinite(out).all())}, K1 launches {launched}, bit-equal to "
+          f"PathTracer.device_sums: {bits}")
+    if tuple(out.shape) != (3, 4096) or not bool(torch.isfinite(out).all()) or not bits:
+        raise SystemExit("chip_smoke: entry() is not the path tracer's chunk")
+    if launched == 0:
+        raise SystemExit("chip_smoke: entry() never launched K1")
+    return secs, share
+
+
 def main() -> int:
     phase_environment()
     import torch
@@ -3247,7 +3375,8 @@ def main() -> int:
     times["path_bounce"] = k1_times
     bounds = kernel_bounds(cs, state, camera_rays, shadow)
     phase_golden(device)
-    k1_launches, secs, mrays, default_img, first_group_img = phase_main_path(device)
+    k1_launches, secs, mrays, default_img, first_group_img, first_group = phase_main_path(
+        device)
     cli_prog = phase_cli_progressive(first_group_img)
     budget, merrs, k7_bits, mtimes, mbounds = phase_modes_check(device)
     times.update(mtimes)
@@ -3284,6 +3413,8 @@ def main() -> int:
     split_runs = phase_split_main(device)
     fault_launched = phase_split_fault(device)
     xw_launched = phase_mxu_whitted(device)
+    mesh_secs, mesh_share = phase_mesh(device, first_group, secs)
+    del first_group
     torch.cuda.synchronize()
 
     src = "path_tracing__ray_tracer_tpu_torch/csrc/"
@@ -3367,7 +3498,9 @@ def main() -> int:
           f"BVH2 ordered (K4e) {split_runs[SPLIT_QUAD][1]:.2f}, multipass (K11) "
           f"{split_runs[SPLIT_MP][1]:.2f}, leaf table K5 + K10b {split_runs[MXU_FUSED][1]:.2f}, "
           f"quad K10c + K10d {split_runs[MXU_QUAD][1]:.2f}, quad K4c + K4d "
-          f"{split_runs[SCALAR_QUAD][1]:.2f} Mrays/s; on:")
+          f"{split_runs[SCALAR_QUAD][1]:.2f} Mrays/s; the main path on a (2, 2) mesh of one "
+          f"card {mesh_secs:.3f} s ({mesh_share:.6f} of channels by >2/255 off one device); "
+          f"on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

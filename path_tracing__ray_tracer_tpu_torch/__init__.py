@@ -1,7 +1,8 @@
 """PyTorch + CUDA port of the renderers in ``path_tracing__ray_tracer_tpu``.
 
 The same scene, camera, material and geometry API and the same scene
-compiler, as torch tensors on one device, and the same four renderers: the
+compiler, as torch tensors on one device (or split over a mesh of devices,
+``parallel/mesh.py``), and the same four renderers: the
 path tracer (``cuda_path_raytracer``), the two Whitted ray tracers
 (``cuda_raytracer``, ``cuda_texture_raytracer``) and the CPU-parity oracle
 (``cpu_raytracer``).  Scenes above 256 triangles (``MeshSceneBuilder``) get

@@ -9,7 +9,9 @@ Mrays/sec report.  The renderer default is the reference's
 ``cuda_texture_raytracer``; the JAX package's ``tpu_*`` names work as
 aliases.  Renders run on the card; :func:`main`'s ``device`` keyword
 (``"cpu"``, which no flag sets) renders through the kernels' plain versions
-on the CPU instead.  ``--devices`` above 1 is not ported yet.
+on the CPU instead.  ``--devices N`` splits each chunk over a mesh of the
+first N cards (``parallel/mesh.make_mesh``; N CPU entries under
+``device="cpu"``), and fails when there are fewer cards.
 """
 from __future__ import annotations
 
@@ -136,10 +138,6 @@ def main(argv=None, device="cuda") -> int:
     """Run the CLI on ``argv`` (``sys.argv[1:]`` when None); renders on
     ``device``, the card unless the caller asks for ``"cpu"``."""
     args = build_parser().parse_args(argv)
-    if args.devices > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices}: the split across devices is not ported yet "
-            "(ROADMAP.md Queue 1 item 4); render on one device (--devices 0 or 1)")
 
     resolved = RendererFactory.resolve(args.renderer)
     if resolved == "cuda_path_raytracer":
@@ -195,6 +193,14 @@ def main(argv=None, device="cuda") -> int:
                 f"Warning: --shadow-tmax {args.shadow_tmax} only applies to "
                 "the path tracer; ignored for this renderer"
             )
+    if args.devices:
+        import torch
+
+        from .parallel.mesh import make_mesh
+
+        dev = torch.device(device)
+        kwargs["mesh"] = make_mesh(
+            args.devices, devices=None if dev.type == "cuda" else [dev] * args.devices)
     renderer = RendererFactory.create(args.renderer, **kwargs)
     print(f"Capabilities: {', '.join(renderer.get_capabilities())}")
 

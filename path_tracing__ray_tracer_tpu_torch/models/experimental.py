@@ -52,7 +52,8 @@ def _make_mip_resolve(cs):
 
 def regen_chunk_modes(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
                       n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
-                      jitter: str, shadow_tmax: str = "reference", lod_depth: int = 0) -> None:
+                      jitter: str, col0: int, shadow_tmax: str = "reference",
+                      lod_depth: int = 0) -> None:
     """``path_tracer._regen_chunk`` with its modes (module docstring); the
     mode gate is the JAX package's: LOD over deferred texture, and the pipe
     (``path_tracer._PIPE_REGEN``) only without either and on a scene that
@@ -60,7 +61,7 @@ def regen_chunk_modes(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base:
     lod = lod_depth > 0 and cs.mip_atlas is not None
     mip_resolve = None if lod else _make_mip_resolve(cs)
     kw = dict(n_pix=n_pix, width=width, height=height, n_samples=n_samples,
-              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax)
+              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax, col0=col0)
     if _pt._PIPE_REGEN and mip_resolve is None and not lod and cs.bvh is None:
         return _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, **kw)
     _pt._regen_loop(cs, blobs, cam12, sums, pix0, seed, sample_base,
@@ -105,7 +106,7 @@ def step_texel(cs, st, rec):
 
 
 def _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, *, n_pix, n_samples,
-                max_depth, **kw):
+                max_depth, col0, **kw):
     """The scheduler with one fused step (K7) per bounce.  The loop ends
     when every lane has finished its items, so the last record, all retired
     lanes, is dropped."""
@@ -136,4 +137,4 @@ def _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, *, n_pix, n_sam
         slot = torch.where(item < NS, item.long() * N + ploc_in, NS * N + lane)
         acc[:, slot] = torch.stack(park)
         it += 1
-    _pt.rebin(sums, acc, pix0, N, NS)
+    _pt.rebin(sums, acc, col0, N, NS)

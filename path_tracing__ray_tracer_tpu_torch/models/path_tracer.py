@@ -28,7 +28,7 @@ step in its own loop there.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -120,21 +120,24 @@ def compact(sel, *xs):
     return tuple(x.take(sel) if isinstance(x, V3) else x[sel] for x in xs)
 
 
-def rebin(sums, acc, pix0: int, n_pix: int, n_samples: int) -> None:
-    """Add each pixel's items onto ``sums`` in ascending sample order."""
-    chunk = sums[:, pix0:pix0 + n_pix]
+def rebin(sums, acc, col0: int, n_pix: int, n_samples: int) -> None:
+    """Add each pixel's items onto ``sums[:, col0:col0 + n_pix]`` in
+    ascending sample order."""
+    chunk = sums[:, col0:col0 + n_pix]
     for si in range(n_samples):
         chunk += acc[:, si * n_pix:(si + 1) * n_pix]
 
 
 def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
                  n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
-                 jitter: str, shadow_tmax: str = "reference", lod_depth: int = 0) -> None:
+                 jitter: str, shadow_tmax: str = "reference", lod_depth: int = 0,
+                 col0: Optional[int] = None) -> None:
     """Add ``n_samples`` radiance samples for the pixels
-    ``[pix0, pix0 + n_pix)`` into ``sums`` (a ``(3, ≥ pix0 + n_pix)`` tensor),
-    by *ray regeneration*: a pool of ``n_pix`` lanes in which a lane that
-    finishes a path (miss / RR kill / throughput cutoff / max depth) starts
-    its next (pixel, sample) item at once.
+    ``[pix0, pix0 + n_pix)`` into ``sums[:, col0:col0 + n_pix]`` (``col0``
+    defaults to ``pix0``: ``sums`` is the frame's), by *ray regeneration*: a
+    pool of ``n_pix`` lanes in which a lane that finishes a path (miss / RR
+    kill / throughput cutoff / max depth) starts its next (pixel, sample)
+    item at once.
 
     Lane ``i``'s ``s``-th item is pixel ``(i + s·STRIDE) mod n_pix``: the
     golden-ratio stride spreads the slow pixels (glass) over all lanes.
@@ -154,7 +157,8 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
     :func:`_regen_loop` with a texture mode.
     """
     kw = dict(n_pix=n_pix, width=width, height=height, n_samples=n_samples,
-              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax)
+              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax,
+              col0=pix0 if col0 is None else col0)
     if _PIPE_REGEN or lod_depth > 0 or cs.mip_atlas is not None:
         from .experimental import regen_chunk_modes
 
@@ -165,7 +169,8 @@ def _regen_chunk(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int,
 
 def _regen_loop(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
                 n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
-                jitter: str, shadow_tmax: str, lod_depth: int = 0, mip_resolve=None) -> None:
+                jitter: str, shadow_tmax: str, col0: int, lod_depth: int = 0,
+                mip_resolve=None) -> None:
     """The scheduler of :func:`_regen_chunk`, with the default resolve, or
     texture LOD when ``lod_depth`` > 0 (bounces below it read the atlas,
     deeper ones the mip), or deferred texture when ``mip_resolve`` (the mip
@@ -283,7 +288,7 @@ def _regen_loop(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, 
         n_tex = int(cs.atlas.shape[0])
         b0 = _unpack_rgb(cs.atlas[torch.clamp(acc_idx[:NS * N], 0, n_tex - 1).long()])
         acc = torch.stack([acc[c, :NS * N] + b0[c] * acc[3 + c, :NS * N] for c in range(3)])
-    rebin(sums, acc, pix0, N, NS)
+    rebin(sums, acc, col0, N, NS)
 
 
 class PathTracer(WavefrontRenderer):
@@ -327,7 +332,8 @@ class PathTracer(WavefrontRenderer):
     def _samples_per_group(self, spp: int) -> int:
         return max(1, min(self.sample_group, spp))
 
-    def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, **kw):
+    def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, *, spp, **kw):
+        # spp: a split's overshoot is clipped before the chunk (parallel/sharding.py)
         _regen_chunk(cs, self.blobs(cs), cam12, sums, pix0, seed, sample_base,
                      jitter=self.jitter, shadow_tmax=self.shadow_tmax, lod_depth=self.lod_depth,
                      **kw)

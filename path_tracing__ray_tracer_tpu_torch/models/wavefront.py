@@ -1,11 +1,17 @@
 """Shared wavefront render loop: chunking, sample groups, device sums, image.
 
-Port of the single-device path of the JAX package's ``models/wavefront.py``.
-The (pixel × sample) space streams through a *chunk function* in fixed-size
-pixel chunks (``chunk_rays`` budget) and sample groups.  Every chunk adds its
-samples, in ascending order, into one device-resident buffer of per-pixel
-radiance sums; the subclass then finalizes (divide by spp, tonemap) on the
-device, the image is quantized there, and one transfer brings it to the host.
+Port of the JAX package's ``models/wavefront.py``.  The (pixel × sample)
+space streams through a *chunk function* in fixed-size pixel chunks
+(``chunk_rays`` budget) and sample groups.  Every chunk adds its samples, in
+ascending order, into one device-resident buffer of per-pixel radiance sums;
+the subclass then finalizes (divide by spp, tonemap) on the device, the
+image is quantized there, and one transfer brings it to the host.
+
+With a ``mesh`` (``parallel/mesh.make_mesh``) each chunk call is split over
+its ``(tile, sample)`` entries (``parallel/sharding.shard_chunk_fn``): the
+pixel chunk is rounded up to whole 1024-pixel blocks per tile, each entry
+renders its part on its own device with its own compiled scene, and the
+renderer's device (the mesh's first entry) holds the sums.
 
 The JAX package's dispatch batching (``lax.map`` over chunks, fused group
 loops) works around a per-dispatch floor of its TPU connection and is not
@@ -26,6 +32,8 @@ from ..ops.cuda.bounce import pack_light_blob, pack_mat_blob, pack_scene_blob
 from ..ops.cuda.bounce_bvh import bounce_bvh_ok, pack_bvh_tables
 from ..ops.tonemap import quantize_u8
 from ..ops.v3 import V3
+from ..parallel.mesh import DeviceMesh, mesh_shape
+from ..parallel.sharding import shard_chunk_fn
 from ..utils import debug
 from ..utils.image import assemble_image
 from ..utils.logging import log_event
@@ -54,6 +62,24 @@ def chunk_pixels(n_pixels: int, group: int, chunk_rays: int) -> int:
     return int(math.ceil(n_pix / 1024) * 1024)
 
 
+def _renderer_device(device, mesh: Optional[DeviceMesh]) -> torch.device:
+    """The device that holds a renderer's sums: ``device`` (default
+    ``"cuda"``, the current card when torch sees one), or the mesh's first
+    entry, with which an explicit ``device`` must agree (``"cuda"`` without
+    an index agrees with any card)."""
+    if mesh is None:
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+            dev = torch.device("cuda", torch.cuda.current_device())
+        return dev
+    first = mesh.rows[0][0]
+    if device is not None:
+        dev = torch.device(device)
+        if dev.type != first.type or (dev.index is not None and dev != first):
+            raise ValueError(f"device {dev} conflicts with the mesh's first entry {first}")
+    return first
+
+
 class WavefrontRenderer(BaseRenderer):
     convention = "gpu"
     gpu_parity = True
@@ -65,7 +91,8 @@ class WavefrontRenderer(BaseRenderer):
         seed: int = 0,
         jitter: str = "diagonal",  # 'diagonal' (reference quirk) | 'independent' | 'center'
         texture_budget: int = 0,  # 0 = reference-exact full-res atlas
-        device="cuda",
+        device=None,  # default: the mesh's first entry, else "cuda"
+        mesh: Optional[DeviceMesh] = None,  # split each chunk call over its entries
         compile_overrides: Optional[dict] = None,  # extra compile_scene kwargs (use_bvh)
         reseed_per_render: bool = False,  # the reference's frame_count reseed quirk
     ):
@@ -84,7 +111,8 @@ class WavefrontRenderer(BaseRenderer):
         self.frame_count = 0  # renders done (the reference's frame_count)
         self.jitter = jitter
         self.texture_budget = int(texture_budget)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.device = _renderer_device(device, mesh)
         self.compile_overrides = dict(compile_overrides or {})
         self._scene_cache: Dict[Tuple, CompiledScene] = {}
         self._blobs: Dict[int, object] = {}  # blobs() by id of the compiled scene
@@ -98,8 +126,11 @@ class WavefrontRenderer(BaseRenderer):
         return self.seed
 
     # -- scene compilation (cached) -----------------------------------------
-    def compiled(self, scene: Scene) -> CompiledScene:
-        key = (id(scene), self.convention, self.gpu_parity, self.texture_budget, str(self.device),
+    def compiled(self, scene: Scene, device=None) -> CompiledScene:
+        """``scene`` compiled on ``device`` (default: the renderer's), once
+        per scene and device."""
+        device = self.device if device is None else torch.device(device)
+        key = (id(scene), self.convention, self.gpu_parity, self.texture_budget, str(device),
                tuple(sorted(self.compile_overrides.items())))
         if key not in self._scene_cache:
             cs = compile_scene(
@@ -107,7 +138,7 @@ class WavefrontRenderer(BaseRenderer):
                 convention=self.convention,
                 gpu_parity=self.gpu_parity,
                 texture_budget=self.texture_budget,
-                device=self.device,
+                device=device,
                 **self.compile_overrides,
             )
             self._scene_cache[key] = cs
@@ -133,9 +164,11 @@ class WavefrontRenderer(BaseRenderer):
 
     def _chunk(self, cs: CompiledScene, cam12: torch.Tensor, sums: torch.Tensor, pix0: int,
                seed: int, sample_base: int, *, n_pix: int, width: int, height: int,
-               n_samples: int, max_depth: int) -> None:
+               n_samples: int, max_depth: int, spp: int, col0: int) -> None:
         """Add the radiance of ``n_samples`` samples from ``sample_base`` on,
-        in ascending sample order, into ``sums[:, pix0:pix0 + n_pix]``."""
+        in ascending sample order, for the pixels ``[pix0, pix0 + n_pix)``
+        into ``sums[:, col0:col0 + n_pix]`` (``col0 == pix0`` when ``sums``
+        is the frame's); ``spp`` is the frame's samples per pixel."""
         raise NotImplementedError
 
     def _finalize_dev(self, sums: torch.Tensor, spp_total: int, settings: RenderSettings):
@@ -149,39 +182,54 @@ class WavefrontRenderer(BaseRenderer):
         return self._finalize_dev(dev, spp_total, settings).T.cpu().numpy()
 
     # -- chunk plan ----------------------------------------------------------
+    def _chunk_rays(self, max_depth: int, group: int) -> int:
+        """The ray budget of one chunk call (a renderer may bound its memory
+        by depth)."""
+        return self.chunk_rays
+
     def _plan(self, w: int, h: int, spp: int, max_depth: int) -> Tuple[int, int]:
-        """``(n_pix, group)``: lanes per chunk and samples per chunk call
-        (``max_depth`` lets a renderer bound its memory by depth)."""
+        """``(n_pix, group)``: pixels per chunk and samples per chunk call.
+        With a mesh, ``n_pix`` is rounded up to whole 1024-pixel blocks per
+        tile entry, as in the JAX package."""
         group = self._samples_per_group(spp)
-        return chunk_pixels(w * h, group, self.chunk_rays), group
+        n_pix = chunk_pixels(w * h, group, self._chunk_rays(max_depth, group))
+        if self.mesh is not None:
+            block = mesh_shape(self.mesh)[0] * 1024
+            n_pix = -(-n_pix // block) * block
+        return n_pix, group
 
     # -- rendering ------------------------------------------------------------
     def device_sums(self, scene: Scene, camera: Camera, settings: RenderSettings,
                     sample_offset: int = 0, n_samples: Optional[int] = None) -> torch.Tensor:
         """Radiance sums over ``n_samples`` samples from ``sample_offset`` on:
         a ``(3, H*W)`` float32 tensor on the renderer's device."""
-        cs = self.compiled(scene)
-        cam12 = pack_camera(camera, self.device)
         w, h, spp = settings.width, settings.height, settings.samples_per_pixel
         if n_samples is None:
             n_samples = spp
         n_pix, group = self._plan(w, h, spp, settings.max_depth)
         pix0_list = list(range(0, w * h, n_pix))
+        mesh = self.mesh or DeviceMesh([[self.device]])
+        tile, samp = mesh_shape(mesh)
         log_event(
             "render_start", renderer=self.name, width=w, height=h, spp=n_samples,
             max_depth=settings.max_depth, chunk_pixels=n_pix, sample_group=group,
-            chunks=len(pix0_list), device=str(self.device),
+            chunks=len(pix0_list), device=str(self.device), mesh=mesh.shape,
         )
+        cams = {dev: pack_camera(camera, dev) for dev in mesh.devices()}
+        seed = self._run_seed()
+        local_pix, local_samples = n_pix // tile, -(-group // samp)
+
+        def entry_chunk(dev, out, col0, pix0, s0, n):
+            self._chunk(self.compiled(scene, dev), cams[dev], out, pix0, seed, s0,
+                        n_pix=local_pix, width=w, height=h, n_samples=n,
+                        max_depth=settings.max_depth, spp=spp, col0=col0)
+
+        chunk = shard_chunk_fn(entry_chunk, mesh, local_pix, local_samples)
         # padded to whole chunks: out-of-frame lanes land past H*W and are cut
         sums = torch.zeros((3, len(pix0_list) * n_pix), dtype=torch.float32, device=self.device)
-        seed = self._run_seed()
         for c, pix0 in enumerate(pix0_list):
             for s0 in range(sample_offset, sample_offset + n_samples, group):
-                self._chunk(
-                    cs, cam12, sums, pix0, seed, s0, n_pix=n_pix, width=w,
-                    height=h, n_samples=min(group, sample_offset + n_samples - s0),
-                    max_depth=settings.max_depth,
-                )
+                chunk(sums, pix0, s0, min(group, sample_offset + n_samples - s0))
             if debug.nans_checked():
                 debug.check_chunk(sums[:, pix0:pix0 + n_pix], c, pix0, n_pix)
         return sums[:, : w * h]

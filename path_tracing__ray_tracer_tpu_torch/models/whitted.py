@@ -105,11 +105,11 @@ def grid_camera_rays(cam12, pix0: int, n_pix: int, width: int, height: int, seed
     return generate_rays(cam12, u.reshape(-1), v.reshape(-1))
 
 
-def fold_cells(sums: torch.Tensor, pix0: int, n_pix: int, radiance: V3) -> None:
-    """Add cell-major per-lane radiance into ``sums[:, pix0:pix0 + n_pix]``,
+def fold_cells(sums: torch.Tensor, col0: int, n_pix: int, radiance: V3) -> None:
+    """Add cell-major per-lane radiance into ``sums[:, col0:col0 + n_pix]``,
     one cell after the other (the JAX package's fold order)."""
     rad = torch.stack(tuple(radiance)).reshape(3, -1, n_pix)
-    chunk = sums[:, pix0:pix0 + n_pix]
+    chunk = sums[:, col0:col0 + n_pix]
     for c in range(rad.shape[1]):
         chunk += rad[:, c]
 
@@ -122,13 +122,14 @@ class _WhittedBase(WavefrontRenderer):
         return max(1, math.isqrt(spp) ** 2)
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, *, n_pix, width, height,
-               n_samples, max_depth):
-        # every cell of the chunk traces at once: n_samples * n_pix lanes
-        grid_n = math.isqrt(n_samples)
+               n_samples, max_depth, spp, col0):
+        # every cell of the chunk traces at once: n_samples * n_pix lanes.  The
+        # grid is the frame's (a split hands out cells [sample_base, +n_samples)
+        # of it, none past the grid's end)
         o, d = grid_camera_rays(cam12, pix0, n_pix, width, height, seed, sample_base,
-                                n_samples, grid_n, max_depth, self.jitter)
+                                n_samples, math.isqrt(spp), max_depth, self.jitter)
         rad = whitted_radiance(cs, self.blobs(cs), o, d, max_depth, self.variant)
-        fold_cells(sums, pix0, n_pix, rad)
+        fold_cells(sums, col0, n_pix, rad)
 
     def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):
         # a grid render is a single indivisible sample group

@@ -42,7 +42,7 @@ from ..ops.texture import resolve_base_color
 from ..ops.v3 import V3, refract
 from ..utils.logging import log_event
 from .base import RendererFactory
-from .wavefront import WavefrontRenderer, chunk_pixels
+from .wavefront import WavefrontRenderer
 from .whitted import fold_cells, grid_camera_rays
 
 _T_MIN = 1e-3
@@ -190,22 +190,21 @@ class CPUParityRayTracer(WavefrontRenderer):
     def _samples_per_group(self, spp: int) -> int:
         return max(1, math.isqrt(spp) ** 2)
 
-    def _plan(self, w, h, spp, max_depth):
+    def _chunk_rays(self, max_depth, group):
         # bound the lanes of the deepest level: shrink the pixel chunk by depth
         depth = min(max_depth, ORACLE_MAX_DEPTH)
         if depth < max_depth:
             log_event("depth_clamped", requested=max_depth, effective=depth)
-        group = self._samples_per_group(spp)
         budget_rays = max(1024, _LEVEL_LANE_BUDGET >> depth) * max(group, 1)
-        return chunk_pixels(w * h, group, min(self.chunk_rays, budget_rays)), group
+        return min(self.chunk_rays, budget_rays)
 
     def _chunk(self, cs, cam12, sums, pix0, seed, sample_base, *, n_pix, width, height,
-               n_samples, max_depth):
+               n_samples, max_depth, spp, col0):
         depth = min(max_depth, ORACLE_MAX_DEPTH)
         o, d = grid_camera_rays(cam12, pix0, n_pix, width, height, seed, sample_base,
-                                n_samples, math.isqrt(n_samples), depth, self.jitter)
+                                n_samples, math.isqrt(spp), depth, self.jitter)
         blob = None if cs.bvh is not None else self.blobs(cs)[0]  # K3's scene blob
-        fold_cells(sums, pix0, n_pix, _trace(cs, blob, o, d, depth))
+        fold_cells(sums, col0, n_pix, _trace(cs, blob, o, d, depth))
 
     def device_sums(self, scene, camera, settings, sample_offset=0, n_samples=None):
         # one indivisible grid group, as the Whitted renderers

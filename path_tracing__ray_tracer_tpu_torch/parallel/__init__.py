@@ -1,5 +1,3 @@
-"""Progressive accumulation with checkpoint/resume (``progressive.py``).
-
-The JAX package's ``parallel/`` also holds the device mesh and sharded
-rendering (``mesh.py``, ``sharding.py``); the port has one card for now.
-"""
+"""Multi-device rendering: device meshes (``mesh.py``), the (tile × sample)
+split of each chunk call over a mesh (``sharding.py``), and progressive
+accumulation with checkpoint/resume (``progressive.py``)."""

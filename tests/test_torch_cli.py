@@ -12,8 +12,8 @@ helpers (``utils/debug.py``, ``utils/backend.py``,
   settings, with the reference's printed lines; ``--progressive`` with a
   checkpoint, bit-equal to ``render_progressive``; ``--trace-dir`` writes a
   Chrome trace.
-* ``--devices 2`` raises, also through ``python -m``; ``probe_backend``
-  raises without a card unless the CPU is asked for.
+* ``--devices N`` raises with fewer than N cards, also through ``python
+  -m``; ``probe_backend`` raises without a card unless the CPU is asked for.
 * ``assert_finite_image`` and ``debug_nans`` raise on an injected NaN, the
   latter naming the chunk.
 
@@ -125,10 +125,14 @@ def test_cli_trace_dir_writes_a_chrome_trace(tmp_path):
 
 
 def test_devices_above_one_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tcli.main(["--devices", "2"], device="cpu")
-    monkeypatch.setattr(sys, "argv", ["python -m", "--devices", "4"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+    """``--devices N`` on the card takes a mesh of N cards: with fewer (none
+    here) it raises, also through ``python -m``, and renders nothing on the
+    CPU instead.  ``tests/test_torch_sharding.py`` renders a CPU mesh."""
+    too_many = torch.cuda.device_count() + 1
+    with pytest.raises((RuntimeError, ValueError), match="CUDA device|devices, have"):
+        tcli.main(["--devices", str(too_many)])
+    monkeypatch.setattr(sys, "argv", ["python -m", "--devices", str(too_many + 2)])
+    with pytest.raises((RuntimeError, ValueError), match="CUDA device|devices, have"):
         runpy.run_module("path_tracing__ray_tracer_tpu_torch", run_name="__main__")
 
 

@@ -30,7 +30,9 @@ none; the persistent K4a and K10a at 262,149 lanes, with t_max 1e30 and
 and 262,149 lanes (past their resident blocks) and on the oracle frame's
 level 0 (262,144 camera rays and their 4,194,304 shadow rays); and K4a,
 K4b, K5, K6a-d, K11, the two ordered walks, the skip-link walks, K10a-d,
-K1, K2, K3a and K3b queued on one stream, which share its lane counter.
+K1, K2, K3a and K3b queued on one stream, which share its lane counter; and
+the (tile × sample) split on four entries of the card against one device,
+and ``graft_entry.entry()`` against the path tracer's chunk.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -1415,3 +1417,47 @@ def test_path_tracer_modes_launch_their_kernels(card, monkeypatch, mode):
         monkeypatch.setattr(tpath, "_PIPE_REGEN", False)
         monkeypatch.setattr(texture, "ENABLED", False)
         np.testing.assert_array_equal(sums, want.render_sums(scene, cam, settings))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sample_parallel", [1, 2])
+def test_mesh_of_one_card_equals_single(card, sample_parallel):
+    """The (tile × sample) split on four entries of the one card, through K1:
+    within ``atol=1e-5`` of the single-device sums; the tile-only split
+    (``sample_parallel=1``) and the one-sample-per-entry split bit for bit."""
+    from path_tracing__ray_tracer_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    b = pt.CustomSceneBuilder()
+    scene, cam = b.build_scene(), b.create_camera(4 / 3)
+    settings = pt.RenderSettings(width=96, height=72, samples_per_pixel=6, max_depth=4)
+    mesh = make_mesh(4, sample_parallel=sample_parallel, devices=[dev] * 4)
+    for group in (2, 6):
+        single = pt.RendererFactory.create("cuda_path_raytracer", seed=3, sample_group=group,
+                                           device=dev).render_sums(scene, cam, settings)
+        before = bounce.path_bounce.launches
+        sharded = pt.RendererFactory.create("cuda_path_raytracer", seed=3, sample_group=group,
+                                            mesh=mesh).render_sums(scene, cam, settings)
+        assert bounce.path_bounce.launches > before
+        if sample_parallel == 1 or group == 2:
+            np.testing.assert_array_equal(sharded, single)
+        else:
+            np.testing.assert_allclose(sharded, single, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_graft_entry_on_the_card(card):
+    """``graft_entry.entry()`` on the card launches K1 and gives the path
+    tracer's chunk sums bit for bit."""
+    from path_tracing__ray_tracer_tpu_torch import graft_entry
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    fn, args = graft_entry.entry(dev)
+    before = bounce.path_bounce.launches
+    out = fn(*args)
+    assert bounce.path_bounce.launches > before
+    assert tuple(out.shape) == (3, 4096) and bool(torch.isfinite(out).all())
+    ref = pt.RendererFactory.create("cuda_path_raytracer", seed=0, sample_group=4,
+                                    device=dev).device_sums(*graft_entry._example_scene(),
+                                                            pt.RenderSettings(64, 64, 4, 4))
+    assert torch.equal(out, ref)
