@@ -161,11 +161,14 @@ It imports no JAX.
    with ``BVH_MXU_LEAF`` (K10a + K10b, K4a/K4b idle), within the golden
    tolerance of each other;
 25. ``[mesh]``, the (tile × sample) split on a (2, 2) mesh of four entries
-   of the one card (``phase_mesh``): ``graft_entry``'s dry run (four
-   sub-checks against their single-device renders, the launches of K1; K5
-   and K4b; K2; K6a-d), the main path at full width through the split
-   against phase 6's first group, the CLI's ``--devices 1`` (bit-equal to
-   no flag) and ``--devices <cards + 1>`` (exits non-zero), and
+   of the one card (``phase_mesh``), each entry in a worker process of its
+   own: ``graft_entry``'s dry run (four sub-checks against their
+   single-device renders, the launches of K1; K5 and K4b; K2; K6a-d), the
+   main path at full width through the split against phase 6's first group
+   (with each entry's pid and busy seconds, the overlap ratio and the cost
+   of a call's block transport; fails unless four processes rendered and
+   the ratio is at least 1.5), the CLI's ``--devices 1`` (bit-equal to no
+   flag) and ``--devices <cards + 1>`` (exits non-zero), and
    ``graft_entry.entry()`` bit-equal to ``PathTracer.device_sums``.
 
 Prints a ``{"kernels": [...]}`` line (``ms``: device time per launch;
@@ -3233,6 +3236,8 @@ def phase_modes_property(device):
 
 # ---- [mesh]: the (tile x sample) split and the entry points -------------------
 MESH_ENTRIES = 4  # a (2, 2) mesh, every entry the one card
+MESH_OVERLAP_MIN = 1.5  # the entries' busy seconds over the calls' wall seconds, at least
+MESH_WARM = (256, 256, 8)  # the frame and spp that start and warm (b)'s workers
 SUB_CHECK_KERNELS = {  # the kernels each dry-run sub-check must launch
     "path/cornell": ("path_bounce",),
     "path/bvh-mesh": ("path_bounce_bvh", "scene_any"),
@@ -3243,21 +3248,52 @@ CLI_MESH_SHAPE = ["-r", "cuda_path_raytracer", "-w", "160", "--height", "120",
                   "--path-samples", "16", "-d", "4", "--no-show"]
 
 
+def mesh_workers_line(tag, mesh):
+    """Each entry's pid and busy seconds; fails unless every entry rendered
+    in a live process of its own."""
+    import os
+
+    ws = mesh.workers()
+    pids, busy = ws.stats["pids"], ws.stats["busy"]
+    alive = [p.pid for p in ws.processes if p.is_alive()]
+    print(f"[mesh] {tag} workers: " + ", ".join(
+        f"entry {i} pid {pid} busy {b:.3f} s" for i, (pid, b) in enumerate(zip(pids, busy))))
+    if None in pids or len(set(pids)) != MESH_ENTRIES or sorted(alive) != sorted(pids) \
+            or os.getpid() in pids:
+        raise SystemExit(f"chip_smoke: {tag} did not render in {MESH_ENTRIES} worker processes")
+    return pids
+
+
+def mesh_stopped(tag, mesh):
+    procs = mesh.workers().processes
+    mesh.close()
+    if any(p.is_alive() for p in procs):
+        raise SystemExit(f"chip_smoke: {tag}'s workers outlived close()")
+    print(f"[mesh] {tag}: close() stopped the {len(procs)} workers")
+
+
 def phase_mesh(device, oneshot_sums, single_secs):
     """The split across a mesh and the entry points, on a ``(2, 2)`` mesh of
-    four entries of the one card (four entries of one card are one card: no
-    speed-up is measured here):
+    four entries of the one card, each entry in a worker process of its own
+    (``parallel/workers.py``; four entries of one card share the card, which
+    time-slices their contexts):
 
     (a) ``graft_entry.dryrun_multichip``'s four sub-checks, each sharded
         render within ``atol=1e-5`` of the single-device one, with the
-        launches of each (sharded and single render); fails if a kernel of
-        the sub-check never launched;
+        launches of each (sharded and single render; the workers' launches
+        are added onto this process's counts); fails if a kernel of the
+        sub-check never launched, or unless four worker processes rendered;
     (b) the main path at full width through the split (1024², depth 8, one
-        128-sample group): its image within the golden tolerance of
+        128-sample group) on a second set of workers, started and warmed on
+        a small frame first: its image within the golden tolerance of
         ``phase_main_path``'s first group (``oneshot_sums``, the same
         samples), with the channels that differ, the largest difference of
         the radiance sums and its seconds beside the single-device group's
-        (``single_secs``);
+        (``single_secs``); each entry's pid and busy seconds and the
+        overlap ratio (the entries' busy seconds over the chunk calls' wall
+        seconds), which must be at least ``MESH_OVERLAP_MIN``, in four
+        distinct processes; and the seconds of one call that sends every
+        entry a tile block (65,536 pixels, 786 KB) and takes it back;
     (c) the CLI with ``--devices 1``, bit-equal to the same run without the
         flag, and ``python -m ... --devices <cards + 1>`` in a fresh process,
         which must exit non-zero with ``make_mesh``'s message;
@@ -3284,17 +3320,29 @@ def phase_mesh(device, oneshot_sums, single_secs):
             raise SystemExit(f"chip_smoke: dry-run sub-check {label} did not launch "
                              f"{SUB_CHECK_KERNELS[label]}")
     print(f"[mesh] (a) dryrun_multichip OK: mesh={mesh.shape} (4/4 sub-checks), "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"{time.perf_counter() - t0:.1f} s with the workers' start")
+    mesh_workers_line("(a)", mesh)
+    mesh_stopped("(a)", mesh)
 
     b = pt.CustomSceneBuilder()
     scene, cam = b.build_scene(), b.create_camera(WIDTH / HEIGHT)
     settings = pt.RenderSettings(width=WIDTH, height=HEIGHT, samples_per_pixel=GROUP_SPP,
                                  max_depth=DEPTH)
+    mesh = make_mesh(MESH_ENTRIES, sample_parallel=2, devices=[device] * MESH_ENTRIES)
     r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
                                   chunk_rays=CHUNK_RAYS, texture_budget=0, mesh=mesh)
     r.compiled(scene, device)  # one compile: the four entries share the card
+    t0 = time.perf_counter()  # start the workers: spawn, CUDA context, scene, kernels
+    warm_w, warm_h, warm_spp = MESH_WARM
+    r.render_sums(scene, cam, pt.RenderSettings(warm_w, warm_h, warm_spp, DEPTH))
+    warm = time.perf_counter() - t0
+    ws = mesh.workers()
+    tile_pix = r._plan(WIDTH, HEIGHT, GROUP_SPP, DEPTH)[0] // mesh.shape["tile"]
+    block = np.zeros((3, tile_pix), dtype=np.float32)  # an entry's block of the main path
+    echo = statistics.median(ws.echo(block) for _ in range(5))
     torch.cuda.synchronize()
     reset_counts()
+    ws.reset_stats()
     t0 = time.perf_counter()
     sums = r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
     secs = time.perf_counter() - t0
@@ -3302,16 +3350,27 @@ def phase_mesh(device, oneshot_sums, single_secs):
     img, want = image_of(sums, GROUP_SPP), image_of(oneshot_sums, GROUP_SPP)
     diff = np.abs(img.astype(np.int32) - want.astype(np.int32))
     share = float((diff > 2).mean())
+    overlap = sum(ws.stats["busy"]) / ws.stats["wall"]
     print(f"[mesh] (b) {WIDTH}x{HEIGHT} depth {DEPTH}, one {GROUP_SPP}-sample group on "
-          f"{mesh.shape}: {secs:.3f} s (single device: {single_secs:.3f} s), K1 launches "
-          f"{launched}; against the single-device render of the same samples "
-          f"{int((diff > 0).sum())} of {diff.size} channels differ ({share:.6f} by >2/255, "
-          f"max {int(diff.max())}), radiance sums differ by at most "
+          f"{mesh.shape}: {secs:.3f} s (single device: {single_secs:.3f} s, ratio "
+          f"{secs / single_secs:.3f}), K1 launches {launched}; against the single-device render "
+          f"of the same samples {int((diff > 0).sum())} of {diff.size} channels differ "
+          f"({share:.6f} by >2/255, max {int(diff.max())}), radiance sums differ by at most "
           f"{float(np.abs(sums - oneshot_sums).max()):.6g}")
+    print(f"[mesh] (b) {ws.stats['calls']} chunk calls, {ws.stats['wall']:.3f} s of wall in "
+          f"them, overlap ratio {overlap:.3f} (the entries' busy seconds over the calls' wall); "
+          f"workers started and warmed on {warm_w}x{warm_h} at {warm_spp} spp in {warm:.3f} s; "
+          f"one call moving a {block.shape[1]}-pixel block ({block.nbytes} B) to every entry's "
+          f"card and back: {echo * 1e3:.3f} ms")
+    mesh_workers_line("(b)", mesh)
+    mesh_stopped("(b)", mesh)
     if not np.isfinite(sums).all() or img.shape != want.shape or share >= 0.01:
         raise SystemExit("chip_smoke: the split main path is outside the golden tolerance")
     if launched == 0:
         raise SystemExit("chip_smoke: the split main path never launched K1")
+    if overlap < MESH_OVERLAP_MIN:
+        raise SystemExit(f"chip_smoke: the split main path's entries overlapped {overlap:.3f}x, "
+                         f"under {MESH_OVERLAP_MIN}")
     del sums
 
     with tempfile.TemporaryDirectory() as tmp:

@@ -11,7 +11,9 @@ aliases.  Renders run on the card; :func:`main`'s ``device`` keyword
 (``"cpu"``, which no flag sets) renders through the kernels' plain versions
 on the CPU instead.  ``--devices N`` splits each chunk over a mesh of the
 first N cards (``parallel/mesh.make_mesh``; N CPU entries under
-``device="cpu"``), and fails when there are fewer cards.
+``device="cpu"``), each entry rendering in a worker process of its own
+(``parallel/workers.py``) that stops when the render ends, and fails when
+there are fewer cards.
 """
 from __future__ import annotations
 
@@ -229,20 +231,24 @@ def main(argv=None, device="cuda") -> int:
     from .utils.debug import debug_nans
 
     start = time.time()
-    with maybe_trace(args.trace_dir), debug_nans(args.debug_nans):
-        if args.progressive:
-            from .parallel.progressive import render_progressive
+    try:
+        with maybe_trace(args.trace_dir), debug_nans(args.debug_nans):
+            if args.progressive:
+                from .parallel.progressive import render_progressive
 
-            image = render_progressive(
-                renderer,
-                scene,
-                camera,
-                settings,
-                batch_spp=args.progressive,
-                checkpoint_path=args.checkpoint,
-            )
-        else:
-            image = renderer.render(scene, camera, settings)
+                image = render_progressive(
+                    renderer,
+                    scene,
+                    camera,
+                    settings,
+                    batch_spp=args.progressive,
+                    checkpoint_path=args.checkpoint,
+                )
+            else:
+                image = renderer.render(scene, camera, settings)
+    finally:
+        if renderer.mesh is not None:  # stop the mesh's worker processes
+            renderer.mesh.close()
     elapsed = time.time() - start
 
     image.save(args.output)

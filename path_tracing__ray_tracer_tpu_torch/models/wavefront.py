@@ -7,11 +7,14 @@ ascending order, into one device-resident buffer of per-pixel radiance sums;
 the subclass then finalizes (divide by spp, tonemap) on the device, the
 image is quantized there, and one transfer brings it to the host.
 
-With a ``mesh`` (``parallel/mesh.make_mesh``) each chunk call is split over
-its ``(tile, sample)`` entries (``parallel/sharding.shard_chunk_fn``): the
-pixel chunk is rounded up to whole 1024-pixel blocks per tile, each entry
-renders its part on its own device with its own compiled scene, and the
-renderer's device (the mesh's first entry) holds the sums.
+With a ``mesh`` (``parallel/mesh.make_mesh``) of more than one entry each
+chunk call is split over its ``(tile, sample)`` entries
+(``parallel/sharding.shard_chunk_fn``): the pixel chunk is rounded up to
+whole 1024-pixel blocks per tile, and every entry renders its part at once
+in its worker process (``parallel/workers.py``) on its own device, with the
+scene that this process compiled for that device; the renderer's device
+(the mesh's first entry) holds the sums.  A mesh of one entry renders on the
+caller's thread, as no mesh does.
 
 The JAX package's dispatch batching (``lax.map`` over chunks, fused group
 loops) works around a per-dispatch floor of its TPU connection and is not
@@ -33,7 +36,7 @@ from ..ops.cuda.bounce_bvh import bounce_bvh_ok, pack_bvh_tables
 from ..ops.tonemap import quantize_u8
 from ..ops.v3 import V3
 from ..parallel.mesh import DeviceMesh, mesh_shape
-from ..parallel.sharding import shard_chunk_fn
+from ..parallel.sharding import device_scope, shard_chunk_fn
 from ..utils import debug
 from ..utils.image import assemble_image
 from ..utils.logging import log_event
@@ -43,6 +46,10 @@ from .base import BaseRenderer
 # Lane-width cap of one chunk (the JAX package's measured knee; a scheduling
 # knob that never changes a pixel).
 _MAX_CHUNK_LANES = 131072
+
+# What a renderer holds for its own process: a mesh worker's twin of it
+# (``WavefrontRenderer.settings`` / ``twin``) takes everything else
+_PROCESS_LOCAL = ("mesh", "device", "_scene_cache", "_blobs")
 
 
 def pixel_coords(pix0: int, n_pix: int, width: int, height: int, device):
@@ -124,6 +131,21 @@ class WavefrontRenderer(BaseRenderer):
         if self.reseed_per_render:
             return (self.seed + self.frame_count) & 0xFFFFFFFF
         return self.seed
+
+    # -- a mesh worker's twin (parallel/workers.py) ----------------------------
+    def settings(self) -> dict:
+        """The renderer's attributes but its mesh, device and caches: what a
+        mesh worker's twin of it takes."""
+        return {k: v for k, v in vars(self).items() if k not in _PROCESS_LOCAL}
+
+    @classmethod
+    def twin(cls, settings: dict, device, blobs: dict) -> "WavefrontRenderer":
+        """The renderer of ``settings`` on ``device`` with no mesh, its
+        kernels' tables kept in ``blobs`` (by id of the compiled scene)."""
+        r = cls.__new__(cls)
+        r.__dict__.update(settings, mesh=None, device=torch.device(device), _scene_cache={},
+                          _blobs=blobs)
+        return r
 
     # -- scene compilation (cached) -----------------------------------------
     def compiled(self, scene: Scene, device=None) -> CompiledScene:
@@ -218,13 +240,21 @@ class WavefrontRenderer(BaseRenderer):
         cams = {dev: pack_camera(camera, dev) for dev in mesh.devices()}
         seed = self._run_seed()
         local_pix, local_samples = n_pix // tile, -(-group // samp)
+        kw = dict(n_pix=local_pix, width=w, height=h, max_depth=settings.max_depth, spp=spp)
+        if tile * samp == 1:
+            cs, cam12 = self.compiled(scene), cams[self.device]
 
-        def entry_chunk(dev, out, col0, pix0, s0, n):
-            self._chunk(self.compiled(scene, dev), cams[dev], out, pix0, seed, s0,
-                        n_pix=local_pix, width=w, height=h, n_samples=n,
-                        max_depth=settings.max_depth, spp=spp, col0=col0)
-
-        chunk = shard_chunk_fn(entry_chunk, mesh, local_pix, local_samples)
+            def chunk(sums, pix0, s0, n):
+                with device_scope(self.device):
+                    self._chunk(cs, cam12, sums, pix0, seed, s0, n_samples=n, col0=pix0, **kw)
+        else:
+            # every device's scene compiles here, under this process's knobs,
+            # before any worker starts its part
+            scenes = {dev: self.compiled(scene, dev) for dev in mesh.devices()}
+            workers = mesh.workers()
+            chunk = shard_chunk_fn(
+                lambda parts, sums: workers.render(self, scenes, cams, seed, kw, parts, sums),
+                mesh, local_pix, local_samples)
         # padded to whole chunks: out-of-frame lanes land past H*W and are cut
         sums = torch.zeros((3, len(pix0_list) * n_pix), dtype=torch.float32, device=self.device)
         for c, pix0 in enumerate(pix0_list):

@@ -5,14 +5,19 @@ A mesh is a 2-D ``(tile, sample)`` grid of devices: the ``tile`` axis splits
 each pixel chunk (data parallel over rays, no communication), the ``sample``
 axis splits each sample group (partial sums added over it, the JAX
 package's ``psum``).  The JAX package's mesh is one ``shard_map`` program;
-the port's is a list of ``torch.device`` entries that one process drives in
-turn (``parallel/sharding.py``).
+the port's is a list of ``torch.device`` entries, each served by a worker
+process of its own (``parallel/workers.py``) that the mesh owns: the
+renderers, progressive batches and dry-run checks on one mesh share its
+workers, and ``close()`` stops them.
 """
 from __future__ import annotations
 
+import weakref
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import torch
+
+from .workers import MeshWorkers
 
 
 class DeviceMesh:
@@ -26,6 +31,7 @@ class DeviceMesh:
             tuple(torch.device(d) for d in row) for row in rows)
         if not self.rows or len({len(r) for r in self.rows}) != 1 or not self.rows[0]:
             raise ValueError("DeviceMesh: rows must be non-empty and of one length")
+        self._workers: Optional[MeshWorkers] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -40,6 +46,21 @@ class DeviceMesh:
         for ti, row in enumerate(self.rows):
             for si, dev in enumerate(row):
                 yield ti, si, dev
+
+    def workers(self) -> MeshWorkers:
+        """The mesh's worker processes (``parallel/workers.MeshWorkers``),
+        one per entry; they start at their first chunk call and stop at
+        :meth:`close`, or when the mesh is collected or the interpreter
+        exits."""
+        if self._workers is None:
+            self._workers = MeshWorkers([dev for _, _, dev in self.entries()])
+            weakref.finalize(self, self._workers.close)
+        return self._workers
+
+    def close(self) -> None:
+        """Stop the mesh's worker processes; a later render starts new ones."""
+        if self._workers is not None:
+            self._workers.close()
 
     def __repr__(self) -> str:
         return f"DeviceMesh({self.shape}, {[[str(d) for d in r] for r in self.rows]})"

@@ -5,10 +5,11 @@ The JAX package wraps a chunk function in ``shard_map``: every device
 derives its pixel base (``tile`` axis) and sample base (``sample`` axis)
 from its mesh coordinates, renders its part with the same compiled kernel
 one chip runs, the partial sums are ``psum``-reduced over ``sample`` and
-the tiles are gathered.  The port has one controller: this process drives
-every entry in turn, each on its own device with its own compiled scene,
-adds the partial sums over ``sample`` in ascending order (the ``psum``) and
-places each tile's block into the output sums (the gather).
+the tiles are gathered.  Here each entry's part renders in the entry's
+worker process (``parallel/workers.py``), all at once; after every entry of
+the call has returned, the partial sums are added over ``sample`` in
+ascending order (the ``psum``) and each tile's block is placed into the
+output sums (the gather).
 
 Entry ``(ti, si)`` renders pixels ``[pix0 + ti·local_pix, +local_pix)`` and
 samples ``[sample_base + si·local_samples, +local_samples)`` clipped to the
@@ -23,11 +24,22 @@ does, and the split's sums are the single-device sums bit for bit.
 from __future__ import annotations
 
 import contextlib
-from typing import Callable
+from typing import Callable, List, NamedTuple
 
 import torch
 
 from .mesh import DeviceMesh
+
+
+class Part(NamedTuple):
+    """One entry's part of a chunk call."""
+
+    entry: int  # the entry's index, tile-major (``DeviceMesh.entries``' order)
+    si: int
+    device: torch.device
+    pix0: int
+    sample_base: int
+    n_samples: int
 
 
 def device_scope(device: torch.device):
@@ -40,36 +52,37 @@ def device_scope(device: torch.device):
     return contextlib.nullcontext()
 
 
-def shard_chunk_fn(inner_chunk_fn: Callable, mesh: DeviceMesh, local_pix: int,
+def chunk_parts(mesh: DeviceMesh, pix0: int, sample_base: int, n_samples: int, local_pix: int,
+                local_samples: int) -> List[Part]:
+    """The parts of the call that adds ``n_samples`` samples from
+    ``sample_base`` on for the ``local_pix · tile`` pixels from ``pix0`` on,
+    tile-major; an entry past the group's end has none."""
+    end = sample_base + n_samples
+    parts = []
+    for i, (ti, si, dev) in enumerate(mesh.entries()):
+        s0 = sample_base + si * local_samples
+        n = min(local_samples, end - s0)
+        if n > 0:  # a group smaller than the sample axis leaves nothing here
+            parts.append(Part(i, si, dev, pix0 + ti * local_pix, s0, n))
+    return parts
+
+
+def shard_chunk_fn(render_parts: Callable, mesh: DeviceMesh, local_pix: int,
                    local_samples: int) -> Callable:
-    """Wrap ``inner_chunk_fn(device, out, col0, pix0, sample_base,
-    n_samples)``, which adds ``n_samples`` samples from ``sample_base`` on
-    for the pixels ``[pix0, pix0 + local_pix)`` into ``out[:, col0:col0 +
-    local_pix]`` on ``device``, into ``run(sums, pix0, sample_base,
-    n_samples)``: the same for the ``local_pix · tile`` pixels from ``pix0``
-    on, into ``sums[:, pix0:]``, split over the mesh."""
+    """Wrap ``render_parts(parts, sums)``, which renders every :class:`Part`
+    of a call and returns each one's ``(3, local_pix)`` block on
+    ``sums.device`` (entry ``(ti, 0)``'s continuing the fold of its tile
+    block of ``sums``, the others from zeros), into ``run(sums, pix0,
+    sample_base, n_samples)``: the chunk call, its result composed into
+    ``sums[:, pix0:]``."""
 
     def run(sums: torch.Tensor, pix0: int, sample_base: int, n_samples: int) -> None:
-        end = sample_base + n_samples
-        for ti, si, dev in mesh.entries():
-            s0 = sample_base + si * local_samples
-            n = min(local_samples, end - s0)
-            if n <= 0:  # a group smaller than the sample axis: nothing left here
-                continue
-            p0 = pix0 + ti * local_pix
-            block = sums[:, p0:p0 + local_pix]
-            with device_scope(dev):
-                if si == 0 and dev == sums.device:
-                    inner_chunk_fn(dev, sums, p0, p0, s0, n)
-                    continue
-                if si == 0:
-                    part = block.to(dev, copy=True)
-                else:
-                    part = torch.zeros((3, local_pix), dtype=sums.dtype, device=dev)
-                inner_chunk_fn(dev, part, 0, p0, s0, n)
-            if si == 0:
-                block.copy_(part)
+        parts = chunk_parts(mesh, pix0, sample_base, n_samples, local_pix, local_samples)
+        for part, block in zip(parts, render_parts(parts, sums)):
+            tile = sums[:, part.pix0:part.pix0 + local_pix]
+            if part.si == 0:  # each tile's (ti, 0) comes before its partials
+                tile.copy_(block)
             else:
-                block += part.to(sums.device)
+                tile += block
 
     return run
