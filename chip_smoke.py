@@ -160,7 +160,19 @@ It imports no JAX.
 24. config 5's mesh Whitted frame (as phase 11) on the default route and
    with ``BVH_MXU_LEAF`` (K10a + K10b, K4a/K4b idle), within the golden
    tolerance of each other;
-25. ``[mesh]``, the (tile × sample) split on a (2, 2) mesh of four entries
+25. ``[graph]``, after phase 10: the path tracer's bounce blocks replayed as
+   CUDA graphs (``models/path_tracer._GRAPH_BLOCKS``, on by default, so
+   every other phase renders through them) against the same blocks run
+   eagerly: the main path's group (phase 6's shape) and config 5's mesh-path
+   group (phase 10's) with ``_GRAPH_BLOCKS`` False, then True with a fresh
+   renderer (its captures timed in), then True again (replays only): float
+   sums bit-equal and per-wrapper launch counts equal, or it fails; seconds,
+   Mrays/s, captures and their seconds, peak device memory; then a profile
+   of one 131,072-lane chunk of each at ``GRAPH_PROFILE_SPP`` spp, eager
+   and graphed: device ops and host launch calls per bounce, busy share.
+   Phase 17's pipe also runs with ``_GRAPH_BLOCKS = False``, its sums
+   bit-equal to the graphed run's;
+26. ``[mesh]``, the (tile × sample) split on a (2, 2) mesh of four entries
    of the one card (``phase_mesh``), each entry in a worker process of its
    own: ``graft_entry``'s dry run (four sub-checks against their
    single-device renders, the launches of K1; K5 and K4b; K2; K6a-d), the
@@ -686,6 +698,7 @@ def phase_main_path(device):
     import torch
 
     import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import CAPTURES
     from path_tracing__ray_tracer_tpu_torch.ops.cuda.bounce import path_bounce
 
     b = pt.CustomSceneBuilder()
@@ -694,17 +707,21 @@ def phase_main_path(device):
                                  max_depth=DEPTH)
     r = pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
                                   chunk_rays=CHUNK_RAYS, texture_budget=0, device=device)
+    caps = dict(CAPTURES)
     t0 = time.perf_counter()
     warm_sums = r.render_sums(scene, cam, settings, sample_offset=0, n_samples=GROUP_SPP)
     warm = time.perf_counter() - t0
+    warm_caps = captures_since(caps)
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts()
+    caps = dict(CAPTURES)
     t0 = time.perf_counter()
     sums = r.render_sums(scene, cam, settings, sample_offset=GROUP_SPP, n_samples=GROUP_SPP)
     secs = time.perf_counter() - t0
     launches = path_bounce.launches
-    print(f"[main] launches in the timed group: {counts()}")
+    print(f"[main] launches in the timed group: {counts()}; graph captures {captures_since(caps)} "
+          f"(the warm-up group's: {warm_caps})")
     peak = torch.cuda.max_memory_allocated() / 2**20
     mrays = WIDTH * HEIGHT * GROUP_SPP * DEPTH / secs / 1e6
     mean = sums.mean(axis=0) / GROUP_SPP
@@ -719,6 +736,15 @@ def phase_main_path(device):
         raise SystemExit("chip_smoke: the main path never launched the bounce kernel")
     return (launches, secs, mrays, image_of(sums, GROUP_SPP), image_of(warm_sums, GROUP_SPP),
             warm_sums)
+
+
+def captures_since(before) -> str:
+    """The graph captures of this process since ``before`` (a copy of
+    ``ops/cuda.CAPTURES``) and their seconds."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import CAPTURES
+
+    return (f"{CAPTURES['count'] - before['count']} in "
+            f"{CAPTURES['seconds'] - before['seconds']:.3f} s")
 
 
 def image_of(sums, spp):
@@ -1721,6 +1747,7 @@ def phase_mesh_main(device):
     import torch
 
     import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import CAPTURES
 
     b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
     scene, cam = b.build_scene(), b.create_camera(M_WIDTH / M_HEIGHT)
@@ -1733,18 +1760,21 @@ def phase_mesh_main(device):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     reset_counts()
+    caps = dict(CAPTURES)
     t0 = time.perf_counter()
     sums = r.render_sums(scene, cam, pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_SPP, M_DEPTH))
     secs = time.perf_counter() - t0
     launched = counts()
+    caps = captures_since(caps)
     peak = torch.cuda.max_memory_allocated() / 2**20
     mrays = M_WIDTH * M_HEIGHT * MESH_SPP * M_DEPTH / secs / 1e6
     mean = sums.mean(axis=0) / MESH_SPP
     print(f"[mesh] path {M_WIDTH}x{M_HEIGHT} depth {M_DEPTH} shadow_tmax=light, one {MESH_SPP}-"
           f"sample group: warm-up (256x144, 4 spp) {warm:.3f} s, timed {secs:.3f} s -> "
           f"{mrays:.2f} Mrays/s (W*H*spp*depth/t); launches K5 {launched['path_bounce_bvh']}, "
-          f"K4b {launched['scene_any']}, K1 {launched['path_bounce']}; peak device memory "
-          f"{peak:.0f} MiB; mean radiance/sample {mean}")
+          f"K4b {launched['scene_any']}, K1 {launched['path_bounce']}; graph captures {caps} "
+          f"(other widths than the warm-up's); peak device memory {peak:.0f} MiB; mean "
+          f"radiance/sample {mean}")
     if sums.shape != (M_WIDTH * M_HEIGHT, 3) or not np.isfinite(sums).all() or (sums < 0).any():
         raise SystemExit("chip_smoke: mesh-path sums are not finite and non-negative")
     if not 0.01 < float(mean.mean()) < 20.0:
@@ -1757,14 +1787,18 @@ def phase_mesh_main(device):
 def profile_frame(tag, r, scene, cam, settings, counter, kernels, top=4):
     """Device operations per bounce, the device's busy share of the untraced
     frame and each kernel's share of the busy time, launches and device time
-    per launch, from the torch profiler over ``r.device_sums`` of one frame.
-    ``counter()`` counts the frame's bounces; ``kernels`` maps a label to a
-    kernel's symbol (``kernel_is``)."""
+    per launch, from the torch profiler over ``r.device_sums`` of one frame
+    (rendered once before, so that the untraced and traced frames replay
+    the path tracer's graphs and capture none).  ``counter()`` counts the
+    frame's bounces; ``kernels`` maps a label to a kernel's symbol
+    (``kernel_is``)."""
     import collections
 
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    r.device_sums(scene, cam, settings)  # the frame's graph captures, out of its time
+    torch.cuda.synchronize()
     t0 = time.perf_counter()
     r.device_sums(scene, cam, settings)
     torch.cuda.synchronize()
@@ -1807,6 +1841,137 @@ def phase_mesh_profile(r, scene, cam):
                   pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_PROFILE_SPP, M_DEPTH),
                   lambda: bounce_bvh.path_bounce_bvh.launches,
                   {"K5": "path_bounce_bvh_persistent", "K4b": "bvh_any_persistent"})
+
+
+# ---- [graph]: the bounce blocks as CUDA graphs against the eager loop ---------
+# the host calls that launch device work, as the profiler's runtime events name them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaGraphLaunch", "cuGraphLaunch")
+GRAPH_PROFILE_SPP = 32  # the profiled frame: one 131,072-lane chunk of each path at this spp
+
+
+def graph_group(make, scene, cam, settings, renderer=None):
+    """One sample group of ``settings`` (samples 0 on) by ``renderer`` or a
+    fresh ``make()``: ``(renderer, sums, launches, seconds, captures,
+    capture seconds, peak MiB)``; the scene compile stays out of the time."""
+    import torch
+
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import CAPTURES
+
+    r = make() if renderer is None else renderer
+    r.compiled(scene)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    before = dict(CAPTURES)
+    t0 = time.perf_counter()
+    sums = r.render_sums(scene, cam, settings)
+    secs = time.perf_counter() - t0
+    return (r, sums, {k: v for k, v in counts().items() if v}, secs,
+            CAPTURES["count"] - before["count"], CAPTURES["seconds"] - before["seconds"],
+            torch.cuda.max_memory_allocated() / 2**20)
+
+
+def graph_profile(r, scene, cam, settings, counter):
+    """Device ops and host launch calls per bounce, and the device's busy
+    share of the untraced frame, from the torch profiler over one frame of
+    ``r`` (rendered once untraced before, so a graph run replays only)."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    r.device_sums(scene, cam, settings)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.device_sums(scene, cam, settings)
+    torch.cuda.synchronize()
+    untraced = time.perf_counter() - t0
+    before = counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        r.device_sums(scene, cam, settings)
+        torch.cuda.synchronize()
+    bounces = max(counter() - before, 1)
+    events = prof.events()
+    ops = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    calls = collections.Counter(e.name for e in events
+                                if e.device_type == torch.autograd.DeviceType.CPU
+                                and e.name in LAUNCH_CALLS)
+    busy = sum(e.time_range.elapsed_us() for e in ops) / 1e3
+    return dict(bounces=bounces, ops=len(ops) / bounces,
+                launches=sum(calls.values()) / bounces, calls=dict(calls),
+                busy=100 * busy / (1e3 * untraced) if ops else None, untraced=untraced)
+
+
+def phase_graph(device):
+    """``[graph]``: the main path's group (1024², depth 8, 128 spp) and
+    config 5's mesh-path group (1920×1080, depth 12, 128 spp,
+    ``shadow_tmax="light"``) with ``_GRAPH_BLOCKS`` False, then True (a
+    fresh renderer, its captures in the time), then True again (replays
+    only): the float sums bit-equal and the launch counts equal, or it
+    fails; seconds, Mrays/s, captures and their seconds, peak memory; then,
+    on one 131,072-lane chunk of each path at ``GRAPH_PROFILE_SPP`` spp,
+    eager and graphed, device ops and host launch calls per bounce and the
+    device's busy share (torch profiler)."""
+    import numpy as np
+
+    import path_tracing__ray_tracer_tpu_torch as pt
+    from path_tracing__ray_tracer_tpu_torch.models import path_tracer
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import bounce, bounce_bvh
+
+    b = pt.CustomSceneBuilder()
+    mb = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+    paths = (
+        ("main path", b.build_scene(), b.create_camera(WIDTH / HEIGHT),
+         pt.RenderSettings(WIDTH, HEIGHT, GROUP_SPP, DEPTH), dict(texture_budget=0),
+         (WIDTH, N_RAYS // WIDTH), lambda: bounce.path_bounce.launches),
+        ("config 5", mb.build_scene(), mb.create_camera(M_WIDTH / M_HEIGHT),
+         pt.RenderSettings(M_WIDTH, M_HEIGHT, MESH_SPP, M_DEPTH),
+         dict(shadow_tmax="light", seed=0, compile_overrides={"use_bvh": True}),
+         (M_WIDTH, N_RAYS // M_WIDTH), lambda: bounce_bvh.path_bounce_bvh.launches),
+    )
+    out = {}
+    for label, scene, cam, settings, kw, (pw, ph), counter in paths:
+        def make():
+            return pt.RendererFactory.create("cuda_path_raytracer", sample_group=GROUP_SPP,
+                                             chunk_rays=CHUNK_RAYS, device=device, **kw)
+
+        rays = settings.width * settings.height * settings.samples_per_pixel * settings.max_depth
+        runs = {}
+        for tag, graphed in (("eager", False), ("graphs", True), ("replay", True)):
+            path_tracer._GRAPH_BLOCKS = graphed
+            try:
+                runs[tag] = graph_group(make, scene, cam, settings,
+                                        runs["graphs"][0] if tag == "replay" else None)
+            finally:
+                path_tracer._GRAPH_BLOCKS = True
+            _r, _sums, launched, secs, caps, cap_s, peak = runs[tag]
+            print(f"[graph] {label} {settings.width}x{settings.height} depth {settings.max_depth}, "
+                  f"one {settings.samples_per_pixel}-sample group, {tag}: {secs:.3f} s -> "
+                  f"{rays / secs / 1e6:.2f} Mrays/s; launches {launched}; {caps} captures in "
+                  f"{cap_s:.3f} s; peak device memory {peak:.0f} MiB")
+        same = all(np.array_equal(runs["eager"][1], runs[t][1]) for t in ("graphs", "replay"))
+        counted = all(runs["eager"][2] == runs[t][2] for t in ("graphs", "replay"))
+        print(f"[graph] {label}: float sums bit-equal {same}, launch counts equal {counted}; "
+              f"eager/replay {runs['eager'][3] / runs['replay'][3]:.2f}x")
+        if not same or not counted:
+            raise SystemExit(f"chip_smoke: the {label}'s graph replay differs from its eager loop")
+        prof = {}
+        small = pt.RenderSettings(pw, ph, GRAPH_PROFILE_SPP, settings.max_depth)
+        for tag, graphed in (("eager", False), ("graphs", True)):
+            path_tracer._GRAPH_BLOCKS = graphed
+            try:
+                prof[tag] = graph_profile(make(), scene, cam, small, counter)
+            finally:
+                path_tracer._GRAPH_BLOCKS = True
+            p = prof[tag]
+            busy = "not measured" if p["busy"] is None else f"{p['busy']:.1f}%"
+            print(f"[graph] {label} profile, {tag}: one {pw}x{ph} chunk at {GRAPH_PROFILE_SPP} spp "
+                  f"(untraced {p['untraced']:.3f} s): {p['bounces']} bounces, {p['ops']:.1f} "
+                  f"device ops and {p['launches']:.2f} host launch calls a bounce {p['calls']}; "
+                  f"device busy {busy}")
+        out[label] = {t: runs[t][2:] for t in runs}, prof
+    return out
 
 
 def phase_mesh_whitted(device):
@@ -3139,7 +3304,7 @@ def mode_run(device, label, default_img, kernel, **kw):
         raise SystemExit(f"chip_smoke: ({label}) sums are not finite and non-negative")
     if not launched.get(kernel):
         raise SystemExit(f"chip_smoke: ({label}) never launched {kernel}")
-    return launched, secs, mrays, img, (rmse, float((diff > 2).mean()))
+    return launched, secs, mrays, img, (rmse, float((diff > 2).mean())), sums
 
 
 def phase_modes_main(device, default_img, budget):
@@ -3156,11 +3321,20 @@ def phase_modes_main(device, default_img, budget):
     path_tracer._PIPE_REGEN = True
     try:
         runs["pipe"] = mode_run(device, "a: pipe", default_img, "path_step")
+        path_tracer._GRAPH_BLOCKS = False
+        eager = mode_run(device, "a: pipe, _GRAPH_BLOCKS = False", default_img, "path_step")
     finally:
         path_tracer._PIPE_REGEN = False
+        path_tracer._GRAPH_BLOCKS = True
     if runs["pipe"][4][0] != 0.0 or runs["pipe"][0].get("path_bounce"):
         raise SystemExit("chip_smoke: the pipe run's image is not bit-equal to the default "
                          "image, or it ran K1")
+    same = np.array_equal(runs["pipe"][5], eager[5])
+    print(f"[modes] (a) the pipe's graphs against its eager loop: float sums bit-equal {same}, "
+          f"launches equal {runs['pipe'][0] == eager[0]}; {runs['pipe'][1]:.3f} s against "
+          f"{eager[1]:.3f} s")
+    if not same or runs["pipe"][0] != eager[0]:
+        raise SystemExit("chip_smoke: the pipe's graph replay differs from its eager loop")
     runs["defer"] = mode_run(device, f"b: defer, mip_budget={DEFER_MIP}", default_img,
                              "mip_gather", mip_budget=DEFER_MIP)
     runs["lod"] = mode_run(device, f"c: LOD, texture_lod={LOD_BUDGET}, depth {LOD_DEPTH}",
@@ -3359,6 +3533,8 @@ def phase_mesh(device, oneshot_sums, single_secs):
           f"{float(np.abs(sums - oneshot_sums).max()):.6g}")
     print(f"[mesh] (b) {ws.stats['calls']} chunk calls, {ws.stats['wall']:.3f} s of wall in "
           f"them, overlap ratio {overlap:.3f} (the entries' busy seconds over the calls' wall); "
+          f"the workers' graph captures {ws.stats['captures']} in {ws.stats['capture_s']:.3f} s "
+          f"(each captures its own; the warm-up's widths differ); "
           f"workers started and warmed on {warm_w}x{warm_h} at {warm_spp} spp in {warm:.3f} s; "
           f"one call moving a {block.shape[1]}-pixel block ({block.nbytes} B) to every entry's "
           f"card and back: {echo * 1e3:.3f} ms")
@@ -3453,6 +3629,8 @@ def main() -> int:
     bounds.update(mbounds)
     mesh_launched, m_secs, m_mrays, mr, mscene, mcam = phase_mesh_main(device)
     phase_mesh_profile(mr, mscene, mcam)
+    del mr
+    graph = phase_graph(device)
     mw_launched = phase_mesh_whitted(device)
     bscene, bcam, btimes, bbounds, berr, _routes = phase_big_check(device)
     times.update(btimes)
@@ -3559,7 +3737,10 @@ def main() -> int:
           f"quad K10c + K10d {split_runs[MXU_QUAD][1]:.2f}, quad K4c + K4d "
           f"{split_runs[SCALAR_QUAD][1]:.2f} Mrays/s; the main path on a (2, 2) mesh of one "
           f"card {mesh_secs:.3f} s ({mesh_share:.6f} of channels by >2/255 off one device); "
-          f"on:")
+          f"the bounce blocks as CUDA graphs (bit-equal): " + "; ".join(
+              f"{label} {runs_['eager'][1]:.3f} s eager, {runs_['graphs'][1]:.3f} s with its "
+              f"captures, {runs_['replay'][1]:.3f} s replayed" for label, (runs_, _p) in graph.items())
+          + "; on:")
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

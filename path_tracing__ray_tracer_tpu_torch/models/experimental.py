@@ -23,15 +23,17 @@ the default path, measured as losses or flat on its TPU, and gated off:
 
 The texture modes run in the default scheduler, ``path_tracer._regen_loop``,
 which switches only the resolve and, for deferred texture, the state it
-carries; the pipe has its own loop (``_pipe_chunk``).  Both keep the port's
-scheduler: per-lane path sums parked at ``(sample, pixel)`` slots, a host
-check every ``_CHECK_EVERY`` bounces and compaction to the unfinished
-lanes.  The JAX tail phase (``_TAIL_DIV``, ``_TAIL_QUANT``) and slot fold
+carries; the pipe has its own step (``_pipe_chunk``).  Both keep the port's
+scheduler (``path_tracer.BounceBlocks``): per-lane path sums parked at
+``(sample, pixel)`` slots, a host check every ``_CHECK_EVERY`` bounces,
+compaction into fixed buckets, and on the card each block a CUDA graph.  The JAX tail phase (``_TAIL_DIV``, ``_TAIL_QUANT``) and slot fold
 (``_FOLD_EVERY``) are its own schedule and are not ported; the per-item
 left fold and the ascending-sample re-bin that define the result are the
 same.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -53,7 +55,7 @@ def _make_mip_resolve(cs):
 def regen_chunk_modes(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, *,
                       n_pix: int, width: int, height: int, n_samples: int, max_depth: int,
                       jitter: str, col0: int, shadow_tmax: str = "reference",
-                      lod_depth: int = 0) -> None:
+                      lod_depth: int = 0, graphs=None) -> None:
     """``path_tracer._regen_chunk`` with its modes (module docstring); the
     mode gate is the JAX package's: LOD over deferred texture, and the pipe
     (``path_tracer._PIPE_REGEN``) only without either and on a scene that
@@ -61,7 +63,8 @@ def regen_chunk_modes(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base:
     lod = lod_depth > 0 and cs.mip_atlas is not None
     mip_resolve = None if lod else _make_mip_resolve(cs)
     kw = dict(n_pix=n_pix, width=width, height=height, n_samples=n_samples,
-              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax, col0=col0)
+              max_depth=max_depth, jitter=jitter, shadow_tmax=shadow_tmax, col0=col0,
+              graphs=graphs)
     if _pt._PIPE_REGEN and mip_resolve is None and not lod and cs.bvh is None:
         return _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, **kw)
     _pt._regen_loop(cs, blobs, cam12, sums, pix0, seed, sample_base,
@@ -105,36 +108,72 @@ def step_texel(cs, st, rec):
     return cs.atlas[torch.clamp(rec.idx, min=0).long()]
 
 
+class PipePlan(NamedTuple):
+    """What the pipe's blocks read besides the lane state and K7's tables:
+    the camera (a buffer filled before each chunk), the accumulator (zeroed
+    for each chunk), the chunk's scalars and the blocks."""
+    cam: torch.Tensor
+    acc: torch.Tensor
+    scal: list  # [(pix0, seed, sample_base)] of the blocks' graphs
+    blocks: "_pt.BounceBlocks"
+
+
+def _pipe_plan(cs, blobs, dev, *, n_pix, n_samples, max_depth, width, height, jitter,
+               shadow_tmax) -> PipePlan:
+    NS, N = n_samples, n_pix
+    cam = torch.zeros((12,), dtype=torch.float32, device=dev)
+    st, tables, _scal, _lanes = pipe_start(cs, blobs, cam, 0, 0, 0, n_pix=N, n_samples=NS,
+                                           max_depth=max_depth, width=width, height=height,
+                                           jitter=jitter, shadow_tmax=shadow_tmax)
+    acc = torch.zeros((3, (NS + 1) * N), dtype=torch.float32, device=dev)
+    scal = [None]
+
+    def step(lanes):
+        """One fused step (K7) of every lane and the park of its finished
+        item: the lane state after it."""
+        rec = StepRec(**{f: lanes[f] for f in StepRec._fields})
+        (rec2, _o, _d, thr, psum, key, depth, s, ploc, ux, uy, item, park) = path_step(
+            cs, st, tables, cam, scal[0], rec, step_texel(cs, st, rec), lanes["thr"],
+            lanes["psum"], lanes["key"], lanes["depth"], lanes["s"], lanes["ploc"], lanes["ux"],
+            lanes["uy"])
+        slot = torch.where(item < NS, item.long() * N + lanes["ploc"], NS * N + lanes["lane"])
+        acc[:, slot] = torch.stack(park)
+        return dict(rec2._asdict(), thr=thr, psum=psum, key=key, depth=depth, s=s, ploc=ploc,
+                    ux=ux, uy=uy, lane=lanes["lane"])
+
+    blocks = _pt.BounceBlocks(step, _pt._CHECK_EVERY, _pt.graphed(dev, cs), dev)
+    return PipePlan(cam, acc, scal, blocks)
+
+
 def _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, *, n_pix, n_samples,
-                max_depth, col0, **kw):
-    """The scheduler with one fused step (K7) per bounce.  The loop ends
-    when every lane has finished its items, so the last record, all retired
-    lanes, is dropped."""
+                max_depth, col0, graphs=None, **kw):
+    """The scheduler with one fused step (K7) per bounce, in blocks of
+    ``_CHECK_EVERY`` steps over fixed bucket buffers, as
+    ``path_tracer._regen_loop`` runs its bounces.  The loop ends when every
+    lane has finished its items, so the last record, all retired lanes, is
+    dropped.
+
+    K7 takes the chunk's ``pix0``, ``seed`` and ``sample_base`` by value
+    (``csrc/path_step.cu`` ``StepConsts``), so a captured step freezes them:
+    the pipe's graphs serve one chunk and sample group, and a chunk with
+    other scalars drops them and captures its own (one per bucket)."""
     NS, N = int(n_samples), int(n_pix)
-    st, tables, scal, (rec, thr, psum, key, depth, s, ploc, ux, uy) = pipe_start(
+    dev = sums.device
+    shape = dict(n_pix=N, n_samples=NS, max_depth=max_depth, **kw)
+    plan = _pt.block_plan(graphs, _pt.scheduler_key(dev, "pipe", id(cs), id(blobs),
+                                                    *sorted(shape.items())),
+                          lambda: _pipe_plan(cs, blobs, dev, **shape))
+    scal = (int(pix0), int(seed), int(sample_base))
+    if plan.scal[0] != scal:
+        plan.scal[0] = scal
+        plan.blocks.graphs.clear()
+    plan.cam.copy_(cam12)
+    plan.acc.zero_()
+    _st, _tables, _scal, (rec, thr, psum, key, depth, s, ploc, ux, uy) = pipe_start(
         cs, blobs, cam12, pix0, seed, sample_base, n_pix=N, n_samples=NS, max_depth=max_depth,
         **kw)
-    lane = torch.arange(N, dtype=torch.int64, device=sums.device)
-    acc = torch.zeros((3, (NS + 1) * N), dtype=torch.float32, device=sums.device)
-    it = 0
-    while True:
-        if it % _pt._CHECK_EVERY == 0:
-            left = s < NS
-            n_left = int(left.sum())  # host sync
-            if n_left == 0:
-                break
-            if it > NS * max_depth + 1:  # the priming step adds one
-                raise RuntimeError(f"path tracer: {n_left} lanes unfinished after {it} steps")
-            if n_left <= _pt._COMPACT_BELOW * lane.shape[0]:
-                sel = torch.nonzero(left)[:, 0]
-                rec = StepRec(*_pt.compact(sel, *rec))
-                thr, psum, key, depth, s, ploc, ux, uy, lane = _pt.compact(
-                    sel, thr, psum, key, depth, s, ploc, ux, uy, lane)
-        ploc_in = ploc
-        (rec, _o, _d, thr, psum, key, depth, s, ploc, ux, uy, item, park) = path_step(
-            cs, st, tables, cam12, scal, rec, step_texel(cs, st, rec), thr, psum, key, depth, s,
-            ploc, ux, uy)
-        slot = torch.where(item < NS, item.long() * N + ploc_in, NS * N + lane)
-        acc[:, slot] = torch.stack(park)
-        it += 1
-    _pt.rebin(sums, acc, col0, N, NS)
+    lanes = dict(rec._asdict(), thr=thr, psum=psum, key=key, depth=depth, s=s, ploc=ploc, ux=ux,
+                 uy=uy, lane=torch.arange(N, dtype=torch.int64, device=dev))
+    # the priming step adds one to the NS·max_depth steps a lane needs
+    plan.blocks.drive(lanes, NS, NS * max_depth + 1)
+    _pt.rebin(sums, plan.acc, col0, N, NS)

@@ -16,9 +16,15 @@ scene that this process compiled for that device; the renderer's device
 (the mesh's first entry) holds the sums.  A mesh of one entry renders on the
 caller's thread, as no mesh does.
 
-The JAX package's dispatch batching (``lax.map`` over chunks, fused group
-loops) works around a per-dispatch floor of its TPU connection and is not
-ported: one device-resident path is enough here.
+The JAX package makes each chunk one device program and batches chunks
+and sample groups into one dispatch each (``lax.map``, fused group loops)
+against a fixed cost per dispatch.  The card has the same kind of floor, a
+host launch per kernel, so the path tracer replays its bounce blocks as
+CUDA graphs (``models/path_tracer.BounceBlocks``).  Their plans (lane
+buffers, accumulator, graphs), one per chunk shape, live in the renderer's
+graph cache (``_graphs``): made at the first chunk of a shape and replayed
+by every later chunk and sample group of every render, they go with the
+renderer (a mesh worker keeps one cache per scene it was sent).
 """
 from __future__ import annotations
 
@@ -49,7 +55,7 @@ _MAX_CHUNK_LANES = 131072
 
 # What a renderer holds for its own process: a mesh worker's twin of it
 # (``WavefrontRenderer.settings`` / ``twin``) takes everything else
-_PROCESS_LOCAL = ("mesh", "device", "_scene_cache", "_blobs")
+_PROCESS_LOCAL = ("mesh", "device", "_scene_cache", "_blobs", "_graphs")
 
 
 def pixel_coords(pix0: int, n_pix: int, width: int, height: int, device):
@@ -59,6 +65,16 @@ def pixel_coords(pix0: int, n_pix: int, width: int, height: int, device):
     idx = pix0 + torch.arange(n_pix, dtype=torch.int64, device=device)
     safe = torch.clamp(idx, max=width * height - 1)
     return idx, (safe % width).to(torch.float32), (safe // width).to(torch.float32)
+
+
+def scene_blobs(cs: CompiledScene):
+    """The kernels' packed tables of ``cs``: the primitives, materials and
+    lights; for a BVH scene the tables of ``ops/cuda/bounce_bvh`` (None when
+    K5 does not take the scene), whose triangles are in the BVH's slot
+    records."""
+    if cs.bvh is None:
+        return pack_scene_blob(cs), pack_mat_blob(cs), pack_light_blob(cs)
+    return pack_bvh_tables(cs) if bounce_bvh_ok(cs) else None
 
 
 def chunk_pixels(n_pixels: int, group: int, chunk_rays: int) -> int:
@@ -123,6 +139,7 @@ class WavefrontRenderer(BaseRenderer):
         self.compile_overrides = dict(compile_overrides or {})
         self._scene_cache: Dict[Tuple, CompiledScene] = {}
         self._blobs: Dict[int, object] = {}  # blobs() by id of the compiled scene
+        self._graphs: Dict[tuple, object] = {}  # the path tracer's plans by chunk shape
 
     def _run_seed(self) -> int:
         """The seed of this render: ``seed + frame_count`` (mod 2^32) when the
@@ -139,12 +156,13 @@ class WavefrontRenderer(BaseRenderer):
         return {k: v for k, v in vars(self).items() if k not in _PROCESS_LOCAL}
 
     @classmethod
-    def twin(cls, settings: dict, device, blobs: dict) -> "WavefrontRenderer":
+    def twin(cls, settings: dict, device, blobs: dict, graphs: dict) -> "WavefrontRenderer":
         """The renderer of ``settings`` on ``device`` with no mesh, its
-        kernels' tables kept in ``blobs`` (by id of the compiled scene)."""
+        kernels' tables kept in ``blobs`` (by id of the compiled scene) and
+        its graph cache in ``graphs``."""
         r = cls.__new__(cls)
         r.__dict__.update(settings, mesh=None, device=torch.device(device), _scene_cache={},
-                          _blobs=blobs)
+                          _blobs=blobs, _graphs=graphs)
         return r
 
     # -- scene compilation (cached) -----------------------------------------
@@ -168,16 +186,9 @@ class WavefrontRenderer(BaseRenderer):
         return self._scene_cache[key]
 
     def blobs(self, cs: CompiledScene):
-        """The kernels' packed tables of ``cs``, made once per compiled
-        scene: the primitives, materials and lights; for a BVH scene the
-        tables of ``ops/cuda/bounce_bvh`` (None when K5 does not take the
-        scene), whose triangles are in the BVH's slot records."""
+        """:func:`scene_blobs` of ``cs``, made once per compiled scene."""
         if id(cs) not in self._blobs:
-            if cs.bvh is None:
-                self._blobs[id(cs)] = (pack_scene_blob(cs), pack_mat_blob(cs),
-                                       pack_light_blob(cs))
-            else:
-                self._blobs[id(cs)] = pack_bvh_tables(cs) if bounce_bvh_ok(cs) else None
+            self._blobs[id(cs)] = scene_blobs(cs)
         return self._blobs[id(cs)]
 
     # -- subclass contract ---------------------------------------------------

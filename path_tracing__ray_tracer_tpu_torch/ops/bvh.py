@@ -1081,8 +1081,9 @@ def subtree_keys2(nodes4: torch.Tensor, ro: V3, rd: V3):
     rank16 = []
     for c0 in range(4):
         inner = meta0[c0] < 0.0
-        hit = hits0[:, c0:c0 + 1] & torch.where(inner, _slab_keys(recs[j[c0]], ro, rd), first)
-        rank = ranks0[:, c0:c0 + 1] * 4 + torch.where(inner, _child_ranks(recs[j[c0]], rd), 0)
+        rec = recs[j[c0:c0 + 1]][0]  # a one-element index: no host read (CUDA graph capture)
+        hit = hits0[:, c0:c0 + 1] & torch.where(inner, _slab_keys(rec, ro, rd), first)
+        rank = ranks0[:, c0:c0 + 1] * 4 + torch.where(inner, _child_ranks(rec, rd), 0)
         rank16.append(torch.where(hit, rank, 99))
     rank16 = torch.cat(rank16, 1)
     none = torch.full_like(rank16[:, 0], 16)

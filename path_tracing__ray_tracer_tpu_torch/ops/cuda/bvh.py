@@ -60,6 +60,7 @@ import torch
 from ..bvh import GID_TRI_MASK, rooted, subtree_keys2, subtree_nodes
 from ..intersect import (
     _CANDIDATES,
+    _bound,
     ClosestRecord,
     SceneHit,
     _closest_broadcast,
@@ -185,7 +186,11 @@ def lane_counter(dev) -> torch.Tensor:
     """The lane counter of the persistent walks on ``dev``'s current stream:
     two int32 (the next lane, the blocks done), zero between launches, since
     each launch's last block zeroes them (``bvh_walk.cuh`` finish_lanes).
-    Launches on one stream share it; another stream has its own."""
+    Launches on one stream share it; another stream has its own.  A CUDA
+    graph holds the counter of the stream it was captured on (``ops/cuda.
+    capture``'s side stream, whose counter is made before any capture) and
+    replays on the caller's stream after the warm-up on the side stream, so
+    its launches never overlap another user of that counter."""
     key = (dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if key not in _COUNTERS:
         _COUNTERS[key] = torch.zeros((2,), dtype=torch.int32, device=dev)
@@ -404,7 +409,7 @@ def split_closest(cs, ro: V3, rd: V3, t_min: float, t_max, route: str) -> SceneH
     from . import bvh2, bvh_leafmat, bvh_paged
 
     n = ro.x.shape[0]
-    bound = torch.as_tensor(t_max, dtype=torch.float32, device=ro.x.device).expand(n).contiguous()
+    bound = _bound(t_max, n, ro.x).contiguous()
     ps_idx, ps_t, ps_hit = _closest_broadcast(cs, ro, rd, t_min, bound, include_tris=False)
     attrs = None
     if route == "quad":

@@ -154,14 +154,18 @@ def _lift(v: V3) -> V3:
 
 
 def _bound(t_max, n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(t_max, dtype=torch.float32, device=like.device).expand(n)
+    """``t_max`` as an ``(n,)`` float32 bound on ``like``'s device; a
+    scalar is filled there (no host copy, so a CUDA graph captures it)."""
+    if isinstance(t_max, torch.Tensor):
+        return t_max.to(dtype=torch.float32, device=like.device).expand(n)
+    return torch.full((n,), float(t_max), dtype=torch.float32, device=like.device)
 
 
 def _closest_broadcast(cs, ro: V3, rd: V3, t_min, t_max, include_tris: bool = True):
     n = ro.x.shape[0]
     ro1, rd1 = _lift(ro), _lift(rd)
     bound = _bound(t_max, n, ro.x)
-    inf = torch.tensor(float("inf"), device=ro.x.device)
+    inf = float("inf")
     parts = []
     for cand in _CANDIDATES if include_tris else _CANDIDATES[:3]:
         valid, t = cand(cs, _ALL, ro1, rd1, t_min, bound[:, None])

@@ -53,7 +53,11 @@ def pcg_hash(x: torch.Tensor) -> torch.Tensor:
 
 
 def ray_key(seed, pixel_idx, sample_idx) -> torch.Tensor:
-    """Per-(pixel, sample) stream key as int32 bits (JAX ``rng.ray_key``)."""
+    """Per-(pixel, sample) stream key as int32 bits (JAX ``rng.ray_key``).
+    Each argument is a Python int or an integer tensor (a 0-d int64 tensor
+    on the lanes' device included: the path tracer's captured bounce blocks
+    read the seed and the chunk's offsets so); all give the same bits over
+    the whole unsigned range."""
     s = to_u32(seed)
     p = to_u32(pixel_idx)
     k = pcg_hash(p ^ _mul32(s, _GAMMA_DEPTH))

@@ -24,7 +24,9 @@ of more than one therefore renders in a process of its own:
   (``WavefrontRenderer.settings``), the knobs of :data:`KNOBS`, the packed
   camera, the chunk's arguments and, for entry ``(ti, 0)``, a host copy of
   its tile block.  Back: the entry's ``(3, n_pix)`` block (a host copy), its
-  kernels' launch counts (added onto the parent's wrappers), its pid and its
+  kernels' launch counts (added onto the parent's wrappers), its CUDA graph
+  captures and their seconds (``ops/cuda.CAPTURES``; a worker
+  captures and keeps its own graphs, one cache per scene), its pid and its
   busy seconds.
 * **Failure.**  A worker's exception is raised in the parent with the
   worker's traceback as its cause (:class:`WorkerTraceback`); a worker that
@@ -50,7 +52,7 @@ import numpy as np
 import torch
 import torch.multiprocessing as mp  # registers the tensor reductions the pipes use
 
-from ..ops.cuda import add_launches, launch_counts
+from ..ops.cuda import CAPTURES, add_launches, launch_counts
 
 _PKG = __name__.rsplit(".", 2)[0]
 
@@ -61,10 +63,11 @@ _PKG = __name__.rsplit(".", 2)[0]
 # chunk.  The compile knobs (``ops/bvh``'s paging limits, ``compiler``'s BVH
 # and table thresholds) are read where the scene compiles: in the parent.
 KNOBS = {
-    "models.path_tracer": ("_CHECK_EVERY", "_COMPACT_BELOW", "_PIPE_REGEN"),
+    "models.path_tracer": ("_CHECK_EVERY", "_COMPACT_BELOW", "_BUCKET_MIN", "_PIPE_REGEN",
+                           "_GRAPH_BLOCKS"),
     "ops.texture": ("TEX_COMPACT", "TEX_COMPACT_DIV"),
-    "ops.cuda.bvh": ("BVH_QUAD", "BVH_ORDERED", "BVH_ATTRS", "BVH_MULTIPASS", "BVH_MXU_LEAF",
-                     "SMEM_TREE_BYTES"),
+    "ops.cuda.bvh": ("BVH_QUAD", "BVH_ORDERED", "BVH_ATTRS", "BVH_MULTIPASS", "_MP_MIN_DEPTH4",
+                     "BVH_MXU_LEAF", "SMEM_TREE_BYTES"),
     "ops.cuda.texture": ("ENABLED", "MAX_ROWS", "MIP_MAX_ROWS"),
 }
 
@@ -113,18 +116,21 @@ class Job(NamedTuple):
 class Result(NamedTuple):
     block: np.ndarray  # (3, n_pix) float32
     launches: Dict[str, int]  # kernel launches of this chunk, by wrapper
+    captures: tuple  # graph captures of this chunk and their host seconds
     pid: int
     busy: float  # seconds from the job's arrival to its block on the host
 
 
 class _Served:
     """A worker's state: its device and the compiled scenes it was sent (with
-    the kernels' tables of each, made once)."""
+    the kernels' tables and the path tracer's graph cache of each, made
+    once)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.scenes: Dict[int, object] = {}
         self.blobs: Dict[int, dict] = {}
+        self.graphs: Dict[int, dict] = {}
 
     def chunk(self, job: Job) -> Result:
         t0 = time.perf_counter()
@@ -132,17 +138,19 @@ class _Served:
             self.scenes[job.scene] = job.cs
         dev = self.device
         _set_knobs(job.knobs)
-        r = job.renderer_cls.twin(job.settings, dev, self.blobs.setdefault(job.scene, {}))
+        r = job.renderer_cls.twin(job.settings, dev, self.blobs.setdefault(job.scene, {}),
+                                  self.graphs.setdefault(job.scene, {}))
         if job.block is None:
             out = torch.zeros((3, job.kw["n_pix"]), dtype=torch.float32, device=dev)
         else:
             out = torch.from_numpy(job.block).to(dev)
-        before = launch_counts()
+        before, captured = launch_counts(), dict(CAPTURES)
         r._chunk(self.scenes[job.scene], torch.from_numpy(job.cam12).to(dev), out, job.pix0,
                  job.seed, job.sample_base, col0=0, **job.kw)
         block = out.cpu().numpy()  # waits for the device
         launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
-        return Result(block, launches, os.getpid(), time.perf_counter() - t0)
+        captures = (CAPTURES["count"] - captured["count"], CAPTURES["seconds"] - captured["seconds"])
+        return Result(block, launches, captures, os.getpid(), time.perf_counter() - t0)
 
     def echo(self, block: np.ndarray) -> np.ndarray:
         """``block`` to the device and back: the transport of a chunk's block."""
@@ -151,7 +159,7 @@ class _Served:
     def status(self, _=None) -> dict:
         return {"pid": os.getpid(), "device": str(self.device),
                 "threads": torch.get_num_threads(), "modules": sorted(sys.modules),
-                "wrappers": sorted(launch_counts())}
+                "wrappers": sorted(launch_counts()), "knobs": knob_values()}
 
 
 def _failure():
@@ -242,7 +250,8 @@ class MeshWorkers:
     """The worker processes of a mesh, one per entry (tile-major, the order of
     ``DeviceMesh.entries``), started at the first call and stopped by
     :meth:`close`.  ``stats`` sums, since :meth:`reset_stats`, the calls, their
-    wall seconds in the parent, and each entry's busy seconds and pid."""
+    wall seconds in the parent, each entry's busy seconds and pid, and the
+    entries' graph captures and their seconds."""
 
     def __init__(self, devices: Sequence[torch.device]):
         self.devices = [torch.device(d) for d in devices]
@@ -252,7 +261,8 @@ class MeshWorkers:
 
     def reset_stats(self) -> None:
         n = len(self.devices)
-        self.stats = {"calls": 0, "wall": 0.0, "busy": [0.0] * n, "pids": [None] * n}
+        self.stats = {"calls": 0, "wall": 0.0, "busy": [0.0] * n, "pids": [None] * n,
+                      "captures": 0, "capture_s": 0.0}
 
     @property
     def processes(self) -> list:
@@ -335,6 +345,8 @@ class MeshWorkers:
             res = results[p.entry]
             workers[p.entry].scenes.add(msgs[p.entry][1].scene)
             add_launches(res.launches)
+            self.stats["captures"] += res.captures[0]
+            self.stats["capture_s"] += res.captures[1]
             self.stats["busy"][p.entry] += res.busy
             self.stats["pids"][p.entry] = res.pid
             out.append(torch.from_numpy(res.block).to(sums.device))
@@ -343,8 +355,8 @@ class MeshWorkers:
         return out
 
     def status(self) -> List[dict]:
-        """Each worker's pid, device, thread count, imported modules and the
-        wrapper counters it sees."""
+        """Each worker's pid, device, thread count, imported modules, the
+        wrapper counters it sees and its knob values (the last chunk's)."""
         replies = self._call({i: ("status", None) for i in range(len(self.devices))})
         return [replies[i] for i in range(len(self.devices))]
 

@@ -32,7 +32,9 @@ level 0 (262,144 camera rays and their 4,194,304 shadow rays); and K4a,
 K4b, K5, K6a-d, K11, the two ordered walks, the skip-link walks, K10a-d,
 K1, K2, K3a and K3b queued on one stream, which share its lane counter; and
 the (tile × sample) split on four entries of the card against one device,
-and ``graft_entry.entry()`` against the path tracer's chunk.
+``graft_entry.entry()`` against the path tracer's chunk, and the path
+tracer's bounce blocks replayed as CUDA graphs against the same blocks run
+eagerly (K1, K5 + K4b), bit for bit with equal launch counts.
 
 The kernel has no CPU mode, so every test here is marked ``cuda`` and skips
 without a card.  The file imports no JAX (the GPU machine has none); run it
@@ -1461,3 +1463,46 @@ def test_graft_entry_on_the_card(card):
                                     device=dev).device_sums(*graft_entry._example_scene(),
                                                             pt.RenderSettings(64, 64, 4, 4))
     assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["K1", "K5"])
+def test_graph_blocks_replay_equals_eager(card, monkeypatch, route):
+    """The path tracer's bounce blocks replayed as CUDA graphs against the
+    same blocks run eagerly (``_GRAPH_BLOCKS = False``) on the Cornell box
+    (K1) and on config 5's mesh (K5 + K4b), with 4,096-lane chunks: the sums
+    bit for bit and the launches equal by wrapper; the renderer captures each
+    bucket's block once and replays them all in a second render."""
+    from path_tracing__ray_tracer_tpu_torch.ops.cuda import CAPTURES, launch_counts
+
+    if route == "K1":
+        b, kw, kernels = pt.CustomSceneBuilder(), {}, ("bounce.path_bounce",)
+    else:
+        b = pt.MeshSceneBuilder(grid=3, subdivisions=3)
+        kw = dict(shadow_tmax="light", compile_overrides={"use_bvh": True})
+        kernels = ("bounce_bvh.path_bounce_bvh", "bvh.scene_any")
+    scene, cam = b.build_scene(), b.create_camera(4 / 3)
+    settings = pt.RenderSettings(width=128, height=96, samples_per_pixel=8, max_depth=6)
+
+    def render(r):
+        before = launch_counts()
+        sums = r.render_sums(scene, cam, settings)
+        return sums, {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+
+    def make():
+        return pt.RendererFactory.create("cuda_path_raytracer", seed=4, sample_group=8,
+                                         chunk_rays=1 << 15, **kw)
+
+    monkeypatch.setattr(tpath, "_GRAPH_BLOCKS", False)
+    eager, eager_n = render(make())
+    monkeypatch.setattr(tpath, "_GRAPH_BLOCKS", True)
+    r = make()
+    before = CAPTURES["count"]
+    graphed, graphed_n = render(r)
+    captured = CAPTURES["count"] - before
+    replayed, replayed_n = render(r)
+    assert captured >= 2 and CAPTURES["count"] - before == captured  # none in the second render
+    assert all(eager_n.get(k) for k in kernels)
+    assert eager_n == graphed_n == replayed_n
+    np.testing.assert_array_equal(graphed, eager)
+    np.testing.assert_array_equal(replayed, eager)

@@ -13,7 +13,8 @@
   Whitted texture renderer (9 cells split 5 + 4).
 * A worker's exception is raised in the caller with the worker's traceback
   as its cause, and the worker serves the next call; a knob the parent set
-  (``_CHECK_EVERY``) reaches the worker.  A killed worker raises
+  (``_CHECK_EVERY``) reaches the worker, and so do the BVH route globals
+  (``_MP_MIN_DEPTH4`` with them) and ``_GRAPH_BLOCKS``.  A killed worker raises
   ``WorkerError``, and the mesh's other workers are stopped.
 * After ``close()`` no worker is alive.  ``mesh=None`` and a one-entry mesh
   start no process.
@@ -33,7 +34,9 @@ from path_tracing__ray_tracer_tpu_torch.compiler import pack_camera
 from path_tracing__ray_tracer_tpu_torch.models import path_tracer as tpath
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import add_launches, launch_counts
 from path_tracing__ray_tracer_tpu_torch.parallel.mesh import make_mesh, mesh_shape
-from path_tracing__ray_tracer_tpu_torch.parallel.workers import WorkerError, WorkerTraceback
+from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh as tbvh
+from path_tracing__ray_tracer_tpu_torch.parallel.workers import (
+    KNOBS, WorkerError, WorkerTraceback, knob_values)
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -162,6 +165,36 @@ def test_worker_exception_is_raised_in_the_caller(cornell, mesh22, monkeypatch):
     one = pt.RendererFactory.create("cuda_path_raytracer", device="cpu", seed=5,
                                     sample_group=2).render_sums(scene, cam, s)
     np.testing.assert_array_equal(first, one)  # one sample an entry: one device's bits
+
+
+def test_workers_read_the_callers_route_knobs(cornell, mesh22, monkeypatch):
+    """The route globals of ``ops/cuda/bvh`` (``_MP_MIN_DEPTH4`` among them)
+    and ``_GRAPH_BLOCKS``, each set by the caller to another value than its
+    default, reach every worker with a chunk: each reports the caller's
+    values, and the defaults again after the next chunk."""
+    values = dict(BVH_QUAD=False, BVH_ORDERED=False, BVH_ATTRS=False, BVH_MULTIPASS=True,
+                  _MP_MIN_DEPTH4=2, BVH_MXU_LEAF=True)
+    scene, cam = cornell
+    s = pt.RenderSettings(width=16, height=12, samples_per_pixel=2, max_depth=2)
+    r = pt.RendererFactory.create("cuda_path_raytracer", mesh=mesh22, seed=5, sample_group=2)
+    defaults = knob_values()
+    for name, value in values.items():
+        assert getattr(tbvh, name) != value
+        monkeypatch.setattr(tbvh, name, value)
+    assert tpath._GRAPH_BLOCKS
+    monkeypatch.setattr(tpath, "_GRAPH_BLOCKS", False)
+    r.render_sums(scene, cam, s)
+    mine = knob_values()
+    assert mine["ops.cuda.bvh"] != defaults["ops.cuda.bvh"]
+    for st in mesh22.workers().status():
+        assert st["knobs"] == mine
+        got = dict(zip(KNOBS["ops.cuda.bvh"], st["knobs"]["ops.cuda.bvh"]))
+        assert {k: got[k] for k in values} == values
+        assert dict(zip(KNOBS["models.path_tracer"],
+                        st["knobs"]["models.path_tracer"]))["_GRAPH_BLOCKS"] is False
+    monkeypatch.undo()
+    r.render_sums(scene, cam, s)
+    assert all(st["knobs"] == defaults for st in mesh22.workers().status())
 
 
 def test_dead_worker_raises_and_stops_the_others(cornell):
