@@ -141,7 +141,7 @@ def _pipe_plan(cs, blobs, dev, *, n_pix, n_samples, max_depth, width, height, ji
         return dict(rec2._asdict(), thr=thr, psum=psum, key=key, depth=depth, s=s, ploc=ploc,
                     ux=ux, uy=uy, lane=lanes["lane"])
 
-    blocks = _pt.BounceBlocks(step, _pt._CHECK_EVERY, _pt.graphed(dev, cs), dev)
+    blocks = _pt.BounceBlocks(step, _pt._CHECK_EVERY, NS, _pt.graphed(dev, cs), dev)
     return PipePlan(cam, acc, scal, blocks)
 
 
@@ -175,5 +175,5 @@ def _pipe_chunk(cs, blobs, cam12, sums, pix0, seed, sample_base, *, n_pix, n_sam
     lanes = dict(rec._asdict(), thr=thr, psum=psum, key=key, depth=depth, s=s, ploc=ploc, ux=ux,
                  uy=uy, lane=torch.arange(N, dtype=torch.int64, device=dev))
     # the priming step adds one to the NS·max_depth steps a lane needs
-    plan.blocks.drive(lanes, NS, NS * max_depth + 1)
+    plan.blocks.drive(lanes, NS * max_depth + 1)
     _pt.rebin(sums, plan.acc, col0, N, NS)

@@ -52,6 +52,8 @@ from ..ops.cuda.texture import fits_mxu_atlas, resolve_base_color_mxu, texel_ind
 from ..ops.texture import _unpack_rgb, resolve_base_color, resolve_base_color_lod
 from ..ops.tonemap import aces
 from ..ops.v3 import V3
+from ..utils.logging import log_event
+from ..utils.profiling import count, span
 from .base import RendererFactory
 from .wavefront import WavefrontRenderer, scene_blobs
 
@@ -172,16 +174,23 @@ class BounceBlocks:
     a lane state to the next; the JAX K-step ``fori_loop``), whose result is
     copied back into the buffers (``copy_``, so every tensor that outlives a
     block is written inside it).  A block makes no host read and reads no
-    Python value that changes between chunks.
+    Python value that changes between chunks.  It also marks which lanes
+    are unfinished before each of its bounces but the first
+    (``unfinished``), which the host check sums with its own count for
+    ``lanes.live``.
 
     With ``graphed`` (the card), each bucket's block is captured once as a
     CUDA graph (``ops/cuda.capture``) and replayed after; each replay adds the
     launches its capture counted onto the wrappers, so the counts equal the
     eager loop's.  Each graph keeps its own memory pool."""
 
-    def __init__(self, step, k: int, graphed: bool, device):
+    def __init__(self, step, k: int, n_samples: int, graphed: bool, device):
         self.step, self.k, self.graphed, self.device = step, int(k), bool(graphed), device
+        self.n_samples = int(n_samples)  # a lane is unfinished while s < n_samples
         self.buffers = {}  # width -> lane state
+        # width -> (k, width) bool, the lanes unfinished before each bounce of
+        # a block: row 0 written by the host check, rows 1.. inside the block
+        self.unfinished = {}
         self.graphs = {}  # width -> (CUDAGraph, launches)
 
     def load(self, width: int, state):
@@ -189,16 +198,21 @@ class BounceBlocks:
         their first use) and return them."""
         if width not in self.buffers:
             self.buffers[width] = _empty_lanes(state, width)
+            self.unfinished[width] = torch.zeros((max(self.k, 1), width), dtype=torch.bool,
+                                                 device=state["s"].device)
         _copy_lanes(self.buffers[width], state)
         return self.buffers[width]
 
     def _block(self, state) -> None:
+        rows = self.unfinished[int(state["s"].shape[0])]
         cur = state
-        for _ in range(self.k):
+        for j in range(1, self.k + 1):
             cur = self.step(cur)
+            if j < self.k:
+                torch.lt(cur["s"], self.n_samples, out=rows[j])
         _copy_lanes(state, cur)
 
-    def drive(self, state, n_samples: int, max_bounces: int) -> None:
+    def drive(self, state, max_bounces: int) -> None:
         """Run blocks from ``state``, a chunk's first lane state, until every
         lane has finished its ``n_samples`` items (``s == n_samples``).
         Between blocks the host reads the count of unfinished lanes (one
@@ -209,39 +223,59 @@ class BounceBlocks:
         column of the accumulator and fold nothing (the JAX tail's ``valid``
         mask).  Each lane's path depends on no other lane, so the sums are
         those of the exact compaction bit for bit.  Raises when lanes are
-        left after ``max_bounces``."""
-        n_pix = int(state["s"].shape[0])
-        width = n_pix
-        st = self.load(width, state)
-        blocks = 0
-        while True:
-            left = st["s"] < n_samples
-            n_left = int(left.sum())  # host sync
-            if n_left == 0:
-                return
-            if blocks > max_bounces // self.k:
-                raise RuntimeError(f"path tracer: {n_left} lanes unfinished after "
-                                   f"{blocks * self.k} bounces")
-            if n_left <= _COMPACT_BELOW * width and bucket_width(n_left, n_pix) < width:
-                width = bucket_width(n_left, n_pix)
-                sel = torch.argsort((~left).to(torch.int8), stable=True)[:width]
-                st = self.load(width, _take_lanes(st, sel))
-            self.run(width)
-            blocks += 1
+        left after ``max_bounces``.
+
+        Spans (``utils/profiling``): ``drive``; per block ``block.wait`` (the
+        host blocked on the previous block's counts), ``block.host`` (from
+        those counts to the next launch, ``block.compact`` within it);
+        counters ``lanes.slots`` (the bucket's lanes each bounce runs over)
+        and ``lanes.live`` (the unfinished ones before each bounce, read
+        with the count of the next check)."""
+        with span("drive"):
+            n_pix = int(state["s"].shape[0])
+            width = n_pix
+            st = self.load(width, state)
+            blocks, n_left = 0, None
+            while True:
+                with span("block.wait"):
+                    rows = self.unfinished[width]
+                    left = torch.lt(st["s"], self.n_samples, out=rows[0])
+                    counts = rows.sum(dim=1).tolist()  # host sync
+                if n_left is not None:  # the block just run, before each of its bounces
+                    count("lanes.live", n_left + sum(counts[1:]))
+                n_left = counts[0]
+                if n_left == 0:
+                    return
+                with span("block.host"):
+                    if blocks > max_bounces // self.k:
+                        raise RuntimeError(f"path tracer: {n_left} lanes unfinished after "
+                                           f"{blocks * self.k} bounces")
+                    if n_left <= _COMPACT_BELOW * width and bucket_width(n_left, n_pix) < width:
+                        with span("block.compact"):
+                            width = bucket_width(n_left, n_pix)
+                            sel = torch.argsort((~left).to(torch.int8), stable=True)[:width]
+                            st = self.load(width, _take_lanes(st, sel))
+                    count("lanes.slots", width * self.k)
+                self.run(width)
+                blocks += 1
 
     def run(self, width: int) -> None:
-        """One block on the buffers of ``width`` lanes: eager, captured (the
-        bucket's first block on the card) or replayed."""
+        """One block on the buffers of ``width`` lanes: eager (span
+        ``block.eager``), captured (the bucket's first block on the card;
+        ``graph.capture``) or replayed (``block.replay``)."""
         state = self.buffers[width]
         if not self.graphed:
-            self._block(state)
+            with span("block.eager"):
+                self._block(state)
         elif width not in self.graphs:
-            self.graphs[width] = capture(lambda: self._block(state), self.device)
+            with span("graph.capture"):
+                self.graphs[width] = capture(lambda: self._block(state), self.device)
         else:
-            graph, launches = self.graphs[width]
-            graph.replay()
-            for wrapper, n in launches:
-                wrapper.launches += n
+            with span("block.replay"):
+                graph, launches = self.graphs[width]
+                graph.replay()
+                for wrapper, n in launches:
+                    wrapper.launches += n
 
 
 def block_plan(graphs, key, make):
@@ -268,8 +302,14 @@ def graph_gate(cs) -> Optional[str]:
 def graphed(device, cs) -> bool:
     """Are the bounce blocks of ``cs`` on ``device`` captured?  On the card
     with ``_GRAPH_BLOCKS`` and no gate (:func:`graph_gate`); never on the
-    CPU."""
-    return device.type == "cuda" and _GRAPH_BLOCKS and graph_gate(cs) is None
+    CPU.  Asked once per plan; a plan that the gate keeps eager on the card
+    logs ``graphs_declined`` with the reason."""
+    if device.type != "cuda" or not _GRAPH_BLOCKS:
+        return False
+    reason = graph_gate(cs)
+    if reason is not None:
+        log_event("graphs_declined", reason=reason, device=str(device))
+    return reason is None
 
 
 def scheduler_key(device, *shape):
@@ -431,7 +471,7 @@ def _regen_plan(cs, blobs, dev, *, n_pix: int, width: int, height: int, n_sample
                        b0m=V3(*(torch.where(regen, 1.0, ch) for ch in b0m)))
         return nxt
 
-    blocks = BounceBlocks(step, _CHECK_EVERY, graphed(dev, cs), dev)
+    blocks = BounceBlocks(step, _CHECK_EVERY, NS, graphed(dev, cs), dev)
     return RegenPlan(cam, pix0, seed, sample_base, acc, acc_idx, make_ray, blocks)
 
 
@@ -485,7 +525,7 @@ def _regen_loop(cs, blobs, cam12, sums, pix0: int, seed: int, sample_base: int, 
     if defer:
         state.update(psum_b=V3(zero, zero, zero), idx0=torch.zeros(N, dtype=torch.int32, device=dev),
                      e=torch.zeros(N, dtype=torch.bool, device=dev), b0m=V3(one, one, one))
-    plan.blocks.drive(state, NS, NS * max_depth)  # a lane needs at most NS·max_depth bounces
+    plan.blocks.drive(state, NS * max_depth)  # a lane needs at most NS·max_depth bounces
 
     acc = plan.acc
     if defer:

@@ -46,7 +46,7 @@ from ..parallel.sharding import device_scope, shard_chunk_fn
 from ..utils import debug
 from ..utils.image import assemble_image
 from ..utils.logging import log_event
-from ..utils.profiling import Timer, mrays_per_sec
+from ..utils.profiling import mrays_per_sec, span
 from .base import BaseRenderer
 
 # Lane-width cap of one chunk (the JAX package's measured knee; a scheduling
@@ -235,45 +235,49 @@ class WavefrontRenderer(BaseRenderer):
     def device_sums(self, scene: Scene, camera: Camera, settings: RenderSettings,
                     sample_offset: int = 0, n_samples: Optional[int] = None) -> torch.Tensor:
         """Radiance sums over ``n_samples`` samples from ``sample_offset`` on:
-        a ``(3, H*W)`` float32 tensor on the renderer's device."""
-        w, h, spp = settings.width, settings.height, settings.samples_per_pixel
-        if n_samples is None:
-            n_samples = spp
-        n_pix, group = self._plan(w, h, spp, settings.max_depth)
-        pix0_list = list(range(0, w * h, n_pix))
-        mesh = self.mesh or DeviceMesh([[self.device]])
-        tile, samp = mesh_shape(mesh)
-        log_event(
-            "render_start", renderer=self.name, width=w, height=h, spp=n_samples,
-            max_depth=settings.max_depth, chunk_pixels=n_pix, sample_group=group,
-            chunks=len(pix0_list), device=str(self.device), mesh=mesh.shape,
-        )
-        cams = {dev: pack_camera(camera, dev) for dev in mesh.devices()}
-        seed = self._run_seed()
-        local_pix, local_samples = n_pix // tile, -(-group // samp)
-        kw = dict(n_pix=local_pix, width=w, height=h, max_depth=settings.max_depth, spp=spp)
-        if tile * samp == 1:
-            cs, cam12 = self.compiled(scene), cams[self.device]
+        a ``(3, H*W)`` float32 tensor on the renderer's device.  Spans
+        ``device_sums`` (the call) and ``chunk`` (each chunk call, a split's
+        included)."""
+        with span("device_sums"):
+            w, h, spp = settings.width, settings.height, settings.samples_per_pixel
+            if n_samples is None:
+                n_samples = spp
+            n_pix, group = self._plan(w, h, spp, settings.max_depth)
+            pix0_list = list(range(0, w * h, n_pix))
+            mesh = self.mesh or DeviceMesh([[self.device]])
+            tile, samp = mesh_shape(mesh)
+            log_event(
+                "render_start", renderer=self.name, width=w, height=h, spp=n_samples,
+                max_depth=settings.max_depth, chunk_pixels=n_pix, sample_group=group,
+                chunks=len(pix0_list), device=str(self.device), mesh=mesh.shape,
+            )
+            cams = {dev: pack_camera(camera, dev) for dev in mesh.devices()}
+            seed = self._run_seed()
+            local_pix, local_samples = n_pix // tile, -(-group // samp)
+            kw = dict(n_pix=local_pix, width=w, height=h, max_depth=settings.max_depth, spp=spp)
+            if tile * samp == 1:
+                cs, cam12 = self.compiled(scene), cams[self.device]
 
-            def chunk(sums, pix0, s0, n):
-                with device_scope(self.device):
-                    self._chunk(cs, cam12, sums, pix0, seed, s0, n_samples=n, col0=pix0, **kw)
-        else:
-            # every device's scene compiles here, under this process's knobs,
-            # before any worker starts its part
-            scenes = {dev: self.compiled(scene, dev) for dev in mesh.devices()}
-            workers = mesh.workers()
-            chunk = shard_chunk_fn(
-                lambda parts, sums: workers.render(self, scenes, cams, seed, kw, parts, sums),
-                mesh, local_pix, local_samples)
-        # padded to whole chunks: out-of-frame lanes land past H*W and are cut
-        sums = torch.zeros((3, len(pix0_list) * n_pix), dtype=torch.float32, device=self.device)
-        for c, pix0 in enumerate(pix0_list):
-            for s0 in range(sample_offset, sample_offset + n_samples, group):
-                chunk(sums, pix0, s0, min(group, sample_offset + n_samples - s0))
-            if debug.nans_checked():
-                debug.check_chunk(sums[:, pix0:pix0 + n_pix], c, pix0, n_pix)
-        return sums[:, : w * h]
+                def chunk(sums, pix0, s0, n):
+                    with device_scope(self.device):
+                        self._chunk(cs, cam12, sums, pix0, seed, s0, n_samples=n, col0=pix0, **kw)
+            else:
+                # every device's scene compiles here, under this process's knobs,
+                # before any worker starts its part
+                scenes = {dev: self.compiled(scene, dev) for dev in mesh.devices()}
+                workers = mesh.workers()
+                chunk = shard_chunk_fn(
+                    lambda parts, sums: workers.render(self, scenes, cams, seed, kw, parts, sums),
+                    mesh, local_pix, local_samples)
+            # padded to whole chunks: out-of-frame lanes land past H*W and are cut
+            sums = torch.zeros((3, len(pix0_list) * n_pix), dtype=torch.float32, device=self.device)
+            for c, pix0 in enumerate(pix0_list):
+                for s0 in range(sample_offset, sample_offset + n_samples, group):
+                    with span("chunk"):
+                        chunk(sums, pix0, s0, min(group, sample_offset + n_samples - s0))
+                if debug.nans_checked():
+                    debug.check_chunk(sums[:, pix0:pix0 + n_pix], c, pix0, n_pix)
+            return sums[:, : w * h]
 
     def render_sums(self, scene: Scene, camera: Camera, settings: RenderSettings,
                     sample_offset: int = 0, n_samples: Optional[int] = None) -> np.ndarray:
@@ -287,11 +291,15 @@ class WavefrontRenderer(BaseRenderer):
         return self._finalize_dev(sums, settings.samples_per_pixel, settings).T.cpu().numpy()
 
     def render(self, scene: Scene, camera: Camera, settings: RenderSettings):
-        with Timer() as t:
+        """The frame as an image; spans ``render`` (the call) and ``finish``
+        (tone map, quantise, the uint8 transfer and the image's assembly)."""
+        with span("render") as t:
             sums = self.device_sums(scene, camera, settings)
-            img = self._finalize_dev(sums, settings.samples_per_pixel, settings)
-            rgb = quantize_u8(V3(img[0], img[1], img[2])).to_array()
-            arr = rgb.cpu().numpy()  # the one transfer: the uint8 image
+            with span("finish"):
+                img = self._finalize_dev(sums, settings.samples_per_pixel, settings)
+                rgb = quantize_u8(V3(img[0], img[1], img[2])).to_array()
+                arr = rgb.cpu().numpy()  # the one transfer: the uint8 image
+                image = assemble_image(arr, settings.width, settings.height)
         self.frame_count += 1
         log_event(
             "render_done", renderer=self.name, seconds=round(t.seconds, 3),
@@ -299,4 +307,4 @@ class WavefrontRenderer(BaseRenderer):
                                               settings.samples_per_pixel,
                                               settings.max_depth, t.seconds), 2),
         )
-        return assemble_image(arr, settings.width, settings.height)
+        return image

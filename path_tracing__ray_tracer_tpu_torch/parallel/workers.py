@@ -26,8 +26,9 @@ of more than one therefore renders in a process of its own:
   its tile block.  Back: the entry's ``(3, n_pix)`` block (a host copy), its
   kernels' launch counts (added onto the parent's wrappers), its CUDA graph
   captures and their seconds (``ops/cuda.CAPTURES``; a worker
-  captures and keeps its own graphs, one cache per scene), its pid and its
-  busy seconds.
+  captures and keeps its own graphs, one cache per scene), its spans and
+  counters (``utils/profiling.record``, added onto the parent's as
+  ``worker.<name>``), its pid and its busy seconds.
 * **Failure.**  A worker's exception is raised in the parent with the
   worker's traceback as its cause (:class:`WorkerTraceback`); a worker that
   dies raises :class:`WorkerError`, since every wait also watches the
@@ -53,6 +54,7 @@ import torch
 import torch.multiprocessing as mp  # registers the tensor reductions the pipes use
 
 from ..ops.cuda import CAPTURES, add_launches, launch_counts
+from ..utils.profiling import add_record, record
 
 _PKG = __name__.rsplit(".", 2)[0]
 
@@ -117,6 +119,7 @@ class Result(NamedTuple):
     block: np.ndarray  # (3, n_pix) float32
     launches: Dict[str, int]  # kernel launches of this chunk, by wrapper
     captures: tuple  # graph captures of this chunk and their host seconds
+    record: Dict[str, List[int]]  # spans and counters of this chunk (utils/profiling.record)
     pid: int
     busy: float  # seconds from the job's arrival to its block on the host
 
@@ -144,13 +147,15 @@ class _Served:
             out = torch.zeros((3, job.kw["n_pix"]), dtype=torch.float32, device=dev)
         else:
             out = torch.from_numpy(job.block).to(dev)
-        before, captured = launch_counts(), dict(CAPTURES)
+        before, captured, recorded = launch_counts(), dict(CAPTURES), record()
         r._chunk(self.scenes[job.scene], torch.from_numpy(job.cam12).to(dev), out, job.pix0,
                  job.seed, job.sample_base, col0=0, **job.kw)
         block = out.cpu().numpy()  # waits for the device
         launches = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
         captures = (CAPTURES["count"] - captured["count"], CAPTURES["seconds"] - captured["seconds"])
-        return Result(block, launches, captures, os.getpid(), time.perf_counter() - t0)
+        spans = {k: [n - recorded.get(k, (0, 0))[0], ns - recorded.get(k, (0, 0))[1]]
+                 for k, (n, ns) in record().items()}
+        return Result(block, launches, captures, spans, os.getpid(), time.perf_counter() - t0)
 
     def echo(self, block: np.ndarray) -> np.ndarray:
         """``block`` to the device and back: the transport of a chunk's block."""
@@ -345,6 +350,7 @@ class MeshWorkers:
             res = results[p.entry]
             workers[p.entry].scenes.add(msgs[p.entry][1].scene)
             add_launches(res.launches)
+            add_record(res.record)
             self.stats["captures"] += res.captures[0]
             self.stats["capture_s"] += res.captures[1]
             self.stats["busy"][p.entry] += res.busy

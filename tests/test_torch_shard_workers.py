@@ -19,7 +19,11 @@
 * After ``close()`` no worker is alive.  ``mesh=None`` and a one-entry mesh
   start no process.
 * The workers see the parent's kernel wrappers, whose launch counts they send
-  back (``ops/cuda.launch_counts`` / ``add_launches``).
+  back (``ops/cuda.launch_counts`` / ``add_launches``), and their spans and
+  counters come back onto the parent's record (``utils/profiling.record``)
+  as ``worker.<name>``: one ``worker.drive`` an entry of a chunk call, its
+  blocks' ``worker.block.wait`` and ``worker.block.host``, none under the
+  parent's own names.
 """
 import multiprocessing
 import os
@@ -37,6 +41,7 @@ from path_tracing__ray_tracer_tpu_torch.parallel.mesh import make_mesh, mesh_sha
 from path_tracing__ray_tracer_tpu_torch.ops.cuda import bvh as tbvh
 from path_tracing__ray_tracer_tpu_torch.parallel.workers import (
     KNOBS, WorkerError, WorkerTraceback, knob_values)
+from path_tracing__ray_tracer_tpu_torch.utils.profiling import record
 from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 CPU = torch.device("cpu")
@@ -110,7 +115,17 @@ def test_each_entry_renders_in_a_live_process_of_its_own(cornell, which, request
     scene, cam = cornell
     s = pt.RenderSettings(width=32, height=24, samples_per_pixel=2, max_depth=2)
     r = pt.RendererFactory.create("cuda_path_raytracer", mesh=mesh, seed=3, sample_group=2)
+    before = record()
     r.render_sums(scene, cam, s)
+    after = record()
+    d = {k: after.get(k, (0, 0))[0] - before.get(k, (0, 0))[0]
+         for k in ("chunk", "drive", "worker.drive", "worker.block.wait", "worker.block.host",
+                   "worker.lanes.live", "worker.lanes.slots")}
+    n = len(list(mesh.entries()))  # one drive an entry, added onto this process's record
+    # the entries' drives ran at once inside the parent's chunk: kept apart from its own spans
+    assert d["chunk"] == 1 and d["drive"] == 0 and d["worker.drive"] == n
+    assert d["worker.block.wait"] == d["worker.block.host"] + n and d["worker.block.host"] > 0
+    assert 0 < d["worker.lanes.live"] <= d["worker.lanes.slots"]
     pids = alive_pids(mesh)
     assert len(set(pids)) == len(list(mesh.entries())) and os.getpid() not in pids
     # a second renderer on the mesh: the same processes serve it
